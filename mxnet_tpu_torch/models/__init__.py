@@ -1,0 +1,6 @@
+"""Model families of the port."""
+from .transformer import (TransformerConfig, TransformerDecodeModel,
+                          init_transformer, params_from_jax)
+
+__all__ = ["TransformerConfig", "TransformerDecodeModel",
+           "init_transformer", "params_from_jax"]

@@ -1,0 +1,200 @@
+"""Paged KV cache: block-allocated device-resident decode state.
+
+A copy of the allocator in ``mxnet_tpu/serving/kvcache.py`` (the port
+imports nothing of the JAX package). ``page_sharding`` is not carried:
+it places pages on a mesh and arrives with the port's distribution slice.
+
+The naive KV cache for autoregressive decode reserves
+``max_length x batch`` of HBM up front — almost all of it dead weight,
+because most sequences finish early and the batch is rarely full. This
+module is the vLLM-style alternative: the cache is a fixed pool of
+fixed-size **token blocks** (``(num_blocks, block_size, dim)`` per
+layer-side), a sequence owns a **block table** (list of block ids, one
+per ``block_size`` tokens of its history), and blocks come from a
+free-list allocator. HBM then scales with *live tokens*, not with the
+worst case, and the accounting counters below prove it.
+
+Layout contract (shared with serving/decode.py's programs):
+
+- token at absolute position ``p`` of a sequence lives at
+  ``pages[table[p // block_size], p % block_size]``;
+- **block 0 is the null block**: never allocated, never owned. Device
+  programs route every *inactive* or *padding* write to block 0 and
+  real reads never touch it (attention masks by sequence length), so a
+  fixed-shape scatter over a partially-active batch cannot alias a live
+  sequence's state. The allocator hands out ids ``1..num_blocks-1``.
+
+Allocation failure raises the typed :class:`CacheOverflow` — a
+:class:`~.batcher.DeadlineExceeded` subclass, so every existing shed
+path (server outcome classification, frontdoor accounting, client
+``result_wait``) treats cache pressure as a shed, not a crash.
+
+Pure host-side bookkeeping: no device calls, no locks (the decode loop
+is the single owner; cross-thread reads go through ``stats()`` which
+only copies ints).
+"""
+from __future__ import annotations
+
+from .batcher import DeadlineExceeded
+
+__all__ = ["PagedKVCache", "CacheOverflow", "NULL_BLOCK"]
+
+#: Block id reserved for padding/inactive scatter targets. Never allocated.
+NULL_BLOCK = 0
+
+
+class CacheOverflow(DeadlineExceeded):
+    """Typed shed raised when the block pool cannot satisfy an
+    allocation. Subclasses ``DeadlineExceeded`` deliberately: cache
+    pressure is load shedding (retryable, bounded), not a failure, and
+    the whole serving stack already classifies sheds by that type."""
+
+
+class PagedKVCache:
+    """Free-list block allocator + per-sequence block tables.
+
+    ``blocks_for(n)`` tokens need ``ceil(n / block_size)`` blocks. The
+    usable pool is ``num_blocks - 1`` (block 0 is the null block).
+    """
+
+    def __init__(self, num_blocks, block_size):
+        if num_blocks < 2:
+            raise ValueError("PagedKVCache needs >= 2 blocks "
+                             "(block 0 is reserved as the null block)")
+        if block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        # LIFO free list: recently-freed blocks are reused first, which
+        # keeps the touched working set small. Ids 1..num_blocks-1.
+        self._free = list(range(self.num_blocks - 1, 0, -1))
+        self._tables = {}           # seq_id -> [block ids]
+        self._lengths = {}          # seq_id -> token count
+        # watermark / accounting counters
+        self._allocs = 0
+        self._frees = 0
+        self._alloc_failures = 0
+        self._high_water = 0        # max blocks simultaneously live
+
+    # -- capacity queries ------------------------------------------------
+    @property
+    def capacity_blocks(self):
+        """Usable pool size (excludes the null block)."""
+        return self.num_blocks - 1
+
+    @property
+    def free_blocks(self):
+        return len(self._free)
+
+    @property
+    def live_blocks(self):
+        return self.capacity_blocks - len(self._free)
+
+    def blocks_for(self, n_tokens):
+        """Blocks needed to hold ``n_tokens`` tokens."""
+        return -(-int(n_tokens) // self.block_size)
+
+    def can_fit(self, n_tokens):
+        return self.blocks_for(n_tokens) <= len(self._free)
+
+    # -- sequence lifecycle ---------------------------------------------
+    def allocate(self, seq_id, n_tokens):
+        """Register ``seq_id`` with blocks for ``n_tokens`` of history.
+
+        Raises :class:`CacheOverflow` (and allocates nothing) when the
+        free list cannot cover it.
+        """
+        if seq_id in self._tables:
+            raise ValueError("sequence %r already allocated" % (seq_id,))
+        need = self.blocks_for(n_tokens)
+        if need > len(self._free):
+            self._alloc_failures += 1
+            raise CacheOverflow(
+                "KV cache overflow: sequence %r needs %d blocks, %d free "
+                "(%d live of %d)" % (seq_id, need, len(self._free),
+                                     self.live_blocks, self.capacity_blocks))
+        table = [self._free.pop() for _ in range(need)]
+        self._tables[seq_id] = table
+        self._lengths[seq_id] = int(n_tokens)
+        self._allocs += need
+        self._high_water = max(self._high_water, self.live_blocks)
+        return list(table)
+
+    def extend(self, seq_id, n_tokens=1):
+        """Grow ``seq_id`` by ``n_tokens``, appending blocks as block
+        boundaries are crossed. Raises :class:`CacheOverflow` without
+        mutating anything when the pool cannot cover the growth."""
+        table = self._tables[seq_id]
+        new_len = self._lengths[seq_id] + int(n_tokens)
+        need = self.blocks_for(new_len) - len(table)
+        if need > len(self._free):
+            self._alloc_failures += 1
+            raise CacheOverflow(
+                "KV cache overflow: sequence %r grew past %d blocks, %d "
+                "free (%d live of %d)" % (seq_id, len(table),
+                                          len(self._free), self.live_blocks,
+                                          self.capacity_blocks))
+        for _ in range(need):
+            table.append(self._free.pop())
+        self._lengths[seq_id] = new_len
+        if need:
+            self._allocs += need
+            self._high_water = max(self._high_water, self.live_blocks)
+        return list(table)
+
+    def free(self, seq_id):
+        """Retire ``seq_id`` and return its blocks to the free list."""
+        table = self._tables.pop(seq_id, None)
+        if table is None:
+            return 0
+        self._lengths.pop(seq_id, None)
+        self._free.extend(table)
+        self._frees += len(table)
+        return len(table)
+
+    def table(self, seq_id):
+        return list(self._tables[seq_id])
+
+    def length(self, seq_id):
+        return self._lengths[seq_id]
+
+    def sequences(self):
+        return list(self._tables)
+
+    # -- invariant check (tests, smoke gates) ---------------------------
+    def check(self):
+        """Assert allocator invariants; returns True or raises AssertionError.
+
+        - conservation: free + live tables == capacity, no block lost;
+        - no aliasing: a block id appears in at most one table, never in
+          both a table and the free list, and never the null block.
+        """
+        seen = {}
+        for sid, table in self._tables.items():
+            assert self.blocks_for(self._lengths[sid]) == len(table), \
+                "table size mismatch for %r" % (sid,)
+            for b in table:
+                assert b != NULL_BLOCK, "null block leaked into %r" % (sid,)
+                assert 0 < b < self.num_blocks, "block %d out of range" % b
+                assert b not in seen, \
+                    "block %d aliased by %r and %r" % (b, seen[b], sid)
+                seen[b] = sid
+        free_set = set(self._free)
+        assert len(free_set) == len(self._free), "duplicate free blocks"
+        assert not (free_set & set(seen)), "block both live and free"
+        assert NULL_BLOCK not in free_set, "null block in free list"
+        assert len(free_set) + len(seen) == self.capacity_blocks, \
+            "block conservation violated: %d free + %d live != %d" % (
+                len(free_set), len(seen), self.capacity_blocks)
+        return True
+
+    def stats(self):
+        return {"block_size": self.block_size,
+                "blocks_total": self.capacity_blocks,
+                "blocks_free": len(self._free),
+                "blocks_live": self.live_blocks,
+                "blocks_high_water": self._high_water,
+                "sequences": len(self._tables),
+                "tokens_live": sum(self._lengths.values()),
+                "allocs": self._allocs, "frees": self._frees,
+                "alloc_failures": self._alloc_failures}
