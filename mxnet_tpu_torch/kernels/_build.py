@@ -5,8 +5,9 @@ Each ``csrc/*.cu`` source compiles with ``nvcc`` for Hopper
 plain C interface under ``mxnet_tpu_torch/_build/`` (listed in
 ``.gitignore``). Nothing includes PyTorch's headers, so a build takes
 seconds. A library is named by a hash of its source and flags, so an
-edited source rebuilds and an unchanged one is loaded as it is. All
-sources build at once, one ``nvcc`` each, started together.
+edited source (or shared ``csrc/*.cuh`` header) rebuilds and an unchanged
+one is loaded as it is. All sources build at once, one ``nvcc`` each,
+started together.
 
 Nothing here runs at import: the CPU tests import every module of the
 port, on machines that may have no ``nvcc``.
@@ -28,7 +29,9 @@ _CSRC = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 
 #: Kernel library name -> source file under ``csrc/``.
-SOURCES = {"flash_fwd_offs": "flash_fwd_offs.cu"}
+SOURCES = {"flash_fwd_offs": "flash_fwd_offs.cu",
+           "flash_fwd": "flash_fwd.cu",
+           "flash_bwd_offs": "flash_bwd_offs.cu"}
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,8 +55,11 @@ def nvcc_path():
 
 def _lib_path(name):
     src = os.path.join(_CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh"))
+    for path in [src] + [os.path.join(_CSRC, n) for n in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(_BUILD_DIR, "lib%s-%s.so"
                              % (name, digest.hexdigest()[:16]))
 

@@ -1,10 +1,11 @@
 """Transformer LM decode bodies for the port's DecodeEngine.
 
-Counterpart of ``mxnet_tpu/models/transformer.py`` for serving:
-``TransformerConfig``, ``init_transformer``, ``params_from_jax`` and the
-paged-KV decode bodies ``transformer_decode_prefill`` /
-``transformer_decode_step`` behind ``TransformerDecodeModel``. The
-training forward and loss come with a later slice.
+Counterpart of ``mxnet_tpu/models/transformer.py``: ``TransformerConfig``,
+``init_transformer``, ``params_from_jax``, the training forward and loss
+``transformer_forward`` / ``transformer_loss`` (single device; a mesh
+raises until distribution is ported, ROADMAP A10), and the paged-KV
+decode bodies ``transformer_decode_prefill`` / ``transformer_decode_step``
+behind ``TransformerDecodeModel``.
 
 Parameters keep the JAX package's nested dict and layouts (``h @ w`` with
 ``w`` shaped ``(d_in, d_out)``, per-layer params stacked on axis 0), so
@@ -33,14 +34,18 @@ import math
 import numpy as _np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..base import MXNetError
 from ..context import resolve_device
-from ..kernels.flash_attention import (blockwise_attention,
+from ..kernels.flash_attention import (blockwise_attention, flash_attention,
                                        flash_attention_with_lse,
                                        resolve_kernel_tier)
+from ..parallel import mesh_kernels
 from ..serving.kvcache import NULL_BLOCK
 
 __all__ = ["TransformerConfig", "init_transformer", "params_from_jax",
+           "transformer_forward", "transformer_loss",
            "transformer_decode_prefill", "transformer_decode_step",
            "TransformerDecodeModel"]
 
@@ -51,7 +56,8 @@ class TransformerConfig:
     """Decoder-only LM config (GPT-style, pre-LN)."""
 
     def __init__(self, vocab_size, num_layers=2, num_heads=4, d_model=128,
-                 d_ff=None, max_len=512, dtype=torch.float32, block_k=512,
+                 d_ff=None, max_len=512, dtype=torch.float32, remat=False,
+                 attn_impl="ring", block_k=512, dropout=0.0,
                  attn_variant="stream"):
         self.vocab_size = vocab_size
         self.num_layers = num_layers
@@ -60,7 +66,13 @@ class TransformerConfig:
         self.d_ff = d_ff or 4 * d_model
         self.max_len = max_len
         self.dtype = dtype
+        # torch.utils.checkpoint around each block (jax.checkpoint there)
+        self.remat = remat
+        # 'ring' | 'ulysses' | 'full': how a mesh's 'sp' axis splits the
+        # sequence; read only with a mesh (not yet ported, ROADMAP A10)
+        self.attn_impl = attn_impl
         self.block_k = block_k
+        self.dropout = dropout
         # "grid" exists in the JAX package; the port has "stream" only
         self.attn_variant = attn_variant
         assert attn_variant in ("stream", "grid"), attn_variant
@@ -121,6 +133,105 @@ def _mlp(x, lp):
     # jax.nn.gelu defaults to the tanh form; torch's default is erf
     h = F.gelu(h @ lp["w1"] + lp["b1"], approximate="tanh")
     return x + (h @ lp["w2"] + lp["b2"])
+
+
+def _attention(q, k, v, cfg, mesh):
+    """[B, H, S, D] causal attention on one device. The tier follows
+    MXNET_TPU_MESH_KERNEL_TIER (``parallel.mesh_kernels``): the CUDA
+    kernels (forward ``flash_fwd.cu``, backward ``flash_bwd_offs.cu``)
+    or the plain ``blockwise_attention`` with ``cfg.block_k``."""
+    if mesh is not None:
+        raise MXNetError("transformer attention over a mesh: distribution "
+                         "is not yet ported (ROADMAP A10)")
+    use_kernel = mesh_kernels.resolve_kernel_tier(device=q.device)
+    return flash_attention(q, k, v, causal=True, block_k=cfg.block_k,
+                           use_pallas=use_kernel, variant=cfg.attn_variant)
+
+
+def _dropout(x, rate, generator):
+    """Inverted dropout with an explicit ``torch.Generator`` on x's
+    device: keep with probability ``1 - rate`` (uniform < keep, as
+    ``jax.random.bernoulli``), scale kept values by ``1 / keep``."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def _block(x, lp, cfg, mesh, seed=None):
+    """One pre-LN decoder block. x: [B, S, D]. ``seed`` (an int) enables
+    dropout from a generator seeded with it inside the block, so a
+    recomputation under ``remat`` draws the same masks."""
+    B, S, d = x.shape
+    H, Dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+    gen = None
+    if seed is not None:
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+    h = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+    # contiguous (B, H, S, Dh): the kernels take no strides
+    q = (h @ lp["wq"]).reshape(B, S, H, Dh).transpose(1, 2).contiguous()
+    k = (h @ lp["wk"]).reshape(B, S, H, Dh).transpose(1, 2).contiguous()
+    v = (h @ lp["wv"]).reshape(B, S, H, Dh).transpose(1, 2).contiguous()
+    a = _attention(q, k, v, cfg, mesh)
+    a = a.transpose(1, 2).reshape(B, S, d) @ lp["wo"]
+    if gen is not None:
+        a = _dropout(a, cfg.dropout, gen)
+    x = x + a
+    h = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
+    # jax.nn.gelu defaults to the tanh form
+    h = F.gelu(h @ lp["w1"] + lp["b1"], approximate="tanh")
+    h = h @ lp["w2"] + lp["b2"]
+    if gen is not None:
+        h = _dropout(h, cfg.dropout, gen)
+    return x + h
+
+
+def transformer_forward(params, tokens, cfg, mesh=None, rng=None,
+                        train=False):
+    """tokens: [B, S] int tensor -> logits [B, S, vocab].
+
+    A Python loop over the stacked layer params (``lax.scan`` there);
+    ``cfg.remat`` wraps each block in ``torch.utils.checkpoint``. Dropout
+    runs only when ``train`` and ``cfg.dropout > 0`` and ``rng`` (a
+    ``torch.Generator``) is given: each layer draws one seed from ``rng``,
+    the analog of the per-layer key split. The JAX package's random bits
+    are not reproduced. ``mesh`` must be None (distribution is not yet
+    ported, ROADMAP A10)."""
+    if mesh is not None:
+        raise MXNetError("transformer_forward(mesh=...): distribution is "
+                         "not yet ported (ROADMAP A10)")
+    B, S = tokens.shape
+    tokens = tokens.long()
+    x = params["embed"][tokens].to(cfg.dtype)
+    x = x + params["pos_embed"][:S].to(cfg.dtype)
+    use_dropout = train and cfg.dropout > 0.0 and rng is not None
+    lp_all = params["layers"]
+    for l in range(cfg.num_layers):
+        lp = {k: v[l] for k, v in lp_all.items()}
+        seed = None
+        if use_dropout:
+            seed = int(torch.randint(0, 2 ** 62, (), generator=rng,
+                                     device=rng.device))
+        if cfg.remat:
+            x = checkpoint(_block, x, lp, cfg, mesh, seed,
+                           use_reentrant=False)
+        else:
+            x = _block(x, lp, cfg, mesh, seed)
+    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+    return x @ params["embed"].T.to(cfg.dtype)
+
+
+def transformer_loss(params, tokens, targets, cfg, mesh=None, rng=None,
+                     train=True):
+    """Mean next-token cross-entropy. targets: [B, S] int (-1 = ignore);
+    the mean is over the targets that are not ignored."""
+    logits = transformer_forward(params, tokens, cfg, mesh=mesh, rng=rng,
+                                 train=train).float()
+    targets = targets.long()
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = targets.clamp(min=0)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    return ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 def _decode_attn_prefill(q, ks, vs, start, offs, cfg, use_kernel):

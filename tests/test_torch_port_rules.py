@@ -7,6 +7,9 @@
   loudly: tier "on" with CPU tensors, "interpret" and typos raise.
 - The kernel module imports, and its CPU path runs, without nvcc; a tensor
   on a device with no kernel raises instead of falling back.
+- The training slice: ShardedTrainStep needs CUDA unless given a device;
+  what is not yet ported (half-precision kernels, the fused optimizer
+  kernel, a mesh) raises instead of running something else.
 """
 import ast
 import os
@@ -18,7 +21,10 @@ from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels import flash_attention as tfa
 from mxnet_tpu_torch.models.transformer import (TransformerConfig,
-                                                TransformerDecodeModel)
+                                                TransformerDecodeModel,
+                                                init_transformer,
+                                                transformer_forward)
+from mxnet_tpu_torch.parallel import ShardedTrainStep, mesh_kernels
 from mxnet_tpu_torch.serving import DecodeEngine, tiny_lm_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -117,3 +123,95 @@ def test_wrapper_never_falls_back():
         tfa.flash_attention_with_lse(cpu_q, cpu_q, cpu_q,
                                      torch.zeros(2, dtype=torch.int32),
                                      variant="grid")
+
+
+def test_train_step_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="CUDA"):
+        ShardedTrainStep(lambda p, b: 0.0)
+    with pytest.raises(MXNetError, match="CUDA"):
+        ShardedTrainStep(lambda p, b: 0.0, device="cuda")
+    assert ShardedTrainStep(lambda p, b: 0.0, device="cpu").device.type \
+        == "cpu"
+
+
+def test_train_step_raises_on_what_is_not_ported(monkeypatch):
+    loss = lambda p, b: 0.0
+    with pytest.raises(MXNetError, match="kernel #7 not yet ported"):
+        ShardedTrainStep(loss, fused_optupdate=True, device="cpu")
+    monkeypatch.setenv("MXNET_TPU_FUSED_OPTUPDATE", "1")
+    with pytest.raises(MXNetError, match="kernel #7 not yet ported"):
+        ShardedTrainStep(loss, device="cpu")
+    monkeypatch.delenv("MXNET_TPU_FUSED_OPTUPDATE")
+    for flag in ("shard_update", "zero"):
+        with pytest.raises(MXNetError, match="'dp' mesh axis"):
+            ShardedTrainStep(loss, device="cpu", **{flag: True})
+    with pytest.raises(MXNetError, match="not yet ported"):
+        ShardedTrainStep(loss, mesh=object(), device="cpu")
+
+
+def test_transformer_forward_with_a_mesh_raises():
+    cfg = TransformerConfig(vocab_size=16, num_layers=1, d_model=32,
+                            num_heads=1, max_len=8)
+    params = init_transformer(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(MXNetError, match="distribution is not yet ported"):
+        transformer_forward(params, torch.zeros(1, 4, dtype=torch.int64),
+                            cfg, mesh=object())
+
+
+def test_flash_attention_never_falls_back():
+    q = torch.empty(1, 2, 4, 32, device="meta")
+    with pytest.raises(MXNetError, match="no kernel"):
+        tfa.flash_attention(q, q, q, causal=True)
+    with pytest.raises(MXNetError, match="no kernel"):
+        tfa._FlashAttention.apply(q, q, q, 0.5, True)
+    cpu_q = torch.zeros(1, 2, 4, 32)
+    with pytest.raises(MXNetError, match="no counterpart"):
+        tfa.flash_attention(cpu_q, cpu_q, cpu_q, interpret=True)
+    with pytest.raises(MXNetError, match="not yet ported"):
+        tfa.flash_attention(cpu_q, cpu_q, cpu_q, variant="grid")
+    with pytest.raises(MXNetError, match="needs CUDA"):
+        tfa.flash_attention(cpu_q, cpu_q, cpu_q, use_pallas=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_kernel_wrappers_refuse_half_precision(dtype):
+    """The CUDA wrappers check before they build or launch anything: half
+    precision raises "not yet ported", never a silent cast."""
+    q = torch.zeros(1, 2, 4, 64, dtype=dtype)
+    offs = torch.zeros(2, dtype=torch.int32)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(MXNetError, match="not yet ported"):
+        tfa._flash_fwd_cuda(q, q, q, 0.125, True)
+    with pytest.raises(MXNetError, match="not yet ported"):
+        tfa._flash_fwd_offs_cuda(q, q, q, offs, 0.125, True)
+    with pytest.raises(MXNetError, match="not yet ported"):
+        tfa._flash_bwd_cuda(q, q, q, offs, q, lse, lse, 0.125, True)
+    assert not _build._libs
+
+
+def test_kernel_wrappers_check_shapes_and_layout():
+    q = torch.zeros(1, 2, 4, 48)
+    with pytest.raises(MXNetError, match="head dim 48"):
+        tfa._flash_fwd_cuda(q, q, q, 0.125, True)
+    q = torch.zeros(1, 4, 2, 64).transpose(1, 2)
+    with pytest.raises(MXNetError, match="not contiguous"):
+        tfa._flash_fwd_cuda(q, q, q, 0.125, True)
+    assert not _build._libs
+
+
+@pytest.mark.parametrize("mode,want", [("auto", False), ("off", False),
+                                       ("0", False)])
+def test_mesh_kernel_tier_knob(monkeypatch, mode, want):
+    monkeypatch.setenv("MXNET_TPU_MESH_KERNEL_TIER", mode)
+    assert mesh_kernels.kernel_tier_mode() == mode
+    assert mesh_kernels.resolve_kernel_tier(device="cpu") is want
+
+
+@pytest.mark.parametrize("mode,match", [("interpret", "no counterpart"),
+                                        ("onn", "not understood"),
+                                        ("on", "needs CUDA")])
+def test_mesh_kernel_tier_knob_raises(monkeypatch, mode, match):
+    monkeypatch.setenv("MXNET_TPU_MESH_KERNEL_TIER", mode)
+    with pytest.raises(MXNetError, match=match):
+        mesh_kernels.resolve_kernel_tier(device="cpu")
