@@ -65,11 +65,49 @@ no result line):
 8. train_profile — one train step under torch.profiler: host wall against
              device time, idle share, top device ops and ops per step;
              with --profile-dir the table goes to DIR/profile_train.txt.
+9. opt_kernel — the fused optimizer update kernel (opt_update.cu, TPU
+             kernel #7) against its plain version, fused_update_step_plain,
+             for SGD, SGD-momentum and Adam over clip {None, 0.01} x wd
+             {0, 1e-4} x rescale {1, 1/32}, two successive steps, at leaf
+             sizes 1024, 128 * 513 and ResNet-50's largest (fc1 2,048,000;
+             a 3x3x512x512 conv 2,359,296), with NaN and +-inf in every
+             grad: bitwise equal (NaN in the same places, every other value
+             the same bits). Device time of the 71 launches of one
+             ResNet-50 update (CUDA graphs, median of 7) against the plain
+             version, the card's bound (bytes: each operand read once,
+             written once) and, as a yardstick only,
+             torch.optim.SGD(foreach=True) / torch.optim.Adam(fused=True)
+             over the same leaves.
+10. symbolic_train — the symbolic stack at full width, as the JAX
+             package's bench times it (bench.py:555-594): ResNet-50 at
+             3x224x224, batch 32, float32, through mx.sym and
+             DataParallelTrainStep(lr 0.05, momentum 0.9,
+             fused_optupdate=True), 4 seeded batches (uniform(-1, 1)
+             images, random labels) staged on the card and cycled for 20
+             steps; then 3 Adam steps and 2 plain-SGD steps from the trained
+             weights, so all three kernels run on the path. Checks: every
+             loss finite, the mean cross-entropy of the last 4 steps below
+             that of the first 4, exactly 71 kernel launches per step (the
+             eligible leaves) and 1 program signature; and one step from
+             identical params with fused_optupdate True and False under
+             cudnn.deterministic: params and slots bit for bit equal, or
+             within 1e-6 of each leaf's max abs where the backward is not
+             deterministic (reported).
+11. symbolic_profile — one symbolic train step under torch.profiler: host
+             wall against device time, idle share, device time by kind
+             (convolution, BatchNorm, pooling, elementwise, kernel #7) and
+             ops per step; with --profile-dir the table goes to
+             DIR/profile_symbolic.txt. Then, as a measurement only, the
+             step wall with torch.backends.cudnn.benchmark on (float32
+             kept).
+
+``--phases`` runs a subset (comma-separated phase names; device and build
+always run); the default runs all of them.
 
 The line before last is ``{"kernels": [...]}`` with each kernel's launches
-on its path's run (serving or training), its error and times; the last
-line is ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
-"count": ...}}``.
+on its path's run (serving, training or symbolic training), its error and
+times; the last line is ``{"ok": true, "device": {"platform": "gpu",
+"kind": ..., "count": ...}}``.
 """
 import argparse
 import json
@@ -89,6 +127,15 @@ PLAIN_TIER = "MXNET_TPU_MESH_KERNEL_TIER"
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 NEG = -1e30
+SYM_BATCH = 32
+SYM_STEPS = 20
+RESNET_SHAPES = {"data": (SYM_BATCH, 3, 224, 224),
+                 "softmax_label": (SYM_BATCH,)}
+OPT_REF = "mxnet_tpu/kernels/opt_update.py:"
+#: update kind -> (line of the TPU kernel in OPT_REF, the C entry's name)
+OPT_KERNELS = {"sgd": ("96", "optupdate_sgd_f32"),
+               "sgd_mom": ("103", "optupdate_sgd_mom_f32"),
+               "adam": ("113", "optupdate_adam_f32")}
 
 
 def emit(obj):
@@ -344,10 +391,12 @@ def phase_profile(torch, model, dev, out_dir):
     return result
 
 
-def profile_calls(torch, fn, name, out_dir, warm=3, n=20, calls=5):
+def profile_calls(torch, fn, name, out_dir, warm=3, n=20, calls=5,
+                  classify=None):
     """Host wall per call of ``fn`` (``n`` synchronized calls after
     ``warm``) against the device time torch.profiler traced over
-    ``calls`` more, hence the idle share; the top device ops. With
+    ``calls`` more, hence the idle share; the top device ops, and with
+    ``classify`` (kernel name -> kind) the device ms per call by kind. With
     ``out_dir`` the profiler table goes to ``out_dir/profile_<name>.txt``."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
@@ -378,11 +427,19 @@ def profile_calls(torch, fn, name, out_dir, warm=3, n=20, calls=5):
         with open(os.path.join(out_dir, "profile_%s.txt" % name), "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=40))
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "idle_share": 1.0 - device_ms / wall_ms,
-            "device_ops_per_call": sum(v[0] for v in kernels.values())
-            / calls,
-            "top": [[k, v[1] / calls / 1e3] for k, v in top]}
+    result = {"wall_ms": wall_ms, "device_ms": device_ms,
+              "idle_share": 1.0 - device_ms / wall_ms,
+              "device_ops_per_call": sum(v[0] for v in kernels.values())
+              / calls,
+              "top": [[k, v[1] / calls / 1e3] for k, v in top]}
+    if classify is not None:
+        by_kind = {}
+        for k, v in kernels.items():
+            kind = by_kind.setdefault(classify(k), [0, 0.0])
+            kind[0] += v[0] / calls
+            kind[1] += v[1] / calls / 1e3
+        result["by_kind"] = by_kind    # kind -> [launches, device ms]
+    return result
 
 
 def scaled_err(got, ref):
@@ -636,14 +693,370 @@ def phase_train(torch, fa, dev, seed):
     return result, counts, step, batches[0]
 
 
+def _opt_hp(kind, lr=0.05):
+    return {"lr": lr, "momentum": 0.9 if kind == "sgd_mom" else 0.0,
+            "beta1": 0.9, "beta2": 0.999, "eps": 1e-8}
+
+
+def _opt_state(torch, kind, params):
+    if kind == "adam":
+        return {"m": {k: torch.zeros_like(v) for k, v in params.items()},
+                "v": {k: torch.zeros_like(v) for k, v in params.items()},
+                "t": torch.zeros((), dtype=torch.int32,
+                                 device=next(iter(params.values())).device)}
+    if kind == "sgd_mom":
+        return {"mom": {k: torch.zeros_like(v) for k, v in params.items()}}
+    return {"mom": None}
+
+
+def _bit_diff(torch, got, want):
+    """(same bits, max abs diff over finite values): NaN must sit in the
+    same places, every other value must have the same bits."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return False, math.inf
+    same = torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    diff = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+    return same, diff
+
+
+def resnet50_eligible_shapes(tres, tou, torch):
+    """Shapes of ResNet-50's kernel-#7 leaves (the port's infer_shape)."""
+    sym = tres.get_symbol(num_classes=1000, num_layers=50,
+                          image_shape="3,224,224")
+    arg_shapes, _, _ = sym.infer_shape(**RESNET_SHAPES)
+    eligible = {n: s for n, s in zip(sym.list_arguments(), arg_shapes)
+                if n not in RESNET_SHAPES and tou._kernel_eligible(
+                    torch.empty(s, device="meta"))}
+    return sym, eligible
+
+
+def graph_macs(torch, sym, shapes):
+    """Multiply-adds of one forward pass of ``sym`` at ``shapes`` (its
+    convolutions and fully connected layers), counted by walking the
+    graph on ``meta`` tensors."""
+    from mxnet_tpu_torch.executor import GraphPlan
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    known = dict(zip(sym.list_arguments(), arg_shapes))
+    known.update(zip(sym.list_auxiliary_states(), aux_shapes))
+    plan = GraphPlan(sym)
+    vals = {(nid, 0): torch.empty(known[name], device="meta")
+            for nid, name, _ in plan.variables}
+    macs = 0
+    for node, params, in_keys, n_vis, _ in plan.nodes:
+        ins = [vals[k] for k in in_keys]
+        outs = node.op.apply(params, ins, is_train=True)
+        for i in range(n_vis):
+            vals[(id(node), i)] = outs[i]
+        if node.op.name in ("Convolution", "FullyConnected"):
+            macs += outs[0].numel() * math.prod(ins[1].shape[1:])
+    return macs
+
+
+def phase_opt_kernel(torch, dev):
+    """Kernel #7 against its plain version, bitwise, and its device time
+    over one ResNet-50 update (module docstring, phase 9). Returns (per
+    update kind: worst abs diff, timing rows)."""
+    import itertools
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.models import resnet as tres
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    worst = {k: 0.0 for k in OPT_KERNELS}
+    launches = {k: 0 for k in OPT_KERNELS}
+    n_cases = 0
+    for kind, clip, wd, rescale in itertools.product(
+            OPT_KERNELS, (None, 0.01), (0.0, 1e-4), (1.0, 1 / 32)):
+        for n in (1024, 128 * 513, 2048000, 2359296):
+            p = torch.randn(n, device=dev, generator=gen)
+            grads = []
+            for step in range(2):
+                g = torch.randn(n, device=dev, generator=gen) * 2
+                g[step:step + 3] = torch.tensor(
+                    [math.nan, math.inf, -math.inf], device=dev)
+                grads.append(g)
+            runs = []
+            for fn in (tou.fused_update_step, tou.fused_update_step_plain):
+                params = {"w": p.clone()}
+                state = _opt_state(torch, kind, params)
+                for g in grads:
+                    fn("adam" if kind == "adam" else "sgd", _opt_hp(kind),
+                       params, state, {"w": g}, rescale=rescale, clip=clip,
+                       wd=wd)
+                runs.append([params["w"]] + [state[s]["w"] for s in
+                                             ("m", "v", "mom")
+                                             if state.get(s)])
+            launches[kind] += 2
+            for got, want in zip(*runs):
+                same, diff = _bit_diff(torch, got, want)
+                if not same:
+                    fail("opt_kernel %s clip=%s wd=%s rescale=%s n=%d: the "
+                         "kernel differs from its plain version (max abs "
+                         "diff %g)" % (kind, clip, wd, rescale, n, diff))
+                worst[kind] = max(worst[kind], diff)
+            n_cases += 1
+    counted = _opt_counts(tou)
+    if any(counted[k] < launches[k] for k in OPT_KERNELS):
+        fail("opt_kernel: launch counters %s below the %s launched"
+             % (counted, launches))
+    torch.cuda.synchronize()
+
+    # device time of one ResNet-50 update: its 71 kernel leaves
+    _, eligible = resnet50_eligible_shapes(tres, tou, torch)
+    rows = {}
+    for kind in OPT_KERNELS:
+        params = {n: torch.randn(s, device=dev, generator=gen) * 0.05
+                  for n, s in eligible.items()}
+        grads = {n: torch.randn(s, device=dev, generator=gen) * 1e-3
+                 for n, s in eligible.items()}
+        state = _opt_state(torch, kind, params)
+        hp = _opt_hp(kind)
+        lr_t = torch.full((), hp["lr"], device=dev)
+        names = sorted(params)
+        slots = [tuple(state[s][n] for s in ("m", "v", "mom")
+                       if state.get(s)) for n in names]
+        opt = "adam" if kind == "adam" else "sgd"
+        leaves = [(params[n], grads[n], sl) for n, sl in zip(names, slots)]
+
+        def kernel():
+            for p_, g_, sl in leaves:
+                tou._launch_leaf(opt, hp, lr_t, p_, g_, sl, 1 / 32, None,
+                                 1e-4)
+
+        def plain():
+            for p_, g_, sl in leaves:
+                tou._plain_leaf(opt, hp, lr_t, p_, g_, sl, 1 / 32, None,
+                                1e-4)
+
+        lib_params = [params[n].clone().requires_grad_(True) for n in names]
+        for lp, n in zip(lib_params, names):
+            lp.grad = grads[n].clone()
+        if kind == "adam":
+            lib = torch.optim.Adam(lib_params, lr=hp["lr"], fused=True,
+                                   capturable=True)
+        else:
+            lib = torch.optim.SGD(lib_params, lr=hp["lr"],
+                                  momentum=hp["momentum"], foreach=True)
+        before = sum(_opt_counts(tou).values())
+        sizes = sorted(p_.numel() for p_, _, _ in leaves)
+        row = {"leaves": len(leaves), "elements": sum(sizes),
+               "leaf_elements_median": sizes[len(sizes) // 2],
+               "leaves_le_256k": sum(1 for n_ in sizes if n_ <= 1 << 18),
+               "ms": time_ms(kernel, iters=5),
+               "host_ms": time_host_ms(kernel, iters=10),
+               "plain_ms": time_ms(plain, iters=5)}
+        # the yardstick, called eagerly as a user would (a few multi-tensor
+        # launches per step; compare with host_ms, the kernel's eager time)
+        row["library_ms"] = time_host_ms(lib.step, iters=10)
+        if sum(_opt_counts(tou).values()) == before:
+            fail("opt_kernel: the timed kernel never launched")
+        nbytes = tou.optupdate_ideal_bytes(opt, params, state) + 4
+        flops = {"sgd": 5, "sgd_mom": 7, "adam": 15}[kind] * row["elements"]
+        row["bytes"], row["flops"] = nbytes, flops
+        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+        rows[kind] = row
+    return worst, n_cases, rows
+
+
+def _reset_opt_counts(tou):
+    tou.launches_sgd = tou.launches_sgd_mom = tou.launches_adam = 0
+
+
+def _opt_counts(tou):
+    return {"sgd": tou.launches_sgd, "sgd_mom": tou.launches_sgd_mom,
+            "adam": tou.launches_adam}
+
+
+def _cross_entropy(torch, prob, label):
+    picked = prob.gather(1, label.long()[:, None]).clamp_min(1e-30)
+    return -picked.log().mean()
+
+
+def phase_symbolic_train(torch, dev, seed):
+    """Full-width ResNet-50 through the symbolic stack (module docstring,
+    phase 10). Returns (result, per-kernel launches on the path, the SGD
+    step, a batch)."""
+    import numpy as np
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.models import resnet as tres
+    from mxnet_tpu_torch.parallel import DataParallelTrainStep
+    t0 = time.perf_counter()
+    sym, eligible = resnet50_eligible_shapes(tres, tou, torch)
+    n_el = len(eligible)
+    step = DataParallelTrainStep(sym, lr=0.05, momentum=0.9,
+                                 fused_optupdate=True, device=dev)
+    step.init(RESNET_SHAPES, seed=seed)
+    rng = np.random.RandomState(seed)
+    batches = [{"data": torch.from_numpy(rng.uniform(
+        -1, 1, RESNET_SHAPES["data"]).astype(np.float32)).to(dev),
+        "softmax_label": torch.from_numpy(rng.randint(
+            0, 1000, (SYM_BATCH,)).astype(np.float32)).to(dev)}
+        for _ in range(4)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def run(st, steps):
+        losses, walls = [], []
+        for i in range(steps):
+            b = batches[i % len(batches)]
+            ts = time.perf_counter()
+            prob = st(b)[0]
+            losses.append(_cross_entropy(torch, prob,
+                                         b["softmax_label"]).item())
+            walls.append(time.perf_counter() - ts)
+        return losses, walls
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_opt_counts(tou)
+    losses, walls = run(step, SYM_STEPS)
+    counts = {"sgd_mom": _opt_counts(tou)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(x) for x in losses):
+        fail("symbolic_train: non-finite loss in %s" % losses)
+    if not statistics.mean(losses[-4:]) < statistics.mean(losses[:4]):
+        fail("symbolic_train: loss did not fall: %s" % losses)
+    if counts["sgd_mom"] != {"sgd": 0, "sgd_mom": n_el * SYM_STEPS,
+                             "adam": 0}:
+        fail("symbolic_train: kernel #7 launches %s, want %d sgd_mom (%d "
+             "per step)" % (counts["sgd_mom"], n_el * SYM_STEPS, n_el))
+    if step.program_count() != 1:
+        fail("symbolic_train: %d step signatures, want 1"
+             % step.program_count())
+
+    # Adam, then plain SGD, from the trained weights: the other two
+    # kernels on the same path
+    extra = {}
+    for kind, kw, steps in (("adam", dict(optimizer="adam", lr=1e-4), 3),
+                            ("sgd", dict(lr=0.01, momentum=0.0), 2)):
+        st = DataParallelTrainStep(sym, fused_optupdate=True, device=dev,
+                                   **kw).init_from(step.params, step.aux,
+                                                   RESNET_SHAPES)
+        torch.cuda.synchronize()
+        _reset_opt_counts(tou)
+        l2, w2 = run(st, steps)
+        counts[kind] = _opt_counts(tou)
+        want = {k: (n_el * steps if k == kind else 0) for k in OPT_KERNELS}
+        if counts[kind] != want:
+            fail("symbolic_train %s: kernel #7 launches %s, want %s"
+                 % (kind, counts[kind], want))
+        if not all(math.isfinite(x) for x in l2):
+            fail("symbolic_train %s: non-finite loss %s" % (kind, l2))
+        extra[kind] = {"losses": l2, "step_ms": [w * 1e3 for w in w2]}
+        del st
+
+    # one step from identical params, fused against the plain update
+    prior = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tiers = []
+        for fused in (True, False):
+            st = DataParallelTrainStep(sym, lr=0.05, momentum=0.9,
+                                       fused_optupdate=fused, device=dev)
+            st.init_from(step.params, step.aux, RESNET_SHAPES)
+            st(batches[0])
+            tiers.append(st)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = prior
+    bitwise, tier_err = True, 0.0
+    a, b = tiers
+    for n in a.param_names:
+        for got, want in ((a.params[n], b.params[n]),
+                          (a.opt_state["mom"][n], b.opt_state["mom"][n])):
+            same, _ = _bit_diff(torch, got.detach(), want.detach())
+            bitwise &= same
+            tier_err = max(tier_err, scaled_err(got.detach(), want.detach()))
+    if not bitwise and not tier_err <= 1e-6:
+        fail("symbolic_train: fused and plain update tiers differ by %g of "
+             "a leaf's max abs" % tier_err)
+    del tiers, a, b
+    step_ms = statistics.median(walls[1:]) * 1e3
+    macs = graph_macs(torch, sym, RESNET_SHAPES)
+    result = {"phase": "symbolic_train", "model": "resnet50",
+              # forward multiply-adds x 2 flops x 3 (forward + the two
+              # backward products of every conv and matmul)
+              "macs_forward": macs, "gflop_per_step": 6 * macs / 1e9,
+              "batch": list(RESNET_SHAPES["data"]), "setup_s": setup_s,
+              "steps": SYM_STEPS, "first_step_ms": walls[0] * 1e3,
+              "step_ms_p50": step_ms,
+              "img_per_s": SYM_BATCH / step_ms * 1e3,
+              "losses": losses, "eligible_leaves": n_el,
+              "params": len(step.param_names),
+              "launches_per_step": counts["sgd_mom"]["sgd_mom"] / SYM_STEPS,
+              "program_count": step.program_count(),
+              "peak_mem_gb": peak / 1e9, "adam": extra["adam"],
+              "sgd": extra["sgd"],
+              "tiers_bitwise": bitwise, "tiers_max_err": tier_err}
+    return result, {k: counts[k][k] for k in OPT_KERNELS}, step, batches[0]
+
+
+def cudnn_benchmark_step_ms(torch, fn, warm=3, n=5):
+    """Median step wall (synchronized) with cuDNN's autotuner on, float32
+    kept (no TF32): how much of the convolution time is the default
+    algorithm choice. The port leaves the flag to the user; this only
+    measures it."""
+    prior = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        for _ in range(warm):   # the first call tunes each shape
+            fn()
+        walls = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.backends.cudnn.benchmark = prior
+    return statistics.median(walls)
+
+
+def kind_of(name):
+    """The kind of a device kernel, from its name (phase 11)."""
+    n = name.lower()
+    if "sgd_mom_kernel" in n or "adam_kernel" in n or "sgd_kernel" in n:
+        return "opt_update_#7"
+    if "batch_norm" in n or "batchnorm" in n or "bn_fw" in n \
+            or "bn_bw" in n:
+        return "batch_norm"
+    if "pool" in n:
+        return "pooling"
+    if any(k in n for k in ("conv", "cudnn", "xmma", "gemm", "wgrad",
+                            "dgrad", "fprop", "winograd", "cutlass",
+                            "sm90", "sm80")):
+        return "conv_matmul"
+    if any(k in n for k in ("elementwise", "vectorized", "reduce",
+                            "unrolled", "copy", "fill", "softmax",
+                            "index", "cat")):
+        return "elementwise_reduce"
+    return "other"
+
+
+PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
+          "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile")
+#: phase -> the phases whose results it needs
+NEEDS = {"profile": ("serve",), "train_profile": ("train",),
+         "symbolic_profile": ("symbolic_train",)}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-dir", default=None,
                         help="also write the profiler tables of the "
                              "profile phases into this directory")
     parser.add_argument("--seed", type=int, default=SEED,
-                        help="seed of the train phase's weights and data")
+                        help="seed of the train phases' weights and data")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of %s (default: all)"
+                        % ",".join(PHASES))
     args = parser.parse_args()
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        parser.error("unknown phases %s" % sorted(phases - set(PHASES)))
+    for ph in list(phases):
+        phases.update(NEEDS.get(ph, ()))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -651,9 +1064,10 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mxnet_tpu_torch.kernels import _build
     from mxnet_tpu_torch.kernels import flash_attention as fa
-    # float32 must stay float32 on the card: the kernel runs full f32 on
-    # CUDA cores, and the plain version and the model's matmuls must too,
-    # or TF32's ~3 decimal digits would swamp the 1e-4 comparisons
+    # float32 must stay float32 on the card: the kernels run full f32 on
+    # CUDA cores, and the plain versions, the model's matmuls and cuDNN's
+    # convolutions must too, or TF32's ~3 decimal digits would swamp the
+    # comparisons
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -673,64 +1087,102 @@ def main():
                         or "entry function" in ln]
                     for k, v in _build.build_info.items()}})
 
-    worst, rows = phase_kernel(torch, fa, dev)
-    emit({"phase": "kernel", "cases": len(rows), "max_abs_err": worst,
-          "tol": TOL, "card": card})
-
-    serve, launches, model = phase_serve(torch, fa, dev)
-    emit({**serve, "card": card})
-    emit({**phase_profile(torch, model, dev, args.profile_dir),
-          "card": card})
-
-    tk_worst, tk = phase_train_kernel(torch, fa, dev)
-    emit({"phase": "train_kernel", "max_abs_err": tk_worst, "tol": TOL,
-          **tk, "card": card})
-    train, train_counts, step, batch = phase_train(torch, fa, dev, args.seed)
-    emit({**train, "card": card})
-    emit({"phase": "train_profile", "card": card,
-          "step_b8_s512": profile_calls(torch, lambda: step(batch), "train",
-                                        args.profile_dir, warm=2, n=5,
-                                        calls=3)})
-
-    path_row = next(r for r in rows if r["C"] == 256
-                    and r["offs"] == [256, 0])
-    train_shape = "q/k/v (8,8,512,64) f32 causal"
+    entries = []
     src = "mxnet_tpu_torch/kernels/csrc/"
     ref = "mxnet_tpu/kernels/flash_attention.py:"
-    emit({"kernels": [{
-        "name": "flash_fwd_offs_f32",
-        "route": "cuda",
-        "source": "mxnet_tpu_torch/kernels/csrc/flash_fwd_offs.cu",
-        "replaces": "mxnet_tpu/kernels/flash_attention.py:285",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": path_row["ms"],
-        "plain_ms": path_row["plain_ms"],
-        "bound_ms": path_row["bound_ms"],
-        "bound_by": path_row["bound_by"],
-        "library_ms": path_row["sdpa_ms"],
-        "shape": "q (1,8,256,64) k/v (1,8,512,64) f32 offs [256,0]"}, {
-        "name": "flash_fwd_f32", "route": "cuda",
-        "source": src + "flash_fwd.cu", "replaces": ref + "205",
-        "launches": train_counts["launches_fwd"],
-        "max_abs_err": tk_worst["fwd"], "ms": tk["fwd_ms"],
-        "plain_ms": tk["fwd_plain_ms"], "bound_ms": tk["fwd_bound_ms"],
-        "bound_by": tk["fwd_bound_by"], "library_ms": tk["sdpa_fwd_ms"],
-        "shape": train_shape}, {
-        "name": "flash_bwd_dq_f32", "route": "cuda",
-        "source": src + "flash_bwd_offs.cu", "replaces": ref + "402",
-        "launches": train_counts["launches_bwd_dq"],
-        "max_abs_err": tk_worst["dq"], "ms": tk["dq_ms"],
-        "plain_ms": tk["bwd_plain_ms"], "bound_ms": tk["dq_bound_ms"],
-        "bound_by": tk["dq_bound_by"], "library_ms": tk["sdpa_bwd_ms"],
-        "shape": train_shape}, {
-        "name": "flash_bwd_dkv_f32", "route": "cuda",
-        "source": src + "flash_bwd_offs.cu", "replaces": ref + "453",
-        "launches": train_counts["launches_bwd_dkv"],
-        "max_abs_err": tk_worst["dkv"], "ms": tk["dkv_ms"],
-        "plain_ms": tk["bwd_plain_ms"], "bound_ms": tk["dkv_bound_ms"],
-        "bound_by": tk["dkv_bound_by"], "library_ms": tk["sdpa_bwd_ms"],
-        "shape": train_shape}]})
+    if "kernel" in phases:
+        worst, rows = phase_kernel(torch, fa, dev)
+        emit({"phase": "kernel", "cases": len(rows), "max_abs_err": worst,
+              "tol": TOL, "card": card})
+    if "serve" in phases:
+        serve, launches, model = phase_serve(torch, fa, dev)
+        emit({**serve, "card": card})
+        if "profile" in phases:
+            emit({**phase_profile(torch, model, dev, args.profile_dir),
+                  "card": card})
+        del model
+        if "kernel" in phases:
+            path_row = next(r for r in rows if r["C"] == 256
+                            and r["offs"] == [256, 0])
+            entries.append({
+                "name": "flash_fwd_offs_f32", "route": "cuda",
+                "source": src + "flash_fwd_offs.cu", "replaces": ref + "285",
+                "launches": launches, "max_abs_err": worst,
+                "ms": path_row["ms"], "plain_ms": path_row["plain_ms"],
+                "bound_ms": path_row["bound_ms"],
+                "bound_by": path_row["bound_by"],
+                "library_ms": path_row["sdpa_ms"],
+                "shape": "q (1,8,256,64) k/v (1,8,512,64) f32 offs [256,0]"})
+
+    if "train_kernel" in phases:
+        tk_worst, tk = phase_train_kernel(torch, fa, dev)
+        emit({"phase": "train_kernel", "max_abs_err": tk_worst, "tol": TOL,
+              **tk, "card": card})
+    if "train" in phases:
+        train, train_counts, step, batch = phase_train(torch, fa, dev,
+                                                       args.seed)
+        emit({**train, "card": card})
+        if "train_profile" in phases:
+            emit({"phase": "train_profile", "card": card,
+                  "step_b8_s512": profile_calls(
+                      torch, lambda: step(batch), "train", args.profile_dir,
+                      warm=2, n=5, calls=3)})
+        del step
+        train_shape = "q/k/v (8,8,512,64) f32 causal"
+        if "train_kernel" in phases:
+            for name, file, line, key, plain, lib in (
+                    ("flash_fwd_f32", "flash_fwd.cu", "205", "fwd",
+                     "fwd_plain_ms", "sdpa_fwd_ms"),
+                    ("flash_bwd_dq_f32", "flash_bwd_offs.cu", "402", "dq",
+                     "bwd_plain_ms", "sdpa_bwd_ms"),
+                    ("flash_bwd_dkv_f32", "flash_bwd_offs.cu", "453", "dkv",
+                     "bwd_plain_ms", "sdpa_bwd_ms")):
+                entries.append({
+                    "name": name, "route": "cuda", "source": src + file,
+                    "replaces": ref + line,
+                    "launches": train_counts[
+                        {"fwd": "launches_fwd", "dq": "launches_bwd_dq",
+                         "dkv": "launches_bwd_dkv"}[key]],
+                    "max_abs_err": tk_worst[key], "ms": tk[key + "_ms"],
+                    "plain_ms": tk[plain], "bound_ms": tk[key + "_bound_ms"],
+                    "bound_by": tk[key + "_bound_by"], "library_ms": tk[lib],
+                    "shape": train_shape})
+    torch.cuda.empty_cache()
+
+    if "opt_kernel" in phases:
+        ok_worst, ok_cases, ok_rows = phase_opt_kernel(torch, dev)
+        emit({"phase": "opt_kernel", "cases": ok_cases,
+              "max_abs_err": ok_worst, "bitwise": True, "resnet50_update":
+              ok_rows, "card": card})
+    if "symbolic_train" in phases:
+        sym_result, sym_counts, sym_step, sym_batch = phase_symbolic_train(
+            torch, dev, args.seed)
+        emit({**sym_result, "card": card})
+        if "symbolic_profile" in phases:
+            prof = profile_calls(torch, lambda: sym_step(sym_batch),
+                                 "symbolic", args.profile_dir, warm=2, n=5,
+                                 calls=3, classify=kind_of)
+            conv_ms = prof["by_kind"].get("conv_matmul", [0, 0.0])[1]
+            emit({"phase": "symbolic_profile", "card": card,
+                  "step_resnet50_b32": prof,
+                  "conv_matmul_tflops": sym_result["gflop_per_step"]
+                  / conv_ms if conv_ms else None,
+                  "step_ms_cudnn_benchmark": cudnn_benchmark_step_ms(
+                      torch, lambda: sym_step(sym_batch))})
+        if "opt_kernel" in phases:
+            for k, (line, name) in OPT_KERNELS.items():
+                row = ok_rows[k]
+                entries.append({
+                    "name": name, "route": "cuda",
+                    "source": src + "opt_update.cu",
+                    "replaces": OPT_REF + line, "launches": sym_counts[k],
+                    "max_abs_err": ok_worst[k], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"],
+                    "shape": "one ResNet-50 update: %d leaves, %d f32 "
+                             "elements" % (row["leaves"], row["elements"])})
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -9,7 +9,12 @@ Its second slice trains the transformer LM on one card:
 ``parallel.ShardedTrainStep`` over ``models.transformer.transformer_loss``,
 whose attention runs the CUDA forward ``kernels/csrc/flash_fwd.cu`` and the
 backward pair ``kernels/csrc/flash_bwd_offs.cu`` behind
-``torch.autograd.Function``s.
+``torch.autograd.Function``s. Its third slice trains symbolic graphs on
+one card: ``mx.sym`` builds a graph (``models.resnet.get_symbol``),
+``Executor``/``simple_bind`` run it, and ``parallel.DataParallelTrainStep``
+trains it, the optimizer update through the CUDA kernel
+``kernels/csrc/opt_update.cu``; ``mx.nd`` reads and writes the reference's
+``.params`` files.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``, and raise ``MXNetError`` when CUDA is missing.
@@ -18,10 +23,16 @@ from __future__ import annotations
 
 __version__ = "1.2.0+cuda"
 
-from . import parallel, profiler
+from . import models, name, ndarray, parallel, profiler, symbol
 from .base import MXNetError
 from .context import cpu, gpu, default_device
-from .parallel import ShardedTrainStep
+from .executor import Executor
+from .parallel import DataParallelTrainStep, ShardedTrainStep
+
+sym = symbol
+nd = ndarray
 
 __all__ = ["MXNetError", "cpu", "gpu", "default_device", "profiler",
-           "parallel", "ShardedTrainStep", "__version__"]
+           "parallel", "ShardedTrainStep", "DataParallelTrainStep",
+           "Executor", "models", "name", "nd", "ndarray", "sym", "symbol",
+           "__version__"]

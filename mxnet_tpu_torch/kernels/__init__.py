@@ -3,6 +3,6 @@
 Kernel sources live in ``csrc/`` and build on first use
 (``_build.py``); importing this package builds nothing.
 """
-from . import flash_attention
+from . import flash_attention, opt_update
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "opt_update"]

@@ -4,10 +4,12 @@ Each ``csrc/*.cu`` source compiles with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface under ``mxnet_tpu_torch/_build/`` (listed in
 ``.gitignore``). Nothing includes PyTorch's headers, so a build takes
-seconds. A library is named by a hash of its source and flags, so an
-edited source (or shared ``csrc/*.cuh`` header) rebuilds and an unchanged
-one is loaded as it is. All sources build at once, one ``nvcc`` each,
-started together.
+seconds. A source may carry flags of its own (``EXTRA_FLAGS``: the fused
+optimizer update builds with ``--fmad=false``, so that it equals its plain
+PyTorch version bit for bit). A library is named by a hash of its source
+and its flags, so an edited source (or shared ``csrc/*.cuh`` header) or
+flag rebuilds and an unchanged one is loaded as it is. All sources build
+at once, one ``nvcc`` each, started together.
 
 Nothing here runs at import: the CPU tests import every module of the
 port, on machines that may have no ``nvcc``.
@@ -22,7 +24,7 @@ import subprocess
 import threading
 import time
 
-__all__ = ["SOURCES", "nvcc_path", "build_all", "load"]
+__all__ = ["SOURCES", "EXTRA_FLAGS", "nvcc_path", "build_all", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -31,10 +33,20 @@ _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 #: Kernel library name -> source file under ``csrc/``.
 SOURCES = {"flash_fwd_offs": "flash_fwd_offs.cu",
            "flash_fwd": "flash_fwd.cu",
-           "flash_bwd_offs": "flash_bwd_offs.cu"}
+           "flash_bwd_offs": "flash_bwd_offs.cu",
+           "opt_update": "opt_update.cu"}
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: Kernel library name -> nvcc flags of its own, after ``_FLAGS``.
+#: ``--fmad=false``: no a*b + c contracted into an FMA, which separate
+#: torch kernels never do.
+EXTRA_FLAGS = {"opt_update": ("--fmad=false",)}
+
+
+def _flags(name):
+    return _FLAGS + EXTRA_FLAGS.get(name, ())
 
 _lock = threading.Lock()
 _libs = {}
@@ -55,7 +67,7 @@ def nvcc_path():
 
 def _lib_path(name):
     src = os.path.join(_CSRC, SOURCES[name])
-    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(_flags(name)).encode())
     headers = sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh"))
     for path in [src] + [os.path.join(_CSRC, n) for n in headers]:
         with open(path, "rb") as f:
@@ -89,7 +101,7 @@ def build_all(names=None):
     for name, src, path in todo:
         tmp = "%s.%d.tmp" % (path, os.getpid())
         procs.append((name, path, tmp, subprocess.Popen(
-            [nvcc, *_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
+            [nvcc, *_flags(name), "-o", tmp, src], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, path, tmp, proc in procs:

@@ -3,8 +3,13 @@
 Counterpart of ``mxnet_tpu/parallel/sharded_step.py`` ``ShardedTrainStep``
 with ``mesh=None``: forward, backward and the optimizer update run
 eagerly on one device (``cuda:0`` unless given ``device``). The mesh
-shardings, ZeRO (``shard_update``/``zero``) and the fused optimizer
-kernel (#7, ``kernels/opt_update.py``) are not yet ported and raise.
+shardings and ZeRO (``shard_update``/``zero``) are not yet ported and
+raise. ``fused_optupdate`` (or ``MXNET_TPU_FUSED_OPTUPDATE=1``) routes
+the update through the fused kernel #7 (``kernels/opt_update.py``) as the
+JAX step does on one device (``fused_update_mesh`` -> ``fused_update_step``
+with rescale 1, no clip and wd 0, since the step has already clipped and
+added ``wd * param``); the port walks the tree's leaves, so the nested
+transformer params work.
 
 Params and optimizer slots live on the device and are updated IN PLACE
 each step (the eager analog of the jitted step's buffer donation). The
@@ -19,6 +24,7 @@ import torch
 from ..base import MXNetError, env_flag
 from ..compile.builder import ProgramBuilder
 from ..context import resolve_device
+from ..kernels.opt_update import fused_update_step
 from .optim_update import apply_update, init_opt_state, tree_leaves, tree_map
 
 __all__ = ["ShardedTrainStep"]
@@ -46,6 +52,8 @@ class ShardedTrainStep:
         A step whose loss or global grad norm is not finite leaves params
         and slots as they were; ``last_good`` holds the device bool of the
         last step's verdict (no host sync).
+    fused_optupdate : bool, default ``MXNET_TPU_FUSED_OPTUPDATE``
+        The update through kernel #7 (bitwise equal on the card).
     device : torch.device or str, default ``cuda:0``
         Raises ``MXNetError`` without CUDA unless given ``"cpu"``.
     """
@@ -65,10 +73,7 @@ class ShardedTrainStep:
                              % ("zero" if zero else "shard_update"))
         if fused_optupdate is None:
             fused_optupdate = env_flag("MXNET_TPU_FUSED_OPTUPDATE")
-        if fused_optupdate:
-            raise MXNetError("fused_optupdate: kernel #7 not yet ported "
-                             "(the fused optimizer update of "
-                             "kernels/opt_update.py)")
+        self.fused_optupdate = bool(fused_optupdate)
         self.device = resolve_device(device)
         self.loss_fn = loss_fn
         self.skip_nonfinite = bool(skip_nonfinite)
@@ -115,8 +120,10 @@ class ShardedTrainStep:
             if hp["wd"]:
                 grads = [g + hp["wd"] * p for g, p in zip(grads, leaves)]
             it = iter(grads)
-            apply_update(self.optimizer, hp, params, opt_state,
-                         tree_map(lambda _: next(it), params))
+            update = fused_update_step if self.fused_optupdate \
+                else apply_update
+            update(self.optimizer, hp, params, opt_state,
+                   tree_map(lambda _: next(it), params))
             if self.skip_nonfinite:
                 # carry the pre-step state through a bad update
                 for new, prev in zip(leaves + tree_leaves(opt_state), old):

@@ -8,23 +8,34 @@
 - The kernel module imports, and its CPU path runs, without nvcc; a tensor
   on a device with no kernel raises instead of falling back.
 - The training slice: ShardedTrainStep needs CUDA unless given a device;
-  what is not yet ported (half-precision kernels, the fused optimizer
-  kernel, a mesh) raises instead of running something else.
+  what is not yet ported (half-precision kernels, a mesh) raises instead
+  of running something else; fused_optupdate routes the update through
+  kernel #7's wrapper.
+- The symbolic slice: DataParallelTrainStep, simple_bind / Executor and
+  the NDArray constructors default to the card; the kernel #7 wrapper
+  never falls back (an eligible CUDA leaf with no nvcc raises, a bad
+  grad or slot raises before anything is built, any other device
+  raises); what is not yet ported raises.
 """
 import ast
 import os
 
+import numpy as np
 import pytest
 import torch
 
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels import flash_attention as tfa
+from mxnet_tpu_torch.kernels import opt_update as tou
 from mxnet_tpu_torch.models.transformer import (TransformerConfig,
                                                 TransformerDecodeModel,
                                                 init_transformer,
                                                 transformer_forward)
-from mxnet_tpu_torch.parallel import ShardedTrainStep, mesh_kernels
+from mxnet_tpu_torch.parallel import (DataParallelTrainStep,
+                                      ShardedTrainStep, mesh_kernels,
+                                      sharded_step)
 from mxnet_tpu_torch.serving import DecodeEngine, tiny_lm_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -136,13 +147,31 @@ def test_train_step_defaults_to_the_card(monkeypatch):
 
 
 def test_train_step_raises_on_what_is_not_ported(monkeypatch):
-    loss = lambda p, b: 0.0
-    with pytest.raises(MXNetError, match="kernel #7 not yet ported"):
-        ShardedTrainStep(loss, fused_optupdate=True, device="cpu")
+    """... and fused_optupdate (the argument or the env knob) routes the
+    update through kernel #7's wrapper with the JAX step's single-device
+    arguments: rescale 1, no clip, wd 0 (the step added wd already)."""
+    loss = lambda p, b: (p["w"] * b["x"]).sum()
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs)
+        return tou.fused_update_step(*args, **kwargs)
+
+    monkeypatch.setattr(sharded_step, "fused_update_step", spy)
+    fused = ShardedTrainStep(loss, fused_optupdate=True, optimizer="sgd",
+                             wd=0.1, device="cpu")
     monkeypatch.setenv("MXNET_TPU_FUSED_OPTUPDATE", "1")
-    with pytest.raises(MXNetError, match="kernel #7 not yet ported"):
-        ShardedTrainStep(loss, device="cpu")
+    by_env = ShardedTrainStep(loss, optimizer="sgd", wd=0.1, device="cpu")
     monkeypatch.delenv("MXNET_TPU_FUSED_OPTUPDATE")
+    plain = ShardedTrainStep(loss, optimizer="sgd", wd=0.1, device="cpu")
+    finals = []
+    for step in (fused, by_env, plain):
+        step.init({"w": torch.ones(4)})
+        step({"x": torch.arange(4.0)})
+        finals.append(step.params["w"].detach())
+    assert calls == [{}, {}], "fused steps must call the kernel wrapper"
+    assert torch.equal(finals[0], finals[2]) and \
+        torch.equal(finals[1], finals[2])
     for flag in ("shard_update", "zero"):
         with pytest.raises(MXNetError, match="'dp' mesh axis"):
             ShardedTrainStep(loss, device="cpu", **{flag: True})
@@ -215,3 +244,108 @@ def test_mesh_kernel_tier_knob_raises(monkeypatch, mode, match):
     monkeypatch.setenv("MXNET_TPU_MESH_KERNEL_TIER", mode)
     with pytest.raises(MXNetError, match=match):
         mesh_kernels.resolve_kernel_tier(device="cpu")
+
+
+# --------------------------------------------------- the symbolic slice ----
+
+
+def _tiny_sym():
+    x = tmx.sym.Variable("data")
+    fc = tmx.sym.FullyConnected(x, num_hidden=3, name="fc")
+    return tmx.sym.SoftmaxOutput(fc, name="softmax")
+
+
+def test_symbolic_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sym = _tiny_sym()
+    with pytest.raises(MXNetError, match="CUDA"):
+        DataParallelTrainStep(sym)
+    with pytest.raises(MXNetError, match="CUDA"):
+        sym.simple_bind(data=(2, 4))
+    with pytest.raises(MXNetError, match="CUDA"):
+        tmx.Executor(sym, None, {})
+    with pytest.raises(MXNetError, match="CUDA"):
+        tmx.nd.zeros((2, 2))
+    with pytest.raises(MXNetError, match="CUDA"):
+        tmx.nd.array(np.zeros(2))
+    assert DataParallelTrainStep(sym, device="cpu").device.type == "cpu"
+    assert sym.simple_bind(tmx.cpu(), data=(2, 4)).arg_dict[
+        "fc_weight"].context.type == "cpu"
+
+
+def _leaf(device="cpu", n=1024, dtype=torch.float32):
+    return torch.ones(n, dtype=dtype, device=device)
+
+
+def test_opt_update_wrapper_never_falls_back(monkeypatch):
+    # a kernel leaf on a device with no kernel raises
+    p = _leaf("meta")
+    with pytest.raises(MXNetError, match="no kernel for device meta"):
+        tou.fused_update_step("sgd", {"lr": 0.1}, {"w": p}, {"mom": None},
+                              {"w": _leaf("meta")})
+    # an eligible CUDA leaf with no nvcc raises instead of taking the
+    # plain expression (CPU tensors stand in for CUDA ones here)
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", os.path.join(ROOT, "no-such-toolkit"))
+    monkeypatch.setattr(tou, "_on_cuda", lambda t: True)
+    params = {"w": _leaf(), "b": _leaf(n=10)}
+    state = {"mom": {"w": _leaf(), "b": _leaf(n=10)}}
+    before = tou.launches_sgd_mom
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tou.fused_update_step("sgd", {"lr": 0.1, "momentum": 0.9}, params,
+                              state, {"w": _leaf(), "b": _leaf(n=10)})
+    assert tou.launches_sgd_mom == before
+    for t in (params["w"], params["b"], state["mom"]["b"]):
+        assert torch.equal(t, torch.ones_like(t)), "nothing may be written"
+    assert not _build._libs
+
+
+@pytest.mark.parametrize("what,grad,slot", [
+    ("float64 grad", _leaf(dtype=torch.float64), _leaf()),
+    ("short slot", _leaf(), _leaf(n=896)),
+    ("strided grad", torch.ones(2048)[::2], _leaf())])
+def test_opt_update_wrapper_checks_before_building(monkeypatch, what, grad,
+                                                   slot):
+    monkeypatch.setattr(tou, "_on_cuda", lambda t: True)
+    with pytest.raises(MXNetError, match="must be a contiguous float32"):
+        tou.fused_update_step("sgd", {"lr": 0.1, "momentum": 0.9},
+                              {"w": _leaf()}, {"mom": {"w": slot}},
+                              {"w": grad})
+    assert not _build._libs, what
+
+
+def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
+    sym = _tiny_sym()
+    monkeypatch.setenv("MXNET_TPU_LINT", "1")
+    with pytest.raises(MXNetError, match="ROADMAP A12"):
+        DataParallelTrainStep(sym, device="cpu")
+    monkeypatch.delenv("MXNET_TPU_LINT")
+    for kw, match in ((dict(mesh=["cpu", "cpu"]), "ROADMAP A10"),
+                      (dict(mesh=object()), "ROADMAP A10"),
+                      (dict(zero=True), "ROADMAP A10"),
+                      (dict(compute_dtype="bfloat16"), "ROADMAP A7"),
+                      (dict(supervise=True), "ROADMAP A11")):
+        with pytest.raises(MXNetError, match=match):
+            DataParallelTrainStep(sym, device="cpu", **kw)
+    one = DataParallelTrainStep(sym, mesh=[torch.device("cpu")],
+                                shard_update=True)
+    assert one.device.type == "cpu"
+    with pytest.raises(MXNetError, match="not yet ported"):
+        one.warmup()
+    with pytest.raises(MXNetError, match="not yet ported"):
+        one.comm_plan()
+    with pytest.raises(MXNetError, match="not yet ported"):
+        sym.infer_type()
+    with pytest.raises(MXNetError, match="not yet ported"):
+        sym * 2
+    with pytest.raises(AttributeError, match="not yet ported"):
+        tmx.sym.Dropout
+    with pytest.raises(MXNetError, match="not yet ported"):
+        tmx.sym.load_json('{"nodes": [{"op": "null", "name": "x", '
+                          '"inputs": []}, {"op": "Dropout", "name": "d", '
+                          '"inputs": [[0, 0, 0]]}], "heads": [[1, 0, 0]]}')
+    exe = sym.simple_bind(tmx.cpu(), data=(2, 4))
+    with pytest.raises(MXNetError, match="not yet ported"):
+        exe.reshape(data=(3, 4))
+    with pytest.raises(MXNetError, match="not yet ported"):
+        exe.arg_dict["data"][0] = 1.0
