@@ -100,13 +100,62 @@ no result line):
              DIR/profile_symbolic.txt. Then, as a measurement only, the
              step wall with torch.backends.cudnn.benchmark on (float32
              kept).
+12. grid_kernel — the split-KV grid kernels against their plain versions
+             on the card, float32: #6 (flash_fwd_grid.cu) and #4
+             (flash_bwd_grid.cu) through flash_attention(variant="grid")
+             at q/k/v (4, 8, 4096, 64) causal with 1, 8 and 128 key splits
+             (blocks 4096, 512, 32), a non-causal ragged case and head dims
+             32 and 128 with ragged splits; #3 (flash_fwd_offs_grid.cu)
+             and #4 with a nonzero lse cotangent through
+             flash_attention_with_lse(variant="grid") at the prefill shapes
+             q (1, 8, C, 64) against k/v (1, 8, 4096, 64), C in {256, 1024},
+             from the first chunk to the last of a 3800-token prompt and a
+             ring-style offset whose rows all see no key; the combine and
+             reduce passes alone on the plain version's partials. Max abs
+             error <= 1e-4 on out, lse, dq, dk and dv, scaled by the
+             reference's max abs where that exceeds 1; fully masked rows
+             exactly (0, -1e30) with zero gradients; two calls on the same
+             inputs bit-identical. Device times from CUDA graphs as in phase
+             3: each kernel and pass, its plain version, the stream kernel
+             at the same shape (#5, #2, #1) and, as a yardstick only,
+             F.scaled_dot_product_attention; each kernel's bound.
+13. serve_long — the long-context configuration served:
+             TransformerConfig(vocab 32000, 12 layers, 8 heads, d_model
+             512, max_len 4096, attn_variant "grid", block_k 512), random
+             weights from a seeded generator, through DecodeEngine(
+             block_size 16, 1025 blocks, batch 4, max_seq_len 4096, buckets
+             (256, 1024), prefill_chunk 1024): 4 prompts of about 600,
+             1400, 2500 and 3800 tokens (--seed), 32 new tokens each.
+             Checks: all served, #3 and its combine launched 12 times per
+             prefill call and the stream kernels not at all, no KV block
+             left live, every stream equal to its solo decode, and the
+             third 1024-token chunk of the longest prompt through the
+             kernel agreeing with the plain tier's pages within 1e-4.
+             Then, as a measurement only, the two long serving programs
+             (the batch-4 step over 4096-position tables, a 1024-token
+             prefill chunk at start 2048) under torch.profiler as in
+             phase 5, device time by kind (DIR/profile_step_b4_t4096.txt,
+             DIR/profile_prefill_c1024_grid.txt).
+14. train_long — the same model trained through ShardedTrainStep(adam,
+             lr 1e-3, grad_clip 1.0): 10 steps of 4 x 4096 tokens of the
+             periodic corpus. Checks: every loss finite, the mean of the
+             last 3 below the first, #6, #4-dq and #4-dkv and their
+             combine/reduce passes launched 12 times per step and the
+             stream kernels not at all, one program signature, and one
+             step's loss and gradients at 2 layers (full width, S = 4096)
+             agreeing with the plain tier (loss 1e-5 relative, gradients
+             1e-4 of each leaf's max abs). As a measurement only: the step
+             wall of the same model with attn_variant "stream", and one
+             step under torch.profiler (device time by kind, idle share,
+             ops per step; with --profile-dir the table goes to
+             DIR/profile_train_long.txt).
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them.
 
 The line before last is ``{"kernels": [...]}`` with each kernel's launches
-on its path's run (serving, training or symbolic training), its error and
-times; the last line is ``{"ok": true, "device": {"platform": "gpu",
+on its path's run (serving, training, symbolic training, long-context
+serving or training), its error and times; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``.
 """
 import argparse
@@ -1034,8 +1083,606 @@ def kind_of(name):
     return "other"
 
 
+# --- the long-context grid configuration (phases 12-14) --------------------
+
+LONG_S = 4096          # the long configuration's sequence and table width
+LONG_W = 512           # its block_k: 8 key splits of 4096
+LONG_STEPS = 10
+LONG_PROMPTS = (600, 1400, 2500, 3800)
+#: grid kernel -> (C entry, launch counter, library, TPU function line)
+GRID_KERNELS = {
+    "fwd": ("mx_flash_fwd_grid_f32", "launches_fwd_grid",
+            "flash_fwd_grid.cu", "1011"),
+    "fwd_combine": ("mx_flash_fwd_grid_combine_f32",
+                    "launches_fwd_grid_combine", "flash_fwd_grid.cu",
+                    "1068"),
+    "offs": ("mx_flash_fwd_offs_grid_f32", "launches_fwd_offs_grid",
+             "flash_fwd_offs_grid.cu", "594"),
+    "offs_combine": ("mx_flash_fwd_offs_grid_combine_f32",
+                     "launches_fwd_offs_grid_combine",
+                     "flash_fwd_offs_grid.cu", "646"),
+    "dq": ("mx_flash_bwd_dq_grid_f32", "launches_bwd_dq_grid",
+           "flash_bwd_grid.cu", "722"),
+    "dq_reduce": ("mx_flash_bwd_dq_grid_reduce_f32",
+                  "launches_bwd_dq_grid_reduce", "flash_bwd_grid.cu", "768"),
+    "dkv": ("mx_flash_bwd_dkv_grid_f32", "launches_bwd_dkv_grid",
+            "flash_bwd_grid.cu", "772"),
+    "dkv_reduce": ("mx_flash_bwd_dkv_grid_reduce_f32",
+                   "launches_bwd_dkv_grid_reduce", "flash_bwd_grid.cu",
+                   "822"),
+}
+STREAM_COUNTERS = ("launches", "launches_fwd", "launches_bwd_dq",
+                   "launches_bwd_dkv")
+
+
+def long_config(TransformerConfig, num_layers=12, variant="grid"):
+    """The long-context grid configuration: the serve phase's widths at
+    max_len 4096 with the grid kernels and 512-key blocks."""
+    return TransformerConfig(vocab_size=32000, num_layers=num_layers,
+                             num_heads=8, d_model=512, max_len=LONG_S,
+                             attn_variant=variant, block_k=LONG_W)
+
+
+def n_live_kv(rows_pos, k0, w, n_split):
+    """Key splits each causal row (global positions) can see."""
+    return [0 if p < k0 else min((p - k0) // w + 1, n_split)
+            for p in rows_pos]
+
+
+def grid_bounds(b, h, sq, sk, d, q0, wq, wk):
+    """{kernel: (flops, bytes)} of the causal grid kernels at these shapes,
+    counting what these inputs need: visible keys only, and the workspace
+    rows of the splits each row (key) can see."""
+    nk, nq = -(-sk // wk), -(-sq // wq)
+    bh, f = b * h, 4.0
+    vis = bh * sum(visible_keys(sq, sk, q0, 0))
+    live_rows = bh * sum(n_live_kv(range(q0, q0 + sq), 0, wk, nk))
+    # query splits that see each key: those from the first row that does
+    live_keys = bh * sum(0 if j > q0 + sq - 1 else
+                         nq - max(0, j - q0) // wq for j in range(sk))
+    n_q, n_k = bh * sq * d, bh * sk * d
+    return {
+        "fwd": (4.0 * vis * d, f * (n_q + 2 * n_k + live_rows * (d + 1))),
+        "fwd_combine": (2.0 * live_rows * (d + 1),
+                        f * (live_rows + bh * sq) * (d + 1)),
+        "dq": (6.0 * vis * d, f * (2 * n_q + 2 * n_k + 2 * bh * sq
+                                   + live_rows * d)),
+        "dq_reduce": (1.0 * live_rows * d, f * (live_rows + bh * sq) * d),
+        "dkv": (8.0 * vis * d, f * (2 * n_q + 2 * n_k + 2 * bh * sq
+                                    + 2 * live_keys * d)),
+        "dkv_reduce": (2.0 * live_keys * d,
+                       f * 2 * (live_keys + bh * sk) * d),
+    }
+
+
+def phase_grid_kernel(torch, fa, dev):
+    """The grid kernels against their plain versions (module docstring,
+    phase 12). Returns (per-kernel worst errors, timing rows)."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(SEED + 4)
+    worst = {k: 0.0 for k in GRID_KERNELS}
+    n_cases = 0
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def leaves(*ts):
+        return [t.detach().clone().requires_grad_(True) for t in ts]
+
+    def check(kind, what, got, ref):
+        err = scaled_err(got, ref)
+        if not err <= TOL:
+            fail("grid_kernel %s: %s max abs err %g > %g" % (what, kind, err,
+                                                            TOL))
+        worst[kind] = max(worst[kind], err)
+
+    def identical(what, a, b):
+        for x, y in zip(a, b):
+            if not torch.equal(x, y):
+                fail("grid_kernel %s: two calls on the same inputs differ"
+                     % what)
+
+    def run_twice(fn, ts_in, cot):
+        """Outputs and input gradients of two calls of ``fn``."""
+        runs = []
+        for _ in range(2):
+            ts = leaves(*ts_in)
+            outs = fn(*ts)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            if any(o.grad_fn is None for o in outs):
+                fail("grid_kernel: an output is cut off from autograd")
+            torch.autograd.backward(outs, cot[:len(outs)])
+            runs.append([o.detach() for o in outs]
+                        + [t.grad for t in ts])
+        return runs
+
+    # #6 and #4 through _FlashAttention at 1, 8 and 128 key splits of the
+    # long training shape, then a non-causal ragged case and head dims 32
+    # and 128 with ragged splits
+    for (b, h, s, d), causal, w in (
+            ((4, 8, LONG_S, 64), True, LONG_S), ((4, 8, LONG_S, 64), True,
+                                                 LONG_W),
+            ((4, 8, LONG_S, 64), True, 32), ((2, 8, 1000, 64), False, 256),
+            ((1, 4, 300, 32), True, 64), ((1, 4, 300, 128), True, 64)):
+        what = "%s causal=%s block=%d" % ((b, h, s, d), causal, w)
+        sm = 1.0 / math.sqrt(d)
+        q, k, v, do = (rand(b, h, s, d) for _ in range(4))
+        runs = run_twice(lambda *t: fa.flash_attention(
+            *t, causal=causal, sm_scale=sm, block_q=w, block_k=w,
+            use_pallas=True, variant="grid"), (q, k, v), (do,))
+        identical(what, *runs)
+        _, lse = fa._flash_fwd_grid_cuda(q, k, v, None, sm, causal,
+                                         fa.split_width(w, s))
+        ref_out, ref_lse = fa.flash_fwd_grid_plain(q, k, v, sm, causal, w)
+        check("fwd", what + " out", runs[0][0], ref_out)
+        check("fwd", what + " lse", lse, ref_lse)
+        ref = fa.flash_bwd_offs_grid_plain(q, k, v, fa._offs0(dev), do, None,
+                                           ref_out, ref_lse, sm, causal, w,
+                                           w)
+        check("dq", what + " dq", runs[0][1], ref[0])
+        check("dkv", what + " dk", runs[0][2], ref[1])
+        check("dkv", what + " dv", runs[0][3], ref[2])
+        n_cases += 1
+        del runs, ref, ref_out, ref_lse, lse
+        torch.cuda.empty_cache()
+
+    # #3 (and #4 with the lse cotangent) at the prefill shapes: the JAX
+    # call's blocks (bq = min(512, C), bk = 512), one split and one split
+    # per tile; offsets from the first chunk to the last of a 3800-token
+    # prompt, and a ring-style one whose rows all see no key
+    D = 64
+    sm = 1.0 / math.sqrt(D)
+    for C, (q0, k0), bk in ((1024, (0, 0), LONG_W), (1024, (2816, 0), LONG_W),
+                            (256, (3840, 0), LONG_W), (256, (0, 2048), LONG_W),
+                            (1024, (1024, 0), LONG_S), (256, (768, 0), 32),
+                            (1024, (2816, 0), 32)):
+        what = "with_lse C=%d offs=%s block_k=%d" % (C, (q0, k0), bk)
+        bq = min(LONG_W, C)
+        q, k, v = rand(1, 8, C, D), rand(1, 8, LONG_S, D), rand(1, 8, LONG_S,
+                                                                 D)
+        do, dlse = rand(1, 8, C, D), rand(1, 8, C)
+        offs = torch.tensor([q0, k0], dtype=torch.int32, device=dev)
+        runs = run_twice(lambda *t: fa.flash_attention_with_lse(
+            *t, offs, sm, True, bq, bk, variant="grid"), (q, k, v),
+            (do, dlse))
+        identical(what, *runs)
+        ref_out, ref_lse = fa.flash_fwd_offs_grid_plain(q, k, v, offs, sm,
+                                                        True, bk)
+        check("offs", what + " out", runs[0][0], ref_out)
+        check("offs", what + " lse", runs[0][1], ref_lse)
+        ref = fa.flash_bwd_offs_grid_plain(q, k, v, offs, do, dlse, ref_out,
+                                           ref_lse, sm, True, bq, bk)
+        check("dq", what + " dq", runs[0][2], ref[0])
+        check("dkv", what + " dk", runs[0][3], ref[1])
+        check("dkv", what + " dv", runs[0][4], ref[2])
+        dead_rows = torch.arange(C, device=dev) + q0 < k0
+        dead_keys = torch.arange(LONG_S, device=dev) + k0 > C - 1 + q0
+        out, lse, dq, dk, dv = runs[0]
+        if not (bool((lse[..., dead_rows] == NEG).all().item())
+                and bool((out[..., dead_rows, :] == 0).all().item())
+                and bool((dq[..., dead_rows, :] == 0).all().item())
+                and bool((dk[..., dead_keys, :] == 0).all().item())
+                and bool((dv[..., dead_keys, :] == 0).all().item())):
+            fail("grid_kernel %s: fully masked rows or keys are not exactly "
+                 "(0, -1e30) with zero gradients" % what)
+        n_cases += 1
+        del runs, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the combine and reduce passes alone, on the plain version's
+    # partials (a split a row cannot see holds (0, -1e30) or zeros there,
+    # which the kernels never read)
+    t = {}
+    B, H, S = 4, 8, LONG_S
+    n_split = S // LONG_W
+    q, k, v, do = (rand(B, H, S, D) for _ in range(4))
+    offs0 = fa._offs0(dev)
+    out_part, lse_part = fa.fwd_grid_parts(q, k, v, 0, 0, sm, True, LONG_W)
+    out, lse = torch.empty_like(q), torch.empty(B, H, S, device=dev)
+    combine = lambda: fa._launch(
+        "mx_flash_fwd_grid_combine_f32", out_part.data_ptr(),
+        lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(), B * H, S, D,
+        LONG_W, n_split, 1, device=dev)
+    combine()
+    ref_out, ref_lse = fa._combine_splits(out_part, lse_part)
+    check("fwd_combine", "combine out", out, ref_out)
+    check("fwd_combine", "combine lse", lse, ref_lse)
+    t["fwd_combine_ms"] = time_ms(combine)
+    t["fwd_combine_plain_ms"] = time_ms(
+        lambda: fa._combine_splits(out_part, lse_part), iters=5)
+    t["fwd_plain_ms"] = time_ms(lambda: fa.fwd_grid_parts(
+        q, k, v, 0, 0, sm, True, LONG_W), iters=3, reps=3)
+    t["fwd_whole_plain_ms"] = time_ms(lambda: fa.flash_fwd_grid_plain(
+        q, k, v, sm, True, LONG_W), iters=3, reps=3)
+    ws_out, ws_lse = torch.empty_like(out_part), torch.empty_like(lse_part)
+    t["fwd_ms"] = time_ms(lambda: fa._launch(
+        "mx_flash_fwd_grid_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        ws_out.data_ptr(), ws_lse.data_ptr(), B * H, S, S, D, LONG_W,
+        n_split, sm, 1, device=dev), iters=5)
+    t["fwd_whole_ms"] = time_ms(lambda: fa._flash_fwd_grid_cuda(
+        q, k, v, None, sm, True, LONG_W), iters=5)
+    t["fwd_stream_ms"] = time_ms(lambda: fa._flash_fwd_cuda(q, k, v, sm,
+                                                            True), iters=5)
+    sdpa = lambda a, b_, c: F.scaled_dot_product_attention(
+        a, b_, c, is_causal=True, scale=sm)
+    t["sdpa_fwd_ms"] = time_ms(lambda: sdpa(q, k, v), iters=5)
+    del out_part, lse_part, ws_out, ws_lse
+    torch.cuda.empty_cache()
+
+    out, lse = fa._flash_fwd_grid_cuda(q, k, v, None, sm, True, LONG_W)
+    deff = fa._deff(do, out, None).contiguous()
+    dq_part, dk_part, dv_part = fa.bwd_grid_parts(
+        q, k, v, offs0, do, None, out, lse, sm, True, LONG_W, LONG_W)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dq_reduce = lambda: fa._launch(
+        "mx_flash_bwd_dq_grid_reduce_f32", offs0.data_ptr(),
+        dq_part.data_ptr(), dq.data_ptr(), B * H, S, D, LONG_W, n_split, sm,
+        1, device=dev)
+    dkv_reduce = lambda: fa._launch(
+        "mx_flash_bwd_dkv_grid_reduce_f32", offs0.data_ptr(),
+        dk_part.data_ptr(), dv_part.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B * H, S, S, D, LONG_W, n_split, 1, device=dev)
+    dq_reduce()
+    dkv_reduce()
+    check("dq_reduce", "dq reduce", dq, fa._sum_splits(dq_part) * sm)
+    check("dkv_reduce", "dk reduce", dk, fa._sum_splits(dk_part))
+    check("dkv_reduce", "dv reduce", dv, fa._sum_splits(dv_part))
+    t["dq_reduce_ms"] = time_ms(dq_reduce)
+    t["dkv_reduce_ms"] = time_ms(dkv_reduce)
+    t["dq_reduce_plain_ms"] = time_ms(
+        lambda: fa._sum_splits(dq_part) * sm, iters=5)
+    t["dkv_reduce_plain_ms"] = time_ms(
+        lambda: (fa._sum_splits(dk_part), fa._sum_splits(dv_part)), iters=5)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), offs0.data_ptr(),
+              do.data_ptr(), lse.data_ptr(), deff.data_ptr())
+    t["dq_ms"] = time_ms(lambda: fa._launch(
+        "mx_flash_bwd_dq_grid_f32", *common, dq_part.data_ptr(), B * H, S, S,
+        D, LONG_W, n_split, sm, 1, device=dev), iters=5)
+    t["dkv_ms"] = time_ms(lambda: fa._launch(
+        "mx_flash_bwd_dkv_grid_f32", *common, dk_part.data_ptr(),
+        dv_part.data_ptr(), B * H, S, S, D, LONG_W, n_split, sm, 1,
+        device=dev), iters=5)
+    del dq_part, dk_part, dv_part
+    torch.cuda.empty_cache()
+    t["bwd_plain_ms"] = time_ms(lambda: fa.bwd_grid_parts(
+        q, k, v, offs0, do, None, out, lse, sm, True, LONG_W, LONG_W),
+        iters=1, reps=3)
+    t["bwd_whole_ms"] = time_ms(lambda: fa._flash_bwd_grid_cuda(
+        q, k, v, offs0, do, deff, lse, sm, True, (LONG_W, LONG_W)), iters=5)
+    stream_tail = (B * H, S, S, D, sm, 1)
+    t["dq_stream_ms"] = time_ms(lambda: fa._launch(
+        "mx_flash_bwd_dq_f32", *common, dq.data_ptr(), *stream_tail,
+        device=dev), iters=3)
+    t["dkv_stream_ms"] = time_ms(lambda: fa._launch(
+        "mx_flash_bwd_dkv_f32", *common, dk.data_ptr(), dv.data_ptr(),
+        *stream_tail, device=dev), iters=3)
+    qg, kg, vg = leaves(q, k, v)
+    t["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        sdpa(qg, kg, vg), (qg, kg, vg), do), iters=5)
+    t["sdpa_bwd_ms"] = t["sdpa_fwd_bwd_ms"] - t["sdpa_fwd_ms"]
+    bounds = grid_bounds(B, H, S, S, D, 0, LONG_W, LONG_W)
+    del q, k, v, do, out, lse, deff, dq, dk, dv, qg, kg, vg
+    torch.cuda.empty_cache()
+
+    # #3 at the last 1024-token chunk of a 3800-token prompt
+    C, q0 = 1024, 2816
+    q, k, v = rand(1, H, C, D), rand(1, H, S, D), rand(1, H, S, D)
+    offs = torch.tensor([q0, 0], dtype=torch.int32, device=dev)
+    out_part, lse_part = fa.fwd_grid_parts(q, k, v, offs[0], offs[1], sm,
+                                           True, LONG_W)
+    out, lse = torch.empty_like(q), torch.empty(1, H, C, device=dev)
+    combine = lambda: fa._launch(
+        "mx_flash_fwd_offs_grid_combine_f32", offs.data_ptr(),
+        out_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), H, C, D, LONG_W, n_split, 1, device=dev)
+    combine()
+    ref_out, ref_lse = fa._combine_splits(out_part, lse_part)
+    check("offs_combine", "offs combine out", out, ref_out)
+    check("offs_combine", "offs combine lse", lse, ref_lse)
+    t["offs_combine_ms"] = time_ms(combine)
+    t["offs_combine_plain_ms"] = time_ms(
+        lambda: fa._combine_splits(out_part, lse_part))
+    ws_out, ws_lse = torch.empty_like(out_part), torch.empty_like(lse_part)
+    t["offs_ms"] = time_ms(lambda: fa._launch(
+        "mx_flash_fwd_offs_grid_f32", q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), offs.data_ptr(), ws_out.data_ptr(), ws_lse.data_ptr(),
+        H, C, S, D, LONG_W, n_split, sm, 1, device=dev))
+    t["offs_whole_ms"] = time_ms(lambda: fa._flash_fwd_grid_cuda(
+        q, k, v, offs, sm, True, LONG_W))
+    t["offs_stream_ms"] = time_ms(lambda: fa._flash_fwd_offs_cuda(
+        q, k, v, offs, sm, True))
+    t["offs_plain_ms"] = time_ms(lambda: fa.fwd_grid_parts(
+        q, k, v, offs[0], offs[1], sm, True, LONG_W), iters=5)
+    t["offs_whole_plain_ms"] = time_ms(lambda: fa.flash_fwd_offs_grid_plain(
+        q, k, v, offs, sm, True, LONG_W), iters=5)
+    mask = (torch.arange(C, device=dev)[:, None] + q0
+            >= torch.arange(S, device=dev)[None, :])
+    t["sdpa_offs_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=sm))
+    ob = grid_bounds(1, H, C, S, D, q0, LONG_W, LONG_W)
+    bounds["offs"], bounds["offs_combine"] = ob["fwd"], ob["fwd_combine"]
+    for name, (flops, nbytes) in bounds.items():
+        t[name + "_bound_ms"], t[name + "_bound_by"] = bound_ms(flops,
+                                                               nbytes)
+        t[name + "_flops"], t[name + "_bytes"] = flops, nbytes
+    t["cases"] = n_cases
+    return worst, t
+
+
+def phase_serve_long(torch, fa, dev, seed, out_dir):
+    """The long-context configuration served (module docstring, phase
+    13). Returns (result, launches per grid kernel on the run)."""
+    import numpy as np
+    from mxnet_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerDecodeModel, transformer_decode_prefill,
+        transformer_decode_step)
+    from mxnet_tpu_torch.serving import DecodeEngine
+    cfg = long_config(TransformerConfig)
+    t0 = time.perf_counter()
+    model = TransformerDecodeModel(cfg, seed=seed, device=dev)
+    if not model.use_kernel:
+        fail("serve_long: model on %s did not resolve to the kernel tier"
+             % dev)
+    eng = DecodeEngine(block_size=16, num_blocks=1025, batch_size=4,
+                       max_seq_len=LONG_S, prefill_buckets=(256, 1024),
+                       prefill_chunk=1024, **model.engine_kwargs())
+    setup_s = time.perf_counter() - t0
+    counters = [GRID_KERNELS[k][1] for k in ("offs", "offs_combine")]
+    try:
+        rng = np.random.RandomState(seed)
+        lengths = [n + int(rng.randint(-32, 33)) for n in LONG_PROMPTS]
+        prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
+                   for n in lengths]
+        new = 32
+        stamps = {}
+
+        def on_token(stream, seq_no, token):
+            stamps.setdefault(stream.rid, []).append(time.monotonic())
+
+        torch.cuda.synchronize()
+        for name in counters + list(STREAM_COUNTERS):
+            setattr(fa, name, 0)
+        t0 = time.perf_counter()
+        streams = [eng.submit(p, max_new_tokens=new, on_token=on_token)
+                   for p in prompts]
+        outs = [s.result_wait(600.0) for s in streams]
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(fa, name) for name in counters}
+        stream_counts = {name: getattr(fa, name) for name in STREAM_COUNTERS}
+        calls = sum(-(-n // 1024) for n in lengths)
+        st = eng.stats()
+        if st["served"] != len(prompts):
+            fail("serve_long: served %d of %d" % (st["served"], len(prompts)))
+        for name in counters:
+            if counts[name] != cfg.num_layers * calls:
+                fail("serve_long: %s = %d, want %d (12 per prefill call, %d "
+                     "calls)" % (name, counts[name], cfg.num_layers * calls,
+                                 calls))
+        if any(stream_counts.values()):
+            fail("serve_long: stream kernels launched: %s" % stream_counts)
+        if st["kv"]["blocks_live"] != 0:
+            fail("serve_long: %d KV blocks still live"
+                 % st["kv"]["blocks_live"])
+        for o in outs:
+            if len(o) != new or not all(0 <= t < cfg.vocab_size for t in o):
+                fail("serve_long: bad stream %s" % o)
+        ttft = [stamps[s.rid][0] - s.submitted_t for s in streams]
+        gaps = [b - a for s in streams
+                for a, b in zip(stamps[s.rid], stamps[s.rid][1:])]
+        solo = [eng.generate(p, max_new_tokens=new, timeout=600.0)
+                for p in prompts]
+        if solo != outs:
+            bad = [i for i, (a, b) in enumerate(zip(solo, outs)) if a != b]
+            fail("serve_long: continuous != solo for prompts %s" % bad)
+    finally:
+        eng.stop()
+
+    # reference: the third 1024-token chunk of the longest prompt (start
+    # 2048, 8 key splits of which 5-6 are live) through the kernel against
+    # the plain tier, on the same pages, which the plain tier filled with
+    # the first two chunks
+    i64 = dict(dtype=torch.int64, device=dev)
+    n_blocks = LONG_S // 16
+    table = torch.arange(1, n_blocks + 1, **i64)
+    kp = torch.zeros((n_blocks + 1, 16, cfg.num_layers, cfg.d_model),
+                     device=dev)
+    vp = torch.zeros_like(kp)
+    prompt = prompts[-1]
+
+    def chunk(kp_, vp_, start, use_kernel):
+        toks = torch.tensor(prompt[start:start + 1024], **i64)
+        return transformer_decode_prefill(
+            model.params, cfg, kp_, vp_, toks, torch.tensor(start, **i64),
+            torch.tensor(1024, **i64), table, use_kernel=use_kernel)
+    for start in (0, 1024):
+        _, kp, vp = chunk(kp, vp, start, False)
+    pages = {}
+    for use_kernel in (True, False):
+        tok, kpu, vpu = chunk(kp.clone(), vp.clone(), 2048, use_kernel)
+        pages[use_kernel] = (int(tok.item()), kpu, vpu)
+    page_err = max(
+        (pages[True][1][1:] - pages[False][1][1:]).abs().max().item(),
+        (pages[True][2][1:] - pages[False][2][1:]).abs().max().item())
+    if not page_err <= TOL:
+        fail("serve_long: kernel-tier prefill pages differ from the plain "
+             "tier by %g" % page_err)
+    # where the time of the two long serving programs goes: the batch-4
+    # decode step over 4096-position tables and the 1024-token prefill
+    # chunk at start 2048 (fresh pages: device time does not depend on
+    # their content)
+    del pages
+    ids = torch.zeros(4, **i64)
+    pos = torch.full((4,), LONG_S - 200, **i64)
+    tables = table.repeat(4, 1)
+    active = torch.ones(4, dtype=torch.bool, device=dev)
+    toks = torch.tensor(prompt[2048:3072], **i64)
+    start, length = torch.tensor(2048, **i64), torch.tensor(1024, **i64)
+    programs = {
+        "step_b4_t4096": lambda: transformer_decode_step(
+            model.params, cfg, kp, vp, ids, pos, tables, active),
+        "prefill_c1024_grid": lambda: transformer_decode_prefill(
+            model.params, cfg, kp, vp, toks, start, length, table,
+            use_kernel=True)}
+    profiles = {name: profile_calls(torch, fn, name, out_dir, warm=2, n=10,
+                                    calls=3, classify=kind_of_attention)
+                for name, fn in programs.items()}
+    del model, kp, vp
+    result = {"phase": "serve_long", "setup_s": setup_s, "wall_s": wall,
+              "prompt_tokens": lengths,
+              "tokens": sum(len(o) for o in outs),
+              "tokens_per_s": sum(len(o) for o in outs) / wall,
+              "ttft_ms": [x * 1e3 for x in ttft],
+              "ttft_p50_ms": statistics.median(ttft) * 1e3,
+              "intertoken_p50_ms": statistics.median(gaps) * 1e3,
+              "prefill_calls": calls, "launches": counts,
+              "stream_launches": stream_counts, "steps": st["steps"],
+              "program_counts": list(eng.program_counts()),
+              "continuous_equals_solo": True,
+              "prefill_pages_max_abs_err_vs_plain": page_err,
+              "profile": profiles}
+    return result, counts
+
+
+def kind_of_attention(name):
+    """The kind of a device kernel of the transformer step (phase 14)."""
+    n = name.lower()
+    if "grid" in n and ("combine" in n or "reduce" in n):
+        return "attention_combine_reduce"
+    if "flash" in n:
+        return "attention"
+    if any(k in n for k in ("gemm", "sgemm", "cutlass", "xmma", "sm90",
+                            "sm80", "ampere", "matmul")):
+        return "matmul"
+    return "elementwise_other"
+
+
+def phase_train_long(torch, fa, dev, seed, out_dir):
+    """The long-context configuration trained (module docstring, phase
+    14). Returns (result, launches per grid kernel on the run)."""
+    from mxnet_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer, transformer_loss)
+    from mxnet_tpu_torch.parallel import ShardedTrainStep
+    from mxnet_tpu_torch.parallel.optim_update import tree_leaves, tree_map
+    cfg = long_config(TransformerConfig)
+    B, S = 4, LONG_S
+    t0 = time.perf_counter()
+    params = init_transformer(cfg, torch.Generator().manual_seed(seed), dev)
+    make_batch = periodic_batches(seed, cfg.vocab_size, S, B)
+    batches = [{k: torch.as_tensor(x).to(dev) for k, x in make_batch().items()}
+               for _ in range(LONG_STEPS)]
+
+    def make_step(c, p):
+        return ShardedTrainStep(
+            lambda p_, b: transformer_loss(p_, b["tokens"], b["targets"], c),
+            optimizer="adam", lr=1e-3, grad_clip=1.0, device=dev).init(p)
+
+    step = make_step(cfg, params)
+    setup_s = time.perf_counter() - t0
+    counters = [v[1] for k, v in GRID_KERNELS.items()
+                if k not in ("offs", "offs_combine")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name in counters + list(STREAM_COUNTERS):
+        setattr(fa, name, 0)
+    losses, walls = [], []
+    t0 = time.perf_counter()
+    for b in batches:
+        ts = time.perf_counter()
+        losses.append(step(b).item())      # .item() synchronizes
+        walls.append(time.perf_counter() - ts)
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(fa, name) for name in counters}
+    stream_counts = {name: getattr(fa, name) for name in STREAM_COUNTERS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(x) for x in losses):
+        fail("train_long: non-finite loss in %s" % losses)
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        fail("train_long: loss did not fall: %s" % losses)
+    want = cfg.num_layers * LONG_STEPS
+    for name in counters:
+        if counts[name] != want:
+            fail("train_long: %s = %d, want %d (12 per step)"
+                 % (name, counts[name], want))
+    if any(stream_counts.values()):
+        fail("train_long: stream kernels launched: %s" % stream_counts)
+    if step.program_count() != 1:
+        fail("train_long: %d step signatures, want 1" % step.program_count())
+    step_ms = statistics.median(walls[1:]) * 1e3
+
+    # as a measurement only: one step of the same model and batch with
+    # the stream kernels, then one grid step under torch.profiler
+    stream_step = make_step(long_config(TransformerConfig, variant="stream"),
+                            tree_map(lambda x: x.detach().clone(),
+                                     step.params))
+    stream_walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        stream_step(batches[0]).item()
+        stream_walls.append((time.perf_counter() - ts) * 1e3)
+    del stream_step
+    torch.cuda.empty_cache()
+    prof = profile_calls(torch, lambda: step(batches[0]).item(), "train_long",
+                         out_dir, warm=1, n=2, calls=1,
+                         classify=kind_of_attention)
+    del step
+    torch.cuda.empty_cache()
+
+    # one step's loss and gradients, kernel tier against plain tier, at
+    # full width and S = 4096 but 2 layers (the plain tier keeps every
+    # block's scores for autograd: 0.27 GB per 512-key block per layer)
+    cfg2 = long_config(TransformerConfig, num_layers=2)
+    params2 = init_transformer(cfg2, torch.Generator().manual_seed(seed),
+                               dev)
+    prior = os.environ.get(PLAIN_TIER)
+    tiers = {}
+    try:
+        for tier in ("on", "off"):
+            os.environ[PLAIN_TIER] = tier
+            p = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                         params2)
+            before = fa.launches_fwd_grid
+            loss = transformer_loss(p, batches[0]["tokens"],
+                                    batches[0]["targets"], cfg2)
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            tiers[tier] = (loss.item(), grads,
+                           fa.launches_fwd_grid - before)
+            del loss, p
+    finally:
+        if prior is None:
+            os.environ.pop(PLAIN_TIER, None)
+        else:
+            os.environ[PLAIN_TIER] = prior
+    if tiers["on"][2] != cfg2.num_layers or tiers["off"][2] != 0:
+        fail("train_long: tier comparison launched %d / %d grid forwards"
+             % (tiers["on"][2], tiers["off"][2]))
+    loss_rel = abs(tiers["on"][0] - tiers["off"][0]) / abs(tiers["off"][0])
+    if not loss_rel <= 1e-5:
+        fail("train_long: kernel-tier loss %r vs plain %r"
+             % (tiers["on"][0], tiers["off"][0]))
+    grad_err = max((a - b).abs().max().item() / b.abs().max().item()
+                   for a, b in zip(tiers["on"][1], tiers["off"][1]))
+    if not grad_err <= TOL:
+        fail("train_long: kernel-tier gradients differ from the plain tier "
+             "by %g of a leaf's max abs" % grad_err)
+    result = {"phase": "train_long", "setup_s": setup_s,
+              "steps": LONG_STEPS, "batch": [B, S], "wall_s": wall,
+              "first_step_ms": walls[0] * 1e3, "step_ms_p50": step_ms,
+              "tokens_per_s": B * S / step_ms * 1e3, "losses": losses,
+              "launches": counts, "stream_launches": stream_counts,
+              "program_count": 1, "peak_mem_gb": peak / 1e9,
+              "stream_variant_step_ms": stream_walls,
+              "profile": prof,
+              "tier_layers": cfg2.num_layers,
+              "tier_loss": [tiers["on"][0], tiers["off"][0]],
+              "tier_loss_rel_err": loss_rel, "tier_grad_err": grad_err}
+    return result, counts
+
+
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
-          "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile")
+          "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
+          "grid_kernel", "serve_long", "train_long")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",)}
@@ -1182,6 +1829,44 @@ def main():
                     "library_ms": row["library_ms"],
                     "shape": "one ResNet-50 update: %d leaves, %d f32 "
                              "elements" % (row["leaves"], row["elements"])})
+    torch.cuda.empty_cache()
+
+    if "grid_kernel" in phases:
+        gk_worst, gk = phase_grid_kernel(torch, fa, dev)
+        emit({"phase": "grid_kernel", "max_abs_err": gk_worst, "tol": TOL,
+              **gk, "card": card})
+        torch.cuda.empty_cache()
+    path_counts = {}
+    if "serve_long" in phases:
+        serve_long, counts = phase_serve_long(torch, fa, dev, args.seed,
+                                              args.profile_dir)
+        emit({**serve_long, "card": card})
+        path_counts.update(counts)
+        torch.cuda.empty_cache()
+    if "train_long" in phases:
+        train_long, counts = phase_train_long(torch, fa, dev, args.seed,
+                                              args.profile_dir)
+        emit({**train_long, "card": card})
+        path_counts.update(counts)
+        torch.cuda.empty_cache()
+    if "grid_kernel" in phases:
+        for key, (entry, counter, file, line) in GRID_KERNELS.items():
+            if counter not in path_counts:
+                continue   # its path's phase did not run
+            lib = {"fwd": "sdpa_fwd_ms", "dq": "sdpa_bwd_ms",
+                   "dkv": "sdpa_bwd_ms", "offs": "sdpa_offs_ms"}.get(key)
+            plain = {"dkv": "bwd_plain_ms", "dq": "bwd_plain_ms"}.get(
+                key, key + "_plain_ms")
+            entries.append({
+                "name": entry[3:], "route": "cuda", "source": src + file,
+                "replaces": ref + line, "launches": path_counts[counter],
+                "max_abs_err": gk_worst[key], "ms": gk[key + "_ms"],
+                "plain_ms": gk[plain], "bound_ms": gk[key + "_bound_ms"],
+                "bound_by": gk[key + "_bound_by"],
+                "library_ms": gk[lib] if lib else None,
+                "shape": ("q (1,8,1024,64) k/v (1,8,4096,64) f32 offs "
+                          "[2816,0], 8 key splits" if key.startswith("offs")
+                          else "q/k/v (4,8,4096,64) f32 causal, 8 splits")})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -34,6 +34,9 @@ _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = {"flash_fwd_offs": "flash_fwd_offs.cu",
            "flash_fwd": "flash_fwd.cu",
            "flash_bwd_offs": "flash_bwd_offs.cu",
+           "flash_fwd_grid": "flash_fwd_grid.cu",
+           "flash_fwd_offs_grid": "flash_fwd_offs_grid.cu",
+           "flash_bwd_grid": "flash_bwd_grid.cu",
            "opt_update": "opt_update.cu"}
 
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

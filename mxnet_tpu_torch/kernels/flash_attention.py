@@ -9,20 +9,32 @@ Counterpart of ``mxnet_tpu/kernels/flash_attention.py``. Shapes follow
   semantics: a query row at global position ``q_offset + i`` sees a key at
   ``k_offset + j`` iff ``q_offset + i >= k_offset + j``; fully masked rows
   get out 0 and lse pinned to -1e30.
-- Three CUDA kernel libraries, each with its plain version here:
-  ``csrc/flash_fwd_offs.cu`` (TPU kernel ``_flash_fwd_offs_kernel``;
-  plain ``flash_fwd_offs_plain``), ``csrc/flash_fwd.cu``
-  (``_flash_fwd_kernel``; ``flash_fwd_plain``) and ``csrc/flash_bwd_offs.cu``
-  (the pair ``_flash_bwd_dq_offs_kernel``/``_flash_bwd_dkv_offs_kernel``;
-  ``flash_bwd_offs_plain``).
+- Two kernel families, each kernel library with its plain version here.
+  ``variant="stream"``: ``csrc/flash_fwd_offs.cu`` (TPU kernel
+  ``_flash_fwd_offs_kernel``; plain ``flash_fwd_offs_plain``),
+  ``csrc/flash_fwd.cu`` (``_flash_fwd_kernel``; ``flash_fwd_plain``) and
+  ``csrc/flash_bwd_offs.cu`` (the pair ``_flash_bwd_dq_offs_kernel``/
+  ``_flash_bwd_dkv_offs_kernel``; ``flash_bwd_offs_plain``).
+  ``variant="grid"``, split-KV: ``csrc/flash_fwd_offs_grid.cu``
+  (``_flash_fwd_offs_grid_kernel``; ``flash_fwd_offs_grid_plain``),
+  ``csrc/flash_fwd_grid.cu`` (``_flash_fwd_grid_kernel``;
+  ``flash_fwd_grid_plain``) and ``csrc/flash_bwd_grid.cu``
+  (``_flash_bwd_dq_grid_kernel``/``_flash_bwd_dkv_grid_kernel``;
+  ``flash_bwd_offs_grid_plain``). Where the TPU grid walks the key axis as
+  a sequential grid dimension, the grid kernels split it across blocks of
+  ``block_k`` keys (rounded up to the kernels' 32-key tile,
+  :func:`split_width`) and a second pass merges (forward) or sums
+  (backward) the splits in split order; the plain versions compute the
+  same per-split partials and the same merge.
 - ``_FlashWithLse`` (behind ``flash_attention_with_lse``) and
   ``_FlashAttention`` (behind ``flash_attention``) are the
   ``torch.autograd.Function`` counterparts of the JAX package's two
-  ``custom_vjp``s: forward by the offset or the plain forward kernel,
-  backward by the backward pair (with the real lse cotangent, or at
-  ``offs = [0, 0]`` with none). On CUDA tensors they launch the kernels or
-  raise; on CPU tensors they run the plain versions; any other device
-  raises. There is no fallback from the card to the plain version.
+  ``custom_vjp``s, for both variants: forward by the offset or the plain
+  forward kernel, backward by the backward pair of the same variant (with
+  the real lse cotangent, or at ``offs = [0, 0]`` with none). On CUDA
+  tensors they launch the kernels or raise; on CPU tensors they run the
+  plain versions; any other device raises. There is no fallback from the
+  card to the plain version, nor from one variant to the other.
 - ``resolve_kernel_tier`` keeps the JAX package's tier vocabulary
   (``MXNET_SERVING_DECODE_FLASH``, ``MXNET_TPU_MESH_KERNEL_TIER``): auto |
   1/on | 0/off, where ``interpret`` has no counterpart (a CUDA kernel has
@@ -39,6 +51,9 @@ from ..base import MXNetError
 
 __all__ = ["attention_with_lse", "merge_attention", "blockwise_attention",
            "flash_fwd_offs_plain", "flash_fwd_plain", "flash_bwd_offs_plain",
+           "flash_fwd_grid_plain", "flash_fwd_offs_grid_plain",
+           "flash_bwd_offs_grid_plain", "split_width", "fwd_grid_parts",
+           "bwd_grid_parts",
            "flash_attention_with_lse", "flash_attention",
            "resolve_kernel_tier", "kernel_status"]
 
@@ -48,13 +63,28 @@ _NEG_INF = -1e30
 #: callers may reset them to 0. ``launches``: the offset forward
 #: (``flash_fwd_offs.cu``); ``launches_fwd``: the plain forward
 #: (``flash_fwd.cu``); ``launches_bwd_dq`` / ``launches_bwd_dkv``: the
-#: backward pair (``flash_bwd_offs.cu``).
+#: backward pair (``flash_bwd_offs.cu``). The grid variant:
+#: ``launches_fwd_grid`` and ``launches_fwd_grid_combine``
+#: (``flash_fwd_grid.cu``), ``launches_fwd_offs_grid`` and
+#: ``launches_fwd_offs_grid_combine`` (``flash_fwd_offs_grid.cu``),
+#: ``launches_bwd_dq_grid`` / ``launches_bwd_dkv_grid`` and their
+#: ``_reduce`` passes (``flash_bwd_grid.cu``). A combine or reduce pass
+#: runs only when there is more than one split.
 launches = 0
 launches_fwd = 0
 launches_bwd_dq = 0
 launches_bwd_dkv = 0
+launches_fwd_grid = 0
+launches_fwd_grid_combine = 0
+launches_fwd_offs_grid = 0
+launches_fwd_offs_grid_combine = 0
+launches_bwd_dq_grid = 0
+launches_bwd_dq_grid_reduce = 0
+launches_bwd_dkv_grid = 0
+launches_bwd_dkv_grid_reduce = 0
 
 _HEAD_DIMS = (32, 64, 128)
+_TILE = 32   # rows of the grid kernels' shared-memory tiles
 
 
 def _fold_scale(q, sm_scale):
@@ -170,17 +200,11 @@ def _deff(do, out, dlse):
     return delta if dlse is None else delta - dlse.float()
 
 
-def flash_bwd_offs_plain(q, k, v, offs, do, dlse, out, lse, sm_scale=None,
-                         causal=True):
-    """Plain version of the backward pair at global offsets ``offs =
-    [q0, k0]``: ``(dq, dk, dv)`` written out from the kernels' formulas,
-    not by autograd. Scores come from the folded q, as in the forward;
-    ``dk`` accumulates against the folded q (no further ``sm_scale``)
-    and ``dq`` takes ``sm_scale`` once. Rows with lse pinned to -1e30 (no
-    visible key) use a +1e30 substitute, so ``exp`` gives exactly 0
+def _bwd_terms(q, k, v, offs, do, dlse, out, lse, sm_scale, causal):
+    """(folded q, p, ds) of the backward kernels' formulas. Scores come
+    from the folded q, as in the forward. Rows with lse pinned to -1e30
+    (no visible key) use a +1e30 substitute, so ``exp`` gives exactly 0
     there."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
     qs = _fold_scale(q, sm_scale)
     s = torch.einsum("...qd,...kd->...qk", qs, k).float()
     if causal:
@@ -191,10 +215,148 @@ def flash_bwd_offs_plain(q, k, v, offs, do, dlse, out, lse, sm_scale=None,
     p = torch.exp(s - lse_safe[..., None])
     dp = torch.einsum("...qd,...kd->...qk", do, v).float()
     ds = p * (dp - _deff(do, out, dlse)[..., None])
+    return qs, p, ds
+
+
+def flash_bwd_offs_plain(q, k, v, offs, do, dlse, out, lse, sm_scale=None,
+                         causal=True):
+    """Plain version of the backward pair at global offsets ``offs =
+    [q0, k0]``: ``(dq, dk, dv)`` written out from the kernels' formulas
+    (:func:`_bwd_terms`), not by autograd. ``dk`` accumulates against the
+    folded q (no further ``sm_scale``) and ``dq`` takes ``sm_scale``
+    once."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    qs, p, ds = _bwd_terms(q, k, v, offs, do, dlse, out, lse, sm_scale,
+                           causal)
     dq = torch.einsum("...qk,...kd->...qd", ds, k.float()) * sm_scale
     dk = torch.einsum("...qk,...qd->...kd", ds, qs.float())
     dv = torch.einsum("...qk,...qd->...kd", p, do.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def split_width(block, n):
+    """Rows (keys or queries) per split of the grid kernels: the JAX
+    call's block size, ``min(block, n)`` as the JAX launchers take it,
+    rounded up to the kernels' 32-row tile. Idempotent. The split count
+    ``ceil(n / width)`` thus depends on shapes and arguments only, never
+    on the device, which keeps serving bit-identical under batching."""
+    b = max(1, min(int(block), n))
+    return -(-b // _TILE) * _TILE
+
+
+def _splits(n, width):
+    """The ``ceil(n / width)`` split ranges of an axis of length ``n``
+    (at least one)."""
+    return [slice(i, min(i + width, n))
+            for i in range(0, max(n, 1), width)]
+
+
+def _combine_splits(out_part, lse_part):
+    """Merge per-split partials ``[n_split, ..., sq, D]`` /
+    ``[n_split, ..., sq]`` (normalized outs and their lse) with
+    :func:`merge_attention`'s maths, summing in split order: the grid
+    combine kernel's function. Splits a row cannot see hold (0, -1e30)
+    and weigh exactly 0; a row that sees none gets (0, -1e30)."""
+    m = lse_part.max(0).values
+    m = torch.where(m > _NEG_INF / 2, m, 0.0)   # no live split: no nan
+    wts = torch.exp(lse_part - m)
+    acc, l = out_part[0] * wts[0][..., None], wts[0]
+    for s in range(1, lse_part.shape[0]):
+        acc = acc + out_part[s] * wts[s][..., None]
+        l = l + wts[s]
+    denom = torch.where(l == 0.0, 1.0, l)
+    lse = torch.where(l > 0.0, m + torch.log(denom), _NEG_INF)
+    return acc / denom[..., None], lse
+
+
+def _sum_splits(parts):
+    """Sum over the leading split axis in split order (the reduce
+    kernels' order)."""
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
+def fwd_grid_parts(q, k, v, q0, k0, sm_scale, causal, block_k):
+    """The split forward's per-split partials ``(out_part [n_split, ...,
+    sq, D], lse_part [n_split, ..., sq])``: each split's own softmax over
+    its :func:`split_width` ``(block_k)`` keys, with the kernel's folded
+    scale; a row that sees no key of a split holds (0, -1e30) there."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    qs = _fold_scale(q, sm_scale)
+    sk = k.shape[-2]
+    parts = [attention_with_lse(qs, k[..., sl, :], v[..., sl, :],
+                                causal=causal, sm_scale=1.0, q_offset=q0,
+                                k_offset=k0 + sl.start)
+             for sl in _splits(sk, split_width(block_k, sk))]
+    return (torch.stack([o for o, _ in parts]),
+            torch.stack([l for _, l in parts]))
+
+
+def _fwd_grid_plain(q, k, v, q0, k0, sm_scale, causal, block_k):
+    out_part, lse_part = fwd_grid_parts(q, k, v, q0, k0, sm_scale, causal,
+                                        block_k)
+    if out_part.shape[0] == 1:     # one split: its partial is the result
+        return out_part[0], lse_part[0]
+    return _combine_splits(out_part, lse_part)
+
+
+def flash_fwd_grid_plain(q, k, v, sm_scale=None, causal=False, block_k=512):
+    """Plain version of the split-KV forward without offsets (TPU kernel
+    ``_flash_fwd_grid_kernel``): per-split ``(out, lse)`` over
+    :func:`split_width` ``(block_k)`` keys each, merged by
+    :func:`_combine_splits`, with the kernel's folded scale."""
+    return _fwd_grid_plain(q, k, v, 0, 0, sm_scale, causal, block_k)
+
+
+def flash_fwd_offs_grid_plain(q, k, v, offs, sm_scale=None, causal=True,
+                              block_k=512):
+    """Plain version of the split-KV forward at global offsets ``offs =
+    [q0, k0]`` (TPU kernel ``_flash_fwd_offs_grid_kernel``): as
+    :func:`flash_fwd_grid_plain`; rows with no visible key get out 0 and
+    lse -1e30 exactly."""
+    return _fwd_grid_plain(q, k, v, offs[0], offs[1], sm_scale, causal,
+                           block_k)
+
+
+def flash_bwd_offs_grid_plain(q, k, v, offs, do, dlse, out, lse,
+                              sm_scale=None, causal=True, block_q=512,
+                              block_k=512):
+    """Plain version of the split backward (TPU kernels
+    ``_flash_bwd_dq_grid_kernel`` / ``_flash_bwd_dkv_grid_kernel``): the
+    formulas of :func:`flash_bwd_offs_plain`, with ``dq`` summed over key
+    splits of :func:`split_width` ``(block_k)`` and ``dk``/``dv`` over
+    query splits of ``split_width(block_q)``, each in split order, then
+    ``dq`` scaled by ``sm_scale`` once."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    dq, dk, dv = bwd_grid_parts(q, k, v, offs, do, dlse, out, lse, sm_scale,
+                                causal, block_q, block_k)
+    return ((_sum_splits(dq) * sm_scale).to(q.dtype),
+            _sum_splits(dk).to(k.dtype), _sum_splits(dv).to(v.dtype))
+
+
+def bwd_grid_parts(q, k, v, offs, do, dlse, out, lse, sm_scale, causal,
+                   block_q, block_k):
+    """The split backward's per-split partials in float32: unscaled
+    ``dq`` over key splits of :func:`split_width` ``(block_k)``, ``dk`` and
+    ``dv`` over query splits of ``split_width(block_q)``, each stacked on
+    a leading split axis; a split a row (key) cannot see holds zeros."""
+    qs, p, ds = _bwd_terms(q, k, v, offs, do, dlse, out, lse, sm_scale,
+                           causal)
+    sq, sk = q.shape[-2], k.shape[-2]
+    kf, qsf, dof = k.float(), qs.float(), do.float()
+    dq = torch.stack([ds[..., sl] @ kf[..., sl, :]
+                      for sl in _splits(sk, split_width(block_k, sk))])
+    q_splits = _splits(sq, split_width(block_q, sq))
+    dk = torch.stack([ds[..., sl, :].transpose(-1, -2) @ qsf[..., sl, :]
+                      for sl in q_splits])
+    dv = torch.stack([p[..., sl, :].transpose(-1, -2) @ dof[..., sl, :]
+                      for sl in q_splits])
+    return dq, dk, dv
 
 
 def resolve_kernel_tier(mode, device):
@@ -248,6 +410,22 @@ _ENTRIES = {
                             [_P] * 8 + [_I] * 4 + [_F, _I, _P]),
     "mx_flash_bwd_dkv_f32": ("flash_bwd_offs",
                              [_P] * 9 + [_I] * 4 + [_F, _I, _P]),
+    "mx_flash_fwd_grid_f32": ("flash_fwd_grid",
+                              [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
+    "mx_flash_fwd_grid_combine_f32": ("flash_fwd_grid",
+                                      [_P] * 4 + [_I] * 6 + [_P]),
+    "mx_flash_fwd_offs_grid_f32": ("flash_fwd_offs_grid",
+                                   [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+    "mx_flash_fwd_offs_grid_combine_f32": ("flash_fwd_offs_grid",
+                                           [_P] * 5 + [_I] * 6 + [_P]),
+    "mx_flash_bwd_dq_grid_f32": ("flash_bwd_grid",
+                                 [_P] * 8 + [_I] * 6 + [_F, _I, _P]),
+    "mx_flash_bwd_dkv_grid_f32": ("flash_bwd_grid",
+                                  [_P] * 9 + [_I] * 6 + [_F, _I, _P]),
+    "mx_flash_bwd_dq_grid_reduce_f32": ("flash_bwd_grid",
+                                        [_P] * 3 + [_I] * 5 + [_F, _I, _P]),
+    "mx_flash_bwd_dkv_grid_reduce_f32": ("flash_bwd_grid",
+                                         [_P] * 5 + [_I] * 7 + [_P]),
 }
 _fns = {}
 
@@ -314,6 +492,22 @@ def _check_qkv(where, q, k, v, offs=None):
     return b, h, sq, sk, d
 
 
+def _check_bwd(where, q, k, v, offs, do, deff, lse):
+    """The backward kernels' inputs (``_check_qkv`` plus do, lse, deff)."""
+    b, h, sq, sk, d = _check_qkv(where, q, k, v, offs)
+    _check(where, "do", do, q.device, torch.float32, 4)
+    if tuple(do.shape) != tuple(q.shape):
+        raise MXNetError("%s: do %s, want %s" % (where, tuple(do.shape),
+                                                 tuple(q.shape)))
+    for name, t in (("lse", lse), ("deff", deff)):
+        _check(where, name, t, q.device, torch.float32, 3)
+        if tuple(t.shape) != (b, h, sq):
+            raise MXNetError("%s: %s %s, want %s" % (where, name,
+                                                     tuple(t.shape),
+                                                     (b, h, sq)))
+    return b, h, sq, sk, d
+
+
 def _flash_fwd_offs_cuda(q, k, v, offs, sm_scale, causal):
     global launches
     b, h, sq, sk, d = _check_qkv("flash_attention_with_lse", q, k, v, offs)
@@ -346,15 +540,8 @@ def _flash_fwd_cuda(q, k, v, sm_scale, causal):
 def _flash_bwd_cuda(q, k, v, offs, do, deff, lse, sm_scale, causal):
     """dq, dk, dv by the backward pair. ``deff`` is ``_deff``'s output."""
     global launches_bwd_dq, launches_bwd_dkv
-    where = "flash attention backward"
-    b, h, sq, sk, d = _check_qkv(where, q, k, v, offs)
-    _check(where, "do", do, q.device, torch.float32, 4)
-    for name, t in (("lse", lse), ("deff", deff)):
-        _check(where, name, t, q.device, torch.float32, 3)
-        if tuple(t.shape) != (b, h, sq):
-            raise MXNetError("%s: %s %s, want %s" % (where, name,
-                                                     tuple(t.shape),
-                                                     (b, h, sq)))
+    b, h, sq, sk, d = _check_bwd("flash attention backward", q, k, v, offs,
+                                 do, deff, lse)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -369,6 +556,113 @@ def _flash_bwd_cuda(q, k, v, offs, do, deff, lse, sm_scale, causal):
     _launch("mx_flash_bwd_dkv_f32", *common, dk.data_ptr(), dv.data_ptr(),
             *tail, device=q.device)
     launches_bwd_dkv += 1
+    return dq, dk, dv
+
+
+def _check_width(where, width):
+    if width <= 0 or width % _TILE:
+        raise MXNetError("%s: split width %d is not a positive multiple of "
+                         "%d (split_width)" % (where, width, _TILE))
+
+
+def _flash_fwd_grid_cuda(q, k, v, offs, sm_scale, causal, width):
+    """(out, lse) by the split-KV forward: ``flash_fwd_offs_grid.cu`` (#3)
+    with ``offs``, ``flash_fwd_grid.cu`` (#6) when ``offs`` is None. Pass
+    1 over ``ceil(sk / width)`` key splits, then, with more than one, the
+    combine pass over a float32 workspace allocated here on q's device
+    (the caller's stream orders its reuse)."""
+    global launches_fwd_grid, launches_fwd_grid_combine
+    global launches_fwd_offs_grid, launches_fwd_offs_grid_combine
+    where = "flash_attention%s(variant='grid')" % (
+        "" if offs is None else "_with_lse")
+    b, h, sq, sk, d = _check_qkv(where, q, k, v, offs)
+    _check_width(where, width)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if b * h * sq == 0:
+        return out, lse
+    n_split = len(_splits(sk, width))
+    if n_split == 1:
+        dst_out, dst_lse = out, lse
+    else:
+        dst_out = torch.empty((n_split,) + tuple(q.shape),
+                              dtype=torch.float32, device=q.device)
+        dst_lse = torch.empty((n_split, b, h, sq), dtype=torch.float32,
+                              device=q.device)
+    geo = (b * h, sq, sk, d, width, n_split, float(sm_scale),
+           int(bool(causal)))
+    if offs is None:
+        _launch("mx_flash_fwd_grid_f32", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), dst_out.data_ptr(), dst_lse.data_ptr(), *geo,
+                device=q.device)
+        launches_fwd_grid += 1
+    else:
+        _launch("mx_flash_fwd_offs_grid_f32", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), offs.data_ptr(), dst_out.data_ptr(),
+                dst_lse.data_ptr(), *geo, device=q.device)
+        launches_fwd_offs_grid += 1
+    if n_split > 1:
+        tail = (dst_out.data_ptr(), dst_lse.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), b * h, sq, d, width, n_split,
+                int(bool(causal)))
+        if offs is None:
+            _launch("mx_flash_fwd_grid_combine_f32", *tail, device=q.device)
+            launches_fwd_grid_combine += 1
+        else:
+            _launch("mx_flash_fwd_offs_grid_combine_f32", offs.data_ptr(),
+                    *tail, device=q.device)
+            launches_fwd_offs_grid_combine += 1
+    return out, lse
+
+
+def _flash_bwd_grid_cuda(q, k, v, offs, do, deff, lse, sm_scale, causal,
+                         splits):
+    """dq, dk, dv by ``flash_bwd_grid.cu`` (#4): dq over key splits of
+    ``splits[1]`` keys, dk/dv over query splits of ``splits[0]`` rows, each
+    followed by its reduce pass when there is more than one split.
+    ``deff`` is ``_deff``'s output."""
+    global launches_bwd_dq_grid, launches_bwd_dq_grid_reduce
+    global launches_bwd_dkv_grid, launches_bwd_dkv_grid_reduce
+    where = "flash attention backward (variant='grid')"
+    b, h, sq, sk, d = _check_bwd(where, q, k, v, offs, do, deff, lse)
+    wq, wk = splits
+    _check_width(where, wq)
+    _check_width(where, wk)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if b * h * sq == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    nq, nk = len(_splits(sq, wq)), len(_splits(sk, wk))
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
+              do.data_ptr(), lse.data_ptr(), deff.data_ptr())
+    flags = (float(sm_scale), int(bool(causal)))
+    dev = q.device
+
+    def workspace(n, like):
+        return torch.empty((n,) + tuple(like.shape), dtype=torch.float32,
+                           device=dev)
+
+    dq_dst = dq if nk == 1 else workspace(nk, q)
+    _launch("mx_flash_bwd_dq_grid_f32", *common, dq_dst.data_ptr(),
+            b * h, sq, sk, d, wk, nk, *flags, device=dev)
+    launches_bwd_dq_grid += 1
+    if nk > 1:
+        _launch("mx_flash_bwd_dq_grid_reduce_f32", offs.data_ptr(),
+                dq_dst.data_ptr(), dq.data_ptr(), b * h, sq, d, wk, nk,
+                *flags, device=dev)
+        launches_bwd_dq_grid_reduce += 1
+    dk_dst, dv_dst = (dk, dv) if nq == 1 else (workspace(nq, k),
+                                               workspace(nq, v))
+    _launch("mx_flash_bwd_dkv_grid_f32", *common, dk_dst.data_ptr(),
+            dv_dst.data_ptr(), b * h, sq, sk, d, wq, nq, *flags, device=dev)
+    launches_bwd_dkv_grid += 1
+    if nq > 1:
+        _launch("mx_flash_bwd_dkv_grid_reduce_f32", offs.data_ptr(),
+                dk_dst.data_ptr(), dv_dst.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), b * h, sq, sk, d, wq, nq, flags[1],
+                device=dev)
+        launches_bwd_dkv_grid_reduce += 1
     return dq, dk, dv
 
 
@@ -396,29 +690,47 @@ def _offs0(device):
     return t
 
 
-def _flash_bwd(q, k, v, offs, do, dlse, out, lse, sm_scale, causal):
+def _flash_bwd(q, k, v, offs, do, dlse, out, lse, sm_scale, causal, splits):
+    """dq, dk, dv by the backward of the variant: ``splits`` None is the
+    stream pair, ``(wq, wk)`` the split (grid) pair."""
     if _on_cuda(q, "flash attention backward"):
         do = do.contiguous()   # one copy at most, shared by deff and kernels
         deff = _deff(do, out, dlse).contiguous()
-        return _flash_bwd_cuda(q, k, v, offs, do, deff, lse, sm_scale,
-                               causal)
-    return flash_bwd_offs_plain(q, k, v, offs, do, dlse, out, lse, sm_scale,
-                                causal)
+        if splits is None:
+            return _flash_bwd_cuda(q, k, v, offs, do, deff, lse, sm_scale,
+                                   causal)
+        return _flash_bwd_grid_cuda(q, k, v, offs, do, deff, lse, sm_scale,
+                                    causal, splits)
+    if splits is None:
+        return flash_bwd_offs_plain(q, k, v, offs, do, dlse, out, lse,
+                                    sm_scale, causal)
+    return flash_bwd_offs_grid_plain(q, k, v, offs, do, dlse, out, lse,
+                                     sm_scale, causal, *splits)
 
 
 class _FlashWithLse(torch.autograd.Function):
-    """(out, lse) at global offsets: forward ``flash_fwd_offs.cu``,
-    backward ``flash_bwd_offs.cu`` with the lse cotangent (counterpart of
-    the ``custom_vjp`` ``flash_attention_with_lse``)."""
+    """(out, lse) at global offsets, the lse cotangent included
+    (counterpart of the ``custom_vjp`` ``flash_attention_with_lse``).
+    ``splits`` None: forward ``flash_fwd_offs.cu``, backward
+    ``flash_bwd_offs.cu``; ``(wq, wk)``: forward ``flash_fwd_offs_grid.cu``
+    over key splits of ``wk``, backward ``flash_bwd_grid.cu``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, offs, sm_scale, causal):
+    def forward(ctx, q, k, v, offs, sm_scale, causal, splits=None):
         if _on_cuda(q, "flash_attention_with_lse"):
-            out, lse = _flash_fwd_offs_cuda(q, k, v, offs, sm_scale, causal)
-        else:
+            if splits is None:
+                out, lse = _flash_fwd_offs_cuda(q, k, v, offs, sm_scale,
+                                                causal)
+            else:
+                out, lse = _flash_fwd_grid_cuda(q, k, v, offs, sm_scale,
+                                                causal, splits[1])
+        elif splits is None:
             out, lse = flash_fwd_offs_plain(q, k, v, offs, sm_scale, causal)
+        else:
+            out, lse = flash_fwd_offs_grid_plain(q, k, v, offs, sm_scale,
+                                                 causal, splits[1])
         ctx.save_for_backward(q, k, v, offs, out, lse)
-        ctx.sm_scale, ctx.causal = sm_scale, causal
+        ctx.sm_scale, ctx.causal, ctx.splits = sm_scale, causal, splits
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -428,38 +740,53 @@ class _FlashWithLse(torch.autograd.Function):
         if dout is None:
             dout = torch.zeros_like(out)
         dq, dk, dv = _flash_bwd(q, k, v, offs, dout, dlse, out, lse,
-                                ctx.sm_scale, ctx.causal)
-        return dq, dk, dv, None, None, None
+                                ctx.sm_scale, ctx.causal, ctx.splits)
+        return dq, dk, dv, None, None, None, None
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Attention without offsets: forward ``flash_fwd.cu``, backward
-    ``flash_bwd_offs.cu`` at ``offs = [0, 0]`` with no lse cotangent
-    (counterpart of the ``custom_vjp`` ``_flash_attention_tpu``)."""
+    """Attention without offsets (counterpart of the ``custom_vjp``
+    ``_flash_attention_tpu``). ``splits`` None: forward ``flash_fwd.cu``,
+    backward ``flash_bwd_offs.cu``; ``(wq, wk)``: forward
+    ``flash_fwd_grid.cu`` over key splits of ``wk``, backward
+    ``flash_bwd_grid.cu``; the backward at ``offs = [0, 0]`` with no lse
+    cotangent."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale, causal):
+    def forward(ctx, q, k, v, sm_scale, causal, splits=None):
         if _on_cuda(q, "flash_attention"):
-            out, lse = _flash_fwd_cuda(q, k, v, sm_scale, causal)
-        else:
+            if splits is None:
+                out, lse = _flash_fwd_cuda(q, k, v, sm_scale, causal)
+            else:
+                out, lse = _flash_fwd_grid_cuda(q, k, v, None, sm_scale,
+                                                causal, splits[1])
+        elif splits is None:
             out, lse = flash_fwd_plain(q, k, v, sm_scale, causal)
+        else:
+            out, lse = flash_fwd_grid_plain(q, k, v, sm_scale, causal,
+                                            splits[1])
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.sm_scale, ctx.causal = sm_scale, causal
+        ctx.sm_scale, ctx.causal, ctx.splits = sm_scale, causal, splits
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd(q, k, v, _offs0(q.device), dout, None, out,
-                                lse, ctx.sm_scale, ctx.causal)
-        return dq, dk, dv, None, None
+                                lse, ctx.sm_scale, ctx.causal, ctx.splits)
+        return dq, dk, dv, None, None, None
 
 
-def _check_variant(where, variant):
-    if variant == "grid":
-        raise MXNetError("%s: variant 'grid' is not yet ported" % where)
-    if variant != "stream":
+def _splits_of(where, variant, q, k, block_q, block_k):
+    """None for ``"stream"``; for ``"grid"`` the split widths ``(wq, wk)``
+    of :func:`split_width` from the JAX call's block sizes (None: 512, the
+    JAX ``flash_attention`` default). Any other variant raises."""
+    if variant == "stream":
+        return None
+    if variant != "grid":
         raise MXNetError("%s: unknown variant %r" % (where, variant))
+    return (split_width(512 if block_q is None else block_q, q.shape[-2]),
+            split_width(512 if block_k is None else block_k, k.shape[-2]))
 
 
 def flash_attention_with_lse(q, k, v, offs, sm_scale=None, causal=True,
@@ -468,16 +795,23 @@ def flash_attention_with_lse(q, k, v, offs, sm_scale=None, causal=True,
     ``offs = int32[2] = [q0, k0]``, differentiable in q, k and v with the
     lse cotangent included (the JAX package's ``custom_vjp``).
 
-    On CUDA tensors: the CUDA kernels, or an error. On CPU tensors: the
-    plain versions :func:`flash_fwd_offs_plain` and
-    :func:`flash_bwd_offs_plain`. ``block_q``/``block_k`` are accepted for
-    signature parity with the JAX package; the kernels pick their own
-    tiles and mask ragged edges themselves. ``variant="grid"`` is not yet
-    ported."""
-    _check_variant("flash_attention_with_lse", variant)
+    On CUDA tensors: the CUDA kernels of ``variant``, or an error. On CPU
+    tensors: their plain versions (:func:`flash_fwd_offs_plain` and
+    :func:`flash_bwd_offs_plain`; :func:`flash_fwd_offs_grid_plain` and
+    :func:`flash_bwd_offs_grid_plain`). ``variant="stream"`` ignores
+    ``block_q``/``block_k`` (the kernels pick their own tiles).
+    ``variant="grid"`` splits the key axis of the forward and of dq into
+    :func:`split_width` ``(block_k)`` keys and the query axis of dk/dv into
+    ``split_width(block_q)`` rows (None: 512 each); where the JAX grid
+    launcher raises because the blocks do not divide the sequence, the
+    kernels mask the ragged split themselves and compute the same
+    function."""
+    splits = _splits_of("flash_attention_with_lse", variant, q, k, block_q,
+                        block_k)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    return _FlashWithLse.apply(q, k, v, offs, float(sm_scale), bool(causal))
+    return _FlashWithLse.apply(q, k, v, offs, float(sm_scale), bool(causal),
+                               splits)
 
 
 def flash_attention(q, k, v, *, causal=False, sm_scale=None, block_q=512,
@@ -490,24 +824,29 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None, block_q=512,
     on CPU tensors), True is ``on`` (the kernels; CPU tensors raise),
     False is ``off`` (``blockwise_attention`` with ``block_k``, on any
     device, differentiated by autograd). The kernel tier is
-    :class:`_FlashAttention`: forward ``csrc/flash_fwd.cu``, backward
-    ``csrc/flash_bwd_offs.cu``. Where the JAX entry gives way to
-    ``blockwise_attention`` because the block sizes do not divide the
-    sequence, the port keeps the kernels: they mask ragged edges
-    themselves and compute the same function (``block_q``/``block_k`` do
-    not set their tiles). ``interpret=True`` raises (no interpret mode
-    for a CUDA kernel), as does ``variant="grid"`` (not yet ported) and a
-    tensor on a device other than the CPU or CUDA."""
+    :class:`_FlashAttention` of ``variant``: ``"stream"``, forward
+    ``csrc/flash_fwd.cu`` and backward ``csrc/flash_bwd_offs.cu``, which
+    ignore ``block_q``/``block_k``; ``"grid"``, forward
+    ``csrc/flash_fwd_grid.cu`` and backward ``csrc/flash_bwd_grid.cu``,
+    whose key splits are :func:`split_width` ``(block_k)`` keys and whose
+    dk/dv query splits are ``split_width(block_q)`` rows. Where the JAX
+    entry gives way to ``blockwise_attention`` because the block sizes do
+    not divide the sequence, the port keeps the kernels of the variant:
+    they mask ragged edges themselves and compute the same function.
+    ``interpret=True`` raises (no interpret mode for a CUDA kernel), as do
+    an unknown variant and a tensor on a device other than the CPU or
+    CUDA."""
     if interpret:
         raise MXNetError("flash_attention: interpret=True has no counterpart "
                          "in the port: a CUDA kernel runs only on the card")
-    _check_variant("flash_attention", variant)
+    splits = _splits_of("flash_attention", variant, q, k, block_q, block_k)
     _on_cuda(q, "flash_attention")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     mode = "auto" if use_pallas is None else ("on" if use_pallas else "off")
     if resolve_kernel_tier(mode, q.device):
-        return _FlashAttention.apply(q, k, v, float(sm_scale), bool(causal))
+        return _FlashAttention.apply(q, k, v, float(sm_scale), bool(causal),
+                                     splits)
     out, _ = blockwise_attention(q, k, v, causal=causal, sm_scale=sm_scale,
                                  block_k=block_k)
     return out

@@ -73,7 +73,8 @@ class TransformerConfig:
         self.attn_impl = attn_impl
         self.block_k = block_k
         self.dropout = dropout
-        # "grid" exists in the JAX package; the port has "stream" only
+        # attention kernel family: 'stream' or 'grid' (split-KV here; KV
+        # as a sequential grid axis in the JAX package)
         self.attn_variant = attn_variant
         assert attn_variant in ("stream", "grid"), attn_variant
         assert d_model % num_heads == 0
@@ -138,8 +139,10 @@ def _mlp(x, lp):
 def _attention(q, k, v, cfg, mesh):
     """[B, H, S, D] causal attention on one device. The tier follows
     MXNET_TPU_MESH_KERNEL_TIER (``parallel.mesh_kernels``): the CUDA
-    kernels (forward ``flash_fwd.cu``, backward ``flash_bwd_offs.cu``)
-    or the plain ``blockwise_attention`` with ``cfg.block_k``."""
+    kernels of ``cfg.attn_variant`` ("stream": forward ``flash_fwd.cu``,
+    backward ``flash_bwd_offs.cu``; "grid": ``flash_fwd_grid.cu`` and
+    ``flash_bwd_grid.cu``, key splits of ``cfg.block_k``) or the plain
+    ``blockwise_attention`` with ``cfg.block_k``."""
     if mesh is not None:
         raise MXNetError("transformer attention over a mesh: distribution "
                          "is not yet ported (ROADMAP A10)")
@@ -239,21 +242,24 @@ def _decode_attn_prefill(q, ks, vs, start, offs, cfg, use_kernel):
     (T, H, Dh) gathered from the sequence's block table; causal at global
     offset ``start`` (query row i sits at position start + i).
 
-    Kernel tier: the CUDA flash kernel with ``offs = [start, 0]`` on the
-    device (the kernel reads it; no host round trip). Plain tier:
-    ``blockwise_attention`` with ``q_offset=start``, the same masking."""
+    Kernel tier: the CUDA flash kernel of ``cfg.attn_variant`` with
+    ``offs = [start, 0]`` on the device (the kernel reads it; no host round
+    trip), given the JAX call's block sizes, which set the grid kernel's
+    splits. Plain tier: ``blockwise_attention`` with ``q_offset=start``,
+    the same masking."""
     C, H, Dh = q.shape
     T = ks.shape[0]
     sm = 1.0 / math.sqrt(Dh)
     q4 = q.permute(1, 0, 2)[None].contiguous()          # (1, H, C, Dh)
     k4 = ks.permute(1, 0, 2)[None].contiguous()
     v4 = vs.permute(1, 0, 2)[None].contiguous()
+    # the JAX call's block sizes, which must tile C and T exactly there
+    bq = C if C % min(cfg.block_k, C) else min(cfg.block_k, C)
+    bk = T if T % min(cfg.block_k, T) else min(cfg.block_k, T)
     if use_kernel:
-        out, _ = flash_attention_with_lse(q4, k4, v4, offs, sm, True,
+        out, _ = flash_attention_with_lse(q4, k4, v4, offs, sm, True, bq, bk,
                                           variant=cfg.attn_variant)
     else:
-        # the JAX lax tier's block size: must tile T exactly
-        bk = T if T % min(cfg.block_k, T) else min(cfg.block_k, T)
         out, _ = blockwise_attention(q4, k4, v4, causal=True, sm_scale=sm,
                                      block_k=bk, q_offset=start, k_offset=0)
     return out[0].permute(1, 0, 2)                      # (C, H, Dh)

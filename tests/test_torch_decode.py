@@ -111,13 +111,21 @@ def test_params_from_jax_round_trips(models):
     walk(np_params, tparams)
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_prefill_and_step_match_jax(models, use_kernel):
+@pytest.mark.parametrize("use_kernel,variant", [
+    pytest.param(False, "stream", id="False"),
+    pytest.param(True, "stream", id="True"),
+    pytest.param(True, "grid", id="True-grid")])
+def test_prefill_and_step_match_jax(models, use_kernel, variant):
     """Two chunked prefills and one batched step with an inactive row,
     through both packages' bodies: pages within 1e-5, tokens equal.
     ``use_kernel=True`` routes prefill attention through the kernel
-    wrapper, whose CPU path is the kernel's plain version."""
+    wrapper, whose CPU path is the kernel's plain version; ``grid`` builds
+    the port's model with ``attn_variant="grid"``, so prefill runs the
+    split-KV plain version (two key splits of the 64-key table) against
+    the JAX lax tier's prefill."""
     jcfg, tcfg, jparams, _, tparams, (jprefill, jstep) = models
+    if variant != tcfg.attn_variant:
+        tcfg = tt.TransformerConfig(**{**vars(tcfg), "attn_variant": variant})
     nb, bs, mb = 16, 16, 4
     rng = np.random.RandomState(0)
     kp0 = rng.standard_normal((nb, bs, 2, 32)).astype(np.float32) * 0.1

@@ -6,7 +6,8 @@
 - The kernel tier resolver keeps the JAX package's vocabulary and fails
   loudly: tier "on" with CPU tensors, "interpret" and typos raise.
 - The kernel module imports, and its CPU path runs, without nvcc; a tensor
-  on a device with no kernel raises instead of falling back.
+  on a device with no kernel raises instead of falling back, for both
+  kernel variants ("stream" and "grid"), and an unknown variant raises.
 - The training slice: ShardedTrainStep needs CUDA unless given a device;
   what is not yet ported (half-precision kernels, a mesh) raises instead
   of running something else; fused_optupdate routes the update through
@@ -129,11 +130,13 @@ def test_wrapper_never_falls_back():
     offs = torch.empty(2, dtype=torch.int32, device="meta")
     with pytest.raises(MXNetError, match="no kernel"):
         tfa.flash_attention_with_lse(q, q, q, offs)
+    with pytest.raises(MXNetError, match="no kernel"):
+        tfa.flash_attention_with_lse(q, q, q, offs, variant="grid")
     cpu_q = torch.zeros(1, 2, 4, 32)
-    with pytest.raises(MXNetError, match="not yet ported"):
+    with pytest.raises(MXNetError, match="unknown variant"):
         tfa.flash_attention_with_lse(cpu_q, cpu_q, cpu_q,
                                      torch.zeros(2, dtype=torch.int32),
-                                     variant="grid")
+                                     variant="blocked")
 
 
 def test_train_step_defaults_to_the_card(monkeypatch):
@@ -197,8 +200,12 @@ def test_flash_attention_never_falls_back():
     cpu_q = torch.zeros(1, 2, 4, 32)
     with pytest.raises(MXNetError, match="no counterpart"):
         tfa.flash_attention(cpu_q, cpu_q, cpu_q, interpret=True)
-    with pytest.raises(MXNetError, match="not yet ported"):
-        tfa.flash_attention(cpu_q, cpu_q, cpu_q, variant="grid")
+    with pytest.raises(MXNetError, match="no kernel"):
+        tfa.flash_attention(q, q, q, causal=True, variant="grid")
+    with pytest.raises(MXNetError, match="no kernel"):
+        tfa._FlashAttention.apply(q, q, q, 0.5, True, (32, 32))
+    with pytest.raises(MXNetError, match="unknown variant"):
+        tfa.flash_attention(cpu_q, cpu_q, cpu_q, variant="blocked")
     with pytest.raises(MXNetError, match="needs CUDA"):
         tfa.flash_attention(cpu_q, cpu_q, cpu_q, use_pallas=True)
 
@@ -216,6 +223,12 @@ def test_kernel_wrappers_refuse_half_precision(dtype):
         tfa._flash_fwd_offs_cuda(q, q, q, offs, 0.125, True)
     with pytest.raises(MXNetError, match="not yet ported"):
         tfa._flash_bwd_cuda(q, q, q, offs, q, lse, lse, 0.125, True)
+    for grid_offs in (None, offs):
+        with pytest.raises(MXNetError, match="not yet ported"):
+            tfa._flash_fwd_grid_cuda(q, q, q, grid_offs, 0.125, True, 32)
+    with pytest.raises(MXNetError, match="not yet ported"):
+        tfa._flash_bwd_grid_cuda(q, q, q, offs, q, lse, lse, 0.125, True,
+                                 (32, 32))
     assert not _build._libs
 
 

@@ -6,7 +6,9 @@
   interpret mode), ``remat`` on and off, targets containing -1. The port
   runs its plain tier (``blockwise_attention`` differentiated by
   autograd) and, in a second case, its kernel tier's autograd Function,
-  which runs the kernels' plain versions on CPU tensors.
+  which runs the kernels' plain versions on CPU tensors; a third case
+  builds both models with ``attn_variant="grid"`` (the JAX grid kernels
+  in interpret mode against the port's split-KV plain versions).
 - ``grad_prologue`` (rescale -> clip -> + wd * weight) against the JAX
   one on a flat dict with out-of-range and non-finite entries.
 - Three steps of the port's ``ShardedTrainStep`` (Adam with
@@ -48,9 +50,10 @@ TIER = "MXNET_TPU_MESH_KERNEL_TIER"
 V, L, H, DM, S, B = 61, 2, 2, 32, 16, 2
 
 
-def _cfgs(remat=False, dropout=0.0):
+def _cfgs(remat=False, dropout=0.0, variant="stream"):
     kw = dict(vocab_size=V, num_layers=L, num_heads=H, d_model=DM,
-              max_len=S, block_k=8, remat=remat, dropout=dropout)
+              max_len=S, block_k=8, remat=remat, dropout=dropout,
+              attn_variant=variant)
     return jtr.TransformerConfig(**kw), ttr.TransformerConfig(**kw)
 
 
@@ -79,8 +82,9 @@ def _batch(seed):
     return toks[:, :-1], targets
 
 
-def _jax_loss_and_grads(monkeypatch, params, tokens, targets, remat):
-    jcfg, _ = _cfgs(remat=remat)
+def _jax_loss_and_grads(monkeypatch, params, tokens, targets, remat,
+                        variant="stream"):
+    jcfg, _ = _cfgs(remat=remat, variant=variant)
     monkeypatch.setenv(TIER, "interpret")
     loss, grads = jax.value_and_grad(jtr.transformer_loss)(
         jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(tokens),
@@ -108,23 +112,28 @@ def test_transformer_forward_matches_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("remat", [False, True])
-@pytest.mark.parametrize("tier", ["plain", "function"])
+@pytest.mark.parametrize("tier", ["plain", "function", "grid"])
 def test_transformer_loss_and_grads_match_jax(monkeypatch, remat, tier):
+    """``grid``: both configs with ``attn_variant="grid"`` (the JAX side
+    runs its grid kernels in interpret mode, the port the grid kernel
+    tier's Function, whose CPU path is the grid kernels' plain
+    versions)."""
     params = _np_params(2)
     tokens, targets = _batch(3)
+    variant = "grid" if tier == "grid" else "stream"
     ref_loss, ref_grads = _jax_loss_and_grads(monkeypatch, params, tokens,
-                                              targets, remat)
-    if tier == "function":
+                                              targets, remat, variant)
+    if tier != "plain":
         # the kernel tier's autograd Function; on CPU tensors it runs the
         # kernels' plain versions (forward and the written-out backward)
         monkeypatch.setattr(tfa, "resolve_kernel_tier",
                             lambda mode, device: True)
-    _, tcfg = _cfgs(remat=remat)
+    _, tcfg = _cfgs(remat=remat, variant=variant)
     tp = ttr.params_from_jax(params, "cpu")
     leaves = [t.requires_grad_(True) for t in jax.tree_util.tree_leaves(tp)]
     loss = ttr.transformer_loss(tp, torch.from_numpy(tokens),
                                 torch.from_numpy(targets), tcfg)
-    if tier == "function":
+    if tier != "plain":
         assert "_FlashAttentionBackward" in str(_grad_fns(loss))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(ref_loss), **FWD_TOL)
