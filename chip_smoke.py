@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port (``mxnet_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile-dir DIR] [--seed N]
+    python3 chip_smoke.py [--profile-dir DIR] [--seed N] [--phases A,B]
 
 Phases, each printing one JSON line (any failure exits nonzero and prints
 no result line):
@@ -149,13 +149,57 @@ no result line):
              step under torch.profiler (device time by kind, idle share,
              ops per step; with --profile-dir the table goes to
              DIR/profile_train_long.txt).
+15. rtc_kernel — mx.rtc, MXNet's runtime kernels, at n = ResNet-50's
+             parameter count (25.55 M, read from the symbol): CudaModule
+             compiles RTC_AXPY_SOURCE with NVRTC (--fmad=false; exports
+             saxpy<float> and saxpy<double>), and the Triton analog launches
+             triton_double_kernel (the JAX package's rtc test kernel). The
+             path, launch counts at 0 just before: axpy f32, saxpy<float>
+             with 96 KB of dynamic shared memory (above the 48 KB default),
+             saxpy<double> and the Triton double, once each at full size;
+             each bit for bit equal to its plain version (y + alpha * x, x *
+             2.0). A dtype mismatch, a CPU ctx, a 2048-thread block, 300 KB
+             of shared memory, a source that does not compile (NVRTC's log in
+             the message), a malformed signature and an unknown C type each
+             raise, and write and count nothing. A register_triton_op op's nd
+             function on a Python list runs on the card (one launch). Reports
+             NVRTC's version, path and compile seconds; device times from
+             CUDA graphs as in phase 3 (kernel, plain version, torch.add /
+             torch.mul as a yardstick only); the bound (12 bytes an element
+             for axpy); host microseconds per eager launch
+             (CudaKernel.launch, torch.add, the Triton launch) at 4096
+             elements.
+16. rtc_infer — ResNet-50 v2 (models/resnet.get_symbol(1000, 50,
+             "3,224,224")) at batch 32, float32, seeded weights and moving
+             statistics, inference through simple_bind(grad_req="null") and
+             forward(is_train=False) in two graphs: the built-in one, and its
+             JSON with every Activation(relu) node's op set to "user_relu"
+             (USER_RELU_SOURCE through NVRTC and register_cuda_op) and loaded
+             with load_json. 50 nodes (relu0, 3 per unit x 16, relu1). cuDNN
+             deterministic, its autotuner off. One untimed forward of each
+             graph, with the op functions wrapped, checks that Activation
+             does not run in the rewritten graph and records the user op's
+             inputs; the timed forwards run the op functions as a user does.
+             Checks: every forward's output bit for bit the built-in graph's,
+             exactly 50 user_relu launches per timed forward, each launch bit
+             for bit clamp_min on the recorded inputs, and user_relu's nd
+             function on a Python list launching on the card. Reports the
+             forward wall p50 of both graphs (12 timed forwards each, in
+             turns, the first 2 of each left out); the device time of one
+             forward's 50 launches on those tensors (CUDA graphs), against
+             clamp_min, F.relu (a yardstick only) and the bound (the 50
+             inferred outputs, 8 bytes an element); the host microseconds a
+             node costs (the user op, the built-in relu, the launch alone); a
+             profile of the rewritten forward (DIR/profile_rtc_infer.txt,
+             device time by kind, idle share).
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them.
 
 The line before last is ``{"kernels": [...]}`` with each kernel's launches
 on its path's run (serving, training, symbolic training, long-context
-serving or training), its error and times; the last line is ``{"ok": true, "device": {"platform": "gpu",
+serving or training, the rtc kernels' full-size run or the ResNet-50
+forwards), its error and times; the last line is ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``.
 """
 import argparse
@@ -759,13 +803,16 @@ def _opt_state(torch, kind, params):
 
 
 def _bit_diff(torch, got, want):
-    """(same bits, max abs diff over finite values): NaN must sit in the
-    same places, every other value must have the same bits."""
+    """(same bits, max abs diff over finite values) of two float32 or
+    float64 tensors of one shape: NaN must sit in the same places, every
+    other value must have the same bits."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False, math.inf
     nan = torch.isnan(want)
     if not torch.equal(torch.isnan(got), nan):
         return False, math.inf
-    same = torch.equal(got[~nan].view(torch.int32),
-                       want[~nan].view(torch.int32))
+    bits = {4: torch.int32, 8: torch.int64}[want.element_size()]
+    same = torch.equal(got[~nan].view(bits), want[~nan].view(bits))
     fin = torch.isfinite(want) & torch.isfinite(got)
     diff = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
     return same, diff
@@ -782,10 +829,9 @@ def resnet50_eligible_shapes(tres, tou, torch):
     return sym, eligible
 
 
-def graph_macs(torch, sym, shapes):
-    """Multiply-adds of one forward pass of ``sym`` at ``shapes`` (its
-    convolutions and fully connected layers), counted by walking the
-    graph on ``meta`` tensors."""
+def meta_walk(torch, sym, shapes):
+    """Yield (node, inputs, outputs) for each op node of ``sym`` at
+    ``shapes``, the graph run on ``meta`` tensors in topological order."""
     from mxnet_tpu_torch.executor import GraphPlan
     arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
     known = dict(zip(sym.list_arguments(), arg_shapes))
@@ -793,15 +839,20 @@ def graph_macs(torch, sym, shapes):
     plan = GraphPlan(sym)
     vals = {(nid, 0): torch.empty(known[name], device="meta")
             for nid, name, _ in plan.variables}
-    macs = 0
     for node, params, in_keys, n_vis, _ in plan.nodes:
         ins = [vals[k] for k in in_keys]
         outs = node.op.apply(params, ins, is_train=True)
         for i in range(n_vis):
             vals[(id(node), i)] = outs[i]
-        if node.op.name in ("Convolution", "FullyConnected"):
-            macs += outs[0].numel() * math.prod(ins[1].shape[1:])
-    return macs
+        yield node, ins, outs
+
+
+def graph_macs(torch, sym, shapes):
+    """Multiply-adds of one forward pass of ``sym`` at ``shapes`` (its
+    convolutions and fully connected layers)."""
+    return sum(outs[0].numel() * math.prod(ins[1].shape[1:])
+               for node, ins, outs in meta_walk(torch, sym, shapes)
+               if node.op.name in ("Convolution", "FullyConnected"))
 
 
 def phase_opt_kernel(torch, dev):
@@ -1680,9 +1731,498 @@ def phase_train_long(torch, fa, dev, seed, out_dir):
     return result, counts
 
 
+# --- runtime user kernels, mx.rtc (phases 15-16) -----------------------------
+
+RTC_REF = "mxnet_tpu/rtc.py:"
+RTC_BLOCK = 256
+RTC_ALPHA = 0.1          # rounded to float32 alike by ctypes and by torch
+RTC_BIG_SMEM = 96 * 1024  # above the 48 KB a block gets without opting in
+RTC_FORWARDS = 12       # per graph, in turns; the first 2 are warm-up
+#: MXNet's rtc pattern: an ``extern "C"`` kernel and a template staged
+#: through dynamic shared memory, exported as ``saxpy<float>`` and
+#: ``saxpy<double>``. Compiled with ``--fmad=false``, so that ``y + alpha
+#: * x`` rounds twice, as the two torch ops of the plain version do.
+RTC_AXPY_SOURCE = r"""
+extern "C" __global__ void axpy(const float *x, float *y, float alpha,
+                                long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x)
+    y[i] += alpha * x[i];
+}
+
+template <typename DType>
+__global__ void saxpy(const DType *x, DType *y, DType alpha, long long n) {
+  extern __shared__ double smem_raw[];
+  DType *smem = reinterpret_cast<DType *>(smem_raw);
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x) {
+    smem[threadIdx.x] = x[i];
+    y[i] += alpha * smem[threadIdx.x];
+  }
+}
+"""
+RTC_AXPY_SIG = "const {t} *x, {t} *y, {t} alpha, int64_t n"
+#: The user op of the full-width path: relu over n float32 elements, one
+#: read and one write each, so bound by bytes; a grid-stride loop. The
+#: sources spell 64-bit integers ``long long``, which NVRTC knows without
+#: headers; the signatures name them ``int64_t``, as MXNet's types do.
+USER_RELU_SOURCE = r"""
+extern "C" __global__ void user_relu(const float *x, float *y, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x)
+    y[i] = x[i] > 0.0f ? x[i] : 0.0f;
+}
+"""
+USER_RELU_SIG = "const float *x, float *y, int64_t n"
+
+
+def rtc_grid(n):
+    return ((n + RTC_BLOCK - 1) // RTC_BLOCK, 1, 1), (RTC_BLOCK, 1, 1)
+
+
+def triton_double_kernel():
+    """The JAX package's rtc test kernel (``o = x * 2``) as a
+    ``@triton.jit`` function: one masked elementwise pass per block."""
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def double_kernel(x_ptr, out_ptr, n, BLOCK: tl.constexpr):
+        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n
+        x = tl.load(x_ptr + offs, mask=mask)
+        tl.store(out_ptr + offs, x * 2.0, mask=mask)
+
+    return double_kernel
+
+
+def host_us(torch, fn, n=200):
+    """Host microseconds per eager call of ``fn``: the enqueue, timed on
+    the host clock before the closing synchronize (at a size whose device
+    time is below it)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def expect_raise(what, fn, errors, match=None):
+    """``fn()`` must raise one of ``errors`` (with ``match`` in the
+    message); returns the message."""
+    try:
+        fn()
+    except errors as e:
+        if match is not None and match not in str(e):
+            fail("rtc_kernel %s: raised %r without %r" % (what, e, match))
+        return str(e)
+    fail("rtc_kernel %s: did not raise" % what)
+
+
+def resnet50_param_count(tres):
+    sym = tres.get_symbol(num_classes=1000, num_layers=50,
+                          image_shape="3,224,224")
+    arg_shapes, _, _ = sym.infer_shape(**RESNET_SHAPES)
+    return sum(math.prod(s) for n, s in zip(sym.list_arguments(), arg_shapes)
+               if n not in RESNET_SHAPES)
+
+
+def phase_rtc_kernel(torch, dev):
+    """``mx.rtc`` at the size of ResNet-50's parameters (module docstring,
+    phase 15). Returns (result, kernel rows)."""
+    from mxnet_tpu_torch import MXNetError, rtc
+    from mxnet_tpu_torch.kernels import _rtc_driver
+    from mxnet_tpu_torch.models import resnet as tres
+    major, minor, nvrtc_path = _rtc_driver.nvrtc_version()
+    n = resnet50_param_count(tres)
+    mod = rtc.CudaModule(RTC_AXPY_SOURCE, options=("--fmad=false",),
+                         exports=("saxpy<float>", "saxpy<double>"))
+    axpy = mod.get_kernel("axpy", RTC_AXPY_SIG.format(t="float"))
+    sax_f = mod.get_kernel("saxpy<float>", RTC_AXPY_SIG.format(t="float"))
+    sax_d = mod.get_kernel("saxpy<double>", RTC_AXPY_SIG.format(t="double"))
+    tmod = rtc.TritonModule()
+    tdouble = tmod.add_kernel("double", triton_double_kernel(),
+                              lambda x: torch.empty_like(x),
+                              plain_fn=lambda x: x * 2.0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    x = torch.randn(n, device=dev, generator=gen)
+    y0 = torch.randn(n, device=dev, generator=gen)
+    xd = torch.randn(n, device=dev, generator=gen, dtype=torch.float64)
+    yd0 = torch.randn(n, device=dev, generator=gen, dtype=torch.float64)
+    grid, block = rtc_grid(n)
+    t_grid = ((n + 1023) // 1024,)
+    torch.cuda.synchronize()
+
+    # the path: every count to 0, then each kernel once at full size
+    kernels = {"axpy": axpy, "saxpy_f32_smem96k": sax_f,
+               "saxpy_f64": sax_d, "triton_double": tdouble}
+    for k in kernels.values():
+        k.launches = 0
+    y, ys, yd = y0.clone(), y0.clone(), yd0.clone()
+    axpy.launch([x, y, RTC_ALPHA, n], dev, grid, block)
+    sax_f.launch([x, ys, RTC_ALPHA, n], dev, grid, block, RTC_BIG_SMEM)
+    sax_d.launch([xd, yd, RTC_ALPHA, n], dev, grid, block,
+                 RTC_BLOCK * 8)
+    x2 = tdouble.launch([x], t_grid, n=n, BLOCK=1024)._data
+    torch.cuda.synchronize()
+    counts = {k: v.launches for k, v in kernels.items()}
+    if counts != {k: 1 for k in kernels}:
+        fail("rtc_kernel: launch counts %s, want one each" % counts)
+
+    plain = {"axpy": y0 + RTC_ALPHA * x, "saxpy_f64": yd0 + RTC_ALPHA * xd,
+             "triton_double": x * 2.0}
+    plain["saxpy_f32_smem96k"] = plain["axpy"]
+    got = {"axpy": y, "saxpy_f32_smem96k": ys, "saxpy_f64": yd,
+           "triton_double": x2}
+    errs = {}
+    for k in kernels:
+        errs[k] = (got[k] - plain[k]).abs().max().item()
+        if not _bit_diff(torch, got[k], plain[k])[0]:
+            fail("rtc_kernel %s: differs from its plain version (max abs "
+                 "diff %g)" % (k, errs[k]))
+
+    # every refused launch raises and writes nothing
+    before = y.clone()
+    cpu = torch.device("cpu")
+    refusals = {
+        "dtype": expect_raise("dtype mismatch", lambda: axpy.launch(
+            [xd, y, RTC_ALPHA, n], dev, grid, block), MXNetError,
+            "takes torch.float32"),
+        "cpu_ctx": expect_raise("cpu ctx", lambda: axpy.launch(
+            [x[:8].cpu(), y[:8].cpu(), RTC_ALPHA, 8], cpu, grid, block),
+            MXNetError,
+            "only be launched on GPU"),
+        "block_2048": expect_raise("2048-thread block", lambda: axpy.launch(
+            [x, y, RTC_ALPHA, n], dev, grid, (2048, 1, 1)), MXNetError,
+            "cuLaunchKernel"),
+        "smem_300k": expect_raise("300 KB of shared memory",
+                                  lambda: sax_f.launch(
+            [x, y, RTC_ALPHA, n], dev, grid, block, 300 * 1024), MXNetError,
+            "MAX_DYNAMIC_SHARED"),
+        "compile": expect_raise("a source that does not compile",
+                                lambda: rtc.CudaModule(
+            'extern "C" __global__ void broken(float *x) '
+            '{ x[0] = undefined_name; }'), MXNetError, "undefined_name"),
+        "signature": expect_raise("a malformed signature",
+                                  lambda: mod.get_kernel("axpy", "float x y"),
+                                  ValueError),
+        "ctype": expect_raise("an unknown C type",
+                              lambda: mod.get_kernel("axpy", "half *x"),
+                              TypeError)}
+    torch.cuda.synchronize()
+    if not torch.equal(y, before):
+        fail("rtc_kernel: a refused launch wrote its output")
+    if {k: v.launches for k, v in kernels.items()} != counts:
+        fail("rtc_kernel: a refused launch was counted")
+
+    # a registered op's nd function puts host data (a list) on the card,
+    # as NDArray does, and launches its kernel (register_triton_op's path;
+    # no plain_fn, so the CPU would raise)
+    tnd = rtc.register_triton_op(
+        "rtc_smoke_double", triton_double_kernel(),
+        lambda v: torch.empty_like(v),
+        grid=lambda v: ((v.numel() + 1023) // 1024,),
+        kwargs=lambda v: {"n": v.numel(), "BLOCK": 1024})
+    host_out = tnd([float(i - 2048) for i in range(4096)])
+    torch.cuda.synchronize()
+    if host_out.context != dev or tnd.kernel.launches != 1 or \
+            not torch.equal(host_out._data, 2.0 * torch.arange(
+                -2048, 2048, device=dev, dtype=torch.float32)):
+        fail("rtc_kernel: the registered Triton op on host data ran on %s "
+             "with %d launches" % (host_out.context, tnd.kernel.launches))
+
+    # device times (CUDA graphs), the bound, and eager host cost
+    ms = {"axpy": time_ms(lambda: axpy.launch([x, y, RTC_ALPHA, n], dev,
+                                              grid, block)),
+          "saxpy_f32_smem96k": time_ms(lambda: sax_f.launch(
+              [x, ys, RTC_ALPHA, n], dev, grid, block, RTC_BIG_SMEM)),
+          "saxpy_f64": time_ms(lambda: sax_d.launch(
+              [xd, yd, RTC_ALPHA, n], dev, grid, block, RTC_BLOCK * 8)),
+          "triton_double": time_ms(lambda: tdouble.launch(
+              [x], t_grid, n=n, BLOCK=1024))}
+    plain_ms = {"axpy": time_ms(lambda: y + RTC_ALPHA * x),
+                "saxpy_f64": time_ms(lambda: yd + RTC_ALPHA * xd),
+                "triton_double": time_ms(lambda: x * 2.0)}
+    plain_ms["saxpy_f32_smem96k"] = plain_ms["axpy"]
+    lib_ms = {"axpy": time_ms(lambda: torch.add(y, x, alpha=RTC_ALPHA)),
+              "saxpy_f64": time_ms(lambda: torch.add(yd, xd,
+                                                     alpha=RTC_ALPHA)),
+              "triton_double": time_ms(lambda: torch.mul(x, 2.0))}
+    lib_ms["saxpy_f32_smem96k"] = lib_ms["axpy"]
+    rows = {}
+    for k in kernels:
+        size = 8 if k == "saxpy_f64" else 4
+        per = 2 if k == "triton_double" else 3   # arrays read or written
+        b_ms, b_by = bound_ms((1 if k == "triton_double" else 2) * n,
+                              per * size * n)
+        rows[k] = {"ms": ms[k], "plain_ms": plain_ms[k],
+                   "library_ms": lib_ms[k], "bound_ms": b_ms,
+                   "bound_by": b_by, "share": b_ms / ms[k],
+                   "max_abs_err": errs[k], "launches": counts[k]}
+    xs, ys_small = x[:4096].clone(), y[:4096].clone()
+    sgrid, sblock = rtc_grid(4096)
+    eager = {"cudakernel_launch_us": host_us(torch, lambda: axpy.launch(
+        [xs, ys_small, RTC_ALPHA, 4096], dev, sgrid, sblock)),
+        "torch_add_us": host_us(torch, lambda: torch.add(
+            ys_small, xs, alpha=RTC_ALPHA)),
+        "triton_launch_us": host_us(torch, lambda: tdouble.launch(
+            [xs], (4,), n=4096, BLOCK=1024))}
+    result = {"phase": "rtc_kernel", "nvrtc": "%d.%d" % (major, minor),
+              "nvrtc_path": nvrtc_path, "n": n,
+              "compile_s": mod.compile_seconds,
+              "compile_log": mod.log, "bitwise": True, "kernels": rows,
+              "refusals": {k: v.splitlines()[0][:160]
+                           for k, v in refusals.items()},
+              "host_data_device": str(host_out.context),
+              "eager_host": eager}
+    return result, rows
+
+
+def activation_shapes(torch, sym, shapes):
+    """Output shapes of ``sym``'s Activation nodes at ``shapes``, in
+    graph order."""
+    return [tuple(outs[0].shape) for node, _, outs in
+            meta_walk(torch, sym, shapes) if node.op.name == "Activation"]
+
+
+def resnet_values(torch, sym, dev, seed):
+    """Seeded weights, BN affine parameters and moving statistics, and a
+    batch, on the card. Convolutions take 0.7 of the He-normal scale:
+    inference BatchNorm with these statistics does not renormalize, so at
+    the full scale the pre-activation residual sum doubles its variance
+    unit by unit and the softmax saturates; at 0.7 the log-probabilities
+    of a row span about 3 (a batch of 4 on the CPU)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    arg_shapes, _, aux_shapes = sym.infer_shape(**RESNET_SHAPES)
+
+    def rand(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, device=dev, generator=gen)
+
+    def randn(shape, std):
+        return std * torch.randn(shape, device=dev, generator=gen)
+
+    args, aux = {}, {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name == "data":
+            args[name] = rand(shape, -1, 1)
+        elif name == "softmax_label":
+            args[name] = torch.randint(0, 1000, shape, device=dev,
+                                       generator=gen).float()
+        elif name.endswith("_gamma"):
+            args[name] = rand(shape, 0.8, 1.2)
+        elif name.endswith("_beta") or name.endswith("_bias"):
+            args[name] = randn(shape, 0.1)
+        elif name.startswith("fc"):
+            args[name] = randn(shape, 0.01)
+        else:
+            args[name] = randn(shape, 0.7 * math.sqrt(
+                2.0 / math.prod(shape[1:])))
+    for name, shape in zip(sym.list_auxiliary_states(), aux_shapes):
+        aux[name] = (randn(shape, 0.1) if name.endswith("_mean")
+                     else rand(shape, 0.5, 1.5))
+    return args, aux
+
+
+def kind_of_rtc(name):
+    """The kind of a device kernel of the rtc_infer forward (phase 16)."""
+    return "user_relu_#8" if "user_relu" in name else kind_of(name)
+
+
+def phase_rtc_infer(torch, dev, seed, out_dir):
+    """ResNet-50 inference with a runtime-compiled user op in place of
+    every relu (module docstring, phase 16). Returns (result, the
+    user_relu kernel row)."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.kernels import _rtc_driver
+    from mxnet_tpu_torch.models import resnet as tres
+    from mxnet_tpu_torch.ops import find_op
+    from mxnet_tpu_torch.symbol import load_json
+    t0 = time.perf_counter()
+    mod = rtc.CudaModule(USER_RELU_SOURCE)
+    relu_k = mod.get_kernel("user_relu", USER_RELU_SIG)
+
+    def plain_relu(x):
+        if x.is_cuda:
+            fail("rtc_infer: a CUDA tensor reached user_relu's plain version")
+        return torch.clamp_min(x, 0)
+
+    relu_nd = rtc.register_cuda_op(
+        "user_relu", relu_k, lambda x: torch.empty_like(x),
+        lambda x: rtc_grid(x.numel()), scalars=lambda x: (x.numel(),),
+        plain_fn=plain_relu)
+    sym = tres.get_symbol(num_classes=1000, num_layers=50,
+                          image_shape="3,224,224")
+    graph = json.loads(sym.tojson())
+    rewritten = [nd["name"] for nd in graph["nodes"]
+                 if nd["op"] == "Activation"
+                 and nd.get("attrs", {}).get("act_type") == "relu"]
+    for nd in graph["nodes"]:
+        if nd["name"] in rewritten:
+            nd["op"] = "user_relu"
+    user_sym = load_json(json.dumps(graph))
+    shapes = activation_shapes(torch, sym, RESNET_SHAPES)
+    if len(rewritten) != 50 or len(shapes) != 50:
+        fail("rtc_infer: %d relu nodes rewritten (%d Activation outputs), "
+             "want 50" % (len(rewritten), len(shapes)))
+    elements = sum(math.prod(s) for s in shapes)
+    args, aux = resnet_values(torch, sym, dev, seed)
+    exes = {}
+    for key, s in (("builtin", sym), ("user", user_sym)):
+        exe = s.simple_bind(dev, grad_req="null", **RESNET_SHAPES)
+        for k, v in args.items():
+            exe.arg_dict[k][:] = v
+        for k, v in aux.items():
+            exe.aux_dict[k][:] = v
+        exes[key] = exe
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    activation, user_op = find_op("Activation"), find_op("user_relu")
+    act_fn, user_fn = activation.fn, user_op.fn
+    act_calls, relu_inputs = [0], []
+
+    def counting_act(params, x):
+        if x.device.type != "meta":
+            act_calls[0] += 1
+        return act_fn(params, x)
+
+    def recording_user(params, x):
+        if x.device.type == "cuda" and len(relu_inputs) < 50:
+            relu_inputs.append(x)
+        return user_fn(params, x)
+
+    prior = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    walls, outs = {"user": [], "builtin": []}, {"user": [], "builtin": []}
+    acts = {}
+    try:
+        # one untimed forward of each graph with the op functions wrapped:
+        # which op ran each relu, and the user op's inputs
+        activation.fn, user_op.fn = counting_act, recording_user
+        try:
+            for key in ("user", "builtin"):
+                calls_before = act_calls[0]
+                outs[key].append(exes[key].forward(is_train=False)[0]._data)
+                acts[key] = act_calls[0] - calls_before
+        finally:
+            activation.fn, user_op.fn = act_fn, user_fn
+        torch.cuda.synchronize()
+        # the path, as a user runs it: the rewritten graph's forwards, its
+        # kernel's count at 0 just before and read just after; the built-in
+        # graph's forwards in turns with them (the host's speed drifts)
+        relu_k.launches = 0
+        for _ in range(RTC_FORWARDS):
+            for key in ("user", "builtin"):
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                out = exes[key].forward(is_train=False)[0]._data
+                torch.cuda.synchronize()
+                walls[key].append((time.perf_counter() - ts) * 1e3)
+                outs[key].append(out)
+        launches = relu_k.launches
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prior
+    if launches != 50 * RTC_FORWARDS or relu_k.launches != launches:
+        fail("rtc_infer: user_relu launched %d times in %d forwards (then "
+             "%d), want 50 each" % (launches, RTC_FORWARDS, relu_k.launches))
+    if acts != {"user": 0, "builtin": 50}:
+        fail("rtc_infer: Activation ran %s times, want none in the "
+             "rewritten graph and 50 a forward in the built-in one" % acts)
+    want = outs["builtin"][0]
+    if tuple(want.shape) != (SYM_BATCH, 1000) or \
+            not torch.isfinite(want).all():
+        fail("rtc_infer: output of shape %s, finite: %s"
+             % (tuple(want.shape), torch.isfinite(want).all().item()))
+    for key in ("user", "builtin"):
+        for i, o in enumerate(outs[key]):
+            if not _bit_diff(torch, o, want)[0]:
+                fail("rtc_infer: %s forward %d differs from the built-in "
+                     "graph (max abs diff %g)" % (
+                         key, i, (o - want).abs().max().item()))
+    # the op's nd function puts host data (a list) on the card and
+    # launches the kernel there, not plain_relu
+    before = relu_k.launches
+    host_out = relu_nd([-1.5, 0.0, 2.5, -0.0, 3.0])
+    torch.cuda.synchronize()
+    if host_out.context != dev or relu_k.launches != before + 1 or \
+            host_out.asnumpy().tolist() != [0.0, 0.0, 2.5, 0.0, 3.0]:
+        fail("rtc_infer: user_relu on host data ran on %s, %d launches, "
+             "gave %s" % (host_out.context, relu_k.launches - before,
+                          host_out.asnumpy().tolist()))
+    if [tuple(x.shape) for x in relu_inputs] != shapes:
+        fail("rtc_infer: the user op saw shapes %s, inferred %s"
+             % ([tuple(x.shape) for x in relu_inputs], shapes))
+
+    # device time of one forward's 50 launches over its own tensors
+    relu_outs = [torch.empty_like(x) for x in relu_inputs]
+    dims = [rtc_grid(x.numel()) for x in relu_inputs]
+
+    def kernel50():
+        for x, o, (g, b) in zip(relu_inputs, relu_outs, dims):
+            relu_k.launch([x, o, x.numel()], dev, g, b)
+
+    err = 0.0
+    kernel50()
+    for x, o in zip(relu_inputs, relu_outs):
+        ref = torch.clamp_min(x, 0)
+        if not _bit_diff(torch, o, ref)[0]:
+            fail("rtc_infer: user_relu differs from clamp_min at %s"
+                 % (tuple(x.shape),))
+        err = max(err, (o - ref).abs().max().item())
+    ms = time_ms(kernel50, iters=5)
+    plain_ms = time_ms(lambda: [torch.clamp_min(x, 0) for x in relu_inputs],
+                       iters=5)
+    lib_ms = time_ms(lambda: [F.relu(x) for x in relu_inputs], iters=5)
+    b_ms, b_by = bound_ms(elements, 8 * elements)
+    # host cost a node: the user op (outputs allocated, then the launch)
+    # and the built-in relu, as run_graph calls them, and the launch
+    # alone, on one image of the last relu's input
+    xs, xo = relu_inputs[-1][:1], relu_outs[-1][:1]
+    act_params = activation.make_params({"act_type": "relu"})
+    user_params = user_op.make_params({})
+    op_host = {"user_relu_op_us": host_us(
+        torch, lambda: user_op.apply(user_params, [xs])),
+        "activation_relu_op_us": host_us(
+            torch, lambda: activation.apply(act_params, [xs])),
+        "cudakernel_launch_us": host_us(torch, lambda: relu_k.launch(
+            [xs, xo, xs.numel()], dev, *rtc_grid(xs.numel())))}
+    del relu_outs, xo
+    prof = profile_calls(torch, lambda: exes["user"].forward(is_train=False),
+                         "rtc_infer", out_dir, warm=2, n=5, calls=3,
+                         classify=kind_of_rtc)
+    probs = want.float()
+    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / ms,
+           "max_abs_err": err, "launches": launches,
+           "elements": elements}
+    major, minor, nvrtc_path = _rtc_driver.nvrtc_version()
+    result = {"phase": "rtc_infer", "model": "resnet50",
+              "nvrtc": "%d.%d" % (major, minor), "nvrtc_path": nvrtc_path,
+              "batch": list(RESNET_SHAPES["data"]), "setup_s": setup_s,
+              "compile_s": mod.compile_seconds,
+              "rewritten_nodes": len(rewritten),
+              "forwards": RTC_FORWARDS, "launches": launches,
+              "forward_ms_p50": {k: statistics.median(v[2:])
+                                 for k, v in walls.items()},
+              "forward_ms": walls, "bitwise": True,
+              "max_prob_mean": probs.max(1).values.mean().item(),
+              "user_relu_50": row, "host_per_node": op_host,
+              "profile": prof}
+    return result, row
+
+
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
-          "grid_kernel", "serve_long", "train_long")
+          "grid_kernel", "serve_long", "train_long", "rtc_kernel",
+          "rtc_infer")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",)}
@@ -1867,6 +2407,38 @@ def main():
                 "shape": ("q (1,8,1024,64) k/v (1,8,4096,64) f32 offs "
                           "[2816,0], 8 key splits" if key.startswith("offs")
                           else "q/k/v (4,8,4096,64) f32 causal, 8 splits")})
+    if "rtc_kernel" in phases:
+        rtc_result, rtc_rows = phase_rtc_kernel(torch, dev)
+        emit({**rtc_result, "card": card})
+        torch.cuda.empty_cache()
+        for entry, key, route, line in (
+                ("rtc_axpy_f32", "axpy", "cuda", "57"),
+                ("triton_double_f32", "triton_double", "triton", "57")):
+            row = rtc_rows[key]
+            entries.append({
+                "name": entry, "route": route, "source": "chip_smoke.py",
+                "replaces": RTC_REF + line, "launches": row["launches"],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"],
+                "shape": "%d f32 elements (ResNet-50's parameters), %s"
+                         % (rtc_result["n"], "RTC_AXPY_SOURCE via NVRTC"
+                            if route == "cuda" else "triton_double_kernel")})
+    if "rtc_infer" in phases:
+        infer, row = phase_rtc_infer(torch, dev, args.seed, args.profile_dir)
+        emit({**infer, "card": card})
+        torch.cuda.empty_cache()
+        entries.append({
+            "name": "rtc_user_relu_f32", "route": "cuda",
+            "source": "chip_smoke.py", "replaces": RTC_REF + "96",
+            "launches": row["launches"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": "the 50 relu inputs of one ResNet-50 forward at batch "
+                     "32 (%d f32 elements), USER_RELU_SOURCE via NVRTC"
+                     % row["elements"]})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

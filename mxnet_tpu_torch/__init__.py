@@ -14,7 +14,11 @@ one card: ``mx.sym`` builds a graph (``models.resnet.get_symbol``),
 ``Executor``/``simple_bind`` run it, and ``parallel.DataParallelTrainStep``
 trains it, the optimizer update through the CUDA kernel
 ``kernels/csrc/opt_update.cu``; ``mx.nd`` reads and writes the reference's
-``.params`` files.
+``.params`` files. Its fifth slice brings back MXNet's runtime kernels:
+``rtc.CudaModule`` compiles CUDA C with NVRTC for the card, and
+``rtc.register_cuda_op`` makes a kernel an op that ``mx.sym`` graphs,
+``load_json`` and ``Executor`` run like any built-in (a Triton analog
+beside it).
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``, and raise ``MXNetError`` when CUDA is missing.
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 __version__ = "1.2.0+cuda"
 
-from . import models, name, ndarray, parallel, profiler, symbol
+from . import models, name, ndarray, parallel, profiler, rtc, symbol
 from .base import MXNetError
 from .context import cpu, gpu, default_device
 from .executor import Executor
@@ -34,5 +38,6 @@ nd = ndarray
 
 __all__ = ["MXNetError", "cpu", "gpu", "default_device", "profiler",
            "parallel", "ShardedTrainStep", "DataParallelTrainStep",
-           "Executor", "models", "name", "nd", "ndarray", "sym", "symbol",
+           "Executor", "models", "name", "nd", "ndarray", "rtc", "sym",
+           "symbol",
            "__version__"]

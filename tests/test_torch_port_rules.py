@@ -17,17 +17,27 @@
   never falls back (an eligible CUDA leaf with no nvcc raises, a bad
   grad or slot raises before anything is built, any other device
   raises); what is not yet ported raises.
+- The rtc slice: without CUDA, libcuda or NVRTC, ``CudaModule`` raises
+  naming what is missing; a launch on the CPU, or with arguments that do
+  not match the signature, raises before anything runs; a user op with
+  no plain version raises on CPU tensors, and on an input that requires
+  grad under grad mode (also inside a training graph); the Pallas names
+  raise with guidance; importing the port loads neither libcuda, NVRTC
+  nor triton.
 """
 import ast
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch import MXNetError
-from mxnet_tpu_torch.kernels import _build
+from mxnet_tpu_torch import MXNetError, rtc
+from mxnet_tpu_torch.kernels import _build, _rtc_driver
 from mxnet_tpu_torch.kernels import flash_attention as tfa
 from mxnet_tpu_torch.kernels import opt_update as tou
 from mxnet_tpu_torch.models.transformer import (TransformerConfig,
@@ -362,3 +372,211 @@ def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
         exe.reshape(data=(3, 4))
     with pytest.raises(MXNetError, match="not yet ported"):
         exe.arg_dict["data"][0] = 1.0
+
+
+# --------------------------------------------------------- the rtc slice ----
+
+_AXPY = 'extern "C" __global__ void axpy(const float *x, float *y, float a, ' \
+    'int n) { }'
+_AXPY_SIG = "const float *x, float *y, float alpha, int n"
+
+
+def _stand_in_kernel(monkeypatch, signature=_AXPY_SIG):
+    """A kernel of a ``CudaModule`` compiled by a stand-in for NVRTC (this
+    host has none): it holds no machine code and is never loaded."""
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(_rtc_driver, "driver", lambda: None)
+        m.setattr(_rtc_driver, "compile_program",
+                  lambda src, options, exports: (b"", {}, ""))
+        return rtc.CudaModule(_AXPY).get_kernel("axpy", signature)
+
+
+_op_ids = iter(range(10 ** 6))
+
+
+def _user_op(monkeypatch, plain_fn):
+    name = "rules_user_op_%d" % next(_op_ids)
+    kernel = _stand_in_kernel(monkeypatch, "const float *x, float *y")
+    nd_fn = rtc.register_cuda_op(name, kernel, lambda x: torch.empty_like(x),
+                                 lambda x: ((1, 1, 1), (32, 1, 1)),
+                                 plain_fn=plain_fn)
+    return name, nd_fn, kernel
+
+
+def test_cuda_module_names_what_is_missing(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="CudaModule needs CUDA"):
+        rtc.CudaModule(_AXPY)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setitem(_rtc_driver._state, "driver", None)
+    monkeypatch.setattr(_rtc_driver, "LIBCUDA",
+                        str(tmp_path / "libcuda.so.1"))
+    with pytest.raises(MXNetError, match="needs the CUDA driver"):
+        rtc.CudaModule(_AXPY)
+    monkeypatch.setattr(_rtc_driver, "driver", lambda: None)
+    monkeypatch.setitem(_rtc_driver._state, "nvrtc", None)
+    monkeypatch.setattr(_rtc_driver, "_nvrtc_dirs", lambda: [str(tmp_path)])
+    with pytest.raises(MXNetError, match="needs NVRTC") as err:
+        rtc.CudaModule(_AXPY)
+    for name in _rtc_driver.NVRTC_NAMES:
+        assert str(tmp_path / name) in str(err.value)
+
+
+def test_nvrtc_search_order(monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", "/toolkits/cuda-x")
+    dirs = _rtc_driver._nvrtc_dirs()
+    assert dirs[:2] == ["/toolkits/cuda-x/lib64", "/usr/local/cuda/lib64"]
+    assert dirs[2].endswith(os.path.join("nvidia", "cuda_nvrtc", "lib"))
+    monkeypatch.delenv("CUDA_HOME")
+    assert _rtc_driver._nvrtc_dirs()[0] == "/usr/local/cuda/lib64"
+
+
+def test_cuda_kernel_launch_refuses_the_cpu(monkeypatch):
+    kernel = _stand_in_kernel(monkeypatch)
+    x, y = torch.ones(4), torch.zeros(4)
+    for ctx in (tmx.cpu(), "cpu", torch.device("meta")):
+        with pytest.raises(MXNetError, match="only be launched on GPU"):
+            kernel.launch([x, y, 1.0, 4], ctx, (1, 1, 1), (4, 1, 1))
+    assert kernel.launches == 0 and torch.equal(y, torch.zeros(4))
+
+
+_BAD_ARGS = {
+    "dtype": (lambda x, y: [x.double(), y, 1.0, 4], MXNetError,
+              "takes torch.float32"),
+    "count": (lambda x, y: [x, y, 1.0], MXNetError, "expects 4 arguments"),
+    "numpy": (lambda x, y: [x.numpy(), y, 1.0, 4], TypeError,
+              "expected to be a NDArray"),
+    "strided": (lambda x, y: [torch.ones(8)[::2], y, 1.0, 4], MXNetError,
+                "not contiguous"),
+    "device": (lambda x, y: [x.to("meta"), y, 1.0, 4], MXNetError,
+               "not on ctx"),
+    "tensor scalar": (lambda x, y: [x, y, torch.tensor(1.0), 4], TypeError,
+                      "number"),
+    "float for int": (lambda x, y: [x, y, 1.0, 4.5], TypeError, "integer"),
+    "int range": (lambda x, y: [x, y, 1.0, 2 ** 31], MXNetError,
+                  "does not fit"),
+    "written grad": (lambda x, y: [x, y.requires_grad_(), 1.0, 4],
+                     MXNetError, "requires grad"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(_BAD_ARGS))
+def test_cuda_kernel_checks_arguments_before_launching(monkeypatch, what):
+    make, err, match = _BAD_ARGS[what]
+    kernel = _stand_in_kernel(monkeypatch)
+    with pytest.raises(err, match=match):
+        kernel._pack(make(torch.ones(4), torch.zeros(4)), torch.device("cpu"))
+
+
+def test_cuda_kernel_packs_arguments(monkeypatch):
+    kernel = _stand_in_kernel(monkeypatch, "const float *x, float *y, "
+                              "__half h, int64_t n, const double d")
+    x, y = torch.ones(4), torch.zeros(4)
+    packed, written = kernel._pack([tmx.nd.NDArray(x), y, 1.5,
+                                    2 ** 40, 0.1], torch.device("cpu"))
+    assert packed[0].value == x.data_ptr() and packed[1].value == \
+        y.data_ptr()
+    assert packed[2].value == int(np.float16(1.5).view(np.uint16))
+    assert (packed[3].value, packed[4].value) == (2 ** 40, 0.1)
+    assert len(written) == 1 and written[0] is y
+    # a const pointer may require grad: the kernel only reads it
+    kernel._pack([x.requires_grad_(), y, 1.0, 4, 0.0], torch.device("cpu"))
+
+
+def test_user_op_without_plain_version_raises_on_cpu(monkeypatch):
+    _, nd_fn, kernel = _user_op(monkeypatch, None)
+    with pytest.raises(MXNetError, match="no plain_fn"):
+        nd_fn(tmx.nd.array(np.ones(3), ctx=tmx.cpu()))
+    assert kernel.launches == 0
+
+
+def test_user_op_refuses_inputs_that_require_grad(monkeypatch):
+    name, nd_fn, kernel = _user_op(monkeypatch, lambda x: torch.relu(x))
+    x = torch.randn(6).requires_grad_(True)
+    with pytest.raises(MXNetError, match="has no gradient"):
+        nd_fn(x)
+    with torch.no_grad():
+        assert torch.equal(nd_fn(x)._data, torch.relu(x))
+    tk = rtc.TritonModule().add_kernel("t", lambda *a: None,
+                                       lambda v: torch.empty_like(v),
+                                       plain_fn=lambda v: v * 2)
+    with pytest.raises(MXNetError, match="has no gradient"):
+        tk.launch([x], (1,))
+    # a training graph that holds the op records, so it raises; an
+    # inference pass of the same graph runs
+    graph = {"nodes": [{"op": "null", "name": "data", "inputs": []},
+                       {"op": name, "name": "u", "inputs": [[0, 0, 0]]}],
+             "heads": [[1, 0, 0]]}
+    sym = tmx.sym.load_json(json.dumps(graph))
+    exe = sym.simple_bind(tmx.cpu(), data=(2, 3))
+    exe.arg_dict["data"][:] = np.full((2, 3), -1.0, np.float32)
+    with pytest.raises(MXNetError, match="has no gradient"):
+        exe.forward(is_train=True)
+    assert (exe.forward(is_train=False)[0].asnumpy() == 0).all()
+    assert kernel.launches == 0
+
+
+def test_triton_kernel_needs_triton_on_the_card():
+    tk = rtc.TritonModule().add_kernel("t", lambda *a: None,
+                                       lambda v: torch.empty_like(v))
+    with pytest.raises(MXNetError, match="no plain_fn"):
+        tk.launch([torch.ones(2)], (1,))
+    # on the card: without triton installed, or with a kernel_fn that is
+    # not a @triton.jit function, the launch raises
+    with pytest.raises(MXNetError, match="triton"):
+        tk._run_cuda(rtc._TritonLaunch((1,), {}), [torch.ones(2)],
+                     torch.device("cuda", 0))
+    assert tk.launches == 0
+
+
+def test_user_op_puts_host_data_on_the_default_device(monkeypatch):
+    """Host data given to a user op's ``nd`` function or to a Triton
+    launch goes where ``NDArray`` puts it: the default device, float64 as
+    float32. It never reaches ``plain_fn`` on the CPU while a card is
+    there. This host has no card, so ``meta`` stands in for it: on meta
+    tensors the op infers its outputs and launches nothing."""
+    from mxnet_tpu_torch import context
+
+    def plain_fn(x):
+        raise AssertionError("host data reached plain_fn")
+
+    _, nd_fn, kernel = _user_op(monkeypatch, plain_fn)
+    tk = rtc.TritonModule().add_kernel("t", lambda *a: None,
+                                       lambda v: torch.empty_like(v),
+                                       plain_fn=plain_fn)
+    monkeypatch.setattr(context, "default_device",
+                        lambda: torch.device("meta"))
+    for data in (np.ones(4, np.float32), np.ones(4), [1.0, 2.0, 3.0, 4.0]):
+        for out in (nd_fn(data), tk.launch([data], (1,))):
+            assert out.context == torch.device("meta")
+            assert out.shape == (4,) and out._data.dtype == torch.float32
+    assert kernel.launches == 0 and tk.launches == 0
+    # without CUDA, host data raises instead of running on the CPU
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        nd_fn(np.ones(4, np.float32))
+    with pytest.raises(MXNetError, match="CUDA is not available"):
+        tk.launch([np.ones(4, np.float32)], (1,))
+
+
+@pytest.mark.parametrize("name", ["PallasModule", "PallasKernel",
+                                  "register_pallas_op"])
+def test_pallas_names_raise_with_guidance(name):
+    with pytest.raises(MXNetError,
+                       match="CudaModule.*register_cuda_op.*TritonModule"):
+        getattr(rtc, name)(lambda x: x, lambda x: x)
+
+
+def test_import_loads_no_driver_nvrtc_or_triton():
+    code = ("import sys, mxnet_tpu_torch\n"
+            "from mxnet_tpu_torch.kernels import _rtc_driver as d\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert 'libcuda' not in maps and 'libnvrtc' not in maps\n"
+            "assert d._state == {'driver': None, 'nvrtc': None, "
+            "'nvrtc_path': None} and not d._contexts\n"
+            "assert 'triton' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
