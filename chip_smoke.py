@@ -22,7 +22,12 @@ no result line):
              k/v were just gathered): kernel, plain version, and
              ``F.scaled_dot_product_attention`` as a yardstick only; the
              kernel's eager per-call time (wrapper overhead included); and
-             the card's bound for the same work.
+             the card's bound for the same work. Every attention kernel's
+             bound prices its operations as float32-accurate products on
+             the tensor cores: three TF32 products each at the 495 TFLOP/s
+             dense TF32 rate (the larger of that and its bytes at 3.35
+             TB/s); the CUDA-core float32 figure (67 TFLOP/s) of earlier
+             slices stays beside it as bound_cuda_core_ms.
 4. serve   — full-width transformer decode (vocab 32000, 12 layers, 8
              heads, d_model 512, max_len 512, random weights from a seeded
              generator) through the port's DecodeEngine: 8 prompts of 5-480
@@ -41,16 +46,19 @@ no result line):
              backward pair (flash_bwd_offs.cu) against their plain
              versions on the card, float32: q/k/v (8, 8, 512, 64) causal
              (the train phase's shape), a non-causal ragged case, head dims
-             32 and 128; and flash_attention_with_lse's gradients through
+             32 and 128 (ragged, and 128 at (8, 8, 512) causal); and
+             flash_attention_with_lse's gradients through
              its autograd Function at the kernel phase's serving shapes
              with a nonzero lse cotangent, including the ring step whose
              rows all see no key (dq, dk and dv exactly 0 there). Max abs
              error <= 1e-4 on out, lse, dq, dk and dv, scaled by the
              reference's max abs where that exceeds 1 (float32 in another
-             order of summation). Device times from CUDA graphs as in
+             order of summation); the pair's two calls on the same inputs
+             bit-identical. Device times from CUDA graphs as in
              phase 3: each kernel, its plain version, and as a yardstick
              only F.scaled_dot_product_attention(is_causal=True) forward
-             and forward plus backward; each kernel's bound.
+             and forward plus backward; each kernel's bound, TFLOP/s and
+             factor against SDPA (the backward pair also at D = 128).
 7. train   — full-width training (the serve phase's model, random weights
              from a seeded generator) through ShardedTrainStep(adam, lr
              1e-3, grad_clip 1.0): 20 steps of 8 x 512 tokens from the
@@ -117,8 +125,9 @@ no result line):
              exactly (0, -1e30) with zero gradients; two calls on the same
              inputs bit-identical. Device times from CUDA graphs as in phase
              3: each kernel and pass, its plain version, the stream kernel
-             at the same shape (#5, #2, #1) and, as a yardstick only,
-             F.scaled_dot_product_attention; each kernel's bound.
+             at the same shape (#5, #2, #1), #4 with one split and, as a
+             yardstick only, F.scaled_dot_product_attention; each kernel's
+             bound, TFLOP/s and factor against SDPA.
 13. serve_long — the long-context configuration served:
              TransformerConfig(vocab 32000, 12 layers, 8 heads, d_model
              512, max_len 4096, attn_variant "grid", block_k 512), random
@@ -216,8 +225,9 @@ TOL = 1e-4
 TRAIN_STEPS = 20
 PLAIN_TIER = "MXNET_TPU_MESH_KERNEL_TIER"
 # one H100 SXM, published dense peaks (NVIDIA data sheet): float32 outside
-# the tensor cores, and HBM3 bandwidth
+# the tensor cores, TF32 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 NEG = -1e30
 SYM_BATCH = 32
@@ -346,13 +356,12 @@ def phase_kernel(torch, fa, dev):
         flops = 4.0 * B * H * sum(vis) * D
         nbytes = 4.0 * (q.numel() + k.numel() + v.numel() + out.numel()
                         + lse.numel()) + 8
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
         row = {"C": C, "offs": [q0, k0], "max_abs_err": err,
                "masked_rows": n_dead, "ms": ms, "host_ms": host_ms,
                "plain_ms": plain_ms,
                "sdpa_ms": sdpa_ms, "flops": flops, "bytes": nbytes,
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+               "tflops": tflops(flops, ms),
+               **attention_bounds(flops, nbytes)}
         rows.append(row)
         emit({"phase": "kernel_case", **row})
     return worst, rows
@@ -542,12 +551,29 @@ def scaled_err(got, ref):
             / max(1.0, ref.abs().max().item()))
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
     """The card's least time for the work: the larger of operations over
-    the float32 peak and bytes over the memory rate; and which it is."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    ``peak`` and bytes over the memory rate; and which it is."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def attention_bounds(flops, nbytes):
+    """The attention kernels' bound: float32-accurate products on the
+    tensor cores take three TF32 products each (3xTF32), so operations
+    cost 3 * flops at the dense TF32 rate; the larger of that and the
+    bytes. -> {bound_ms, bound_by, bound_cuda_core_ms}, the last the
+    CUDA-core float32 figure earlier slices priced them at."""
+    ms, by = bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_cuda_core_ms": bound_ms(flops, nbytes)[0]}
+
+
+def tflops(flops, ms):
+    """Achieved TFLOP/s of ``flops`` (a multiply-add counted as two) in
+    ``ms``."""
+    return flops / (ms * 1e-3) / 1e12
 
 
 def phase_train_kernel(torch, fa, dev):
@@ -574,7 +600,8 @@ def phase_train_kernel(torch, fa, dev):
     for (b, h, s, d), causal in (((8, 8, 512, 64), True),
                                  ((2, 8, 200, 64), False),
                                  ((1, 4, 150, 32), True),
-                                 ((1, 4, 150, 128), True)):
+                                 ((1, 4, 150, 128), True),
+                                 ((8, 8, 512, 128), True)):
         what = "%s causal=%s" % ((b, h, s, d), causal)
         sm = 1.0 / math.sqrt(d)
         q, k, v, do = rand(b, h, s, d), rand(b, h, s, d), rand(b, h, s, d), \
@@ -594,6 +621,14 @@ def phase_train_kernel(torch, fa, dev):
         check("dq", what + " dq", ts[0].grad, ref[0])
         check("dkv", what + " dk", ts[1].grad, ref[1])
         check("dkv", what + " dv", ts[2].grad, ref[2])
+        # #2 owns its output rows (no atomics): a second call is
+        # bit-identical
+        again = leaves(q, k, v)
+        fa.flash_attention(*again, causal=causal, sm_scale=sm,
+                           use_pallas=True).backward(do)
+        if not all(torch.equal(a.grad, t.grad) for a, t in zip(again, ts)):
+            fail("train_kernel %s: two backward calls on the same inputs "
+                 "differ" % what)
     torch.cuda.synchronize()
 
     # flash_attention_with_lse (#1 forward, #2 backward) at the serving
@@ -628,50 +663,64 @@ def phase_train_kernel(torch, fa, dev):
                  % what)
     torch.cuda.synchronize()
 
-    # device times at the training shape
-    B, H, S, D = 8, 8, 512, 64
-    sm = 1.0 / math.sqrt(D)
-    q, k, v, do = rand(B, H, S, D), rand(B, H, S, D), rand(B, H, S, D), \
-        rand(B, H, S, D)
-    offs0 = fa._offs0(dev)
-    out, lse = fa._flash_fwd_cuda(q, k, v, sm, True)
-    deff = fa._deff(do, out, None).contiguous()
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), offs0.data_ptr(),
-              do.data_ptr(), lse.data_ptr(), deff.data_ptr())
-    tail = (B * H, S, S, D, sm, 1)
-    qg, kg, vg = leaves(q, k, v)
-    sdpa = lambda a, b_, c: F.scaled_dot_product_attention(
-        a, b_, c, is_causal=True, scale=sm)
-    t = {
-        "fwd_ms": time_ms(lambda: fa._flash_fwd_cuda(q, k, v, sm, True)),
-        "fwd_plain_ms": time_ms(lambda: fa.flash_fwd_plain(q, k, v, sm,
-                                                           True)),
-        "dq_ms": time_ms(lambda: fa._launch(
-            "mx_flash_bwd_dq_f32", *common, dq.data_ptr(), *tail,
-            device=dev)),
-        "dkv_ms": time_ms(lambda: fa._launch(
-            "mx_flash_bwd_dkv_f32", *common, dk.data_ptr(), dv.data_ptr(),
-            *tail, device=dev)),
-        "bwd_plain_ms": time_ms(lambda: fa.flash_bwd_offs_plain(
-            q, k, v, offs0, do, None, out, lse, sm, True)),
-        "fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
-            fa._FlashAttention.apply(qg, kg, vg, sm, True), (qg, kg, vg),
-            do)),
-        "sdpa_fwd_ms": time_ms(lambda: sdpa(q, k, v)),
-        "sdpa_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
-            sdpa(qg, kg, vg), (qg, kg, vg), do)),
-    }
-    t["sdpa_bwd_ms"] = t["sdpa_fwd_bwd_ms"] - t["sdpa_fwd_ms"]
-    vis = B * H * S * (S + 1) // 2
-    n, rows = q.numel(), B * H * S
-    for name, flops, nbytes in (
-            ("fwd", 4.0 * vis * D, 4.0 * (4 * n + rows)),
-            ("dq", 6.0 * vis * D, 4.0 * (5 * n + 2 * rows) + 8),
-            ("dkv", 8.0 * vis * D, 4.0 * (6 * n + 2 * rows) + 8)):
-        t[name + "_bound_ms"], t[name + "_bound_by"] = bound_ms(flops,
-                                                               nbytes)
-        t[name + "_flops"], t[name + "_bytes"] = flops, nbytes
+    # device times at the training shape (D = 64), and the backward pair
+    # at D = 128
+    t = {}
+    for B, H, S, D in ((8, 8, 512, 64), (8, 8, 512, 128)):
+        pre = "" if D == 64 else "d128_"
+        sm = 1.0 / math.sqrt(D)
+        q, k, v, do = rand(B, H, S, D), rand(B, H, S, D), \
+            rand(B, H, S, D), rand(B, H, S, D)
+        offs0 = fa._offs0(dev)
+        out, lse = fa._flash_fwd_cuda(q, k, v, sm, True)
+        deff = fa._deff(do, out, None).contiguous()
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  offs0.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  deff.data_ptr())
+        tail = (B * H, S, S, D, sm, 1)
+        qg, kg, vg = leaves(q, k, v)
+        sdpa = lambda a, b_, c: F.scaled_dot_product_attention(
+            a, b_, c, is_causal=True, scale=sm)
+        t.update({
+            pre + "dq_ms": time_ms(lambda: fa._launch(
+                "mx_flash_bwd_dq_f32", *common, dq.data_ptr(), *tail,
+                device=dev)),
+            pre + "dkv_ms": time_ms(lambda: fa._launch(
+                "mx_flash_bwd_dkv_f32", *common, dk.data_ptr(),
+                dv.data_ptr(), *tail, device=dev)),
+            pre + "sdpa_fwd_ms": time_ms(lambda: sdpa(q, k, v)),
+            pre + "sdpa_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                sdpa(qg, kg, vg), (qg, kg, vg), do))})
+        if D == 64:
+            t.update({
+                "fwd_ms": time_ms(lambda: fa._flash_fwd_cuda(q, k, v, sm,
+                                                             True)),
+                "fwd_plain_ms": time_ms(lambda: fa.flash_fwd_plain(
+                    q, k, v, sm, True)),
+                "bwd_plain_ms": time_ms(lambda: fa.flash_bwd_offs_plain(
+                    q, k, v, offs0, do, None, out, lse, sm, True)),
+                "fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                    fa._FlashAttention.apply(qg, kg, vg, sm, True),
+                    (qg, kg, vg), do))})
+        t[pre + "sdpa_bwd_ms"] = (t[pre + "sdpa_fwd_bwd_ms"]
+                                  - t[pre + "sdpa_fwd_ms"])
+        vis = B * H * S * (S + 1) // 2
+        n, rows = q.numel(), B * H * S
+        work = [("dq", 6.0 * vis * D, 4.0 * (5 * n + 2 * rows) + 8),
+                ("dkv", 8.0 * vis * D, 4.0 * (6 * n + 2 * rows) + 8)]
+        if D == 64:
+            work.append(("fwd", 4.0 * vis * D, 4.0 * (4 * n + rows)))
+        for name, flops, nbytes in work:
+            for key, val in attention_bounds(flops, nbytes).items():
+                t[pre + name + "_" + key] = val
+            t[pre + name + "_flops"], t[pre + name + "_bytes"] = flops, nbytes
+            t[pre + name + "_tflops"] = tflops(flops, t[pre + name + "_ms"])
+        # the backward pair against SDPA's backward (fwd+bwd minus fwd)
+        t[pre + "bwd_vs_sdpa"] = ((t[pre + "dq_ms"] + t[pre + "dkv_ms"])
+                                  / t[pre + "sdpa_bwd_ms"])
+        del q, k, v, do, out, lse, deff, dq, dk, dv, qg, kg, vg
+    t["fwd_vs_sdpa"] = t["fwd_ms"] / t["sdpa_fwd_ms"]
     return worst, t
 
 
@@ -1401,6 +1450,16 @@ def phase_grid_kernel(torch, fa, dev):
         iters=1, reps=3)
     t["bwd_whole_ms"] = time_ms(lambda: fa._flash_bwd_grid_cuda(
         q, k, v, offs0, do, deff, lse, sm, True, (LONG_W, LONG_W)), iters=5)
+    # #4 with one split (block 4096): the kernels write dq, dk, dv
+    # directly and no reduce runs
+    t["dq_1split_ms"] = time_ms(lambda: fa._launch(
+        "mx_flash_bwd_dq_grid_f32", *common, dq.data_ptr(), B * H, S, S, D,
+        S, 1, sm, 1, device=dev), iters=5)
+    t["dkv_1split_ms"] = time_ms(lambda: fa._launch(
+        "mx_flash_bwd_dkv_grid_f32", *common, dk.data_ptr(), dv.data_ptr(),
+        B * H, S, S, D, S, 1, sm, 1, device=dev), iters=5)
+    t["bwd_whole_1split_ms"] = time_ms(lambda: fa._flash_bwd_grid_cuda(
+        q, k, v, offs0, do, deff, lse, sm, True, (S, S)), iters=5)
     stream_tail = (B * H, S, S, D, sm, 1)
     t["dq_stream_ms"] = time_ms(lambda: fa._launch(
         "mx_flash_bwd_dq_f32", *common, dq.data_ptr(), *stream_tail,
@@ -1454,9 +1513,19 @@ def phase_grid_kernel(torch, fa, dev):
     ob = grid_bounds(1, H, C, S, D, q0, LONG_W, LONG_W)
     bounds["offs"], bounds["offs_combine"] = ob["fwd"], ob["fwd_combine"]
     for name, (flops, nbytes) in bounds.items():
-        t[name + "_bound_ms"], t[name + "_bound_by"] = bound_ms(flops,
-                                                               nbytes)
+        for key, val in attention_bounds(flops, nbytes).items():
+            t[name + "_" + key] = val
         t[name + "_flops"], t[name + "_bytes"] = flops, nbytes
+        t[name + "_tflops"] = tflops(flops, t[name + "_ms"])
+    # #4 (pass 1 and reduce of dq and dk/dv) against SDPA's backward, with
+    # 8 splits and with one
+    t["bwd_vs_sdpa"] = (t["dq_ms"] + t["dq_reduce_ms"] + t["dkv_ms"]
+                        + t["dkv_reduce_ms"]) / t["sdpa_bwd_ms"]
+    t["bwd_1split_vs_sdpa"] = ((t["dq_1split_ms"] + t["dkv_1split_ms"])
+                               / t["sdpa_bwd_ms"])
+    t["dq_1split_tflops"] = tflops(t["dq_flops"], t["dq_1split_ms"])
+    t["dkv_1split_tflops"] = tflops(t["dkv_flops"], t["dkv_1split_ms"])
+    t["fwd_vs_sdpa"] = (t["fwd_ms"] + t["fwd_combine_ms"]) / t["sdpa_fwd_ms"]
     t["cases"] = n_cases
     return worst, t
 
@@ -2109,7 +2178,10 @@ def phase_rtc_infer(torch, dev, seed, out_dir):
         try:
             for key in ("user", "builtin"):
                 calls_before = act_calls[0]
-                outs[key].append(exes[key].forward(is_train=False)[0]._data)
+                # the executor writes its bound outputs in place (as
+                # MXNet's do): keep a copy of each forward's
+                outs[key].append(
+                    exes[key].forward(is_train=False)[0]._data.clone())
                 acts[key] = act_calls[0] - calls_before
         finally:
             activation.fn, user_op.fn = act_fn, user_fn
@@ -2125,7 +2197,7 @@ def phase_rtc_infer(torch, dev, seed, out_dir):
                 out = exes[key].forward(is_train=False)[0]._data
                 torch.cuda.synchronize()
                 walls[key].append((time.perf_counter() - ts) * 1e3)
-                outs[key].append(out)
+                outs[key].append(out.clone())
         launches = relu_k.launches
     finally:
         (torch.backends.cudnn.deterministic,
@@ -2251,10 +2323,11 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mxnet_tpu_torch.kernels import _build
     from mxnet_tpu_torch.kernels import flash_attention as fa
-    # float32 must stay float32 on the card: the kernels run full f32 on
-    # CUDA cores, and the plain versions, the model's matmuls and cuDNN's
-    # convolutions must too, or TF32's ~3 decimal digits would swamp the
-    # comparisons
+    # float32 must stay float32 on the card: the kernels keep float32
+    # accuracy (CUDA cores, or three TF32 products a product on the tensor
+    # cores), and the plain versions, the model's matmuls and cuDNN's
+    # convolutions must too, or one TF32 product's ~3 decimal digits would
+    # swamp the comparisons
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2299,6 +2372,8 @@ def main():
                 "bound_ms": path_row["bound_ms"],
                 "bound_by": path_row["bound_by"],
                 "library_ms": path_row["sdpa_ms"],
+                "bound_cuda_core_ms": path_row["bound_cuda_core_ms"],
+                "tflops": path_row["tflops"],
                 "shape": "q (1,8,256,64) k/v (1,8,512,64) f32 offs [256,0]"})
 
     if "train_kernel" in phases:
@@ -2333,7 +2408,8 @@ def main():
                     "max_abs_err": tk_worst[key], "ms": tk[key + "_ms"],
                     "plain_ms": tk[plain], "bound_ms": tk[key + "_bound_ms"],
                     "bound_by": tk[key + "_bound_by"], "library_ms": tk[lib],
-                    "shape": train_shape})
+                    "bound_cuda_core_ms": tk[key + "_bound_cuda_core_ms"],
+                    "tflops": tk[key + "_tflops"], "shape": train_shape})
     torch.cuda.empty_cache()
 
     if "opt_kernel" in phases:
@@ -2404,6 +2480,8 @@ def main():
                 "plain_ms": gk[plain], "bound_ms": gk[key + "_bound_ms"],
                 "bound_by": gk[key + "_bound_by"],
                 "library_ms": gk[lib] if lib else None,
+                "bound_cuda_core_ms": gk[key + "_bound_cuda_core_ms"],
+                "tflops": gk[key + "_tflops"],
                 "shape": ("q (1,8,1024,64) k/v (1,8,4096,64) f32 offs "
                           "[2816,0], 8 key splits" if key.startswith("offs")
                           else "q/k/v (4,8,4096,64) f32 causal, 8 splits")})

@@ -11,10 +11,12 @@ executor and ``parallel.DataParallelTrainStep`` share.
 under ``torch.autograd``; ``backward(out_grads)`` seeds it with
 ``out_grads`` (ones when none are given, as the JAX package's fused
 forward+backward does) and writes ``grad_dict`` in place, or adds to it
-for ``grad_req="add"``. The aux states are updated in place; ``outputs``
-holds the last forward's. Monitor callbacks, ``reshape``,
-``copy_params_from``, ``warmup`` and ``program_cost`` are not yet ported
-(ROADMAP A4).
+for ``grad_req="add"``. The aux states are updated in place. ``outputs``
+are built at bind, zeros of the inferred output shapes, and each forward
+writes into them, as MXNet's executors write their bind-allocated
+outputs: an output held across forwards reads the latest one. Monitor
+callbacks, ``reshape``, ``copy_params_from``, ``warmup`` and
+``program_cost`` are not yet ported (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -116,7 +118,12 @@ class Executor:
                                           ctx=self._device)
         self._plan = GraphPlan(symbol)
         self._pending = None    # (outputs, grad leaves) of a train forward
-        self.outputs = []
+        try:
+            _, out_shapes, _ = symbol.infer_shape(
+                **{n: a.shape for n, a in self.arg_dict.items()})
+            self.outputs = [zeros(s, ctx=self._device) for s in out_shapes]
+        except MXNetError:      # shapes known only once a forward runs
+            self.outputs = []
 
     def _normalize(self, arrays, names, what, allow_missing=False):
         if isinstance(arrays, dict):
@@ -165,7 +172,13 @@ class Executor:
                 dst = self.aux_dict[name]._data
                 if val is not dst:
                     dst.copy_(val)
-        self.outputs = [NDArray(o.detach()) for o in outs]
+        if len(self.outputs) != len(outs):
+            self.outputs = [NDArray(torch.empty_like(o)) for o in outs]
+        with torch.no_grad():
+            for held, o in zip(self.outputs, outs):
+                if held._data.shape != o.shape or held._data.dtype != o.dtype:
+                    held._data = torch.empty_like(o)
+                held._data.copy_(o)
         return self.outputs
 
     def backward(self, out_grads=None, is_train=True):

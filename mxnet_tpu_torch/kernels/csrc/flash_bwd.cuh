@@ -1,86 +1,660 @@
-// Helpers of the flash-attention backward kernels, float32, for Hopper
-// (sm_90a), shared by flash_bwd_offs.cu (TPU kernels
-// _flash_bwd_dq_offs_kernel / _flash_bwd_dkv_offs_kernel) and
-// flash_bwd_grid.cu (_flash_bwd_dq_grid_kernel / _flash_bwd_dkv_grid_kernel):
-// the block layout (256 threads, eight to a row, 32 owned rows, 32-row
-// walked tiles), the shared-memory budgets, the staging of rows into padded
-// shared rows and the paired four-row dot products. Each .cu defines its own
-// kernels and C entries.
+// The flash-attention backward body, float32 on the tensor cores, for Hopper
+// (sm_90a): one dq kernel and one dk/dv kernel, `template <int D>`, over
+// splits of the walked axis (blockIdx.z; w rows each). flash_bwd_grid.cu
+// launches them over the JAX call's splits (TPU kernels
+// _flash_bwd_dq_grid_kernel / _flash_bwd_dkv_grid_kernel, #4: unscaled dq
+// partials or dk/dv partials into a workspace, or the final outputs with
+// one split), flash_bwd_offs.cu with one split over the whole axis (TPU
+// kernels _flash_bwd_dq_offs_kernel / _flash_bwd_dkv_offs_kernel, #2).
+// Each .cu defines its C entries.
+//
+// Function (folded q = q * sm_scale, query row i at global position
+// offs[0] + i, key j at offs[1] + j):
+//   s_ij  = (q_i * sm_scale) . k_j        masked to -1e30 where invisible
+//   p_ij  = exp(s_ij - lse_safe_i),        lse_safe = lse > -5e29 ? lse : +1e30
+//   ds_ij = p_ij * (do_i . v_j - deff_i),  deff = rowsum(do * out) - dlse
+//   dq_i  = sm_scale * sum_j ds_ij k_j
+//   dk_j  = sum_i ds_ij (q_i * sm_scale),  dv_j = sum_i p_ij do_i
+// Rows with no visible key (lse pinned to -1e30) and keys no row sees get
+// exactly 0: p is set to 0 where the mask says so, never computed from a
+// -1e30 score. deff is computed by the caller.
+//
+// Bound on one H100 SXM: float32-accurate products on the tensor cores
+// cost three TF32 products each (below), so operations are 3 * 6 * B * H *
+// sum_rows(visible keys) * D for dq and 3 * 8 * ... * D for dk/dv at the
+// 495 TFLOP/s dense TF32 rate; bytes are the inputs read once and the
+// outputs written once at 3.35 TB/s. At (8, 8, 512, 64) causal that is
+// 0.0196 ms (dq) and 0.0261 ms (dk/dv), at (4, 8, 4096, 64) causal 0.625
+// and 0.833 ms: operation bound (dq's bytes at S = 512 take 0.0126 ms).
+//
+// What the design does:
+// - Products: mma.sync.m16n8k8 with TF32 operands and float32
+//   accumulators, each float32 product as three (3xTF32): x = hi + lo with
+//   hi = rna(x) and lo = rna(x - hi), rounded to TF32 as cvt.rna.tf32.f32
+//   rounds but on the bit pattern (with cvt itself the kernels ran a
+//   quarter slower, PERF.md section 6), a.b ~ lo_a.hi_b +
+//   hi_a.lo_b + hi_a.hi_b (the lo.lo term is below float32's last bit).
+//   That keeps ~21 mantissa bits, where one TF32 product keeps ~10 and
+//   would miss the 1e-4 gate. Operands are split once, when their
+//   fragment is loaded into registers (five ALU operations an element);
+//   shared memory holds plain float32, so splitting costs no shared
+//   memory (hi and lo planes would double it and the fragment loads).
+//   The MMAs go term-major over four independent accumulator tiles, so
+//   no MMA waits on the one before it. The tensor cores round their
+//   float32 sums toward zero, which over a chain of thousands of keys
+//   drifts by ~1e-4; dQ, dK and dV are therefore summed for each walked
+//   tile from zero and added to the running sums with a rounded add.
+// - Blocking: a block of 4 warps owns 64 rows (query rows for dq, key rows
+//   for dk/dv) of one (b, h), 16 a warp, and walks the other axis in tiles
+//   of kTile rows (64 at D = 32 and 64; 32 at D = 128, where two 16 x 128
+//   accumulators a warp plus the scores would not fit the registers
+//   otherwise). dq: S = q K^T and dP = dO V^T by MMA, P = exp2(S * sm_scale
+//   * log2e - lse_safe * log2e) and dS = P (dP - deff) on the accumulator
+//   registers, then dQ += dS K. dk/dv: the transposed scores S^T = K q^T
+//   and dP^T = V dO^T, so P^T and dS^T belong to the key rows the warp
+//   owns, then dV += P^T dO and dK += dS^T q. sm_scale is applied to the
+//   scores' accumulators and to dq and dk at the end (same function as
+//   folding it into q, another rounding).
+// - Accumulators to A fragments without shared memory or shuffles: an
+//   m16n8k8 accumulator gives a thread columns 2t and 2t + 1 of its rows,
+//   while the A fragment wants columns t and t + 4. The sum over the
+//   contracted axis does not care about its order, so the second product
+//   contracts over the permuted order (2t, 2t + 1) in place of (t, t + 4):
+//   a = {c0, c2, c1, c3}, and the B fragment reads rows 2t and 2t + 1 of
+//   the walked tile to match.
+// - Staging: 16-byte cp.async copies into shared memory, zero-filled past
+//   the valid rows (src-size 0), so padding rows hold zeros and never NaN.
+//   The walked tile is double-buffered (K and V for dq; q, dO, lse and
+//   deff for dk/dv): tile t + 1 loads while tile t computes, with one
+//   __syncthreads a tile. Rows are XOR-swizzled by 16-byte chunk (chunk ^
+//   (row & 7)), so both fragment patterns, (row g, column t) and (row 2t,
+//   column g), fall in 32 distinct banks. 96 KB of shared memory at D = 64
+//   (two blocks an SM), 128 KB at D = 128, as dynamic shared memory.
+// - Tiles no row of the block can see under the causal mask are never
+//   loaded (the TPU kernels' loop bounds); tiles wholly visible skip the
+//   mask. Causal dq blocks launch heaviest first (the last query rows see
+//   the most keys); dk/dv blocks are heaviest first in natural order. A
+//   block owns its output rows: no atomics, bit-identical from call to
+//   call.
 #pragma once
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_fwd_grid.cuh"   // the split geometry
 
 namespace mx_flash_bwd {
+// Internal linkage: flash_bwd_offs.cu and flash_bwd_grid.cu instantiate the
+// same kernels and launchers into two libraries of one process, where a
+// launcher's function-local static (its shared-memory attribute) would
+// otherwise be one GNU-unique object for both, and the second library's
+// kernel would launch without its attribute.
+namespace {
 
-constexpr int kRowThreads = 8;                  // threads sharing one row
-constexpr int kThreads = 256;
-constexpr int kRows = kThreads / kRowThreads;   // rows a block owns: 32
-constexpr int kTile = 32;                       // rows of a walked tile
-constexpr int kPerThread = kTile / kRowThreads;  // scores a thread computes
-constexpr int kPStride = kTile + 4;             // padded P/dS row (floats)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;   // rows a block owns: 64
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
+// rows of a walked tile
 template <int D>
-__host__ __device__ constexpr int stride() { return D + 4; }  // padded row
+__host__ __device__ constexpr int tile_rows() { return D == 128 ? 32 : 64; }
 
+// owned q and dO (or k and v), and two stages of the walked pair
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 * kRows * stride<D>() + 2 * kTile * stride<D>() +
-                          kRows * kPStride);
+  return sizeof(float) * (2 * kRows * D + 4 * tile_rows<D>() * D);
 }
 
+// as dq, plus two stages of the walked tile's lse and deff
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (2 * kRows * stride<D>() + 2 * kTile * stride<D>() +
-                          2 * kRows * kPStride + 2 * kTile);
+  return dq_smem_bytes<D>() + sizeof(float) * 4 * tile_rows<D>();
 }
 
-// rows [r0, r0 + kRows) of a [n, D] matrix into shared memory (padded rows),
-// multiplied by `scale`, zeros past n
+// element (r, c) of a [rows][D] shared tile: 16-byte chunks XOR-swizzled
+// by the row's low three bits
 template <int D>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int r0, int n, float scale) {
-  constexpr int kStride = stride<D>();
-  for (int i = threadIdx.x; i < kRows * D / 4; i += kThreads) {
-    const int r = i / (D / 4);
-    const int c = (i % (D / 4)) * 4;
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) {
-      t = *reinterpret_cast<const float4*>(src + static_cast<size_t>(r0 + r) * D + c);
-      t.x *= scale;
-      t.y *= scale;
-      t.z *= scale;
-      t.w *= scale;
-    }
-    *reinterpret_cast<float4*>(dst + r * kStride + c) = t;
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * D + ((((c >> 2) ^ (r & 7)) << 2) | (c & 3));
+}
+
+// --- PTX: cp.async and mma.sync ----------------------------------------------
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// c += a b for one m16n8k8 TF32 tile
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// --- end of PTX -------------------------------------------------------------
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero; the same bits for every finite x), on the bit pattern: two
+// integer operations at full rate, where cvt takes the slower conversion
+// pipe
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo, each rounded to TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// accumulator tiles a product step updates together
+constexpr int kGroup = 4;
+
+// 3xTF32: c[u] += a b[u] for kGroup independent tiles in float32 accuracy,
+// the small terms first; term-major, so consecutive MMAs never wait on one
+// another's accumulator
+__device__ __forceinline__ void mma3_group(float (*c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[kGroup][2],
+                                           const uint32_t (&bl)[kGroup][2]) {
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) mma_tf32(c[u], al, bh[u]);
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) mma_tf32(c[u], ah, bl[u]);
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) mma_tf32(c[u], ah, bh[u]);
+}
+
+// A fragment of rows [r0, r0 + 16), columns [c0, c0 + 8) of a shared tile
+template <int D>
+__device__ __forceinline__ void load_a(const float* s, int r0, int c0, int g,
+                                       int t, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split_tf32(s[sw<D>(r0 + g, c0 + t)], hi[0], lo[0]);
+  split_tf32(s[sw<D>(r0 + g + 8, c0 + t)], hi[1], lo[1]);
+  split_tf32(s[sw<D>(r0 + g, c0 + t + 4)], hi[2], lo[2]);
+  split_tf32(s[sw<D>(r0 + g + 8, c0 + t + 4)], hi[3], lo[3]);
+}
+
+// B fragment of the transposed tile: k = column c0 + (t, t + 4), n = row
+// r0 + g (S = A B^T)
+template <int D>
+__device__ __forceinline__ void load_bt(const float* s, int r0, int c0, int g,
+                                        int t, uint32_t (&hi)[2],
+                                        uint32_t (&lo)[2]) {
+  split_tf32(s[sw<D>(r0 + g, c0 + t)], hi[0], lo[0]);
+  split_tf32(s[sw<D>(r0 + g, c0 + t + 4)], hi[1], lo[1]);
+}
+
+// B fragment of the tile in the permuted order: k = row r0 + (2t, 2t + 1),
+// n = column c0 + g (O += P B, P from an accumulator via acc_to_a)
+template <int D>
+__device__ __forceinline__ void load_bp(const float* s, int r0, int c0, int g,
+                                        int t, uint32_t (&hi)[2],
+                                        uint32_t (&lo)[2]) {
+  split_tf32(s[sw<D>(r0 + 2 * t, c0 + g)], hi[0], lo[0]);
+  split_tf32(s[sw<D>(r0 + 2 * t + 1, c0 + g)], hi[1], lo[1]);
+}
+
+// an accumulator tile as the A fragment of the permuted order
+__device__ __forceinline__ void acc_to_a(const float (&c)[4],
+                                         uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// c[u] += a b_u^T, b_u = rows [r0 + 8u, r0 + 8u + 8), columns [c0, c0 + 8)
+// of shared tile s (scores: the contracted axis is the head dim)
+template <int D>
+__device__ __forceinline__ void mma_rows(float (*c)[4], const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const float* s, int r0, int c0,
+                                         int g, int t) {
+  uint32_t bh[kGroup][2], bl[kGroup][2];
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u)
+    load_bt<D>(s, r0 + 8 * u, c0, g, t, bh[u], bl[u]);
+  mma3_group(c, ah, al, bh, bl);
+}
+
+// c[u] += a b_u, b_u = rows [r0, r0 + 8) in the permuted order, columns
+// [c0 + 8u, c0 + 8u + 8) of shared tile s (a from acc_to_a)
+template <int D>
+__device__ __forceinline__ void mma_cols(float (*c)[4], const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         const float* s, int r0, int c0,
+                                         int g, int t) {
+  uint32_t bh[kGroup][2], bl[kGroup][2];
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u)
+    load_bp<D>(s, r0, c0 + 8 * u, g, t, bh[u], bl[u]);
+  mma3_group(c, ah, al, bh, bl);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+}
+
+template <int N>
+__device__ __forceinline__ void add(float (&acc)[N][4],
+                                    const float (&part)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
+// cp.async rows [r0, r0 + R) of a [n, D] matrix into a swizzled shared
+// tile, zeros from row r_end on
+template <int D, int R>
+__device__ __forceinline__ void stage(float* dst, const float* src, int r0,
+                                      int r_end) {
+  constexpr int kChunks = D / 4;
+  static_assert(R * kChunks % kThreads == 0, "tile must split evenly");
+#pragma unroll
+  for (int it = 0; it < R * kChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 4;
+    const bool ok = r0 + r < r_end;
+    cp_async16(dst + sw<D>(r, c),
+               src + static_cast<size_t>(ok ? r0 + r : 0) * D + c, ok);
   }
 }
 
-// two rows of length D dotted against four rows each: s[j] += a . b_j and
-// dp[j] += c . d_j, where b_j, d_j are rows lane + 8 j of shared tiles
+// dq. One block: 64 query rows of (b, h) = blockIdx.x, key split
+// blockIdx.z of width w (n_split == 1: w >= sk, the final dq).
 template <int D>
-__device__ __forceinline__ void dot4x2(const float* a, const float* b,
-                                       const float* c, const float* dd,
-                                       int lane, float* s, float* dp) {
-  constexpr int kStride = stride<D>();
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const int* __restrict__ offs,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ deff, float* __restrict__ dq,
+                    int sq, int sk, int w, int n_split, float sm_scale,
+                    int causal) {
+  constexpr int kT = tile_rows<D>();
+  constexpr int kNT = kT / 8;   // 8-key groups of a tile
+  constexpr int kND = D / 8;    // 8-column groups of a row
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [kRows][D]
+  float* dos = qs + kRows * D;      // [kRows][D]
+  float* kvs = dos + kRows * D;     // [2 stages][k, v][kT][D]
+
+  const int bh = blockIdx.x;
+  const int rb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int split = blockIdx.z;
+  const bool direct = n_split == 1;
+  const int q0 = rb * kRows;
+  const int q_base = offs[0];
+  const int k_base = offs[1];
+  const int last_q = q_base + min(q0 + kRows, sq) - 1;
+  if (!direct && split >= mx_flash::live_kv_splits(last_q, k_base, w,
+                                                   n_split, causal))
+    return;   // dead: no row of the block sees a key of this split
+
+  // keys [k_lo, k_end) of the split, [k_lo, k_hi) seen by some row
+  const int k_lo = split * w;
+  const int k_end = min(k_lo + w, sk);
+  const int k_hi = causal ? min(k_end, last_q - k_base + 1) : k_end;
+  const int n_t = k_hi > k_lo ? (k_hi - k_lo + kT - 1) / kT : 0;
+
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int wr = warp * 16;
+  const size_t qoff = static_cast<size_t>(bh) * sq;
+  const float scale_l2 = sm_scale * kLog2e;
+  // the thread's rows wr + g and wr + g + 8
+  float lse_l2[2], deff_r[2];
+  int q_pos[2];
 #pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 aa = *reinterpret_cast<const float4*>(a + d);
-    const float4 cc = *reinterpret_cast<const float4*>(c + d);
+  for (int h = 0; h < 2; ++h) {
+    const int i = q0 + wr + g + 8 * h;
+    const bool ok = i < sq;
+    const float l = ok ? lse[qoff + i] : kNeg;
+    lse_l2[h] = (l > kNeg / 2 ? l : -kNeg) * kLog2e;
+    deff_r[h] = ok ? deff[qoff + i] : 0.f;
+    q_pos[h] = q_base + i;
+  }
+
+  float acc[kND][4];
+  zero(acc);
+
+  if (n_t > 0) {
+    const float* kb = k + static_cast<size_t>(bh) * sk * D;
+    const float* vb = v + static_cast<size_t>(bh) * sk * D;
+    stage<D, kRows>(qs, q + qoff * D, q0, sq);
+    stage<D, kRows>(dos, dout + qoff * D, q0, sq);
+    stage<D, kT>(kvs, kb, k_lo, k_end);
+    stage<D, kT>(kvs + kT * D, vb, k_lo, k_end);
+    cp_async_commit();
+    for (int it = 0; it < n_t; ++it) {
+      const int kt0 = k_lo + it * kT;
+      const float* ks = kvs + (it & 1) * 2 * kT * D;
+      const float* vs = ks + kT * D;
+      cp_async_wait_all();
+      __syncthreads();   // tile it landed; tile it - 1's reads are done
+      if (it + 1 < n_t) {
+        float* nk = kvs + ((it + 1) & 1) * 2 * kT * D;
+        stage<D, kT>(nk, kb, kt0 + kT, k_end);
+        stage<D, kT>(nk + kT * D, vb, kt0 + kT, k_end);
+        cp_async_commit();
+      }
+
+      float s[kNT][4], dp[kNT][4];
+      zero(s);
+      zero(dp);
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const int r = (lane + kRowThreads * j) * kStride + d;
-      const float4 bb = *reinterpret_cast<const float4*>(b + r);
-      const float4 ee = *reinterpret_cast<const float4*>(dd + r);
-      s[j] = fmaf(aa.x, bb.x, s[j]);
-      s[j] = fmaf(aa.y, bb.y, s[j]);
-      s[j] = fmaf(aa.z, bb.z, s[j]);
-      s[j] = fmaf(aa.w, bb.w, s[j]);
-      dp[j] = fmaf(cc.x, ee.x, dp[j]);
-      dp[j] = fmaf(cc.y, ee.y, dp[j]);
-      dp[j] = fmaf(cc.z, ee.z, dp[j]);
-      dp[j] = fmaf(cc.w, ee.w, dp[j]);
+      for (int kk = 0; kk < kND; ++kk) {
+        uint32_t qh[4], ql[4], oh[4], ol[4];
+        load_a<D>(qs, wr, kk * 8, g, t, qh, ql);
+        load_a<D>(dos, wr, kk * 8, g, t, oh, ol);
+#pragma unroll
+        for (int j = 0; j < kNT; j += kGroup) {
+          mma_rows<D>(s + j, qh, ql, ks, j * 8, kk * 8, g, t);
+          mma_rows<D>(dp + j, oh, ol, vs, j * 8, kk * 8, g, t);
+        }
+      }
+
+      // ds into s; a tile wholly inside the split and seen by every row
+      // of the block needs no mask
+      const bool masked = kt0 + kT > k_end ||
+                          (causal && k_base + kt0 + kT - 1 > q_base + q0);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int kj = kt0 + j * 8 + 2 * t + (e & 1);
+          float p = exp2f(fmaf(s[j][e], scale_l2, -lse_l2[h]));
+          if (masked && !(kj < k_end && (!causal || q_pos[h] >= k_base + kj)))
+            p = 0.f;
+          s[j][e] = p * (dp[j][e] - deff_r[h]);
+        }
+      }
+
+      // dQ += dS K over the tile's keys in the permuted order, summed
+      // for the tile first: the tensor cores round their float32 sums
+      // toward zero, so a chain over thousands of keys would drift by
+      // ~1e-4, and the rounded add per tile keeps it near 1e-6
+      float part[kND][4];
+      zero(part);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t ah[4], al[4];
+        acc_to_a(s[j], ah, al);
+#pragma unroll
+        for (int n = 0; n < kND; n += kGroup)
+          mma_cols<D>(part + n, ah, al, ks, j * 8, n * 8, g, t);
+      }
+      add(acc, part);
+    }
+  }
+
+  // direct: the final dq; else this split's unscaled slot
+  const float scale = direct ? sm_scale : 1.f;
+  const size_t base = direct ? 0 : static_cast<size_t>(split) * gridDim.x * sq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = q0 + wr + g + 8 * h;
+    if (i >= sq) continue;
+    float* o = dq + (base + qoff + i) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kND; ++n)
+      *reinterpret_cast<float2*>(o + n * 8) =
+          make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+  }
+}
+
+// dk/dv. One block: 64 keys of (b, h) = blockIdx.x, query split
+// blockIdx.z of width w (n_split == 1: w >= sq, the final dk and dv).
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const int* __restrict__ offs,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ deff, float* __restrict__ dk,
+                     float* __restrict__ dv, int sq, int sk, int w,
+                     int n_split, float sm_scale, int causal) {
+  constexpr int kT = tile_rows<D>();
+  constexpr int kNT = kT / 8;   // 8-query groups of a tile
+  constexpr int kND = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                 // [kRows][D]
+  float* vs = ks + kRows * D;       // [kRows][D]
+  float* qds = vs + kRows * D;      // [2 stages][q, do][kT][D]
+  float* lds = qds + 4 * kT * D;    // [2 stages][lse, deff][kT]
+
+  const int bh = blockIdx.x;
+  const int split = blockIdx.z;
+  const bool direct = n_split == 1;
+  const int k0 = blockIdx.y * kRows;
+  const int q_base = offs[0];
+  const int k_base = offs[1];
+  if (!direct && split < mx_flash::first_live_q_split(k_base + k0, q_base, sq,
+                                                      w, n_split, causal))
+    return;   // dead: no query of this split sees a key of the block
+
+  // queries [q_lo, q_end) of the split; under the causal mask the first
+  // row that sees key k0 is rel, and tiles start at the one holding it
+  const int q_lo = split * w;
+  const int q_end = min(q_lo + w, sq);
+  int first = q_lo;
+  int n_t = (q_end - q_lo + kT - 1) / kT;
+  if (causal) {
+    const int rel = k_base + k0 - q_base;
+    if (rel > q_lo) first = q_lo + (rel - q_lo) / kT * kT;
+    n_t = rel >= q_end ? 0 : (q_end - first + kT - 1) / kT;
+  }
+
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int wr = warp * 16;
+  const size_t qoff = static_cast<size_t>(bh) * sq;
+  const size_t koff = static_cast<size_t>(bh) * sk;
+  const float scale_l2 = sm_scale * kLog2e;
+  const int k_pos[2] = {k_base + k0 + wr + g, k_base + k0 + wr + g + 8};
+
+  float acc_k[kND][4], acc_v[kND][4];
+  zero(acc_k);
+  zero(acc_v);
+
+  if (n_t > 0) {
+    const float* qb = q + qoff * D;
+    const float* dob = dout + qoff * D;
+    // the walked tile at qt0 into stage st
+    auto stage_tile = [&](int st, int qt0) {
+      float* dst = qds + st * 2 * kT * D;
+      stage<D, kT>(dst, qb, qt0, q_end);
+      stage<D, kT>(dst + kT * D, dob, qt0, q_end);
+      const int tid = threadIdx.x;
+      if (tid < 2 * kT) {
+        const int i = qt0 + tid % kT;
+        const bool ok = i < q_end;
+        cp_async4(lds + st * 2 * kT + tid, (tid < kT ? lse : deff) + qoff +
+                  (ok ? i : 0), ok);
+      }
+    };
+    stage<D, kRows>(ks, k + koff * D, k0, sk);
+    stage<D, kRows>(vs, v + koff * D, k0, sk);
+    stage_tile(0, first);
+    cp_async_commit();
+    for (int it = 0; it < n_t; ++it) {
+      const int qt0 = first + it * kT;
+      const float* qs = qds + (it & 1) * 2 * kT * D;
+      const float* os = qs + kT * D;
+      const float* ls = lds + (it & 1) * 2 * kT;
+      const float* dfs = ls + kT;
+      cp_async_wait_all();
+      __syncthreads();   // tile it landed; tile it - 1's reads are done
+      if (it + 1 < n_t) {
+        stage_tile((it + 1) & 1, qt0 + kT);
+        cp_async_commit();
+      }
+
+      // S^T = K q^T and dP^T = V dO^T: rows are the warp's keys
+      float s[kNT][4], dp[kNT][4];
+      zero(s);
+      zero(dp);
+#pragma unroll
+      for (int kk = 0; kk < kND; ++kk) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        load_a<D>(ks, wr, kk * 8, g, t, kh, kl);
+        load_a<D>(vs, wr, kk * 8, g, t, vh, vl);
+#pragma unroll
+        for (int j = 0; j < kNT; j += kGroup) {
+          mma_rows<D>(s + j, kh, kl, qs, j * 8, kk * 8, g, t);
+          mma_rows<D>(dp + j, vh, vl, os, j * 8, kk * 8, g, t);
+        }
+      }
+
+      // p into s, ds into dp; a tile wholly inside the split whose first
+      // query sees the block's last key needs no mask
+      const bool masked = qt0 + kT > q_end ||
+                          (causal && q_base + qt0 < k_base + k0 + kRows - 1);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ci = j * 8 + 2 * t + (e & 1);
+          const int qi = qt0 + ci;
+          const float l = ls[ci];
+          const float l_safe = l > kNeg / 2 ? l : -kNeg;
+          float p = exp2f(fmaf(s[j][e], scale_l2, -l_safe * kLog2e));
+          if (masked && !(qi < q_end &&
+                          (!causal || q_base + qi >= k_pos[e >> 1])))
+            p = 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dfs[ci]);
+        }
+      }
+
+      // dV += P^T dO, then dK += dS^T q, over the tile's queries in the
+      // permuted order, each summed for the tile first (as dQ in the dq
+      // kernel)
+      float part[kND][4];
+      zero(part);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t ah[4], al[4];
+        acc_to_a(s[j], ah, al);
+#pragma unroll
+        for (int n = 0; n < kND; n += kGroup)
+          mma_cols<D>(part + n, ah, al, os, j * 8, n * 8, g, t);
+      }
+      add(acc_v, part);
+      zero(part);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t ah[4], al[4];
+        acc_to_a(dp[j], ah, al);
+#pragma unroll
+        for (int n = 0; n < kND; n += kGroup)
+          mma_cols<D>(part + n, ah, al, qs, j * 8, n * 8, g, t);
+      }
+      add(acc_k, part);
+    }
+  }
+
+  // direct: the final dk, dv; else this split's slots. dk takes sm_scale
+  // here (the folded q of the formula)
+  const size_t base = direct ? 0 : static_cast<size_t>(split) * gridDim.x * sk;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = k0 + wr + g + 8 * h;
+    if (j >= sk) continue;
+    const size_t r = (base + koff + j) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kND; ++n) {
+      *reinterpret_cast<float2*>(dk + r + n * 8) = make_float2(
+          acc_k[n][2 * h] * sm_scale, acc_k[n][2 * h + 1] * sm_scale);
+      *reinterpret_cast<float2*>(dv + r + n * 8) =
+          make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
     }
   }
 }
 
+// --- launchers ---------------------------------------------------------------
+
+// The kernels with their dynamic shared memory allowed: the attribute is
+// set once per instantiation (thread-safe static init), before any graph
+// capture the caller may start. Return the CUDA error of the launch.
+template <int D>
+int launch_dq(const float* q, const float* k, const float* v,
+              const int* offs, const float* dout, const float* lse,
+              const float* deff, float* dq, int bh, int sq, int sk, int w,
+              int n_split, float sm_scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  static const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (sq + kRows - 1) / kRows, n_split);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, offs, dout, lse, deff, dq, sq, sk, w, n_split, sm_scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const float* q, const float* k, const float* v,
+               const int* offs, const float* dout, const float* lse,
+               const float* deff, float* dk, float* dv, int bh, int sq,
+               int sk, int w, int n_split, float sm_scale, int causal,
+               cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_bytes<D>();
+  static const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (sk + kRows - 1) / kRows, n_split);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, offs, dout, lse, deff, dk, dv, sq, sk, w, n_split, sm_scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 }  // namespace mx_flash_bwd
+
+#define MX_BWD_DISPATCH(call)                                 \
+  switch (d) {                                                \
+    case 32: { constexpr int D = 32; return call; }           \
+    case 64: { constexpr int D = 64; return call; }           \
+    case 128: { constexpr int D = 128; return call; }         \
+    default: return static_cast<int>(cudaErrorInvalidValue);  \
+  }

@@ -84,7 +84,9 @@ launches_bwd_dkv_grid = 0
 launches_bwd_dkv_grid_reduce = 0
 
 _HEAD_DIMS = (32, 64, 128)
-_TILE = 32   # rows of the grid kernels' shared-memory tiles
+# the split unit: the forward grid kernels' 32-key tile (the backward pair
+# walks 64-row tiles from a split's first row and masks past its end)
+_TILE = 32
 
 
 def _fold_scale(q, sm_scale):

@@ -10,6 +10,14 @@
   ``flash_attention_with_lse``) against ``jax.vjp`` of the JAX
   ``flash_attention_with_lse``, with and without an lse cotangent.
 
+- The arithmetic of the CUDA pair (``flash_bwd.cuh``), emulated here in
+  numpy: every product as three TF32 products (3xTF32), against the
+  Pallas pair in interpret mode at (1, 2, 256, 64) and (1, 2, 160, 128)
+  causal, within the 1e-4 gate that ``chip_smoke.py`` holds the kernels
+  to (max abs error over the reference's max abs where that exceeds 1).
+  One TF32 product's error is printed beside it: it is why the kernels
+  take three.
+
 Cases: causal and non-causal at the origin, a chunk at ``offs = [5, 0]``,
 a ring step ``[0, 4]`` whose first rows see no key, and ``[0, 16]`` whose
 rows all see none. Fully masked rows must give exactly zero gradient.
@@ -181,3 +189,81 @@ def test_flash_attention_default_tier_on_cpu_is_plain():
     _close(out, ref_o, FWD_TOL)
     for t, r in zip(ts, ref_g):
         _close(t.grad, r, GRAD_TOL)
+
+
+# --- the tensor-core kernels' arithmetic (3xTF32), emulated -------------
+
+KERNEL_GATE = 1e-4
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as cvt.rna.tf32.f32 does: on the bit pattern."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm(a, b, terms):
+    """a @ b in float32 from TF32 operands: ``terms`` 3 is the kernels'
+    hi.hi + hi.lo + lo.hi with x = hi + lo, both rounded to TF32; 1 is a
+    single TF32 product."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _kernel_bwd(q, k, v, do, deff, lse, sm, terms):
+    """dq, dk, dv by the kernels' formulas: scores from unscaled q, scaled
+    on the accumulator, p by exp2, masked entries exactly 0, sm_scale on
+    dq and dk at the end."""
+    sq, sk = q.shape[-2], k.shape[-2]
+    kt = np.swapaxes(k, -1, -2)
+    s = _mm(q, kt, terms)
+    dp = _mm(do, np.swapaxes(v, -1, -2), terms)
+    lse_safe = np.where(lse > -5e29, lse, np.float32(1e30))
+    p = np.exp2(s * np.float32(sm) * LOG2E - (lse_safe * LOG2E)[..., None])
+    p = np.where(np.tril(np.ones((sq, sk), bool)), p, np.float32(0))
+    ds = (p * (dp - deff[..., None])).astype(np.float32)
+    dq = _mm(ds, k, terms) * np.float32(sm)
+    dk = _mm(np.swapaxes(ds, -1, -2), q, terms) * np.float32(sm)
+    dv = _mm(np.swapaxes(p, -1, -2).astype(np.float32), do, terms)
+    return dq, dk, dv
+
+
+def _scaled_err(got, ref):
+    ref = np.asarray(ref)
+    return float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("shape,block", [((1, 2, 256, 64), 64),
+                                         ((1, 2, 160, 128), 32)])
+def test_kernel_3xtf32_arithmetic_matches_pallas(shape, block):
+    b, h, s, d = shape
+    sm = 1.0 / np.sqrt(d)
+    rng = np.random.RandomState(7)
+    q, k, v, do = [rng.standard_normal(shape).astype(np.float32)
+                   for _ in range(4)]
+    dlse = rng.standard_normal((b, h, s)).astype(np.float32)
+    # forward residuals in float64, shared by both sides
+    sc = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k) * sm
+    sc = np.where(np.tril(np.ones((s, s), bool)), sc, -np.inf)
+    lse = np.log(np.exp(sc - sc.max(-1, keepdims=True)).sum(-1)) + \
+        sc.max(-1)
+    out = np.einsum("bhqk,bhkd->bhqd", np.exp(sc - lse[..., None]), v)
+    lse, out = lse.astype(np.float32), out.astype(np.float32)
+    ref = jfa._flash_bwd_offs_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.zeros(2, jnp.int32), jnp.asarray(do), jnp.asarray(dlse),
+        jnp.asarray(out), jnp.asarray(lse), sm, True, block, block,
+        interpret=True)
+    deff = ((do * out).sum(-1) - dlse).astype(np.float32)
+    got3 = _kernel_bwd(q, k, v, do, deff, lse, sm, 3)
+    got1 = _kernel_bwd(q, k, v, do, deff, lse, sm, 1)
+    errs3 = [_scaled_err(g, r) for g, r in zip(got3, ref)]
+    errs1 = [_scaled_err(g, r) for g, r in zip(got1, ref)]
+    print("%s: 3xTF32 dq/dk/dv %s; one TF32 product %s"
+          % (shape, ["%.2e" % e for e in errs3], ["%.2e" % e for e in errs1]))
+    assert max(errs3) <= KERNEL_GATE, errs3
