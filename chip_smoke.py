@@ -2,6 +2,7 @@
 """Chip smoke of the PyTorch port (``mxnet_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile-dir DIR] [--seed N] [--phases A,B]
+                          [--parent DIR]
 
 Phases, each printing one JSON line (any failure exits nonzero and prints
 no result line):
@@ -9,7 +10,8 @@ no result line):
 1. device  — CUDA must be available; prints the card's name and power
              limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them.
 2. build   — compiles every kernel source under
-             ``mxnet_tpu_torch/kernels/csrc/`` with nvcc (all in parallel).
+             ``mxnet_tpu_torch/kernels/csrc/`` with nvcc (all in parallel);
+             reports each kernel's registers and spill bytes (ptxas).
 3. kernel  — the flash prefill kernel against its plain PyTorch version
              on the card at the serving path's shapes: q (1, 8, C, 64)
              against k/v (1, 8, 512, 64) float32, C in {64, 256}, at
@@ -53,12 +55,12 @@ no result line):
              rows all see no key (dq, dk and dv exactly 0 there). Max abs
              error <= 1e-4 on out, lse, dq, dk and dv, scaled by the
              reference's max abs where that exceeds 1 (float32 in another
-             order of summation); the pair's two calls on the same inputs
-             bit-identical. Device times from CUDA graphs as in
+             order of summation); #5's and the pair's two calls on the same
+             inputs bit-identical. Device times from CUDA graphs as in
              phase 3: each kernel, its plain version, and as a yardstick
              only F.scaled_dot_product_attention(is_causal=True) forward
              and forward plus backward; each kernel's bound, TFLOP/s and
-             factor against SDPA (the backward pair also at D = 128).
+             factor against SDPA (#5 and the pair also at D = 128).
 7. train   — full-width training (the serve phase's model, random weights
              from a seeded generator) through ShardedTrainStep(adam, lr
              1e-3, grad_clip 1.0): 20 steps of 8 x 512 tokens from the
@@ -84,8 +86,10 @@ no result line):
              ResNet-50 update (CUDA graphs, median of 7) against the plain
              version, the card's bound (bytes: each operand read once,
              written once) and, as a yardstick only,
-             torch.optim.SGD(foreach=True) / torch.optim.Adam(fused=True)
-             over the same leaves.
+             torch.optim.SGD(foreach=True) / torch.optim.Adam(fused=True,
+             capturable=True) over the same leaves, timed the same way
+             (its eager wall beside the kernel's, library_host_ms and
+             host_ms).
 10. symbolic_train — the symbolic stack at full width, as the JAX
              package's bench times it (bench.py:555-594): ResNet-50 at
              3x224x224, batch 32, float32, through mx.sym and
@@ -203,7 +207,13 @@ no result line):
              device time by kind, idle share).
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
-always run); the default runs all of them.
+always run); the default runs all of them. ``--parent DIR`` adds a last
+phase, ``parent``: the attention kernels of the checkout in DIR (e.g. the
+parent commit unpacked with ``git archive``) built beside this one's and
+called through the same C entries on the same inputs: #2's and #4's
+outputs must be the same bits in both, every attention kernel is timed in
+turns (DIR's, this, this, DIR's) at its path's shape, and the forwards'
+largest difference is reported.
 
 The line before last is ``{"kernels": [...]}`` with each kernel's launches
 on its path's run (serving, training, symbolic training, long-context
@@ -303,6 +313,35 @@ def time_host_ms(fn, iters=50, reps=7):
         for _ in range(iters):
             fn()
     return _event_ms(run, reps) / iters
+
+
+def ptxas_kernels(log):
+    """{kernel: [registers, spill store bytes, spill load bytes]} from
+    nvcc's ``-Xptxas -v`` report; kernels named ``base<template ints>``
+    from their mangled names."""
+    import re
+    found, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            mangled, base = m.group(1), None
+            i = 3 if mangled.startswith("_ZN") else 2
+            while i < len(mangled) and mangled[i].isdigit():   # <len><id>s
+                j = i
+                while mangled[j].isdigit():
+                    j += 1
+                n = int(mangled[i:j])
+                base, i = mangled[j:j + n], j + n
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            name = "%s<%s>" % (base or mangled, ",".join(args))
+            found[name] = [None, None, None]
+        elif name and "spill stores" in ln:
+            nums = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            found[name][1:] = [int(x) for x in nums]
+        elif name and "Used" in ln and "registers" in ln:
+            found[name][0] = int(re.search(r"Used (\d+) registers",
+                                           ln).group(1))
+    return found
 
 
 def visible_keys(sq, sk, q0, k0):
@@ -610,6 +649,11 @@ def phase_train_kernel(torch, fa, dev):
         ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, sm, causal)
         check("fwd", what + " out", out, ref_out)
         check("fwd", what + " lse", lse, ref_lse)
+        # #5 owns its output rows too: a second call is bit-identical
+        if not all(torch.equal(a, b_) for a, b_ in zip(
+                fa._flash_fwd_cuda(q, k, v, sm, causal), (out, lse))):
+            fail("train_kernel %s: two forward calls on the same inputs "
+                 "differ" % what)
         ts = leaves(q, k, v)
         o = fa.flash_attention(*ts, causal=causal, sm_scale=sm,
                                use_pallas=True)
@@ -663,8 +707,8 @@ def phase_train_kernel(torch, fa, dev):
                  % what)
     torch.cuda.synchronize()
 
-    # device times at the training shape (D = 64), and the backward pair
-    # at D = 128
+    # device times at the training shape (D = 64), and the pair #5, #2 at
+    # D = 128
     t = {}
     for B, H, S, D in ((8, 8, 512, 64), (8, 8, 512, 128)):
         pre = "" if D == 64 else "d128_"
@@ -689,13 +733,13 @@ def phase_train_kernel(torch, fa, dev):
             pre + "dkv_ms": time_ms(lambda: fa._launch(
                 "mx_flash_bwd_dkv_f32", *common, dk.data_ptr(),
                 dv.data_ptr(), *tail, device=dev)),
+            pre + "fwd_ms": time_ms(lambda: fa._flash_fwd_cuda(q, k, v, sm,
+                                                               True)),
             pre + "sdpa_fwd_ms": time_ms(lambda: sdpa(q, k, v)),
             pre + "sdpa_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
                 sdpa(qg, kg, vg), (qg, kg, vg), do))})
         if D == 64:
             t.update({
-                "fwd_ms": time_ms(lambda: fa._flash_fwd_cuda(q, k, v, sm,
-                                                             True)),
                 "fwd_plain_ms": time_ms(lambda: fa.flash_fwd_plain(
                     q, k, v, sm, True)),
                 "bwd_plain_ms": time_ms(lambda: fa.flash_bwd_offs_plain(
@@ -708,9 +752,8 @@ def phase_train_kernel(torch, fa, dev):
         vis = B * H * S * (S + 1) // 2
         n, rows = q.numel(), B * H * S
         work = [("dq", 6.0 * vis * D, 4.0 * (5 * n + 2 * rows) + 8),
-                ("dkv", 8.0 * vis * D, 4.0 * (6 * n + 2 * rows) + 8)]
-        if D == 64:
-            work.append(("fwd", 4.0 * vis * D, 4.0 * (4 * n + rows)))
+                ("dkv", 8.0 * vis * D, 4.0 * (6 * n + 2 * rows) + 8),
+                ("fwd", 4.0 * vis * D, 4.0 * (4 * n + rows))]
         for name, flops, nbytes in work:
             for key, val in attention_bounds(flops, nbytes).items():
                 t[pre + name + "_" + key] = val
@@ -719,8 +762,8 @@ def phase_train_kernel(torch, fa, dev):
         # the backward pair against SDPA's backward (fwd+bwd minus fwd)
         t[pre + "bwd_vs_sdpa"] = ((t[pre + "dq_ms"] + t[pre + "dkv_ms"])
                                   / t[pre + "sdpa_bwd_ms"])
+        t[pre + "fwd_vs_sdpa"] = t[pre + "fwd_ms"] / t[pre + "sdpa_fwd_ms"]
         del q, k, v, do, out, lse, deff, dq, dk, dv, qg, kg, vg
-    t["fwd_vs_sdpa"] = t["fwd_ms"] / t["sdpa_fwd_ms"]
     return worst, t
 
 
@@ -995,9 +1038,11 @@ def phase_opt_kernel(torch, dev):
                "ms": time_ms(kernel, iters=5),
                "host_ms": time_host_ms(kernel, iters=10),
                "plain_ms": time_ms(plain, iters=5)}
-        # the yardstick, called eagerly as a user would (a few multi-tensor
-        # launches per step; compare with host_ms, the kernel's eager time)
-        row["library_ms"] = time_host_ms(lib.step, iters=10)
+        # the yardstick, device time in a CUDA graph as the kernel's (SGD
+        # with foreach and Adam with fused + capturable both capture), and
+        # its eager wall beside the kernel's host_ms
+        row["library_ms"] = time_ms(lib.step, iters=5)
+        row["library_host_ms"] = time_host_ms(lib.step, iters=10)
         if sum(_opt_counts(tou).values()) == before:
             fail("opt_kernel: the timed kernel never launched")
         nbytes = tou.optupdate_ideal_bytes(opt, params, state) + 4
@@ -2291,6 +2336,126 @@ def phase_rtc_infer(torch, dev, seed, out_dir):
     return result, row
 
 
+def phase_parent(torch, fa, dev, parent):
+    """This checkout's attention kernels against another's (``--parent
+    DIR``: a checkout, e.g. the parent commit unpacked with ``git
+    archive``), built from DIR's ``csrc/`` and called through the same C
+    entries on the same card. The backward entries (#2, #4) must give the
+    same bits in both; every kernel is timed in turns (DIR's, this, this,
+    DIR's) at its main path's shape, and the forward outputs' largest
+    difference is reported."""
+    import ctypes
+    from mxnet_tpu_torch.kernels import _build
+    csrc = os.path.join(parent, "mxnet_tpu_torch", "kernels", "csrc")
+    paths = _build.build_all([n for n in _build.SOURCES
+                              if n.startswith("flash")], csrc=csrc)
+    libs = {n: ctypes.CDLL(p) for n, p in paths.items()}
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def theirs(name):
+        lib, argtypes = fa._ENTRIES[name]
+        fn = getattr(libs[lib], name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return lambda *a: fn(*a, torch.cuda.current_stream().cuda_stream)
+
+    def ours(name):
+        return lambda *a: fa._launch(name, *a, device=dev)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    result = {"phase": "parent", "dir": parent, "bwd_bit_identical": True,
+              "fwd_max_abs_diff": {}, "times": {}}
+
+    def both(key, name, args, outs, iters=20):
+        """Run entry ``name`` of both trees on ``args`` (outs are among
+        them), then time both in turns; -> the two output lists."""
+        fns = [make(name) for make in (theirs, ours)]
+        got = []
+        for fn in fns:
+            for o in outs:
+                o.zero_()   # a dead split's slot stays 0 in both
+            if fn(*args):
+                fail("parent %s: the parent's %s launch failed" % (key,
+                                                                  name))
+            torch.cuda.synchronize()
+            got.append([o.clone() for o in outs])
+        ms = [time_ms(lambda: fn(*args), iters=iters)
+              for fn in (fns[0], fns[1], fns[1], fns[0])]
+        result["times"][key] = {"parent_ms": (ms[0] + ms[3]) / 2,
+                                "ms": (ms[1] + ms[2]) / 2}
+        return got
+
+    # the training pair #5, #2 and the grid pair #6, #4 at their paths'
+    # shapes (#4 with 8 splits and with one)
+    for B, S, w, pre in ((8, 512, None, ""), (4, LONG_S, LONG_W, "grid_"),
+                         (4, LONG_S, LONG_S, "grid_1split_")):
+        H, D = 8, 64
+        sm = 1.0 / math.sqrt(D)
+        q, k, v, do = (rand(B, H, S, D) for _ in range(4))
+        offs0 = fa._offs0(dev)
+        out, lse = fa.flash_fwd_plain(q, k, v, sm, True)
+        deff = fa._deff(do, out, None).contiguous()
+        n = 1 if w is None else -(-S // w)
+        part = (n,) if n > 1 else ()
+        o_, l_ = (torch.empty(part + (B, H, S, D), device=dev),
+                  torch.empty(part + (B, H, S), device=dev))
+        dq, dk, dv = (torch.empty(part + (B, H, S, D), device=dev)
+                      for _ in range(3))
+        common = [t.data_ptr() for t in (q, k, v, offs0, do, lse, deff)]
+        grid = () if w is None else (w, n)
+        bh = (B * H, S, S, D) + grid + (sm, 1)
+        iters = 20 if w is None else 5
+        if pre != "grid_1split_":
+            fwd = ("mx_flash_fwd_f32" if w is None else
+                   "mx_flash_fwd_grid_f32")
+            a, b_ = both(pre + "fwd", fwd, [q.data_ptr(), k.data_ptr(),
+                                            v.data_ptr(), o_.data_ptr(),
+                                            l_.data_ptr()] + list(bh),
+                         [o_, l_], iters)
+            live = b_[1] > NEG / 2
+            result["fwd_max_abs_diff"][pre + "fwd"] = max(
+                (a[0] - b_[0]).abs().max().item(),
+                (a[1] - b_[1])[live].abs().max().item())
+        sfx = "" if w is None else "_grid"
+        for key, outs in (("dq", [dq]), ("dkv", [dk, dv])):
+            a, b_ = both(pre + key, "mx_flash_bwd_%s%s_f32" % (key, sfx),
+                         common + [o.data_ptr() for o in outs] + list(bh),
+                         outs, iters)
+            if not all(torch.equal(x, y) for x, y in zip(a, b_)):
+                result["bwd_bit_identical"] = False
+                fail("parent: %s%s differs from the parent's bits"
+                     % (pre, key))
+        del q, k, v, do, out, lse, deff, o_, l_, dq, dk, dv
+        torch.cuda.empty_cache()
+
+    # the serving forwards #1 and #3 at their paths' shapes
+    for key, C, SK, q0, w in (("offs", 256, 512, 256, None),
+                              ("grid_offs", 1024, LONG_S, 2816, LONG_W)):
+        H, D = 8, 64
+        sm = 1.0 / math.sqrt(D)
+        q, k, v = rand(1, H, C, D), rand(1, H, SK, D), rand(1, H, SK, D)
+        offs = torch.tensor([q0, 0], dtype=torch.int32, device=dev)
+        n = 1 if w is None else -(-SK // w)
+        part = (n,) if n > 1 else ()
+        o_, l_ = (torch.empty(part + (1, H, C, D), device=dev),
+                  torch.empty(part + (1, H, C), device=dev))
+        name = ("mx_flash_fwd_offs_f32" if w is None else
+                "mx_flash_fwd_offs_grid_f32")
+        grid = () if w is None else (w, n)
+        a, b_ = both(key, name, [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 offs.data_ptr(), o_.data_ptr(),
+                                 l_.data_ptr(), H, C, SK, D] + list(grid)
+                     + [sm, 1], [o_, l_])
+        live = b_[1] > NEG / 2
+        result["fwd_max_abs_diff"][key] = max(
+            (a[0] - b_[0]).abs().max().item(),
+            (a[1] - b_[1])[live].abs().max().item())
+    for v_ in result["times"].values():
+        v_["speedup"] = v_["parent_ms"] / v_["ms"]
+    return result
+
+
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
           "grid_kernel", "serve_long", "train_long", "rtc_kernel",
@@ -2307,6 +2472,10 @@ def main():
                              "profile phases into this directory")
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the train phases' weights and data")
+    parser.add_argument("--parent", default=None, metavar="DIR",
+                        help="also hold this checkout's attention kernels "
+                             "against those of the checkout in DIR (same "
+                             "bits for the backward, times in turns)")
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of %s (default: all)"
                         % ",".join(PHASES))
@@ -2324,8 +2493,8 @@ def main():
     from mxnet_tpu_torch.kernels import _build
     from mxnet_tpu_torch.kernels import flash_attention as fa
     # float32 must stay float32 on the card: the kernels keep float32
-    # accuracy (CUDA cores, or three TF32 products a product on the tensor
-    # cores), and the plain versions, the model's matmuls and cuDNN's
+    # accuracy (on CUDA cores, or as three TF32 products a product on the
+    # tensor cores), and the plain versions, the model's matmuls and cuDNN's
     # convolutions must too, or one TF32 product's ~3 decimal digits would
     # swamp the comparisons
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2342,9 +2511,8 @@ def main():
     paths = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(paths),
-          "ptxas": {k: [ln.strip() for ln in v["ptxas"].splitlines()
-                        if "registers" in ln or "spill" in ln
-                        or "entry function" in ln]
+          # per library: kernel -> [registers, spill stores, spill loads]
+          "ptxas": {k: ptxas_kernels(v["ptxas"])
                     for k, v in _build.build_info.items()}})
 
     entries = []
@@ -2517,6 +2685,8 @@ def main():
             "shape": "the 50 relu inputs of one ResNet-50 forward at batch "
                      "32 (%d f32 elements), USER_RELU_SOURCE via NVRTC"
                      % row["elements"]})
+    if args.parent:
+        emit({**phase_parent(torch, fa, dev, args.parent), "card": card})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -68,28 +68,32 @@ def nvcc_path():
     return cand if os.access(cand, os.X_OK) else None
 
 
-def _lib_path(name):
-    src = os.path.join(_CSRC, SOURCES[name])
+def _lib_path(name, csrc=_CSRC):
+    src = os.path.join(csrc, SOURCES[name])
     digest = hashlib.sha256(" ".join(_flags(name)).encode())
-    headers = sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh"))
-    for path in [src] + [os.path.join(_CSRC, n) for n in headers]:
+    headers = sorted(n for n in os.listdir(csrc) if n.endswith(".cuh"))
+    for path in [src] + [os.path.join(csrc, n) for n in headers]:
         with open(path, "rb") as f:
             digest.update(f.read())
     return src, os.path.join(_BUILD_DIR, "lib%s-%s.so"
                              % (name, digest.hexdigest()[:16]))
 
 
-def build_all(names=None):
+def build_all(names=None, csrc=None):
     """Compile every source whose library is missing, all in parallel;
     returns ``{name: path}``. Raises RuntimeError with the compiler's
-    output when a build fails or ``nvcc`` is missing."""
+    output when a build fails or ``nvcc`` is missing. ``csrc``: build the
+    sources of another checkout's ``csrc/`` directory (same names and
+    flags; not recorded in ``build_info``)."""
     names = list(SOURCES) if names is None else list(names)
+    own = csrc is None
     todo, paths = [], {}
     for name in names:
-        src, path = _lib_path(name)
+        src, path = _lib_path(name, _CSRC if own else csrc)
         paths[name] = path
         if os.path.exists(path):
-            build_info.setdefault(name, {"seconds": 0.0, "ptxas": ""})
+            if own:
+                build_info.setdefault(name, {"seconds": 0.0, "ptxas": ""})
         else:
             todo.append((name, src, path))
     if not todo:
@@ -114,8 +118,9 @@ def build_all(names=None):
                                                       log))
             continue
         os.replace(tmp, path)   # atomic: a concurrent loader never sees half
-        build_info[name] = {"seconds": time.perf_counter() - t0,
-                            "ptxas": log}
+        if own:
+            build_info[name] = {"seconds": time.perf_counter() - t0,
+                                "ptxas": log}
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return paths

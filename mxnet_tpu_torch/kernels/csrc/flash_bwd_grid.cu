@@ -13,7 +13,8 @@
 // that of flash_bwd_offs.cu (flash_bwd.cuh states it).
 //
 // The TPU kernels make the walked axis a sequential grid dimension with a
-// VMEM accumulator. Here it becomes a split, as in flash_fwd_grid.cuh:
+// VMEM accumulator. Here it becomes a split, as in the forward
+// (flash_fwd.cuh):
 // - dq: one block per (64 query rows, (b, h), key split of wk keys), wk =
 //   the JAX call's block_k rounded up to 32, n_kv_split = ceil(sk / wk). A
 //   block walks its split's keys up to the causal frontier of its last row
@@ -30,7 +31,7 @@
 // 64). A (block, split) pair that no row of the
 // block can see is dead: the block returns at once, loading and writing
 // nothing, and no reduce reads it (the split geometry is
-// flash_fwd_grid.cuh's live_kv_splits / first_live_q_split, so a read
+// flash_split.cuh's live_kv_splits / first_live_q_split, so a read
 // split is always written). With one split the kernels write dq (scaled)
 // or dk/dv directly and the reduce is not run. No atomics: deterministic.
 //
@@ -151,7 +152,7 @@ extern "C" int mx_flash_bwd_dq_grid_f32(const float* q, const float* k,
                                         int n_split, float sm_scale,
                                         int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_BWD_DISPATCH((mx_flash_bwd::launch_dq<D>(
+  MX_DISPATCH_D((mx_flash_bwd::launch_dq<D>(
       q, k, v, offs, dout, lse, deff, dq, bh, sq, sk, wk, n_split, sm_scale,
       causal, s)))
 }
@@ -168,7 +169,7 @@ extern "C" int mx_flash_bwd_dkv_grid_f32(const float* q, const float* k,
                                          float sm_scale, int causal,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_BWD_DISPATCH((mx_flash_bwd::launch_dkv<D>(
+  MX_DISPATCH_D((mx_flash_bwd::launch_dkv<D>(
       q, k, v, offs, dout, lse, deff, dk, dv, bh, sq, sk, wq, n_split,
       sm_scale, causal, s)))
 }
@@ -182,7 +183,7 @@ extern "C" int mx_flash_bwd_dq_grid_reduce_f32(const int* offs,
                                                float sm_scale, int causal,
                                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_BWD_DISPATCH((launch_reduce<D, false>(offs, dq_part, nullptr, dq,
+  MX_DISPATCH_D((launch_reduce<D, false>(offs, dq_part, nullptr, dq,
                                            nullptr, bh, sq, 0, wk, n_split,
                                            sm_scale, causal, s)))
 }
@@ -197,7 +198,7 @@ extern "C" int mx_flash_bwd_dkv_grid_reduce_f32(const int* offs,
                                                 int wq, int n_split,
                                                 int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_BWD_DISPATCH((launch_reduce<D, true>(offs, dk_part, dv_part, dk, dv,
+  MX_DISPATCH_D((launch_reduce<D, true>(offs, dk_part, dv_part, dk, dv,
                                           bh, sk, sq, wq, n_split, 1.f,
                                           causal, s)))
 }

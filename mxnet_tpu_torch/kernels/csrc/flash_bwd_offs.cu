@@ -41,7 +41,7 @@ extern "C" int mx_flash_bwd_dq_f32(const float* q, const float* k,
                                    int sq, int sk, int d, float sm_scale,
                                    int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_BWD_DISPATCH((launch_dq<D>(q, k, v, offs, dout, lse, deff, dq, bh, sq,
+  MX_DISPATCH_D((launch_dq<D>(q, k, v, offs, dout, lse, deff, dq, bh, sq,
                                 sk, sk, 1, sm_scale, causal, s)))
 }
 
@@ -54,6 +54,6 @@ extern "C" int mx_flash_bwd_dkv_f32(const float* q, const float* k,
                                     float sm_scale, int causal,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_BWD_DISPATCH((launch_dkv<D>(q, k, v, offs, dout, lse, deff, dk, dv, bh,
+  MX_DISPATCH_D((launch_dkv<D>(q, k, v, offs, dout, lse, deff, dk, dv, bh,
                                  sq, sk, sq, 1, sm_scale, causal, s)))
 }

@@ -6,21 +6,25 @@
 //
 // Replaces the TPU kernel _flash_fwd_kernel
 // (mxnet_tpu/kernels/flash_attention.py:205, launched by _flash_fwd_pallas
-// at L962). The body, its bound (operations at the training shape: 0.032 ms
-// of float32 CUDA-core work against 0.010 ms of bytes for q/k/v
-// (8, 8, 512, 64) causal) and its design are in flash_fwd.cuh, shared with
-// flash_fwd_offs.cu; this library instantiates it with both offsets fixed
-// at 0, so the plain path reads no device offsets.
+// at L962). The body is flash_fwd.cuh's (3xTF32 mma.sync products,
+// cp.async double buffering, 64 query rows a block), instantiated with both
+// offsets fixed at 0, so the plain path reads no device offsets, and one
+// split over the whole key axis. Bound: operations, 0.0130 ms of
+// float32-accurate tensor-core work (three TF32 products each at 495
+// TFLOP/s) at q/k/v (8, 8, 512, 64) causal, against 0.010 ms of bytes.
 #include "flash_fwd.cuh"
+
+using namespace mx_flash;
 
 // q [bh, sq, d], k/v [bh, sk, d], out [bh, sq, d] float32, contiguous;
 // lse [bh, sq] float32. Launches on `stream` without synchronizing and
-// returns cudaGetLastError() (nonzero: the launch was refused, or d is not
-// 32, 64 or 128).
+// returns the CUDA error of the launch (nonzero: refused, or d is not 32,
+// 64 or 128).
 extern "C" int mx_flash_fwd_f32(const float* q, const float* k,
                                 const float* v, float* out, float* lse,
                                 int bh, int sq, int sk, int d,
                                 float sm_scale, int causal, void* stream) {
-  return mx_flash::dispatch_fwd<false>(q, k, v, nullptr, out, lse, bh, sq,
-                                       sk, d, sm_scale, causal, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((launch_fwd<D, false>(q, k, v, nullptr, out, lse, bh, sq,
+                                      sk, sk, 1, sm_scale, causal, s)))
 }

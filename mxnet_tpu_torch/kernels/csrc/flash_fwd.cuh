@@ -1,246 +1,337 @@
-// Flash-attention forward body shared by flash_fwd_offs.cu (TPU kernel
-// _flash_fwd_offs_kernel, global offsets read on the device) and
-// flash_fwd.cu (TPU kernel _flash_fwd_kernel, no offsets), float32, for
-// Hopper (sm_90a). Each .cu includes this header and defines its own C
-// entry, so the two are separate libraries with separate launch counters.
+// The flash-attention forward body, float32 on the tensor cores, for Hopper
+// (sm_90a): one kernel, `template <int D, bool kOffs>`, over splits of the
+// key axis (blockIdx.z; w keys each). Four libraries instantiate it, each
+// with its own C entry:
+// - flash_fwd.cu (TPU kernel _flash_fwd_kernel, #5): no offsets, one split
+//   over the whole key axis;
+// - flash_fwd_offs.cu (_flash_fwd_offs_kernel, #1): offsets, one split;
+// - flash_fwd_grid.cu (_flash_fwd_grid_kernel, #6) and
+//   flash_fwd_offs_grid.cu (_flash_fwd_offs_grid_kernel, #3): the JAX
+//   call's splits, partials into a workspace that the combine pass of
+//   flash_fwd_grid.cuh merges.
 //
-// Function:
+// Function (query row i at global position q0 + i and key j at k0 + j,
+// [q0, k0] = offs[0..1] when kOffs, else [0, 0]; under `causal` a key is
+// visible iff its position <= the query's):
 //   out[b,h,i,:] = softmax_j(s_ij) v[b,h,j,:],  s_ij = (q_i * sm_scale) . k_j
-// with query row i at global position q0 + i and key j at k0 + j, where
-// [q0, k0] = offs[0..1] when kOffs and [0, 0] otherwise; under `causal` a
-// key is visible iff its position <= the query's. Rows with no visible key
-// get out = 0 and lse = -1e30 (the convention merge_attention relies on;
-// without offsets no row is fully masked). lse = m + log(l) in float32.
+//   lse[b,h,i]   = logsumexp_j s_ij
+// over the keys of the block's split (all keys with one split). Rows with
+// no visible key get out = 0 and lse = -1e30 exactly (the offset kernels'
+// contract; without offsets and with one split no row has none). With
+// n_split > 1 the block writes its split's normalized partial (out_s,
+// lse_s) into slot `split` of the workspace [n_split, bh, sq, D] /
+// [n_split, bh, sq]; a split that no row of the block can see is dead and
+// the block returns before loading anything (the combine never reads it,
+// flash_split.cuh).
 //
-// Bound on one H100 SXM: operations are 4 * B * H * sum_rows(visible keys)
-// * D (QK^T and PV, a multiply-add counted as two), at 67 TFLOP/s for
-// float32 outside the tensor cores; bytes are q, k, v and out read or
-// written once plus the lse, at 3.35 TB/s. At the training shape
-// (B=8, H=8, S=512, D=64, causal) that is 0.032 ms of operations against
-// 0.010 ms of bytes: operation bound. At the serving shapes (B=1, H=8,
-// C in {64, 256} query rows, 512 keys) the kernel is latency bound, with
-// only C/32 * 8 = 16..64 blocks for 132 SMs.
+// Bound on one H100 SXM: float32-accurate products on the tensor cores
+// cost three TF32 products each, so operations are 3 * 4 * B * H *
+// sum_rows(visible keys) * D (QK^T and PV) at the 495 TFLOP/s dense TF32
+// rate; bytes are q, k, v, out and lse once at 3.35 TB/s, plus the
+// workspace with splits. At (8, 8, 512, 64) causal that is 0.0130 ms, at
+// (4, 8, 4096, 64) causal 0.417 ms: operation bound. The serving shapes
+// (q (1, 8, 256, 64) on 512 keys) are latency bound: 32 blocks for 132
+// SMs.
 //
-// What the design does about it: each block owns 32 query rows of one
-// (b, h) and walks the key axis in 32-key tiles staged in shared memory,
-// with the online-softmax state (m, l and the output accumulator) in
-// float32 registers, so q, k and v are read from device memory once per
-// block and nothing else is. Eight threads share a query row: each computes
-// four of the tile's 32 scores with independent accumulators (ILP for the
-// few warps an SM holds) and owns D/8 output columns; the row's max and sum
-// are combined with warp shuffles. Tiles wholly below the causal diagonal
-// run without a mask, tiles across it are masked, and tiles past the causal
-// frontier of the block's last row are never loaded (the TPU kernels' loop
-// split). Shared-memory rows are padded by four floats so the float4 reads
-// of the eight threads of a row fall in distinct banks. Products run on
-// CUDA cores in full float32 (no TF32). Splitting the key axis across
-// blocks (flash-decoding) to fill the card, cp.async double buffering and
-// wgmma are later work.
+// What the design does:
+// - Products: 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh). Q is used for every
+//   key tile, so it is split into hi and lo once a block, with sm_scale *
+//   log2e folded in first (the scores come out in log2 units): in
+//   registers at D <= 64, as hi and lo planes in shared memory at D = 128
+//   (its 16 x 128 output a warp leaves no registers for Q). K and V are
+//   split at their fragment loads, P (in [0, 1]) when it becomes an A
+//   fragment: one TF32 rounding of P alone would miss the 1e-4 gate.
+// - Blocking: a block of 4 warps owns 64 query rows of one (b, h), 16 a
+//   warp, and walks its split's keys in tiles of tile_rows<D>() (64; 32 at
+//   D = 128). Per tile: S = Q K^T on the tensor cores; the online softmax
+//   on the accumulator registers (the row max over the thread quad by
+//   __shfl_xor_sync 1 and 2, p = exp2(s - m), the row sum kept per thread
+//   and summed over the quad once at the end); then P V with P straight
+//   from the accumulators as A fragments, in the permuted order of the
+//   contracted axis (acc_to_a, load_bp).
+// - Per-tile sums: the tensor cores round their float32 sums toward zero,
+//   so each tile's P V is summed from zero and folded into O as O * alpha
+//   + PV_t with one float32 fma; the online softmax needs that rescale
+//   anyway.
+// - Staging: q once, then K and V double-buffered with 16-byte cp.async
+//   into XOR-swizzled rows, zero-filled past the valid keys (no NaN
+//   enters an MMA): tile t + 1 loads while tile t computes, one
+//   __syncthreads a tile. Dynamic shared memory, 40 KB at D = 32, 80 KB at
+//   D = 64 (two blocks an SM), 128 KB at D = 128.
+// - Masks: tiles wholly visible skip the mask; in tiles across the
+//   diagonal or the split's end a masked score becomes -1e30, whose exp2
+//   is exactly 0; tiles past the causal frontier of the block's last row
+//   are never loaded. A split range that is not a multiple of the tile is
+//   masked at its end. Causal blocks launch heaviest first (the last query
+//   rows see the most keys). A block owns its rows: no atomics, and two
+//   calls give identical bits.
 #pragma once
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "flash_split.cuh"   // the split geometry, kNeg
+#include "tf32_mma.cuh"      // 3xTF32 mma.sync, cp.async staging
 
 namespace mx_flash {
+// Internal linkage: four libraries of one process instantiate this body,
+// two of them with the same template arguments (flash_fwd.cu and
+// flash_fwd_grid.cu), and a launcher's function-local static (the
+// shared-memory attribute) must stay each library's own.
+namespace {
 
-constexpr int kRowThreads = 8;                  // threads sharing one query row
-constexpr int kThreads = 256;
-constexpr int kBlockQ = kThreads / kRowThreads;  // 32 query rows per block
-constexpr int kBlockK = 32;                     // keys per shared-memory tile
-constexpr int kKeysPerThread = kBlockK / kRowThreads;
-constexpr float kNeg = -1e30f;
+using namespace mx_tc;
 
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Q split once a block into registers (D <= 64), else into shared planes
+template <int D>
+__host__ __device__ constexpr bool q_in_regs() { return D <= 64; }
+
+// q (or its hi and lo planes) and two stages of K and V
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return sizeof(float) * ((q_in_regs<D>() ? 1 : 2) * kRows * D +
+                          4 * tile_rows<D>() * D);
+}
+
+// A fragment of rows [r0, r0 + 16), columns [c0, c0 + 8) of a shared tile,
+// times c, split into hi and lo
+template <int D>
+__device__ __forceinline__ void load_a_scaled(const float* s, int r0, int c0,
+                                              int g, int t, float c,
+                                              uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+  split_tf32(s[sw<D>(r0 + g, c0 + t)] * c, hi[0], lo[0]);
+  split_tf32(s[sw<D>(r0 + g + 8, c0 + t)] * c, hi[1], lo[1]);
+  split_tf32(s[sw<D>(r0 + g, c0 + t + 4)] * c, hi[2], lo[2]);
+  split_tf32(s[sw<D>(r0 + g + 8, c0 + t + 4)] * c, hi[3], lo[3]);
+}
+
+// The same fragment from hi and lo planes split beforehand
+template <int D>
+__device__ __forceinline__ void load_a_planes(const float* hs, const float* ls,
+                                              int r0, int c0, int g, int t,
+                                              uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+  const int idx[4] = {sw<D>(r0 + g, c0 + t), sw<D>(r0 + g + 8, c0 + t),
+                      sw<D>(r0 + g, c0 + t + 4),
+                      sw<D>(r0 + g + 8, c0 + t + 4)};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    hi[e] = __float_as_uint(hs[idx[e]]);
+    lo[e] = __float_as_uint(ls[idx[e]]);
+  }
+}
+
+// One block: 64 query rows of (b, h) = blockIdx.x, key split blockIdx.z of
+// width w (n_split == 1: w >= sk, the final out and lse).
 template <int D, bool kOffs>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const float* __restrict__ q,
-                     const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const int* __restrict__ offs,
-                     float* __restrict__ out,
-                     float* __restrict__ lse,
-                     int sq, int sk, float sm_scale, int causal) {
-  static_assert(D % (4 * kRowThreads) == 0, "D must be a multiple of 32");
-  constexpr int kStride = D + 4;          // padded K/V row (floats)
-  constexpr int kPStride = kBlockK + 4;   // padded P row (floats)
-  constexpr int kChunks = D / (4 * kRowThreads);  // float4 output chunks
-  __shared__ __align__(16) float ks[kBlockK * kStride];
-  __shared__ __align__(16) float vs[kBlockK * kStride];
-  __shared__ __align__(16) float ps[kBlockQ * kPStride];
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ offs,
+                 float* __restrict__ out, float* __restrict__ lse, int sq,
+                 int sk, int w, int n_split, float sm_scale, int causal) {
+  constexpr int kT = tile_rows<D>();
+  constexpr int kNT = kT / 8;   // 8-key groups of a tile
+  constexpr int kND = D / 8;    // 8-column groups of a row
+  constexpr bool kQReg = q_in_regs<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [kRows][D]: q, then its hi plane
+  float* qls = qs + kRows * D;      // [kRows][D]: q's lo plane (D = 128)
+  float* kvs = smem + (kQReg ? 1 : 2) * kRows * D;   // [2][k, v][kT][D]
 
-  const int tid = threadIdx.x;
-  const int row = tid / kRowThreads;
-  const int lane = tid % kRowThreads;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int qi = q0 + row;
-  const bool q_valid = qi < sq;
-  const float* qb = q + static_cast<size_t>(bh) * sq * D;
-  const float* kb = k + static_cast<size_t>(bh) * sk * D;
-  const float* vb = v + static_cast<size_t>(bh) * sk * D;
-
-  // offsets read on the device: the analog of scalar prefetch, so a
-  // prefill chunk at a new start costs no host round trip
+  const int bh = blockIdx.x;
+  const int rb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int split = blockIdx.z;
+  const bool direct = n_split == 1;
+  const int q0 = rb * kRows;
+  // offsets read on the device: a prefill chunk at a new start costs no
+  // host round trip
   const int q_base = kOffs ? offs[0] : 0;
   const int k_base = kOffs ? offs[1] : 0;
-  const int q_pos = q_base + qi;
+  const int last_q = q_base + min(q0 + kRows, sq) - 1;
+  if (!direct &&
+      split >= live_kv_splits(last_q, k_base, w, n_split, causal))
+    return;   // dead: no row of the block sees a key of this split
 
-  // the query row with sm_scale folded in once (_fold_scale)
-  float qr[D];
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q_valid) t = *reinterpret_cast<const float4*>(qb + static_cast<size_t>(qi) * D + d);
-    qr[d] = t.x * sm_scale;
-    qr[d + 1] = t.y * sm_scale;
-    qr[d + 2] = t.z * sm_scale;
-    qr[d + 3] = t.w * sm_scale;
-  }
-  float acc[kChunks][4];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-    acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-  float m_i = kNeg;
-  float l_i = 0.f;
+  // keys [k_lo, k_end) of the split, [k_lo, k_hi) seen by some row
+  const int k_lo = split * w;
+  const int k_end = min(k_lo + w, sk);
+  const int k_hi = causal ? min(k_end, last_q - k_base + 1) : k_end;
+  const int n_t = k_hi > k_lo ? (k_hi - k_lo + kT - 1) / kT : 0;
 
-  // tiles [0, full_hi) need no mask; [full_hi, hi) are masked; >= hi skipped
-  const int n_tiles = (sk + kBlockK - 1) / kBlockK;
-  const int n_full = sk / kBlockK;
-  int full_hi = n_full;
-  int hi = n_tiles;
-  if (causal) {
-    const int first_q = q_base + q0;
-    const int last_q = q_base + min(q0 + kBlockQ, sq) - 1;
-    const int seen_by_all = first_q - k_base + 1;  // keys every row sees
-    full_hi = seen_by_all <= 0 ? 0 : min(seen_by_all / kBlockK, n_full);
-    const int last_key = last_q - k_base;          // last key any row sees
-    hi = last_key < 0 ? 0 : min(last_key / kBlockK + 1, n_tiles);
-    hi = max(hi, full_hi);
-  }
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int wr = warp * 16;
+  const size_t qoff = static_cast<size_t>(bh) * sq;
+  // the thread's rows wr + g and wr + g + 8
+  const int q_pos[2] = {q_base + q0 + wr + g, q_base + q0 + wr + g + 8};
 
-  for (int t = 0; t < hi; ++t) {
-    const int kt0 = t * kBlockK;
-    __syncthreads();  // the previous tile's shared-memory reads are done
-    for (int i = tid; i < kBlockK * D / 4; i += kThreads) {
-      const int r = i / (D / 4);
-      const int c = (i % (D / 4)) * 4;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kk;
-      if (kt0 + r < sk) {
-        kk = *reinterpret_cast<const float4*>(kb + static_cast<size_t>(kt0 + r) * D + c);
-        vv = *reinterpret_cast<const float4*>(vb + static_cast<size_t>(kt0 + r) * D + c);
-      }
-      *reinterpret_cast<float4*>(ks + r * kStride + c) = kk;
-      *reinterpret_cast<float4*>(vs + r * kStride + c) = vv;
-    }
+  float acc[kND][4];   // O, unnormalized
+  zero(acc);
+  float m[2] = {kNeg, kNeg};   // row max of the scores (log2 units)
+  float l[2] = {0.f, 0.f};     // the thread's share of the row sums
+
+  if (n_t > 0) {
+    const float* kb = k + static_cast<size_t>(bh) * sk * D;
+    const float* vb = v + static_cast<size_t>(bh) * sk * D;
+    stage<D, kRows>(qs, q + qoff * D, q0, sq);
+    stage<D, kT>(kvs, kb, k_lo, k_end);
+    stage<D, kT>(kvs + kT * D, vb, k_lo, k_end);
+    cp_async_commit();
+    cp_async_wait_all();
     __syncthreads();
 
-    // scores of keys lane, lane + 8, lane + 16, lane + 24 of the tile
-    float s[kKeysPerThread];
+    // Q * sm_scale * log2e, split once
+    const float qc = sm_scale * kLog2e;
+    uint32_t qh[kQReg ? kND : 1][4], ql[kQReg ? kND : 1][4];
+    if constexpr (kQReg) {
 #pragma unroll
-    for (int j = 0; j < kKeysPerThread; ++j) s[j] = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-#pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) {
-        const float4 kk = *reinterpret_cast<const float4*>(
-            ks + (lane + kRowThreads * j) * kStride + d);
-        s[j] = fmaf(qr[d], kk.x, s[j]);
-        s[j] = fmaf(qr[d + 1], kk.y, s[j]);
-        s[j] = fmaf(qr[d + 2], kk.z, s[j]);
-        s[j] = fmaf(qr[d + 3], kk.w, s[j]);
+      for (int kk = 0; kk < kND; ++kk)
+        load_a_scaled<D>(qs, wr, kk * 8, g, t, qc, qh[kk], ql[kk]);
+    } else {
+      // in place, element by element: the hi plane over q, the lo plane
+      // beside it (the loop's first __syncthreads publishes them)
+      for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
+        uint32_t hi, lo;
+        split_tf32(qs[i] * qc, hi, lo);
+        qs[i] = __uint_as_float(hi);
+        qls[i] = __uint_as_float(lo);
       }
     }
-    if (t >= full_hi) {
-#pragma unroll
-      for (int j = 0; j < kKeysPerThread; ++j) {
-        const int kj = kt0 + lane + kRowThreads * j;
-        const bool visible = kj < sk && (!causal || q_pos >= k_base + kj);
-        if (!visible) s[j] = kNeg;
-      }
-    }
-    float m_tile = s[0];
-#pragma unroll
-    for (int j = 1; j < kKeysPerThread; ++j) m_tile = fmaxf(m_tile, s[j]);
-#pragma unroll
-    for (int o = 1; o < kRowThreads; o <<= 1)
-      m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, o));
-    const float m_new = fmaxf(m_i, m_tile);
-    // rows with every key masked so far keep m == -1e30; a safe maximum of
-    // 0 makes exp underflow to exactly 0 for them
-    const float m_safe = m_new > kNeg / 2 ? m_new : 0.f;
-    const float alpha = expf(m_i - m_safe);
-    float l_tile = 0.f;
-#pragma unroll
-    for (int j = 0; j < kKeysPerThread; ++j) {
-      const float p = expf(s[j] - m_safe);
-      l_tile += p;
-      ps[row * kPStride + lane + kRowThreads * j] = p;
-    }
-#pragma unroll
-    for (int o = 1; o < kRowThreads; o <<= 1)
-      l_tile += __shfl_xor_sync(0xffffffffu, l_tile, o);
-    l_i = l_i * alpha + l_tile;
-    m_i = m_new;
-    __syncwarp();  // the row's eight threads (one warp) wrote its P
 
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      acc[c][0] *= alpha;
-      acc[c][1] *= alpha;
-      acc[c][2] *= alpha;
-      acc[c][3] *= alpha;
-    }
-#pragma unroll 8
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = ps[row * kPStride + j];
-      const float* vr = vs + j * kStride + 4 * lane;
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(vr + 4 * kRowThreads * c);
-        acc[c][0] = fmaf(p, vv.x, acc[c][0]);
-        acc[c][1] = fmaf(p, vv.y, acc[c][1]);
-        acc[c][2] = fmaf(p, vv.z, acc[c][2]);
-        acc[c][3] = fmaf(p, vv.w, acc[c][3]);
+    for (int it = 0; it < n_t; ++it) {
+      const int kt0 = k_lo + it * kT;
+      const float* ks = kvs + (it & 1) * 2 * kT * D;
+      const float* vs = ks + kT * D;
+      cp_async_wait_all();
+      __syncthreads();   // tile it landed; tile it - 1's reads are done
+      if (it + 1 < n_t) {
+        float* nk = kvs + ((it + 1) & 1) * 2 * kT * D;
+        stage<D, kT>(nk, kb, kt0 + kT, k_end);
+        stage<D, kT>(nk + kT * D, vb, kt0 + kT, k_end);
+        cp_async_commit();
       }
+
+      // S = Q K^T, in log2 units
+      float s[kNT][4];
+      zero(s);
+#pragma unroll
+      for (int kk = 0; kk < kND; ++kk) {
+        uint32_t ah[4], al[4];
+        if constexpr (kQReg) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[e] = qh[kk][e];
+            al[e] = ql[kk][e];
+          }
+        } else {
+          load_a_planes<D>(qs, qls, wr, kk * 8, g, t, ah, al);
+        }
+#pragma unroll
+        for (int j = 0; j < kNT; j += kGroup)
+          mma_rows<D>(s + j, ah, al, ks, j * 8, kk * 8, g, t);
+      }
+
+      // a tile wholly inside the split and seen by every row of the block
+      // needs no mask
+      const bool masked = kt0 + kT > k_end ||
+                          (causal && k_base + kt0 + kT - 1 > q_base + q0);
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = kt0 + j * 8 + 2 * t + (e & 1);
+            if (!(kj < k_end && (!causal || q_pos[e >> 1] >= k_base + kj)))
+              s[j][e] = kNeg;
+          }
+      }
+
+      // online softmax; a row that has seen no key keeps m = -1e30, and
+      // the safe maximum 0 makes exp2 of a masked score exactly 0 for it
+      float alpha[2], m_safe[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = m[h];
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        m_safe[h] = mx > kNeg / 2 ? mx : 0.f;
+        alpha[h] = exp2f(m[h] - m_safe[h]);
+        m[h] = mx;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[j][e] - m_safe[e >> 1]);
+          l[e >> 1] += p;
+          s[j][e] = p;
+        }
+
+      // PV_t summed from zero, then O = O * alpha + PV_t
+      float part[kND][4];
+      zero(part);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        uint32_t ah[4], al[4];
+        acc_to_a(s[j], ah, al);
+#pragma unroll
+        for (int n = 0; n < kND; n += kGroup)
+          mma_cols<D>(part + n, ah, al, vs, j * 8, n * 8, g, t);
+      }
+#pragma unroll
+      for (int n = 0; n < kND; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], part[n][e]);
     }
   }
 
-  if (q_valid) {
-    const float l_safe = l_i == 0.f ? 1.f : l_i;
-    float* orow = out + (static_cast<size_t>(bh) * sq + qi) * D + 4 * lane;
+  // direct: the final (out, lse); else this split's slot of the workspace
+  const size_t base = direct ? 0 : static_cast<size_t>(split) * gridDim.x * sq;
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      *reinterpret_cast<float4*>(orow + 4 * kRowThreads * c) = make_float4(
-          acc[c][0] / l_safe, acc[c][1] / l_safe, acc[c][2] / l_safe,
-          acc[c][3] / l_safe);
-    }
-    if (lane == 0)
-      lse[static_cast<size_t>(bh) * sq + qi] =
-          l_i > 0.f ? m_i + logf(l_safe) : kNeg;
+  for (int h = 0; h < 2; ++h) {
+    float lr = l[h];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int i = q0 + wr + g + 8 * h;
+    if (i >= sq) continue;
+    const float denom = lr > 0.f ? lr : 1.f;
+    float* o = out + (base + qoff + i) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kND; ++n)
+      *reinterpret_cast<float2*>(o + n * 8) =
+          make_float2(acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
+    if (t == 0)
+      lse[base + qoff + i] = lr > 0.f ? m[h] * kLn2 + logf(lr) : kNeg;
   }
 }
 
+// The kernel with its dynamic shared memory allowed: the attribute is set
+// once per instantiation (thread-safe static init), before any graph
+// capture the caller may start. Returns the CUDA error of the launch.
 template <int D, bool kOffs>
-void launch_fwd(const float* q, const float* k, const float* v,
-                const int* offs, float* out, float* lse, int bh, int sq,
-                int sk, float sm_scale, int causal, cudaStream_t stream) {
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_f32_kernel<D, kOffs><<<grid, kThreads, 0, stream>>>(
-      q, k, v, offs, out, lse, sq, sk, sm_scale, causal);
-}
-
-// Dispatch on the head dim; returns cudaGetLastError() (nonzero: the launch
-// was refused, or d is not 32, 64 or 128).
-template <bool kOffs>
-int dispatch_fwd(const float* q, const float* k, const float* v,
-                 const int* offs, float* out, float* lse, int bh, int sq,
-                 int sk, int d, float sm_scale, int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: launch_fwd<32, kOffs>(q, k, v, offs, out, lse, bh, sq, sk, sm_scale, causal, s); break;
-    case 64: launch_fwd<64, kOffs>(q, k, v, offs, out, lse, bh, sq, sk, sm_scale, causal, s); break;
-    case 128: launch_fwd<128, kOffs>(q, k, v, offs, out, lse, bh, sq, sk, sm_scale, causal, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int launch_fwd(const float* q, const float* k, const float* v,
+               const int* offs, float* out, float* lse, int bh, int sq,
+               int sk, int w, int n_split, float sm_scale, int causal,
+               cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem_bytes<D>();
+  static const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D, kOffs>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (sq + kRows - 1) / kRows, n_split);
+  flash_fwd_kernel<D, kOffs><<<grid, kThreads, smem, stream>>>(
+      q, k, v, offs, out, lse, sq, sk, w, n_split, sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
 }  // namespace mx_flash

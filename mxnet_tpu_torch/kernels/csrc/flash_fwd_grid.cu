@@ -8,28 +8,30 @@
 //
 // Replaces the TPU kernel _flash_fwd_grid_kernel
 // (mxnet_tpu/kernels/flash_attention.py:1011, launched by
-// _flash_fwd_grid_pallas at L1075). The body, its bound (operations: 1.03
-// ms of float32 CUDA-core work at q/k/v (4, 8, 4096, 64) causal) and its
-// design (split-KV, a combine pass) are in flash_fwd_grid.cuh, shared with
-// flash_fwd_offs_grid.cu; this library instantiates it with both offsets
-// fixed at 0.
+// _flash_fwd_grid_pallas at L1075). Pass 1 is flash_fwd.cuh's body over
+// the key splits (3xTF32 mma.sync products; bound: operations, 0.417 ms at
+// q/k/v (4, 8, 4096, 64) causal), pass 2 the combine of flash_fwd_grid.cuh
+// (bytes-bound); both with offsets fixed at 0.
+#include "flash_fwd.cuh"
 #include "flash_fwd_grid.cuh"
+
+using namespace mx_flash;
 
 // q [bh, sq, d], k/v [bh, sk, d] float32, contiguous. n_split == 1: writes
 // out [bh, sq, d] and lse [bh, sq]; else the workspace out_part
 // [n_split, bh, sq, d] and lse_part [n_split, bh, sq], to be merged by
 // mx_flash_fwd_grid_combine_f32. w: keys per split (a multiple of 32),
 // n_split = ceil(sk / w). Launches on `stream` without synchronizing and
-// returns cudaGetLastError() (nonzero: the launch was refused, or d is not
-// 32, 64 or 128).
+// returns the CUDA error of the launch (nonzero: refused, or d is not 32,
+// 64 or 128).
 extern "C" int mx_flash_fwd_grid_f32(const float* q, const float* k,
                                      const float* v, float* out, float* lse,
                                      int bh, int sq, int sk, int d, int w,
                                      int n_split, float sm_scale, int causal,
                                      void* stream) {
-  return mx_flash::dispatch_fwd_grid<false>(q, k, v, nullptr, out, lse, bh,
-                                            sq, sk, d, w, n_split, sm_scale,
-                                            causal, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((launch_fwd<D, false>(q, k, v, nullptr, out, lse, bh, sq,
+                                      sk, w, n_split, sm_scale, causal, s)))
 }
 
 // Merges the workspace of mx_flash_fwd_grid_f32 into out [bh, sq, d] and
@@ -40,7 +42,7 @@ extern "C" int mx_flash_fwd_grid_combine_f32(const float* out_part,
                                              int sq, int d, int w,
                                              int n_split, int causal,
                                              void* stream) {
-  return mx_flash::dispatch_fwd_grid_combine<false>(
-      nullptr, out_part, lse_part, out, lse, bh, sq, d, w, n_split, causal,
-      stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((launch_fwd_grid_combine<D, false>(
+      nullptr, out_part, lse_part, out, lse, bh, sq, w, n_split, causal, s)))
 }

@@ -8,15 +8,19 @@
 //
 // Replaces the TPU kernel _flash_fwd_offs_grid_kernel
 // (mxnet_tpu/kernels/flash_attention.py:594, launched by
-// _flash_fwd_offs_grid_pallas at L654). The body, its bound and its design
-// are in flash_fwd_grid.cuh, shared with flash_fwd_grid.cu; this library
-// instantiates it with the offsets [q0, k0] read from a device int32[2], so
-// a prefill chunk at a new start costs no host round trip, and every block
-// decides on the device whether its split is live. Rows with no visible key
-// get out = 0 and lse = -1e30 exactly. At the last 1024-token chunk of a
-// 3800-token prompt (q (1, 8, 1024, 64) at start 2816 against the 4096-key
-// table) the work is 7.0 GFLOP, 0.10 ms: operation bound.
+// _flash_fwd_offs_grid_pallas at L654). Pass 1 is flash_fwd.cuh's body
+// over the key splits, pass 2 the combine of flash_fwd_grid.cuh, both with
+// the offsets [q0, k0] read from a device int32[2], so a prefill chunk at
+// a new start costs no host round trip, and every block decides on the
+// device whether its split is live. Rows with no visible key get out = 0
+// and lse = -1e30 exactly. At the last 1024-token chunk of a 3800-token
+// prompt (q (1, 8, 1024, 64) at start 2816 against the 4096-key table) the
+// work is 7.0 GFLOP, 0.042 ms of float32-accurate tensor-core work (three
+// TF32 products each at 495 TFLOP/s): operation bound.
+#include "flash_fwd.cuh"
 #include "flash_fwd_grid.cuh"
+
+using namespace mx_flash;
 
 // As mx_flash_fwd_grid_f32 (flash_fwd_grid.cu), with offs int32[2] on the
 // device.
@@ -26,9 +30,9 @@ extern "C" int mx_flash_fwd_offs_grid_f32(const float* q, const float* k,
                                           int sq, int sk, int d, int w,
                                           int n_split, float sm_scale,
                                           int causal, void* stream) {
-  return mx_flash::dispatch_fwd_grid<true>(q, k, v, offs, out, lse, bh, sq,
-                                           sk, d, w, n_split, sm_scale,
-                                           causal, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((launch_fwd<D, true>(q, k, v, offs, out, lse, bh, sq, sk, w,
+                                     n_split, sm_scale, causal, s)))
 }
 
 // Merges the workspace of mx_flash_fwd_offs_grid_f32 (same offs) into out
@@ -40,7 +44,7 @@ extern "C" int mx_flash_fwd_offs_grid_combine_f32(const int* offs,
                                                   int bh, int sq, int d,
                                                   int w, int n_split,
                                                   int causal, void* stream) {
-  return mx_flash::dispatch_fwd_grid_combine<true>(
-      offs, out_part, lse_part, out, lse, bh, sq, d, w, n_split, causal,
-      stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((launch_fwd_grid_combine<D, true>(
+      offs, out_part, lse_part, out, lse, bh, sq, w, n_split, causal, s)))
 }

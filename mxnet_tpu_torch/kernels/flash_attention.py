@@ -22,7 +22,7 @@ Counterpart of ``mxnet_tpu/kernels/flash_attention.py``. Shapes follow
   (``_flash_bwd_dq_grid_kernel``/``_flash_bwd_dkv_grid_kernel``;
   ``flash_bwd_offs_grid_plain``). Where the TPU grid walks the key axis as
   a sequential grid dimension, the grid kernels split it across blocks of
-  ``block_k`` keys (rounded up to the kernels' 32-key tile,
+  ``block_k`` keys (rounded up to the kernels' 32-key split unit,
   :func:`split_width`) and a second pass merges (forward) or sums
   (backward) the splits in split order; the plain versions compute the
   same per-split partials and the same merge.
@@ -84,8 +84,8 @@ launches_bwd_dkv_grid = 0
 launches_bwd_dkv_grid_reduce = 0
 
 _HEAD_DIMS = (32, 64, 128)
-# the split unit: the forward grid kernels' 32-key tile (the backward pair
-# walks 64-row tiles from a split's first row and masks past its end)
+# the split unit, 32 rows (the kernels walk 64-row tiles, 32 at D = 128,
+# from a split's first row and mask past its end)
 _TILE = 32
 
 
@@ -240,9 +240,10 @@ def flash_bwd_offs_plain(q, k, v, offs, do, dlse, out, lse, sm_scale=None,
 def split_width(block, n):
     """Rows (keys or queries) per split of the grid kernels: the JAX
     call's block size, ``min(block, n)`` as the JAX launchers take it,
-    rounded up to the kernels' 32-row tile. Idempotent. The split count
-    ``ceil(n / width)`` thus depends on shapes and arguments only, never
-    on the device, which keeps serving bit-identical under batching."""
+    rounded up to the kernels' 32-row split unit. Idempotent. The split
+    count ``ceil(n / width)`` thus depends on shapes and arguments only,
+    never on the device, which keeps serving bit-identical under
+    batching."""
     b = max(1, min(int(block), n))
     return -(-b // _TILE) * _TILE
 
