@@ -76,20 +76,27 @@ no result line):
              device time, idle share, top device ops and ops per step;
              with --profile-dir the table goes to DIR/profile_train.txt.
 9. opt_kernel — the fused optimizer update kernel (opt_update.cu, TPU
-             kernel #7) against its plain version, fused_update_step_plain,
-             for SGD, SGD-momentum and Adam over clip {None, 0.01} x wd
-             {0, 1e-4} x rescale {1, 1/32}, two successive steps, at leaf
-             sizes 1024, 128 * 513 and ResNet-50's largest (fc1 2,048,000;
-             a 3x3x512x512 conv 2,359,296), with NaN and +-inf in every
-             grad: bitwise equal (NaN in the same places, every other value
-             the same bits). Device time of the 71 launches of one
-             ResNet-50 update (CUDA graphs, median of 7) against the plain
-             version, the card's bound (bytes: each operand read once,
-             written once) and, as a yardstick only,
-             torch.optim.SGD(foreach=True) / torch.optim.Adam(fused=True,
-             capturable=True) over the same leaves, timed the same way
-             (its eager wall beside the kernel's, library_host_ms and
-             host_ms).
+             kernel #7, one multi-tensor launch per update) against its
+             plain version, fused_update_step_plain, for SGD, SGD-momentum
+             and Adam over clip {None, 0.01} x wd {0, 1e-4} x rescale {1,
+             1/32}, two successive steps, with NaN and +-inf in every grad:
+             single leaves of 1024, 128 * 513 and ResNet-50's largest (fc1
+             2,048,000; a 3x3x512x512 conv 2,359,296); a mixed table of 3,
+             15, 64, 1000, 1024, 9408 and 128 * 513 elements and a
+             1024-element param 4 bytes into its buffer (the scalar path);
+             a table of 337 leaves, three launches an update; and the
+             main path's table, ResNet-50's 157 leaves (clip {None,
+             0.01}, wd 1e-4, rescale 1/32), one launch an update. Bitwise
+             equal (NaN in the same places, every other value the same
+             bits). Then, for each kind, two rows of one ResNet-50 update:
+             its 71 TPU-kernel leaves, and all 157 leaves, each in one
+             launch: device time (CUDA graphs, median of 7), eager
+             host_ms, the plain version, the card's bound (bytes: each
+             operand read once, written once, 4 bytes of lr a launch)
+             and, as a yardstick only, torch.optim.SGD(foreach=True) /
+             torch.optim.Adam(fused=True, capturable=True) over the same
+             leaves, timed the same way (library_host_ms its eager wall);
+             and update_host_ms, a whole fused_update_step call eager.
 10. symbolic_train — the symbolic stack at full width, as the JAX
              package's bench times it (bench.py:555-594): ResNet-50 at
              3x224x224, batch 32, float32, through mx.sym and
@@ -99,8 +106,9 @@ no result line):
              steps; then 3 Adam steps and 2 plain-SGD steps from the trained
              weights, so all three kernels run on the path. Checks: every
              loss finite, the mean cross-entropy of the last 4 steps below
-             that of the first 4, exactly 71 kernel launches per step (the
-             eligible leaves) and 1 program signature; and one step from
+             that of the first 4, exactly 1 kernel launch of 157 leaves per
+             step (every parameter; none takes the eager plain expression)
+             and 1 program signature; and one step from
              identical params with fused_optupdate True and False under
              cudnn.deterministic: params and slots bit for bit equal, or
              within 1e-6 of each leaf's max abs where the backward is not
@@ -208,12 +216,14 @@ no result line):
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
-phase, ``parent``: the attention kernels of the checkout in DIR (e.g. the
-parent commit unpacked with ``git archive``) built beside this one's and
-called through the same C entries on the same inputs: #2's and #4's
-outputs must be the same bits in both, every attention kernel is timed in
-turns (DIR's, this, this, DIR's) at its path's shape, and the forwards'
-largest difference is reported.
+phase, ``parent``: the attention kernels and #7 of the checkout in DIR
+(e.g. the parent commit unpacked with ``git archive``) built beside this
+one's and called through the same C entries on the same inputs (#7: DIR's
+per-leaf entries on the 71 leaves its rule takes and the plain expression
+on the rest, against this checkout's one launch, on one ResNet-50 update
+of each kind): #2's, #4's and #7's outputs must be the same bits in both,
+every kernel is timed in turns (DIR's, this, this, DIR's) at its path's
+shape, and the forwards' largest difference is reported.
 
 The line before last is ``{"kernels": [...]}`` with each kernel's launches
 on its path's run (serving, training, symbolic training, long-context
@@ -246,9 +256,9 @@ RESNET_SHAPES = {"data": (SYM_BATCH, 3, 224, 224),
                  "softmax_label": (SYM_BATCH,)}
 OPT_REF = "mxnet_tpu/kernels/opt_update.py:"
 #: update kind -> (line of the TPU kernel in OPT_REF, the C entry's name)
-OPT_KERNELS = {"sgd": ("96", "optupdate_sgd_f32"),
-               "sgd_mom": ("103", "optupdate_sgd_mom_f32"),
-               "adam": ("113", "optupdate_adam_f32")}
+OPT_KERNELS = {"sgd": ("96", "optupdate_multi_sgd_f32"),
+               "sgd_mom": ("103", "optupdate_multi_sgd_mom_f32"),
+               "adam": ("113", "optupdate_multi_adam_f32")}
 
 
 def emit(obj):
@@ -910,15 +920,14 @@ def _bit_diff(torch, got, want):
     return same, diff
 
 
-def resnet50_eligible_shapes(tres, tou, torch):
-    """Shapes of ResNet-50's kernel-#7 leaves (the port's infer_shape)."""
+def resnet50_param_shapes(tres):
+    """ResNet-50's symbol and the shapes of its 157 parameters (the port's
+    infer_shape), in argument order."""
     sym = tres.get_symbol(num_classes=1000, num_layers=50,
                           image_shape="3,224,224")
     arg_shapes, _, _ = sym.infer_shape(**RESNET_SHAPES)
-    eligible = {n: s for n, s in zip(sym.list_arguments(), arg_shapes)
-                if n not in RESNET_SHAPES and tou._kernel_eligible(
-                    torch.empty(s, device="meta"))}
-    return sym, eligible
+    return sym, {n: s for n, s in zip(sym.list_arguments(), arg_shapes)
+                 if n not in RESNET_SHAPES}
 
 
 def meta_walk(torch, sym, shapes):
@@ -947,119 +956,254 @@ def graph_macs(torch, sym, shapes):
                if node.op.name in ("Convolution", "FullyConnected"))
 
 
+def _specials(torch, g, step):
+    """NaN, +inf and -inf into grad ``g`` at positions from ``step``."""
+    for j, x in enumerate((math.nan, math.inf, -math.inf)):
+        g.view(-1)[(step + j) % g.numel()] = x
+
+
+def _opt_battery(torch, tou, kind, make, steps=2, **kw):
+    """Two updates of the tree ``make()`` -> (params, grads a step) through
+    the kernel and through the plain version on copies of the same
+    inputs; -> (same bits, max abs diff over finite values)."""
+    runs = []
+    for fn in (tou.fused_update_step, tou.fused_update_step_plain):
+        params, grads = make()
+        state = _opt_state(torch, kind, params)
+        for g in grads[:steps]:
+            fn("adam" if kind == "adam" else "sgd", _opt_hp(kind), params,
+               state, g, **kw)
+        runs.append([params[n] for n in sorted(params)]
+                    + [state[s][n] for s in ("m", "v", "mom")
+                       if state.get(s) for n in sorted(params)])
+    same, worst = True, 0.0
+    for got, want in zip(*runs):
+        ok, diff = _bit_diff(torch, got, want)
+        same &= ok
+        worst = max(worst, diff)
+    return same, worst
+
+
+#: the mixed table: small and large leaves, and a param that is a view 4
+#: bytes into its buffer (the scalar path)
+OPT_MIXED = {"a": 3, "b": 15, "c": 64, "d": 1000, "e": 1024, "f": 9408,
+             "g": 128 * 513, "h": 1024}
+OPT_MISALIGNED = "h"
+#: the long table: more leaves than one launch takes
+OPT_LONG_SIZES = (1, 7, 64, 1000, 4096, 4097, 9408)
+
+
 def phase_opt_kernel(torch, dev):
     """Kernel #7 against its plain version, bitwise, and its device time
     over one ResNet-50 update (module docstring, phase 9). Returns (per
-    update kind: worst abs diff, timing rows)."""
+    update kind: worst abs diff, cases, timing rows)."""
     import itertools
     from mxnet_tpu_torch.kernels import opt_update as tou
     from mxnet_tpu_torch.models import resnet as tres
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     worst = {k: 0.0 for k in OPT_KERNELS}
     launches = {k: 0 for k in OPT_KERNELS}
+    leaves = {k: 0 for k in OPT_KERNELS}
     n_cases = 0
+
+    def check(same, diff, kind, what):
+        if not same:
+            fail("opt_kernel %s %s: the kernel differs from its plain "
+                 "version (max abs diff %g)" % (kind, what, diff))
+        worst[kind] = max(worst[kind], diff)
+
+    def single(n):
+        p = torch.randn(n, device=dev, generator=gen)
+        grads = []
+        for step in range(2):
+            g = torch.randn(n, device=dev, generator=gen) * 2
+            _specials(torch, g, step)
+            grads.append(g)
+        return lambda: ({"w": p.clone()}, [{"w": g} for g in grads])
+
+    def mixed():
+        p = {k: torch.randn(n, device=dev, generator=gen)
+             for k, n in OPT_MIXED.items()}
+        grads = []
+        for step in range(2):
+            g = {k: torch.randn(n, device=dev, generator=gen) * 2
+                 for k, n in OPT_MIXED.items()}
+            for v in g.values():
+                _specials(torch, v, step)
+            grads.append(g)
+
+        def make():
+            params = {k: v.clone() for k, v in p.items()}
+            buf = torch.empty(OPT_MIXED[OPT_MISALIGNED] + 1, device=dev)
+            params[OPT_MISALIGNED] = buf[1:].copy_(p[OPT_MISALIGNED])
+            return params, grads
+        return make
+
+    def long_table():
+        names = ["l%03d" % i for i in range(2 * tou._MAX_LEAVES + 17)]
+        sizes = {k: OPT_LONG_SIZES[i % len(OPT_LONG_SIZES)]
+                 for i, k in enumerate(names)}
+        p = {k: torch.randn(n, device=dev, generator=gen)
+             for k, n in sizes.items()}
+        grads = [{k: torch.randn(n, device=dev, generator=gen)
+                  for k, n in sizes.items()} for _ in range(2)]
+        for step, g in enumerate(grads):
+            _specials(torch, g[names[step]], step)
+        return lambda: ({k: v.clone() for k, v in p.items()}, grads)
+
+    def resnet_table():
+        # the main path's table: ResNet-50's 157 leaves, NaN and +-inf in
+        # every 16th leaf's grad and in the 3-element one's
+        names = sorted(shapes)
+        p = {n: torch.randn(s, device=dev, generator=gen) * 0.05
+             for n, s in shapes.items()}
+        grads = []
+        for step in range(2):
+            g = {n: torch.randn(s, device=dev, generator=gen) * 2
+                 for n, s in shapes.items()}
+            for n in names[step::16] + [min(names, key=lambda n_:
+                                            g[n_].numel())]:
+                _specials(torch, g[n], step)
+            grads.append(g)
+        return lambda: ({k: v.clone() for k, v in p.items()}, grads)
+
+    _, shapes = resnet50_param_shapes(tres)
     for kind, clip, wd, rescale in itertools.product(
             OPT_KERNELS, (None, 0.01), (0.0, 1e-4), (1.0, 1 / 32)):
         for n in (1024, 128 * 513, 2048000, 2359296):
-            p = torch.randn(n, device=dev, generator=gen)
-            grads = []
-            for step in range(2):
-                g = torch.randn(n, device=dev, generator=gen) * 2
-                g[step:step + 3] = torch.tensor(
-                    [math.nan, math.inf, -math.inf], device=dev)
-                grads.append(g)
-            runs = []
-            for fn in (tou.fused_update_step, tou.fused_update_step_plain):
-                params = {"w": p.clone()}
-                state = _opt_state(torch, kind, params)
-                for g in grads:
-                    fn("adam" if kind == "adam" else "sgd", _opt_hp(kind),
-                       params, state, {"w": g}, rescale=rescale, clip=clip,
-                       wd=wd)
-                runs.append([params["w"]] + [state[s]["w"] for s in
-                                             ("m", "v", "mom")
-                                             if state.get(s)])
+            check(*_opt_battery(torch, tou, kind, single(n), clip=clip,
+                                wd=wd, rescale=rescale), kind,
+                  "clip=%s wd=%s rescale=%s n=%d" % (clip, wd, rescale, n))
             launches[kind] += 2
-            for got, want in zip(*runs):
-                same, diff = _bit_diff(torch, got, want)
-                if not same:
-                    fail("opt_kernel %s clip=%s wd=%s rescale=%s n=%d: the "
-                         "kernel differs from its plain version (max abs "
-                         "diff %g)" % (kind, clip, wd, rescale, n, diff))
-                worst[kind] = max(worst[kind], diff)
+            leaves[kind] += 2
             n_cases += 1
-    counted = _opt_counts(tou)
-    if any(counted[k] < launches[k] for k in OPT_KERNELS):
-        fail("opt_kernel: launch counters %s below the %s launched"
-             % (counted, launches))
+        if rescale != 1.0:
+            check(*_opt_battery(torch, tou, kind, mixed(), clip=clip,
+                                wd=wd, rescale=rescale), kind,
+                  "clip=%s wd=%s mixed table" % (clip, wd))
+            launches[kind] += 2
+            leaves[kind] += 2 * len(OPT_MIXED)
+            n_cases += 1
+    long_launches = {}
+    for kind in OPT_KERNELS:
+        before = _opt_counts(tou)[kind]
+        check(*_opt_battery(torch, tou, kind, long_table(), clip=0.01,
+                            wd=1e-4, rescale=1 / 32), kind, "long table")
+        long_launches[kind] = _opt_counts(tou)[kind] - before
+        n_long = 2 * tou._MAX_LEAVES + 17
+        if long_launches[kind] != 2 * 3:
+            fail("opt_kernel %s long table of %d leaves: %d launches in 2 "
+                 "updates, want 6" % (kind, n_long, long_launches[kind]))
+        launches[kind] += 6
+        leaves[kind] += 2 * n_long
+        n_cases += 1
+        for clip in (None, 0.01):
+            before = _opt_counts(tou)[kind]
+            check(*_opt_battery(torch, tou, kind, resnet_table(), clip=clip,
+                                wd=1e-4, rescale=1 / 32), kind,
+                  "clip=%s ResNet-50 table" % clip)
+            made = _opt_counts(tou)[kind] - before
+            if made != 2:
+                fail("opt_kernel %s ResNet-50 table of %d leaves: %d "
+                     "launches in 2 updates, want 2" % (kind, len(shapes),
+                                                       made))
+            launches[kind] += 2
+            leaves[kind] += 2 * len(shapes)
+            n_cases += 1
+    counted, counted_leaves = _opt_counts(tou), _opt_leaves(tou)
+    if any(counted[k] < launches[k] or counted_leaves[k] < leaves[k]
+           for k in OPT_KERNELS):
+        fail("opt_kernel: counters %s launches, %s leaves below the %s, %s "
+             "launched" % (counted, counted_leaves, launches, leaves))
     torch.cuda.synchronize()
 
-    # device time of one ResNet-50 update: its 71 kernel leaves
-    _, eligible = resnet50_eligible_shapes(tres, tou, torch)
+    # device time of one ResNet-50 update: its 71 TPU-kernel leaves, and
+    # all 157 leaves in one launch
     rows = {}
     for kind in OPT_KERNELS:
         params = {n: torch.randn(s, device=dev, generator=gen) * 0.05
-                  for n, s in eligible.items()}
+                  for n, s in shapes.items()}
         grads = {n: torch.randn(s, device=dev, generator=gen) * 1e-3
-                 for n, s in eligible.items()}
+                 for n, s in shapes.items()}
         state = _opt_state(torch, kind, params)
         hp = _opt_hp(kind)
         lr_t = torch.full((), hp["lr"], device=dev)
-        names = sorted(params)
-        slots = [tuple(state[s][n] for s in ("m", "v", "mom")
-                       if state.get(s)) for n in names]
         opt = "adam" if kind == "adam" else "sgd"
-        leaves = [(params[n], grads[n], sl) for n, sl in zip(names, slots)]
+        kw = dict(rescale=1 / 32, clip=None, wd=1e-4)
+        names = sorted(params)
+        rows[kind] = {}
+        for key, part_names in (
+                ("leaves71", [n for n in names
+                              if tou._kernel_eligible(params[n])]),
+                ("leaves157", names)):
+            part = [(params[n], grads[n], tuple(
+                state[s][n] for s in ("m", "v", "mom") if state.get(s)))
+                for n in part_names]
 
-        def kernel():
-            for p_, g_, sl in leaves:
-                tou._launch_leaf(opt, hp, lr_t, p_, g_, sl, 1 / 32, None,
-                                 1e-4)
+            def kernel(part=part):
+                tou._launch(opt, hp, lr_t, part, **kw)
 
-        def plain():
-            for p_, g_, sl in leaves:
-                tou._plain_leaf(opt, hp, lr_t, p_, g_, sl, 1 / 32, None,
-                                1e-4)
+            def plain(part=part):
+                for p_, g_, sl in part:
+                    tou._plain_leaf(opt, hp, lr_t, p_, g_, sl, **kw)
 
-        lib_params = [params[n].clone().requires_grad_(True) for n in names]
-        for lp, n in zip(lib_params, names):
-            lp.grad = grads[n].clone()
-        if kind == "adam":
-            lib = torch.optim.Adam(lib_params, lr=hp["lr"], fused=True,
-                                   capturable=True)
-        else:
-            lib = torch.optim.SGD(lib_params, lr=hp["lr"],
-                                  momentum=hp["momentum"], foreach=True)
-        before = sum(_opt_counts(tou).values())
-        sizes = sorted(p_.numel() for p_, _, _ in leaves)
-        row = {"leaves": len(leaves), "elements": sum(sizes),
-               "leaf_elements_median": sizes[len(sizes) // 2],
-               "leaves_le_256k": sum(1 for n_ in sizes if n_ <= 1 << 18),
-               "ms": time_ms(kernel, iters=5),
-               "host_ms": time_host_ms(kernel, iters=10),
-               "plain_ms": time_ms(plain, iters=5)}
-        # the yardstick, device time in a CUDA graph as the kernel's (SGD
-        # with foreach and Adam with fused + capturable both capture), and
-        # its eager wall beside the kernel's host_ms
-        row["library_ms"] = time_ms(lib.step, iters=5)
-        row["library_host_ms"] = time_host_ms(lib.step, iters=10)
-        if sum(_opt_counts(tou).values()) == before:
-            fail("opt_kernel: the timed kernel never launched")
-        nbytes = tou.optupdate_ideal_bytes(opt, params, state) + 4
-        flops = {"sgd": 5, "sgd_mom": 7, "adam": 15}[kind] * row["elements"]
-        row["bytes"], row["flops"] = nbytes, flops
-        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
-        rows[kind] = row
+            lib_params = [p_.clone().requires_grad_(True)
+                          for p_, _, _ in part]
+            for lp, (_, g_, _) in zip(lib_params, part):
+                lp.grad = g_.clone()
+            if kind == "adam":
+                lib = torch.optim.Adam(lib_params, lr=hp["lr"], fused=True,
+                                       capturable=True)
+            else:
+                lib = torch.optim.SGD(lib_params, lr=hp["lr"],
+                                      momentum=hp["momentum"], foreach=True)
+            before = sum(_opt_counts(tou).values())
+            sizes = sorted(p_.numel() for p_, _, _ in part)
+            row = {"leaves": len(part), "elements": sum(sizes),
+                   "leaf_elements_median": sizes[len(sizes) // 2],
+                   "leaves_le_256k": sum(1 for n_ in sizes
+                                         if n_ <= 1 << 18),
+                   "launches": -(-len(part) // tou._MAX_LEAVES),
+                   "ms": time_ms(kernel, iters=5),
+                   "host_ms": time_host_ms(kernel, iters=10),
+                   "plain_ms": time_ms(plain, iters=5)}
+            # the yardstick, device time in a CUDA graph as the kernel's
+            # (SGD with foreach and Adam with fused + capturable both
+            # capture), and its eager wall beside the kernel's host_ms
+            row["library_ms"] = time_ms(lib.step, iters=5)
+            row["library_host_ms"] = time_host_ms(lib.step, iters=10)
+            if sum(_opt_counts(tou).values()) == before:
+                fail("opt_kernel: the timed kernel never launched")
+            nbytes = (tou.optupdate_ideal_bytes(
+                opt, {n: params[n] for n in part_names}, state)
+                      + 4 * row["launches"])
+            flops = {"sgd": 5, "sgd_mom": 7, "adam": 15}[kind] \
+                * row["elements"]
+            row["bytes"], row["flops"] = nbytes, flops
+            row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes)
+            row["share"] = row["bound_ms"] / row["ms"]
+            row["vs_library"] = row["ms"] / row["library_ms"]
+            rows[kind][key] = row
+        # the whole update as a caller makes it, eager: checks, the table
+        # and the launch (Adam: its step count and correction too)
+        rows[kind]["update_host_ms"] = time_host_ms(
+            lambda: tou.fused_update_step(opt, hp, params, state, grads,
+                                          **kw), iters=10)
     return worst, n_cases, rows
 
 
 def _reset_opt_counts(tou):
-    tou.launches_sgd = tou.launches_sgd_mom = tou.launches_adam = 0
+    for k in OPT_KERNELS:
+        setattr(tou, "launches_" + k, 0)
+        setattr(tou, "leaves_" + k, 0)
 
 
 def _opt_counts(tou):
-    return {"sgd": tou.launches_sgd, "sgd_mom": tou.launches_sgd_mom,
-            "adam": tou.launches_adam}
+    return {k: getattr(tou, "launches_" + k) for k in OPT_KERNELS}
+
+
+def _opt_leaves(tou):
+    return {k: getattr(tou, "leaves_" + k) for k in OPT_KERNELS}
 
 
 def _cross_entropy(torch, prob, label):
@@ -1069,15 +1213,17 @@ def _cross_entropy(torch, prob, label):
 
 def phase_symbolic_train(torch, dev, seed):
     """Full-width ResNet-50 through the symbolic stack (module docstring,
-    phase 10). Returns (result, per-kernel launches on the path, the SGD
-    step, a batch)."""
+    phase 10). Returns (result, per-kernel (launches, leaves) on the path,
+    the SGD step, a batch)."""
     import numpy as np
     from mxnet_tpu_torch.kernels import opt_update as tou
     from mxnet_tpu_torch.models import resnet as tres
     from mxnet_tpu_torch.parallel import DataParallelTrainStep
     t0 = time.perf_counter()
-    sym, eligible = resnet50_eligible_shapes(tres, tou, torch)
-    n_el = len(eligible)
+    sym, shapes = resnet50_param_shapes(tres)
+    n_leaves = len(shapes)
+    n_el = sum(1 for s in shapes.values() if tou._kernel_eligible(
+        torch.empty(s, device="meta")))
     step = DataParallelTrainStep(sym, lr=0.05, momentum=0.9,
                                  fused_optupdate=True, device=dev)
     step.init(RESNET_SHAPES, seed=seed)
@@ -1104,16 +1250,20 @@ def phase_symbolic_train(torch, dev, seed):
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_opt_counts(tou)
     losses, walls = run(step, SYM_STEPS)
-    counts = {"sgd_mom": _opt_counts(tou)}
+    counts = {"sgd_mom": (_opt_counts(tou), _opt_leaves(tou))}
     peak = torch.cuda.max_memory_allocated(dev)
     if not all(math.isfinite(x) for x in losses):
         fail("symbolic_train: non-finite loss in %s" % losses)
     if not statistics.mean(losses[-4:]) < statistics.mean(losses[:4]):
         fail("symbolic_train: loss did not fall: %s" % losses)
-    if counts["sgd_mom"] != {"sgd": 0, "sgd_mom": n_el * SYM_STEPS,
-                             "adam": 0}:
-        fail("symbolic_train: kernel #7 launches %s, want %d sgd_mom (%d "
-             "per step)" % (counts["sgd_mom"], n_el * SYM_STEPS, n_el))
+    # one launch a step over every parameter: none takes the eager plain
+    # expression
+    if counts["sgd_mom"] != ({"sgd": 0, "sgd_mom": SYM_STEPS, "adam": 0},
+                             {"sgd": 0, "sgd_mom": n_leaves * SYM_STEPS,
+                              "adam": 0}):
+        fail("symbolic_train: kernel #7 (launches, leaves) %s, want %d "
+             "sgd_mom launches of %d leaves" % (counts["sgd_mom"],
+                                                SYM_STEPS, n_leaves))
     if step.program_count() != 1:
         fail("symbolic_train: %d step signatures, want 1"
              % step.program_count())
@@ -1129,11 +1279,12 @@ def phase_symbolic_train(torch, dev, seed):
         torch.cuda.synchronize()
         _reset_opt_counts(tou)
         l2, w2 = run(st, steps)
-        counts[kind] = _opt_counts(tou)
-        want = {k: (n_el * steps if k == kind else 0) for k in OPT_KERNELS}
+        counts[kind] = (_opt_counts(tou), _opt_leaves(tou))
+        want = tuple({k: (n * steps if k == kind else 0)
+                      for k in OPT_KERNELS} for n in (1, n_leaves))
         if counts[kind] != want:
-            fail("symbolic_train %s: kernel #7 launches %s, want %s"
-                 % (kind, counts[kind], want))
+            fail("symbolic_train %s: kernel #7 (launches, leaves) %s, want "
+                 "%s" % (kind, counts[kind], want))
         if not all(math.isfinite(x) for x in l2):
             fail("symbolic_train %s: non-finite loss %s" % (kind, l2))
         extra[kind] = {"losses": l2, "step_ms": [w * 1e3 for w in w2]}
@@ -1175,14 +1326,17 @@ def phase_symbolic_train(torch, dev, seed):
               "steps": SYM_STEPS, "first_step_ms": walls[0] * 1e3,
               "step_ms_p50": step_ms,
               "img_per_s": SYM_BATCH / step_ms * 1e3,
-              "losses": losses, "eligible_leaves": n_el,
+              "losses": losses, "tpu_kernel_leaves": n_el,
               "params": len(step.param_names),
-              "launches_per_step": counts["sgd_mom"]["sgd_mom"] / SYM_STEPS,
+              "launches_per_step":
+                  counts["sgd_mom"][0]["sgd_mom"] / SYM_STEPS,
+              "leaves_per_step": counts["sgd_mom"][1]["sgd_mom"] / SYM_STEPS,
               "program_count": step.program_count(),
               "peak_mem_gb": peak / 1e9, "adam": extra["adam"],
               "sgd": extra["sgd"],
               "tiers_bitwise": bitwise, "tiers_max_err": tier_err}
-    return result, {k: counts[k][k] for k in OPT_KERNELS}, step, batches[0]
+    return (result, {k: (counts[k][0][k], counts[k][1][k])
+                     for k in OPT_KERNELS}, step, batches[0])
 
 
 def cudnn_benchmark_step_ms(torch, fn, warm=3, n=5):
@@ -1210,7 +1364,7 @@ def cudnn_benchmark_step_ms(torch, fn, warm=3, n=5):
 def kind_of(name):
     """The kind of a device kernel, from its name (phase 11)."""
     n = name.lower()
-    if "sgd_mom_kernel" in n or "adam_kernel" in n or "sgd_kernel" in n:
+    if "optupdate" in n:
         return "opt_update_#7"
     if "batch_norm" in n or "batchnorm" in n or "bn_fw" in n \
             or "bn_bw" in n:
@@ -2336,19 +2490,107 @@ def phase_rtc_infer(torch, dev, seed, out_dir):
     return result, row
 
 
+def parent_opt_update(torch, dev, lib, result):
+    """Kernel #7 of the parent checkout (``lib``: its ``opt_update``
+    library with the per-leaf entries) against this one's multi-tensor
+    launch on one ResNet-50 update of each kind: the parent's path is its
+    kernel on the 71 leaves ``_kernel_eligible`` takes and the plain
+    expression on the other 86, as its ``fused_update_step`` ran them. Both
+    must give the same bits; both are timed in turns (parent, this, this,
+    parent) as device time in a CUDA graph and as eager wall."""
+    import ctypes
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.models import resnet as tres
+    P, I, F, N = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
+    # the parent's per-leaf entries and their argument types: p, g, the
+    # slots, lr, n, the kind's scalars, the prologue's, stream
+    entries = {
+        "sgd": ("mx_optupdate_sgd_f32", [P] * 3 + [N, F, I, F, F, F, P]),
+        "sgd_mom": ("mx_optupdate_sgd_mom_f32",
+                    [P] * 4 + [N, F, F, I, F, F, F, P]),
+        "adam": ("mx_optupdate_adam_f32",
+                 [P] * 5 + [N] + [F] * 6 + [I] + [F] * 3 + [P])}
+    _, shapes = resnet50_param_shapes(tres)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    kw = dict(rescale=1 / 32, clip=0.01, wd=1e-4)
+    for kind, (name, argtypes) in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        opt = "adam" if kind == "adam" else "sgd"
+        hp = _opt_hp(kind)
+        lr_t = torch.full((), hp["lr"], device=dev)
+        params0 = {n: torch.randn(s, device=dev, generator=gen) * 0.05
+                   for n, s in shapes.items()}
+        grads = {n: torch.randn(s, device=dev, generator=gen) * 1e-3
+                 for n, s in shapes.items()}
+        names = sorted(params0)
+        trees = []
+        for _ in range(2):
+            params = {n: v.clone() for n, v in params0.items()}
+            state = _opt_state(torch, kind, params)
+            trees.append([(params[n], grads[n], tuple(
+                state[k][n] for k in ("m", "v", "mom") if state.get(k)))
+                for n in names])
+        pro = (kw["rescale"], 1, -kw["clip"], kw["clip"], kw["wd"])
+        if kind == "adam":
+            extra = (hp["beta1"], 1 - hp["beta1"], hp["beta2"],
+                     1 - hp["beta2"], hp["eps"])
+        else:
+            extra = (hp["momentum"],) if kind == "sgd_mom" else ()
+
+        def theirs(table=trees[0]):
+            stream = torch.cuda.current_stream().cuda_stream
+            for p_, g_, sl in table:
+                if not tou._kernel_eligible(p_):
+                    tou._plain_leaf(opt, hp, lr_t, p_, g_, sl, **kw)
+                    continue
+                ptrs = [t.data_ptr() for t in (p_, g_) + sl]
+                if fn(*ptrs, lr_t.data_ptr(), p_.numel(), *extra, *pro,
+                      stream):
+                    fail("parent opt_update %s: the parent's launch "
+                         "failed" % kind)
+
+        def ours(table=trees[1]):
+            tou._launch(opt, hp, lr_t, table, **kw)
+
+        theirs()
+        ours()
+        torch.cuda.synchronize()
+        for (a, _, sa), (b, _, sb) in zip(*trees):
+            for x, y in zip((a,) + sa, (b,) + sb):
+                same, diff = _bit_diff(torch, y, x)
+                if not same:
+                    result["opt_bit_identical"] = False
+                    fail("parent: #7 %s differs from the parent's bits "
+                         "(max abs diff %g)" % (kind, diff))
+        ms = [time_ms(f, iters=5) for f in (theirs, ours, ours, theirs)]
+        host = [time_host_ms(f, iters=10)
+                for f in (theirs, ours, ours, theirs)]
+        result["times"]["opt_update_" + kind] = {
+            "parent_ms": (ms[0] + ms[3]) / 2, "ms": (ms[1] + ms[2]) / 2,
+            "parent_host_ms": (host[0] + host[3]) / 2,
+            "host_ms": (host[1] + host[2]) / 2,
+            "leaves": len(names), "parent_launches": sum(
+                1 for p_, _, _ in trees[0] if tou._kernel_eligible(p_))}
+        del trees, params0, grads
+        torch.cuda.empty_cache()
+
+
 def phase_parent(torch, fa, dev, parent):
-    """This checkout's attention kernels against another's (``--parent
-    DIR``: a checkout, e.g. the parent commit unpacked with ``git
-    archive``), built from DIR's ``csrc/`` and called through the same C
-    entries on the same card. The backward entries (#2, #4) must give the
-    same bits in both; every kernel is timed in turns (DIR's, this, this,
-    DIR's) at its main path's shape, and the forward outputs' largest
-    difference is reported."""
+    """This checkout's attention kernels and #7 against another's
+    (``--parent DIR``: a checkout, e.g. the parent commit unpacked with
+    ``git archive``), built from DIR's ``csrc/`` and called through the
+    same C entries (#7: the parent's per-leaf entries) on the same card.
+    The backward entries (#2, #4) and #7 must give the same bits in both;
+    every kernel is timed in turns (DIR's, this, this, DIR's) at its main
+    path's shape, and the forward outputs' largest difference is
+    reported."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
     csrc = os.path.join(parent, "mxnet_tpu_torch", "kernels", "csrc")
     paths = _build.build_all([n for n in _build.SOURCES
-                              if n.startswith("flash")], csrc=csrc)
+                              if n.startswith("flash")
+                              or n == "opt_update"], csrc=csrc)
     libs = {n: ctypes.CDLL(p) for n, p in paths.items()}
     gen = torch.Generator().manual_seed(SEED + 5)
 
@@ -2365,7 +2607,8 @@ def phase_parent(torch, fa, dev, parent):
         return torch.randn(*shape, generator=gen).to(dev)
 
     result = {"phase": "parent", "dir": parent, "bwd_bit_identical": True,
-              "fwd_max_abs_diff": {}, "times": {}}
+              "opt_bit_identical": True, "fwd_max_abs_diff": {},
+              "times": {}}
 
     def both(key, name, args, outs, iters=20):
         """Run entry ``name`` of both trees on ``args`` (outs are among
@@ -2451,6 +2694,7 @@ def phase_parent(torch, fa, dev, parent):
         result["fwd_max_abs_diff"][key] = max(
             (a[0] - b_[0]).abs().max().item(),
             (a[1] - b_[1])[live].abs().max().item())
+    parent_opt_update(torch, dev, libs["opt_update"], result)
     for v_ in result["times"].values():
         v_["speedup"] = v_["parent_ms"] / v_["ms"]
     return result
@@ -2474,8 +2718,9 @@ def main():
                         help="seed of the train phases' weights and data")
     parser.add_argument("--parent", default=None, metavar="DIR",
                         help="also hold this checkout's attention kernels "
-                             "against those of the checkout in DIR (same "
-                             "bits for the backward, times in turns)")
+                             "and #7 against those of the checkout in DIR "
+                             "(same bits for the backward and #7, times in "
+                             "turns)")
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of %s (default: all)"
                         % ",".join(PHASES))
@@ -2602,17 +2847,21 @@ def main():
                       torch, lambda: sym_step(sym_batch))})
         if "opt_kernel" in phases:
             for k, (line, name) in OPT_KERNELS.items():
-                row = ok_rows[k]
+                row = ok_rows[k]["leaves157"]
                 entries.append({
                     "name": name, "route": "cuda",
                     "source": src + "opt_update.cu",
-                    "replaces": OPT_REF + line, "launches": sym_counts[k],
+                    "replaces": OPT_REF + line,
+                    "launches": sym_counts[k][0],
+                    "leaves": sym_counts[k][1],
                     "max_abs_err": ok_worst[k], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
-                    "shape": "one ResNet-50 update: %d leaves, %d f32 "
-                             "elements" % (row["leaves"], row["elements"])})
+                    "shape": "one ResNet-50 update: %d launch, %d leaves, "
+                             "%d f32 elements" % (row["launches"],
+                                                  row["leaves"],
+                                                  row["elements"])})
     torch.cuda.empty_cache()
 
     if "grid_kernel" in phases:

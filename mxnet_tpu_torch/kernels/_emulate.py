@@ -1,7 +1,7 @@
-"""Build the port's attention kernel sources for the host CPU, against a
-small emulator of the CUDA they use, so that the kernels' own logic
-(indexing, fragment layouts, masks, splits, the online softmax) runs in the
-CPU tests.
+"""Build the port's kernel sources for the host CPU, against a small
+emulator of the CUDA they use, so that the kernels' own logic (indexing,
+fragment layouts, masks, splits, the online softmax, the optimizer
+update's leaf table and chunks) runs in the CPU tests.
 
 The emulator (``emu/cuda_runtime.h``, ``emu/emu.cpp``) runs every block of
 a launch in turn and its threads as host threads: ``__syncthreads`` and
@@ -11,8 +11,10 @@ is rewritten: the PTX helpers of ``csrc/tf32_mma.cuh`` call the emulator,
 a ``<<<...>>>`` launch becomes ``emu_launch``, and dynamic shared memory
 comes from the launch. An emulated MMA rounds its sum to nearest, where
 the tensor cores round toward zero, so results agree with the card's to
-rounding, not bit for bit. The emulator is slow (a thread switch per
-barrier): tests give it a few blocks.
+rounding, not bit for bit. The optimizer update has no MMA and builds
+with ``-ffp-contract=off`` (the card's ``--fmad=false``), so its results
+are the card's bit for bit. The emulator is slow (a host thread per CUDA
+thread, a thread switch per barrier): tests give it a few blocks.
 
 Builds under ``mxnet_tpu_torch/_build/emu/``, named by a hash of the
 rewritten sources, and needs ``g++``. The C entries keep their argument
@@ -44,6 +46,8 @@ _HELPERS = {
 }
 _LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
                      re.S)
+#: library name -> g++ flags of its own (as ``_build.EXTRA_FLAGS``)
+EXTRA_FLAGS = {"opt_update": ("-ffp-contract=off",)}
 _lock = threading.Lock()
 _libs = {}
 
@@ -79,7 +83,8 @@ def _build_lib(name):
              if n.endswith(".cuh") or n == _build.SOURCES[name]}
     emu = {n: open(os.path.join(_EMU, n)).read()
            for n in ("cuda_runtime.h", "emu.cpp")}
-    digest = hashlib.sha256()
+    flags = EXTRA_FLAGS.get(name, ())
+    digest = hashlib.sha256(" ".join(flags).encode())
     for n, text in sorted(files.items()) + sorted(emu.items()):
         digest.update(n.encode() + b"\0" + text.encode())
     work = os.path.join(_OUT, digest.hexdigest()[:16])
@@ -95,7 +100,7 @@ def _build_lib(name):
             f.write(text)
     tmp = "%s.%d.tmp" % (path, os.getpid())
     proc = subprocess.run(
-        [cxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-pthread",
+        [cxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-pthread", *flags,
          "-I", _EMU, "-I", work, "-include", "cuda_runtime.h",
          "-x", "c++", os.path.join(work, _build.SOURCES[name]),
          "-x", "none", os.path.join(_EMU, "emu.cpp"), "-o", tmp],
@@ -117,10 +122,14 @@ def load(name):
 
 
 def entry(name):
-    """C entry ``name`` (``flash_attention._ENTRIES``) of the emulated
-    library; call it with host pointers and ``None`` for the stream."""
-    from .flash_attention import _ENTRIES
-    lib, argtypes = _ENTRIES[name]
+    """C entry ``name`` (``flash_attention._ENTRIES`` or
+    ``opt_update._ENTRIES``) of the emulated library; call it with host
+    pointers and ``None`` for the stream."""
+    from . import flash_attention, opt_update
+    if name in opt_update._ENTRIES:
+        lib, argtypes = "opt_update", opt_update._ENTRIES[name]
+    else:
+        lib, argtypes = flash_attention._ENTRIES[name]
     fn = getattr(load(lib), name)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn

@@ -1,4 +1,4 @@
-// A host emulator of the CUDA the port's attention kernels use, for the
+// A host emulator of the CUDA the port's kernels use, for the
 // CPU tests (mxnet_tpu_torch/kernels/_emulate.py builds the kernel sources
 // against it with g++). Every block of a launch runs in turn, its threads
 // as host threads; __syncthreads, __shfl_xor_sync and mma.sync meet at
@@ -18,6 +18,7 @@
 #define __launch_bounds__(x)
 #define __restrict__
 #define __align__(x)
+#define __grid_constant__
 
 struct emu_uint3 { unsigned x, y, z; };
 extern thread_local emu_uint3 threadIdx;
@@ -34,6 +35,23 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// a small card: 2 SMs of 2 resident blocks each, so a launch that sizes
+// its grid by occupancy runs few blocks and strides
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          size_t) {
+  *n = 2;
+  return cudaSuccess;
+}
 
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };

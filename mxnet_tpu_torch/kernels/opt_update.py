@@ -1,22 +1,28 @@
 """Fused optimizer update (TPU kernel #7) of the port: the gradient
 prologue (rescale -> clip -> + wd * weight) fused with the SGD, momentum
-or Adam update, one in-place pass per parameter leaf.
+or Adam update, in place, over every float32 leaf of an update in one
+launch.
 
 Counterpart of ``mxnet_tpu/kernels/opt_update.py``. The TPU kernels
 ``_sgd_kernel`` / ``_sgd_mom_kernel`` / ``_adam_kernel`` (L96/L103/L113,
-launched per leaf by ``_run_leaf_kernel``, L130) are the CUDA kernels of
-``csrc/opt_update.cu`` here, one C entry per update
-(``mx_optupdate_{sgd,sgd_mom,adam}_f32``), built with ``--fmad=false``.
+launched per leaf by ``_run_leaf_kernel``, L130) and the lax tier the
+JAX package runs beside them for the leaves they reject (L194-238, which
+XLA fuses into the same step program) are one multi-tensor CUDA kernel of
+``csrc/opt_update.cu`` here, one C entry per update kind
+(``mx_optupdate_multi_{sgd,sgd_mom,adam}_f32``), built with
+``--fmad=false``.
 
-- ``fused_update_step`` runs the kernel on every CUDA leaf that
-  ``_kernel_eligible`` takes (float32, at least 1024 elements, a multiple
-  of 128; the reference's rule, L125-127). A leaf it rejects takes the
-  plain per-leaf expression on any device, as the JAX package's lax tier
-  does for such leaves (L194-201): that is the reference's own split, not
-  a fallback. An eligible CUDA leaf launches the kernel or raises (a
-  build or launch error, a grad or slot that is not float32, contiguous
-  and of the same size); CPU tensors take the plain expression and launch
-  nothing; any other device raises.
+- ``fused_update_step`` puts every float32 CUDA leaf into a table of
+  (param, grad, slots) records and launches the kernel once per
+  ``_MAX_LEAVES`` leaves, in tree order: one launch for a ResNet-50
+  update. A float32 CUDA leaf launches the kernel or raises (a build or
+  launch error, a grad or slot that is not float32, contiguous and of the
+  same size), checked for every leaf before anything is built or written.
+  A leaf of another dtype takes the plain expression, as the reference's
+  lax tier does for it; CPU tensors take the plain expression and launch
+  nothing; any other device raises. ``_kernel_eligible`` keeps the
+  reference's rule (L125-127) and only names the leaves that are the TPU
+  kernel's.
 - ``fused_update_step_plain`` is the plain PyTorch version of the whole
   update, per leaf: the expressions of the JAX package's lax tier over
   ``_prologue``, with its operations in its order. On the card the kernel
@@ -25,7 +31,7 @@ launched per leaf by ``_run_leaf_kernel``, L130) are the CUDA kernels of
   leaves in sorted-key order) and are updated IN PLACE, the eager analog
   of the jitted step's buffer donation; both functions return them.
 - ``hp["lr"]`` is a float or a float32 0-d tensor on the params' device.
-  The kernels read lr (Adam: ``lr * corr``) through a device pointer, and
+  The kernel reads lr (Adam: ``lr * corr``) through a device pointer, and
   Adam's step ``t`` and ``corr`` are computed on the device in plain torch,
   so an lr schedule changes no launch argument and needs no host sync.
 
@@ -34,6 +40,7 @@ keep an autograd graph that saved a param across the update.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import math
 
@@ -45,14 +52,20 @@ __all__ = ["fused_update_step", "fused_update_step_plain",
            "optupdate_ideal_bytes", "optupdate_kernel_bytes"]
 
 _LANES = 128
-# leaves below this don't amortize a launch; the plain expression takes them
-_MIN_KERNEL_ELEMS = 8 * _LANES
+#: Leaves one launch takes at most: ``kMaxLeaves`` of ``csrc/opt_update.cu``
+#: (the table is the kernel's parameter); a longer table goes out as
+#: several launches.
+_MAX_LEAVES = 160
 
-#: Launches of each CUDA kernel (plain-expression leaves are not counted);
-#: callers may reset them to 0.
+#: Launches of the kernel for each update kind, and the leaves those
+#: launches updated (plain-expression leaves are not counted); callers may
+#: reset them to 0.
 launches_sgd = 0
 launches_sgd_mom = 0
 launches_adam = 0
+leaves_sgd = 0
+leaves_sgd_mom = 0
+leaves_adam = 0
 
 
 def _tree_leaves(tree):
@@ -62,8 +75,10 @@ def _tree_leaves(tree):
 
 
 def _kernel_eligible(leaf):
+    """The reference's rule for the TPU kernel's leaves: float32 ``[rows,
+    128]`` lane blocks of at least 8 rows."""
     n = leaf.numel()
-    return (leaf.dtype == torch.float32 and n >= _MIN_KERNEL_ELEMS
+    return (leaf.dtype == torch.float32 and n >= 8 * _LANES
             and n % _LANES == 0)
 
 
@@ -107,14 +122,20 @@ def _plain_leaf(optimizer, hp, lr, p, g, slots, rescale, clip, wd):
 
 # --- the CUDA wrappers -----------------------------------------------------
 
-_P, _I, _F, _N = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
-#: C entry -> argument types; every entry returns a CUDA error.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: rescale, clip, lo, hi, wd: the prologue's arguments of every entry
+_PRO = [_F, _I, _F, _F, _F]
+#: C entry -> argument types (records, count, lr, the kind's scalars, the
+#: prologue's, stream); every entry returns a CUDA error.
 _ENTRIES = {
-    "mx_optupdate_sgd_f32": [_P] * 3 + [_N, _F, _I, _F, _F, _F, _P],
-    "mx_optupdate_sgd_mom_f32": [_P] * 4 + [_N, _F, _F, _I, _F, _F, _F, _P],
-    "mx_optupdate_adam_f32": [_P] * 5 + [_N] + [_F] * 6 + [_I] + [_F] * 3
-    + [_P],
+    "mx_optupdate_multi_sgd_f32": [_P, _I, _P] + _PRO + [_P],
+    "mx_optupdate_multi_sgd_mom_f32": [_P, _I, _P, _F] + _PRO + [_P],
+    "mx_optupdate_multi_adam_f32": [_P, _I, _P] + [_F] * 5 + _PRO + [_P],
 }
+#: update kind -> its C entry
+_ENTRY = {"sgd": "mx_optupdate_multi_sgd_f32",
+          "sgd_mom": "mx_optupdate_multi_sgd_mom_f32",
+          "adam": "mx_optupdate_multi_adam_f32"}
 _fns = {}
 
 
@@ -128,6 +149,13 @@ def _entry(name):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def _call(fn, device, *args):
+    """``fn(*args, stream)`` with ``device`` current, on its current
+    stream."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def _on_cuda(t):
@@ -153,41 +181,57 @@ def _check_leaf(p, others):
         raise MXNetError("fused_update_step: param is not contiguous")
 
 
-def _entry_name(optimizer, slots):
+def _kind(optimizer, slots):
     if optimizer == "adam":
-        return "mx_optupdate_adam_f32"
-    return "mx_optupdate_sgd_mom_f32" if slots else "mx_optupdate_sgd_f32"
+        return "adam"
+    return "sgd_mom" if slots else "sgd"
 
 
-def _launch_leaf(optimizer, hp, lr_t, p, g, slots, rescale, clip, wd):
-    """Launch the kernel of ``optimizer`` on one eligible CUDA leaf whose
-    grad and slots ``_check_leaf`` passed; ``lr_t`` is the float32 device
-    scalar it reads (Adam: lr * corr)."""
-    global launches_sgd, launches_sgd_mom, launches_adam
+def _records(leaves):
+    """The ``MxOptLeaf`` array of ``leaves`` ((p, g, slots) each) as int64
+    words: the pointers (0 for a slot the kind lacks), n, and whether every
+    pointer is 16-byte aligned and n % 4 == 0 (an ``array.array``: a ctypes
+    array of as many words takes several times longer to build)."""
+    words = []
+    for p, g, slots in leaves:
+        ptrs = [p.data_ptr(), g.data_ptr()] + [t.data_ptr() for t in slots]
+        ptrs += [0] * (4 - len(ptrs))
+        n = p.numel()
+        aligned = n % 4 == 0 and not (ptrs[0] | ptrs[1] | ptrs[2]
+                                      | ptrs[3]) & 15
+        words += ptrs + [n, int(aligned)]
+    return array.array("q", words)
+
+
+def _launch(optimizer, hp, lr_t, leaves, rescale, clip, wd):
+    """Launch the kernel of ``optimizer`` over ``leaves`` ((p, g, slots)
+    of one CUDA device, nonempty, whose tensors ``_check_leaf`` passed),
+    in order, at most ``_MAX_LEAVES`` a launch; ``lr_t`` is the float32
+    device scalar it reads (Adam: lr * corr)."""
+    kind = _kind(optimizer, leaves[0][2])
     pro = (float(rescale), int(clip is not None),
            -float(clip) if clip is not None else 0.0,
            float(clip) if clip is not None else 0.0, float(wd))
-    if optimizer == "adam":
+    if kind == "adam":
         b1, b2 = hp["beta1"], hp["beta2"]
         args = (b1, 1 - b1, b2, 1 - b2, hp["eps"]) + pro
-    elif slots:
+    elif kind == "sgd_mom":
         args = (hp.get("momentum", 0.0),) + pro
     else:
         args = pro
-    name = _entry_name(optimizer, slots)
-    fn = _entry(name)
-    ptrs = [t.data_ptr() for t in [p, g] + list(slots)] + [lr_t.data_ptr()]
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        err = fn(*ptrs, p.numel(), *args, stream)
-    if err != 0:
-        raise MXNetError("%s launch failed: CUDA error %d" % (name, err))
-    if optimizer == "adam":
-        launches_adam += 1
-    elif slots:
-        launches_sgd_mom += 1
-    else:
-        launches_sgd += 1
+    fn = _entry(_ENTRY[kind])
+    device = leaves[0][0].device
+    for i in range(0, len(leaves), _MAX_LEAVES):
+        part = leaves[i:i + _MAX_LEAVES]
+        records = _records(part)
+        err = _call(fn, device, records.buffer_info()[0], len(part),
+                    lr_t.data_ptr(), *args)
+        if err != 0:
+            raise MXNetError("%s launch failed: CUDA error %d"
+                             % (_ENTRY[kind], err))
+        counters = globals()
+        counters["launches_" + kind] += 1
+        counters["leaves_" + kind] += len(part)
 
 
 def _scalar(x, device):
@@ -211,14 +255,20 @@ def _update(optimizer, hp, params, opt_state, grads, rescale, clip, wd,
                  else [()] * len(ps))
     else:
         raise ValueError("unknown optimizer %r" % optimizer)
-    kernel = [use_kernel and _on_cuda(p) and _kernel_eligible(p) for p in ps]
-    if any(kernel):
-        # check every kernel leaf and build the library before anything is
-        # written: a failure leaves params and state as they were
-        for p, g, sl, k in zip(ps, gs, slots, kernel):
-            if k:
-                _check_leaf(p, [("grad", g)] + [("slot", t) for t in sl])
-        _entry(_entry_name(optimizer, slots[0]))
+    kernel = [use_kernel and _on_cuda(p) and p.dtype == torch.float32
+              for p in ps]
+    # the kernel's table per device, in tree order
+    tables = {}
+    for p, g, sl, k in zip(ps, gs, slots, kernel):
+        if k:
+            # check every kernel leaf and build the library before
+            # anything is written: a failure leaves params and state as
+            # they were
+            _check_leaf(p, [("grad", g)] + [("slot", t) for t in sl])
+            if p.numel():
+                tables.setdefault(p.device, []).append((p, g, sl))
+    if tables:
+        _entry(_ENTRY[_kind(optimizer, slots[0])])
     lr = hp["lr"]
     if optimizer == "adam":
         b1, b2 = hp["beta1"], hp["beta2"]
@@ -227,15 +277,12 @@ def _update(optimizer, hp, params, opt_state, grads, rescale, clip, wd,
         tf = t.float()
         corr = torch.sqrt(1 - b2 ** tf) / (1 - b1 ** tf)
         lr = lr * corr   # the reference's ((lr * corr) * m) association
-    lr_dev = {}
     for p, g, sl, k in zip(ps, gs, slots, kernel):
-        if k:
-            lr_t = lr_dev.get(p.device)
-            if lr_t is None:
-                lr_t = lr_dev[p.device] = _scalar(lr, p.device)
-            _launch_leaf(optimizer, hp, lr_t, p, g, sl, rescale, clip, wd)
-        else:
+        if not k:
             _plain_leaf(optimizer, hp, lr, p, g, sl, rescale, clip, wd)
+    for device, leaves in tables.items():
+        _launch(optimizer, hp, _scalar(lr, device), leaves, rescale, clip,
+                wd)
     return params, opt_state
 
 
@@ -243,9 +290,10 @@ def fused_update_step(optimizer, hp, params, opt_state, grads, *,
                       rescale=1.0, clip=None, wd=0.0):
     """(params, opt_state) updated IN PLACE from raw ``grads``; returns
     them. The gradient prologue (rescale -> clip -> + wd * weight) is fused
-    into the update: the kernel on eligible CUDA leaves, the plain
-    expression on the others (see the module docstring). ``hp`` carries lr
-    and the optimizer's static scalars (momentum / beta1 / beta2 / eps)."""
+    into the update: one kernel launch over the float32 CUDA leaves, the
+    plain expression on the others (see the module docstring). ``hp``
+    carries lr and the optimizer's static scalars (momentum / beta1 /
+    beta2 / eps)."""
     return _update(optimizer, hp, params, opt_state, grads, rescale, clip,
                    wd, use_kernel=True)
 
@@ -283,12 +331,15 @@ def optupdate_ideal_bytes(optimizer, params, opt_state=None):
 
 
 def optupdate_kernel_bytes(optimizer, params, opt_state=None):
-    """Device-memory traffic of the kernel tier's launches: one pass over
-    each eligible leaf plus the 4-byte lr scalar each launch reads (the
-    GPU's launch arithmetic: no 512-row blocks, so nothing is re-read);
-    rejected leaves are counted at the plain expression's floor, the same
-    read/write sweep."""
+    """Device-memory traffic of the kernel's launches: one pass over each
+    float32 leaf plus the 4-byte lr scalar each launch reads (one launch
+    per ``_MAX_LEAVES`` nonempty float32 leaves; the GPU's launch
+    arithmetic: no 512-row blocks, so nothing is re-read); other leaves
+    are counted at the plain expression's floor, the same read/write
+    sweep."""
     r, w = _opt_rw_counts(optimizer, opt_state)
-    return int(sum((r + w) * _leaf_bytes(v)
-                   + (4 if _kernel_eligible(v) else 0)
-                   for v in _tree_leaves(params)))
+    leaves = _tree_leaves(params)
+    table = sum(1 for v in leaves
+                if v.dtype == torch.float32 and v.numel())
+    return int(sum((r + w) * _leaf_bytes(v) for v in leaves)
+               + 4 * -(-table // _MAX_LEAVES))

@@ -28,7 +28,11 @@ package's on the CPU.
 - The byte-count functions against hand counts, and the eligibility
   split against the JAX package's ``_kernel_eligible``.
 - On CPU tensors the wrapper launches nothing and builds nothing.
+- Routed as CUDA into a recording stub of the C entry: one call per
+  ``_MAX_LEAVES`` float32 leaves, records in tree order with their
+  pointers, n and alignment flag, and the counters.
 """
+import ctypes
 import itertools
 
 import numpy as np
@@ -143,16 +147,20 @@ def _compare(port, ref, opt, check=_assert_bitwise):
         assert int(ts["t"]) == int(js["t"]) == STEPS
 
 
+def _counters():
+    return [getattr(tou, c + "_" + k) for c in ("launches", "leaves")
+            for k in ("sgd", "sgd_mom", "adam")]
+
+
 @pytest.mark.parametrize("opt,clip,wd,rescale", CASES)
 def test_plain_equals_jax_lax_tier(opt, clip, wd, rescale):
     ref = _run_jax(opt, clip, wd, rescale)
     _compare(_run_port(opt, clip, wd, rescale, tou.fused_update_step_plain),
              ref, opt)
-    before = (tou.launches_sgd, tou.launches_sgd_mom, tou.launches_adam)
+    before = _counters()
     _compare(_run_port(opt, clip, wd, rescale, tou.fused_update_step),
              ref, opt)
-    assert (tou.launches_sgd, tou.launches_sgd_mom,
-            tou.launches_adam) == before, "a CPU tensor launched a kernel"
+    assert _counters() == before, "a CPU tensor launched a kernel"
 
 
 @pytest.mark.parametrize("opt,clip,wd", [("sgd", 0.01, 1e-4),
@@ -172,10 +180,10 @@ def test_byte_counts_match_hand_counts():
     assert tou.optupdate_ideal_bytes("sgd", params) == 3 * 4 * n
     assert tou.optupdate_ideal_bytes("sgd", params, mom) == 5 * 4 * n
     assert tou.optupdate_ideal_bytes("adam", params) == 7 * 4 * n
-    # two kernel leaves (a, b), one 4-byte lr read per launch; no block
+    # the four float32 leaves in one launch, one 4-byte lr read; no block
     # re-reads on the GPU
-    assert tou.optupdate_kernel_bytes("sgd", params, mom) == 5 * 4 * n + 8
-    assert tou.optupdate_kernel_bytes("adam", params) == 7 * 4 * n + 8
+    assert tou.optupdate_kernel_bytes("sgd", params, mom) == 5 * 4 * n + 4
+    assert tou.optupdate_kernel_bytes("adam", params) == 7 * 4 * n + 4
     # the JAX package counts the same ideal bytes
     jparams = {k: jnp.zeros(s) for k, s in SHAPES.items()}
     assert tou.optupdate_ideal_bytes("adam", params) == \
@@ -215,3 +223,54 @@ def test_nested_tree_updates_like_flat():
         for k in keys:
             _assert_bitwise(p[grp][k].numpy(), flat[k].numpy(), k)
     assert not _build._libs, "nothing may be built on a CPU call"
+
+
+def test_wrapper_launches_one_table_per_chunk(monkeypatch):
+    """Every float32 leaf, small or not, goes into the table in tree
+    order; a float64 leaf takes the plain expression."""
+    calls = []
+
+    def stub(name):
+        def fn(addr, count, lr_ptr, *scalars):
+            words = (ctypes.c_int64 * (6 * count)).from_address(addr)
+            calls.append((name, [tuple(words[6 * i:6 * i + 6])
+                                 for i in range(count)], scalars))
+            return 0
+        return fn
+
+    monkeypatch.setattr(tou, "_on_cuda", lambda t: True)
+    monkeypatch.setattr(tou, "_entry", stub)
+    monkeypatch.setattr(tou, "_call", lambda fn, device, *a: fn(*a, None))
+    monkeypatch.setattr(tou, "_MAX_LEAVES", 2)
+    view = torch.ones(1025)[1:]           # 4 bytes past an aligned buffer
+    params = {"z": {"b": torch.ones(3), "a": torch.ones(1024)},
+              "m": view, "k": torch.ones(8, dtype=torch.float64),
+              "c": torch.ones(2, 6)}
+    mom = {"z": {"b": torch.zeros(3), "a": torch.zeros(1024)},
+           "m": torch.zeros(1024), "k": torch.zeros(8, dtype=torch.float64),
+           "c": torch.zeros(12)}
+    grads = {"z": {"b": torch.ones(3), "a": torch.ones(1024)},
+             "m": torch.ones(1024), "k": torch.ones(8, dtype=torch.float64),
+             "c": torch.ones(12)}
+    before = _counters()
+    tou.fused_update_step("sgd", {"lr": 0.5, "momentum": 0.9}, params,
+                          {"mom": mom}, grads, clip=0.01)
+    # tree order: c, k (float64, plain), m, z.a, z.b
+    table = [(params["c"], grads["c"], mom["c"], 1),
+             (view, grads["m"], mom["m"], 0),
+             (params["z"]["a"], grads["z"]["a"], mom["z"]["a"], 1),
+             (params["z"]["b"], grads["z"]["b"], mom["z"]["b"], 0)]
+    want = [(p.data_ptr(), g.data_ptr(), s.data_ptr(), 0, p.numel(), flag)
+            for p, g, s, flag in table]
+    assert [c[0] for c in calls] == ["mx_optupdate_multi_sgd_mom_f32"] * 2
+    assert [c[1] for c in calls] == [want[:2], want[2:]]
+    # momentum, rescale, clip on, lo, hi, wd, and the stream
+    assert calls[0][2] == (0.9, 1.0, 1, -0.01, 0.01, 0.0, None)
+    after = _counters()
+    assert after[1] - before[1] == 2 and after[4] - before[4] == 4
+    assert after[:1] + after[2:4] + after[5:] == \
+        before[:1] + before[2:4] + before[5:]
+    # the stub wrote nothing; the float64 leaf took the plain expression
+    assert torch.equal(view, torch.ones(1024))
+    assert not torch.equal(params["k"], torch.ones(8, dtype=torch.float64))
+    assert not _build._libs

@@ -337,6 +337,19 @@ def test_opt_update_wrapper_checks_before_building(monkeypatch, what, grad,
     assert not _build._libs, what
 
 
+def test_opt_update_small_leaf_checked_before_building(monkeypatch):
+    """A float32 leaf below the TPU kernel's size is the CUDA kernel's too:
+    a strided grad raises before anything is built or written."""
+    monkeypatch.setattr(tou, "_on_cuda", lambda t: True)
+    params = {"w": _leaf(), "b": _leaf(n=10)}
+    with pytest.raises(MXNetError, match="must be a contiguous float32"):
+        tou.fused_update_step("sgd", {"lr": 0.1}, params, {"mom": None},
+                              {"w": _leaf(), "b": torch.ones(20)[::2]})
+    for t in params.values():
+        assert torch.equal(t, torch.ones_like(t)), "nothing may be written"
+    assert not _build._libs
+
+
 def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
     sym = _tiny_sym()
     monkeypatch.setenv("MXNET_TPU_LINT", "1")
