@@ -214,6 +214,47 @@ no result line):
              profile of the rewritten forward (DIR/profile_rtc_infer.txt,
              device time by kind, idle share).
 
+17. module_fit — full-width ResNet-50 (3x224x224, batch 32, float32) as
+             a user trains it (bench.py:1433-1441): mx.mod.Module(sym,
+             context=cuda:0).fit(kvstore='tpu_sync', SGD lr 0.05, momentum
+             0.9, wd 1e-4, Xavier(gaussian, magnitude 2) after
+             mx.random.seed) under MXNET_TPU_FUSED_OPTUPDATE=1, over an
+             NDArrayIter of the 4 seeded batches six times over (one epoch,
+             24 steps, host batches) with a CrossEntropy metric read and
+             reset every 6 batches. Checks: the fused step built, exactly 1
+             launch of #7 with 157 leaves a step, 1 program signature, the
+             cross-entropy finite and lower in the last quarter than in the
+             first. Reports img/s over the second half and the step wall p50
+             (batch-end stamps), and one Module iteration (forward_backward,
+             update, update_metric on a host batch) against the bare step on
+             a staged batch under torch.profiler (device time, idle share,
+             by kind; DIR/profile_module_fit.txt), and the host time of
+             NDArrayIter.next() and of each step's enqueue on an idle
+             card. Then, under
+             cudnn.deterministic, one step through a Module against one of a
+             bare DataParallelTrainStep from the fitted params and the same
+             batch: params and momentum bit for bit equal, or within 1e-6 of
+             each leaf's own max abs (reported); 2 steps with
+             kvstore='local' (the per-parameter updater, no kernel) from
+             the same params, within 1e-6 of each leaf's own max abs of the
+             tpu_sync steps (reported); and Module.score on a 2-batch
+             validation iterator (finite).
+18. example_scripts — the reference's scripts, unchanged, on the card
+             through the launcher (mxnet_tpu_torch.run_script) in a
+             subprocess each: train_mnist.py --gpus 0 --network lenet
+             --num-epochs 3 (MNIST_SYNTH_N 6000) with --kv-store local and
+             with tpu_sync under MXNET_TPU_FUSED_OPTUPDATE=1, and
+             train_imagenet.py --benchmark 1 --gpus 0 --kv-store tpu_sync
+             --num-examples 768 --num-epochs 1 under it. Checks: exit 0, the
+             child's "jax not in sys.modules" line, TF32 off in the child
+             (Module pins float32), each epoch's
+             Train-accuracy and a Speedometer rate printed, the fused step
+             active exactly with tpu_sync and then #7 launched with every
+             leaf (8 for LeNet, 157 for ResNet-50) and otherwise not at all;
+             LeNet's last epoch above the first Speedometer window's
+             accuracy and at or above the JAX package's value on the CPU
+             (JAX_CPU_LENET_ACC) less 0.02.
+
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
 phase, ``parent``: the attention kernels and #7 of the checkout in DIR
@@ -228,8 +269,9 @@ shape, and the forwards' largest difference is reported.
 The line before last is ``{"kernels": [...]}`` with each kernel's launches
 on its path's run (serving, training, symbolic training, long-context
 serving or training, the rtc kernels' full-size run or the ResNet-50
-forwards), its error and times; the last line is ``{"ok": true, "device": {"platform": "gpu",
-"kind": ..., "count": ...}}``.
+forwards; #7's adds its launches in module_fit and example_scripts, by
+path in ``launches_by_path``), its error and times; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import argparse
 import json
@@ -238,7 +280,9 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from unittest import mock
 
 SEED = 0
 TOL = 1e-4
@@ -255,10 +299,12 @@ SYM_STEPS = 20
 RESNET_SHAPES = {"data": (SYM_BATCH, 3, 224, 224),
                  "softmax_label": (SYM_BATCH,)}
 OPT_REF = "mxnet_tpu/kernels/opt_update.py:"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 #: update kind -> (line of the TPU kernel in OPT_REF, the C entry's name)
 OPT_KERNELS = {"sgd": ("96", "optupdate_multi_sgd_f32"),
                "sgd_mom": ("103", "optupdate_multi_sgd_mom_f32"),
                "adam": ("113", "optupdate_multi_adam_f32")}
+OPT_BY_ENTRY = {name: kind for kind, (_, name) in OPT_KERNELS.items()}
 
 
 def emit(obj):
@@ -591,6 +637,13 @@ def profile_calls(torch, fn, name, out_dir, warm=3, n=20, calls=5,
             kind[1] += v[1] / calls / 1e3
         result["by_kind"] = by_kind    # kind -> [launches, device ms]
     return result
+
+
+def leaf_err(got, ref):
+    """Max abs error of ``got`` against ``ref``, divided by ``ref``'s own
+    max abs (by float32's least normal where ``ref`` is all zeros)."""
+    return ((got - ref).abs().max().item()
+            / max(ref.abs().max().item(), 1.1754944e-38))
 
 
 def scaled_err(got, ref):
@@ -2700,10 +2753,308 @@ def phase_parent(torch, fa, dev, parent):
     return result
 
 
+# --- Module.fit and the reference's scripts (phases 17-18) -----------------
+
+FIT_STEPS = 24          # one epoch: the 4 seeded batches, 6 times over
+FIT_OPT = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+#: the JAX package's last-epoch Train-accuracy of train_mnist.py --network
+#: lenet --num-epochs 3 (MNIST_SYNTH_N 6000) on the CPU, both --kv-store
+#: local and tpu_sync (PERF.md, the Module slice)
+JAX_CPU_LENET_ACC = 1.0
+#: runs the launcher in the child and prints kernel #7's counts at its end
+SCRIPT_BOOT = (
+    "import json, sys\n"
+    "from mxnet_tpu_torch import run_script\n"
+    "from mxnet_tpu_torch.kernels import opt_update as tou\n"
+    "rc = run_script.main(sys.argv[1:])\n"
+    "print('opt_update_counts ' + json.dumps({k: [getattr(tou, "
+    "'launches_' + k), getattr(tou, 'leaves_' + k)] for k in "
+    "('sgd', 'sgd_mom', 'adam')}), flush=True)\n"
+    "import torch\n"
+    "print('allow_tf32 ' + json.dumps([torch.backends.cuda.matmul."
+    "allow_tf32, torch.backends.cudnn.allow_tf32]), flush=True)\n"
+    "sys.exit(rc)\n")
+
+
+def _module(mx, sym, dev, it, arg, aux, kvstore):
+    """A Module bound for training on ``it``'s shapes from ``arg``/``aux``
+    with the fit phase's SGD, its optimizer built for ``kvstore``."""
+    mod = mx.mod.Module(sym, context=dev)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(kvstore=kvstore, optimizer="sgd",
+                       optimizer_params=FIT_OPT)
+    return mod
+
+
+def phase_module_fit(torch, dev, seed, out_dir):
+    """Full-width ResNet-50 through Module.fit(kvstore='tpu_sync')
+    (module docstring, phase 17). Returns (result, per-kernel (launches,
+    leaves) on the path)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.models import resnet as tres
+    from mxnet_tpu_torch.parallel import DataParallelTrainStep
+    t0 = time.perf_counter()
+    with mx.name.NameManager():
+        sym = tres.get_symbol(num_classes=1000, num_layers=50,
+                              image_shape="3,224,224")
+    n_leaves = len(sym.list_arguments()) - 2
+    rng = np.random.RandomState(seed)
+    data = rng.uniform(-1, 1, (4 * SYM_BATCH, 3, 224, 224)).astype(
+        np.float32)
+    label = rng.randint(0, 1000, (4 * SYM_BATCH,)).astype(np.float32)
+    rows = np.arange(FIT_STEPS * SYM_BATCH) % (4 * SYM_BATCH)
+    train = mx.io.NDArrayIter(data[rows], label[rows], SYM_BATCH)
+    setup_s = time.perf_counter() - t0
+
+    stamps, quarters = [], []
+
+    def on_batch(p):
+        if p.nbatch in (FIT_STEPS // 2 - 1, FIT_STEPS - 1):
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if p.nbatch % (FIT_STEPS // 4) == FIT_STEPS // 4 - 1:
+            quarters.append(float(p.eval_metric.get()[1]))
+            p.eval_metric.reset()
+
+    mx.random.seed(seed)
+    mod = mx.mod.Module(sym, context=dev)
+    torch.cuda.synchronize()
+    _reset_opt_counts(tou)
+    t1 = time.perf_counter()
+    with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+        mod.fit(train, eval_metric="crossentropy", kvstore="tpu_sync",
+                optimizer="sgd", optimizer_params=FIT_OPT,
+                initializer=mx.init.Xavier(rnd_type="gaussian",
+                                           magnitude=2),
+                batch_end_callback=on_batch, num_epoch=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    counts = (_opt_counts(tou), _opt_leaves(tou))
+    want = ({"sgd": 0, "sgd_mom": FIT_STEPS, "adam": 0},
+            {"sgd": 0, "sgd_mom": n_leaves * FIT_STEPS, "adam": 0})
+    if mod._fused_step is None:
+        fail("module_fit: Module.fit(kvstore='tpu_sync') built no fused "
+             "step")
+    if counts != want:
+        fail("module_fit: kernel #7 (launches, leaves) %s, want %s"
+             % (counts, want))
+    if mod._fused_step.program_count() != 1:
+        fail("module_fit: %d step signatures, want 1"
+             % mod._fused_step.program_count())
+    if len(quarters) != 4 or not all(math.isfinite(q) for q in quarters):
+        fail("module_fit: cross-entropy by quarter %s" % quarters)
+    if not quarters[-1] < quarters[0]:
+        fail("module_fit: the loss did not fall: %s" % quarters)
+    half = FIT_STEPS // 2
+    walls = [b - a for a, b in zip(stamps[half:], stamps[half + 1:])]
+    result = {"phase": "module_fit", "model": "resnet50",
+              "batch": [SYM_BATCH, 3, 224, 224], "steps": FIT_STEPS,
+              "setup_s": setup_s, "fit_s": fit_s,
+              "img_per_s_second_half": SYM_BATCH * (FIT_STEPS - half)
+              / (stamps[-1] - stamps[half - 1]),
+              "step_wall_ms_p50": statistics.median(walls) * 1e3,
+              "cross_entropy_by_quarter": quarters,
+              "launches_per_step": counts[0]["sgd_mom"] / FIT_STEPS,
+              "leaves_per_step": counts[1]["sgd_mom"] / FIT_STEPS,
+              "program_count": mod._fused_step.program_count()}
+
+    # one Module iteration as fit runs it, against the bare step
+    metric = mx.metric.create("crossentropy")
+    train.reset()
+    batch = train.next()
+
+    def module_step():
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric, batch.label)
+
+    bare = mod._fused_step
+    staged = {"data": torch.from_numpy(data[:SYM_BATCH]).to(dev),
+              "softmax_label": torch.from_numpy(label[:SYM_BATCH]).to(dev)}
+    result["module_step"] = profile_calls(
+        torch, module_step, "module_fit", out_dir, warm=2, n=5, calls=3,
+        classify=kind_of)
+    result["bare_step"] = profile_calls(
+        torch, lambda: bare(staged, lr=0.05), "module_fit_bare", None,
+        warm=2, n=5, calls=3, classify=kind_of)
+
+    def host_ms(fn, n=5):
+        """Median host time of ``fn`` started on an idle card (no sync at
+        its end: for a step, the time to enqueue it)."""
+        walls = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return statistics.median(walls) * 1e3
+
+    train.reset()
+    result["host_ms"] = {"iterator_next": host_ms(train.next),
+                         "module_step": host_ms(module_step),
+                         "bare_step": host_ms(lambda: bare(staged, lr=0.05))}
+    metric.get()
+
+    # one step through Module against one of a bare DataParallelTrainStep
+    # from the same params and batch; then 2 steps with kvstore='local'
+    arg, aux = mod.get_params()
+    prior = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        train.reset()
+        first, second = train.next(), train.next()
+        with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+            fused = _module(mx, sym, dev, train, arg, aux, "tpu_sync")
+        step = DataParallelTrainStep(
+            sym, lr=0.05, momentum=0.9, wd=1e-4,
+            rescale_grad=1.0 / SYM_BATCH, fused_optupdate=True,
+            device=dev).init_from(arg, aux, RESNET_SHAPES)
+        fused.forward_backward(first)
+        fused.update()
+        step({"data": data[:SYM_BATCH], "softmax_label": label[:SYM_BATCH]},
+             lr=0.05)
+        torch.cuda.synchronize()
+        bitwise, err = True, 0.0
+        got_step = fused._fused_step
+        for n in step.param_names:
+            for got, ref in ((got_step.params[n], step.params[n]),
+                             (got_step.opt_state["mom"][n],
+                              step.opt_state["mom"][n])):
+                same, _ = _bit_diff(torch, got.detach(), ref.detach())
+                bitwise &= same
+                err = max(err, leaf_err(got.detach(), ref.detach()))
+        if not bitwise and not err <= 1e-6:
+            fail("module_fit: a Module step and a bare step differ by %g "
+                 "of a leaf's max abs" % err)
+        local = _module(mx, sym, dev, train, arg, aux, "local")
+        local_err = []
+        for i, b in enumerate((first, second)):
+            if i:
+                fused.forward_backward(b)
+                fused.update()
+            local.forward_backward(b)
+            local.update()
+            want_arg, _ = fused.get_params()
+            got_arg, _ = local.get_params()
+            local_err.append(max(leaf_err(got_arg[n]._data,
+                                          want_arg[n]._data)
+                                 for n in step.param_names))
+        # the per-param updater against the fused step: the same update
+        # written twice (optimizer_ops and optim_update), 0.0 observed
+        if local._fused_step is not None or \
+                not all(e <= 1e-6 for e in local_err):
+            fail("module_fit: kvstore='local' steps differ from tpu_sync "
+                 "by %s of a leaf's max abs (limit 1e-6)" % local_err)
+    finally:
+        torch.backends.cudnn.deterministic = prior
+    val = mx.io.NDArrayIter(data[:2 * SYM_BATCH], label[:2 * SYM_BATCH],
+                            SYM_BATCH)
+    score = {k: float(v) for k, v in mod.score(val, ["acc",
+                                                     "crossentropy"])}
+    if not all(math.isfinite(v) for v in score.values()):
+        fail("module_fit: score %s" % score)
+    result.update({"module_vs_bare_bitwise": bitwise,
+                   "module_vs_bare_max_err": err,
+                   "local_vs_tpu_sync_max_err": local_err,
+                   "score": score})
+    return result, {k: (counts[0][k], counts[1][k]) for k in OPT_KERNELS}
+
+
+def _run_script(torch, script, args, env_extra, tmp):
+    """The launcher in a subprocess on ``script`` -> (stdout + stderr,
+    kernel #7's counts in the child, seconds)."""
+    env = dict(os.environ, MNIST_DIR=os.path.join(tmp, "no-mnist"),
+               PYTHONPATH=ROOT, **env_extra)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT_BOOT, os.path.join(
+            ROOT, "example", "image-classification", script)] + args,
+        cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        fail("example_scripts: %s %s exited %d: %s" % (
+            script, args, proc.returncode, out[-3000:]))
+    if "run_script: jax not in sys.modules" not in proc.stdout:
+        fail("example_scripts: %s printed no 'jax not in sys.modules'"
+             % script)
+    counts = json.loads(proc.stdout.split("opt_update_counts ")[1]
+                        .splitlines()[0])
+    tf32 = json.loads(proc.stdout.split("allow_tf32 ")[1].splitlines()[0])
+    if tf32 != [False, False]:
+        fail("example_scripts: %s trained with TF32 allowed (matmul, "
+             "cuDNN): %s; Module must pin float32" % (script, tf32))
+    return out, counts, seconds
+
+
+def phase_example_scripts(torch, dev, tmp):
+    """The reference's example scripts, unchanged, on the card through the
+    launcher (module docstring, phase 18). Returns (result, per-kernel
+    (launches, leaves) on the path)."""
+    import re
+    result = {"phase": "example_scripts", "runs": {}}
+    total = {k: [0, 0] for k in OPT_KERNELS}
+    fused = {"MXNET_TPU_FUSED_OPTUPDATE": "1"}
+    runs = (("mnist_lenet_local", "train_mnist.py",
+             ["--kv-store", "local"], {}, 3, 8),
+            ("mnist_lenet_tpu_sync", "train_mnist.py",
+             ["--kv-store", "tpu_sync"], fused, 3, 8),
+            ("imagenet_resnet50_tpu_sync", "train_imagenet.py",
+             ["--benchmark", "1", "--kv-store", "tpu_sync",
+              "--num-examples", "768"], fused, 1, 157))
+    for name, script, args, env, epochs, leaves in runs:
+        if script == "train_mnist.py":
+            args = ["--network", "lenet", "--num-epochs", "3"] + args
+        else:
+            args = args + ["--num-epochs", "1"]
+        out, counts, seconds = _run_script(
+            torch, script, ["--gpus", "0"] + args, env, tmp)
+        acc = [float(v) for v in re.findall(
+            r"Epoch\[\d+\] Train-accuracy=([0-9.]+)", out)]
+        speeds = [float(v) for v in re.findall(
+            r"Speed: ([0-9.]+) samples/sec", out)]
+        windows = [float(v) for v in re.findall(
+            r"samples/sec\taccuracy=([0-9.]+)", out)]
+        if len(acc) != epochs or not speeds:
+            fail("example_scripts %s: Train-accuracy %s, Speedometer %s"
+                 % (name, acc, speeds))
+        tpu_sync = "tpu_sync" in name
+        if tpu_sync != ("fused train step active" in out):
+            fail("example_scripts %s: fused step active is %s"
+                 % (name, not tpu_sync))
+        steps = counts["sgd_mom"][0]
+        if (tpu_sync and (steps < 1 or counts["sgd_mom"][1]
+                          != leaves * steps)) or \
+                (not tpu_sync and steps) or \
+                counts["sgd"][0] or counts["adam"][0]:
+            fail("example_scripts %s: kernel #7 counts %s" % (name, counts))
+        if script == "train_mnist.py":
+            # the epoch line holds the batches after the Speedometer's last
+            # reset; its first window is the earliest accuracy
+            if not (acc[-1] > windows[0]
+                    and acc[-1] >= JAX_CPU_LENET_ACC - 0.02):
+                fail("example_scripts %s: LeNet did not learn: first window "
+                     "%s, epochs %s (the JAX package on the CPU: %s)"
+                     % (name, windows[:1], acc, JAX_CPU_LENET_ACC))
+        for k in OPT_KERNELS:
+            total[k][0] += counts[k][0]
+            total[k][1] += counts[k][1]
+        result["runs"][name] = {
+            "seconds": seconds, "train_accuracy": acc,
+            "first_window_accuracy": windows[:1],
+            "speedometer_samples_per_s": speeds,
+            "opt_update_launches": steps}
+    return result, {k: tuple(v) for k, v in total.items()}
+
+
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
           "grid_kernel", "serve_long", "train_long", "rtc_kernel",
-          "rtc_infer")
+          "rtc_infer", "module_fit", "example_scripts")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",)}
@@ -2934,6 +3285,27 @@ def main():
             "shape": "the 50 relu inputs of one ResNet-50 forward at batch "
                      "32 (%d f32 elements), USER_RELU_SOURCE via NVRTC"
                      % row["elements"]})
+    # kernel #7's launches on the Module paths join its entries
+    opt_paths = {}
+    if "module_fit" in phases:
+        fit_result, opt_paths["module_fit"] = phase_module_fit(
+            torch, dev, args.seed, args.profile_dir)
+        emit({**fit_result, "card": card})
+        torch.cuda.empty_cache()
+    if "example_scripts" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            scripts, opt_paths["example_scripts"] = phase_example_scripts(
+                torch, dev, tmp)
+        emit({**scripts, "card": card})
+    for entry in entries:
+        opt_kind = OPT_BY_ENTRY.get(entry["name"])
+        if opt_kind is None:
+            continue
+        for path, counts in opt_paths.items():
+            entry["launches"] += counts[opt_kind][0]
+            entry["leaves"] += counts[opt_kind][1]
+            entry.setdefault("launches_by_path", {})[path] = \
+                counts[opt_kind][0]
     if args.parent:
         emit({**phase_parent(torch, fa, dev, args.parent), "card": card})
     emit({"kernels": entries})

@@ -18,7 +18,13 @@ trains it, the optimizer update through the CUDA kernel
 ``rtc.CudaModule`` compiles CUDA C with NVRTC for the card, and
 ``rtc.register_cuda_op`` makes a kernel an op that ``mx.sym`` graphs,
 ``load_json`` and ``Executor`` run like any built-in (a Triton analog
-beside it).
+beside it). Its ninth slice trains the way an MXNet user does:
+``mx.mod.Module(sym, context=mx.gpu(0)).fit(...)`` over ``mx.io``
+iterators, with ``mx.optimizer``, ``mx.metric``, ``mx.init``,
+``mx.kvstore``, ``mx.callback`` and the ``mx.model`` checkpoints;
+``fit(kvstore='tpu_sync')`` hands each batch to
+``DataParallelTrainStep``, and ``python -m mxnet_tpu_torch.run_script``
+runs the reference's example scripts unchanged against this package.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``, and raise ``MXNetError`` when CUDA is missing.
@@ -28,6 +34,8 @@ from __future__ import annotations
 __version__ = "1.2.0+cuda"
 
 from . import models, name, ndarray, parallel, profiler, rtc, symbol
+from . import (callback, initializer, io, kvstore, lr_scheduler, metric,
+               model, module, optimizer, random)
 from .base import MXNetError
 from .context import cpu, gpu, default_device
 from .executor import Executor
@@ -35,9 +43,12 @@ from .parallel import DataParallelTrainStep, ShardedTrainStep
 
 sym = symbol
 nd = ndarray
+mod = module
+init = initializer
 
 __all__ = ["MXNetError", "cpu", "gpu", "default_device", "profiler",
            "parallel", "ShardedTrainStep", "DataParallelTrainStep",
            "Executor", "models", "name", "nd", "ndarray", "rtc", "sym",
-           "symbol",
-           "__version__"]
+           "symbol", "mod", "module", "io", "metric", "init", "initializer",
+           "optimizer", "lr_scheduler", "kvstore", "model", "callback",
+           "random", "__version__"]

@@ -3,9 +3,9 @@ the typed op-attribute structs and an atomic file write.
 
 Counterpart of ``mxnet_tpu/base.py`` (``MXNetError``, ``get_env``,
 ``env_flag``, ``Params``/``ParamsMeta``/``param_field``, ``np_dtype``,
-``atomic_write``), copied rather than imported so the port never pulls in
-JAX. ``Params`` parses the string attributes of symbol JSON into typed
-fields, as ``dmlc::Parameter`` does in the reference.
+``atomic_write``, ``Registry``), copied rather than imported so the port
+never pulls in JAX. ``Params`` parses the string attributes of symbol
+JSON into typed fields, as ``dmlc::Parameter`` does in the reference.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import tempfile
 import numpy as _np
 
 __all__ = ["MXNetError", "get_env", "env_flag", "Params", "param_field",
-           "np_dtype", "atomic_write"]
+           "np_dtype", "atomic_write", "Registry"]
 
 
 class MXNetError(Exception):
@@ -57,6 +57,42 @@ def atomic_write(fname, data, mode="wb"):
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+
+
+class Registry:
+    """Name -> class table of a plugin kind (optimizer, metric,
+    initializer), names case-insensitive. ``not_ported`` names the
+    reference's entries the port lacks: looking one up raises saying so and
+    which ROADMAP item holds it."""
+
+    def __init__(self, kind, not_ported=(), item=None):
+        self.kind = kind
+        self._map = {}
+        self._not_ported = frozenset(n.lower() for n in not_ported)
+        self._item = item
+
+    def register(self, obj, name=None):
+        name = (name or getattr(obj, "__name__", None) or str(obj)).lower()
+        self._map[name] = obj
+        return obj
+
+    def alias(self, obj, *names):
+        for n in names:
+            self._map[n.lower()] = obj
+        return obj
+
+    def get(self, name):
+        key = name.lower() if isinstance(name, str) else name
+        if key in self._map:
+            return self._map[key]
+        if key in self._not_ported:
+            raise MXNetError("%s %r is not yet ported (ROADMAP %s)"
+                             % (self.kind, name, self._item))
+        raise MXNetError("%s %r is not registered. Registered: %s"
+                         % (self.kind, name, sorted(self._map)))
+
+    def keys(self):
+        return sorted(self._map)
 
 
 # ---------------------------------------------------------------------------

@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, env_flag
 
-__all__ = ["cpu", "gpu", "default_device", "resolve_device"]
+__all__ = ["cpu", "gpu", "default_device", "resolve_device", "pin_float32"]
 
 
 def cpu():
@@ -43,3 +43,13 @@ def resolve_device(device):
         if device.index is None:
             device = gpu(0)
     return device
+
+
+def pin_float32():
+    """Keep float32 float32 on the card, as the reference computes it:
+    turn off TF32 in cuBLAS's matmuls and cuDNN's convolutions (torch
+    allows it in convolutions by default). ``MXNET_ALLOW_TF32=1`` leaves
+    torch's settings as they are."""
+    if not env_flag("MXNET_ALLOW_TF32"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

@@ -14,9 +14,12 @@ forward+backward does) and writes ``grad_dict`` in place, or adds to it
 for ``grad_req="add"``. The aux states are updated in place. ``outputs``
 are built at bind, zeros of the inferred output shapes, and each forward
 writes into them, as MXNet's executors write their bind-allocated
-outputs: an output held across forwards reads the latest one. Monitor
-callbacks, ``reshape``, ``copy_params_from``, ``warmup`` and
-``program_cost`` are not yet ported (ROADMAP A4).
+outputs: an output held across forwards reads the latest one.
+``arg_arrays``/``grad_arrays``/``aux_arrays``, ``output_dict``,
+``copy_params_from`` and ``reshape`` are the reference's (L563-631):
+``reshape`` binds a new executor that shares every array whose shape
+stays. Monitor callbacks, ``warmup`` and ``program_cost`` are not yet
+ported (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -92,8 +95,9 @@ class Executor:
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None):
         self._device = resolve_device(ctx)
-        arg_names = symbol.list_arguments()
-        aux_names = symbol.list_auxiliary_states()
+        self._symbol = symbol
+        self._arg_names = arg_names = symbol.list_arguments()
+        self._aux_names = aux_names = symbol.list_auxiliary_states()
         self.arg_dict = self._normalize(args, arg_names, "args")
         self.aux_dict = self._normalize(aux_states or {}, aux_names,
                                         "aux_states", allow_missing=True)
@@ -219,8 +223,62 @@ class Executor:
                     dst.copy_(g)
         self._pending = None
 
-    reshape = _not_ported("reshape")
-    copy_params_from = _not_ported("copy_params_from")
+    # convenience accessors (reference: executor.py L563-596)
+    @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self._arg_names]
+
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n) for n in self._arg_names]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self._aux_names]
+
+    @property
+    def output_dict(self):
+        return dict(zip(self._symbol.list_outputs(), self.outputs))
+
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Copy (and cast) the given arrays into the bound ones, in place;
+        a name the executor lacks raises unless ``allow_extra_params``."""
+        for name, array in arg_params.items():
+            if name in self.arg_dict:
+                array.copyto(self.arg_dict[name])
+            elif not allow_extra_params:
+                raise MXNetError("Found name %r not in executor arguments"
+                                 % name)
+        for name, array in (aux_params or {}).items():
+            if name in self.aux_dict:
+                array.copyto(self.aux_dict[name])
+            elif not allow_extra_params:
+                raise MXNetError("Found name %r not in executor aux states"
+                                 % name)
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new executor bound at the given input shapes: arrays whose
+        shape stays are shared with this one, the others are new zeros,
+        and every gradient array is new."""
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+        new_args = {}
+        for name, shape in zip(self._arg_names, arg_shapes):
+            cur = self.arg_dict[name]
+            new_args[name] = cur if tuple(shape) == cur.shape else zeros(
+                shape, ctx=self._device, dtype=cur.dtype)
+        new_aux = {}
+        for name, shape in zip(self._aux_names, aux_shapes):
+            cur = self.aux_dict[name]
+            new_aux[name] = cur if tuple(shape) == cur.shape else zeros(
+                shape, ctx=self._device)
+        grads = {n: zeros(a.shape, ctx=self._device)
+                 for n, a in new_args.items()
+                 if self._grad_req.get(n, "null") != "null"}
+        return Executor(self._symbol, self._device, new_args, grads,
+                        self._grad_req, new_aux)
+
     warmup = _not_ported("warmup")
     program_cost = _not_ported("program_cost")
     set_monitor_callback = _not_ported("set_monitor_callback")

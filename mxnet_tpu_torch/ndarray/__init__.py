@@ -1,7 +1,8 @@
 """``mx.nd`` of the port: ``NDArray`` over a torch.Tensor and the
-``.params`` format (ROADMAP A2; the imperative op namespace is not yet
-ported)."""
-from .ndarray import NDArray, array, zeros
+``.params`` format (the imperative op namespace is not yet ported,
+ROADMAP A6)."""
+from .ndarray import NDArray, array, concatenate, empty, ones, zeros
 from .utils import load, save
 
-__all__ = ["NDArray", "array", "zeros", "load", "save"]
+__all__ = ["NDArray", "array", "zeros", "ones", "empty", "concatenate",
+           "load", "save"]

@@ -8,12 +8,14 @@ JAX package traces the graph into one jitted program, the port's
 ``Executor`` interprets it eagerly under ``torch.autograd``.
 
 Ported: ``Variable``/``var``, ``Group``, ``list_arguments`` /
-``list_auxiliary_states`` / ``list_outputs``, ``infer_shape`` (output
-shapes by running each op on ``meta`` tensors), ``attr_dict``, ``+``
-(``elemwise_add`` / ``_plus_scalar``), ``tojson``/``load``/``load_json``
-and ``simple_bind``. The rest of the reference's Symbol surface
-(composition by call, indexing, ``get_internals``, ``infer_type``,
-``bind``, the other operators) raises "not yet ported" (ROADMAP A4).
+``list_auxiliary_states`` / ``list_outputs`` / ``list_inputs``,
+``infer_shape`` (output shapes by running each op on ``meta`` tensors),
+``infer_type`` (the reference's dtype unification), ``attr_dict``, ``+``
+(``elemwise_add`` / ``_plus_scalar``), composition by call,
+``get_internals`` and indexing by position, slice or output name,
+``tojson``/``save``/``load``/``load_json`` and ``simple_bind``. The rest
+of the reference's Symbol surface (``bind``, ``eval``, the other
+operators) raises "not yet ported" (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -120,6 +122,9 @@ class Symbol:
         aux = self._aux_set()
         return [n.name for n in self._variables() if id(n) in aux]
 
+    def list_inputs(self):
+        return [n.name for n in self._variables()]
+
     def list_outputs(self):
         names = []
         for node, oidx in self._outputs:
@@ -129,6 +134,90 @@ class Symbol:
             outs = node.op.list_outputs(node.make_params())
             names.append("%s_%s" % (node.name, outs[oidx]))
         return names
+
+    # -- composition (reference: symbol.py __call__ L140) -------------------
+    def __call__(self, *args, **kwargs):
+        """A new graph with free variables replaced by the given
+        single-output symbols (positional in ``list_inputs`` order, or by
+        name); nodes that do not depend on them are shared."""
+        name = kwargs.pop("name", None)
+        if args and kwargs:
+            raise TypeError("compose accepts input Symbols either as "
+                            "positional or keyword arguments, not both")
+        subs = {}
+        if args:
+            free = self._variables()
+            if len(args) > len(free):
+                raise MXNetError("compose: %d positional inputs for %d free "
+                                 "variables" % (len(args), len(free)))
+            for node, val in zip(free, args):
+                subs[node.name] = val
+        subs.update(kwargs)
+        for key, val in subs.items():
+            if not isinstance(val, Symbol):
+                raise TypeError("compose: input %r must be a Symbol" % key)
+            if len(val._outputs) != 1:
+                raise MXNetError("compose: input %r must be single-output"
+                                 % key)
+        unknown = set(subs) - {n.name for n in self._variables()}
+        if unknown:
+            raise MXNetError("compose: %s are not free variables of this "
+                             "symbol" % sorted(unknown))
+        mapping = {}  # id(old node) -> (new node, out index)
+        for node in self._topo():
+            if node.is_variable:
+                mapping[id(node)] = (subs[node.name]._outputs[0]
+                                     if node.name in subs else (node, 0))
+                continue
+            new_inputs = []
+            for (inp, oidx) in node.inputs:
+                m = mapping[id(inp)]
+                if m[0] is inp:
+                    new_inputs.append((inp, oidx))
+                elif inp.is_variable:     # substituted endpoint
+                    new_inputs.append(m)
+                else:                     # cloned op node, same out slot
+                    new_inputs.append((m[0], oidx))
+            clone = Node(node.op, node.attrs, new_inputs, node.name)
+            clone._extra_attrs = dict(node._extra_attrs)
+            mapping[id(node)] = (clone, 0)
+        outputs = [mapping[id(node)] if node.is_variable
+                   else (mapping[id(node)][0], oidx)
+                   for node, oidx in self._outputs]
+        if name is not None and len(outputs) == 1 and \
+                not outputs[0][0].is_variable:
+            outputs[0][0].name = name
+        return Symbol(outputs)
+
+    def get_internals(self):
+        outs = []
+        for node in self._topo():
+            if node.is_variable:
+                outs.append((node, 0))
+            else:
+                n = node.op.n_outputs(node.make_params())
+                outs.extend((node, i) for i in range(n))
+        return Symbol(outs)
+
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index in names:
+                return Symbol([self._outputs[names.index(index)]])
+            for i, (node, _) in enumerate(self._outputs):   # bare node name
+                if node.name == index:
+                    return Symbol([self._outputs[i]])
+            raise MXNetError("Cannot find output %r; outputs are %s"
+                             % (index, names))
+        if isinstance(index, slice):
+            return Symbol(self._outputs[index])
+        return Symbol([self._outputs[index]])
+
+    def __len__(self):
+        return len(self._outputs)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self._outputs)))
 
     # -- attributes --------------------------------------------------------
     def _set_attr(self, **kwargs):
@@ -241,7 +330,81 @@ class Symbol:
                       for node, oidx in self._outputs]
         return arg_shapes, out_shapes, aux_shapes
 
+    # ops whose listed input positions do not share the unified dtype
+    # (reference symbol.py L527-539); BatchNorm keeps gamma, beta and the
+    # moving statistics in float32
+    _TYPE_EXCLUDED_INPUTS = {
+        "Embedding": (0,), "SparseEmbedding": (0,), "take": (1,),
+        "batch_take": (1,), "gather_nd": (1,), "pick": (1,),
+        "one_hot": (0,), "scatter_nd": (1,), "_scatter_set_nd": (2,),
+        "sparse_retain": (1,), "SequenceMask": (1,), "SequenceLast": (1,),
+        "SequenceReverse": (1,), "BatchNorm": (1, 2, 3, 4),
+        "CuDNNBatchNorm": (1, 2, 3, 4)}
+
+    def infer_type(self, *args, **kwargs):
+        """(argument, output, aux-state) dtypes by the reference's
+        bidirectional unification (``mxnet_tpu/symbol/symbol.py:505``):
+        each op unifies its tensor inputs and outputs to one dtype, ``Cast``
+        breaks the chain, unknowns default to float32."""
+        arg_names = self.list_arguments()
+        if args:
+            kwargs = dict(kwargs)
+            kwargs.update({n: d for n, d in zip(arg_names, args)
+                           if d is not None})
+        topo = self._topo()
+        dtype_of = {}
+        for n in topo:
+            if not n.is_variable:
+                continue
+            if kwargs.get(n.name) is not None:
+                dtype_of[(id(n), 0)] = _np.dtype(kwargs[n.name])
+            elif "__dtype__" in n._extra_attrs:
+                dtype_of[(id(n), 0)] = _np.dtype(n._extra_attrs["__dtype__"])
+        for _ in range(8):  # fixpoint over forward+backward constraints
+            changed = False
+            for node in topo:
+                if node.is_variable:
+                    continue
+                params = node.make_params()
+                n_vis = node.op.n_outputs(params)
+                excl = self._TYPE_EXCLUDED_INPUTS.get(node.op.name, ())
+                in_keys = [(id(i), oi)
+                           for pos, (i, oi) in enumerate(node.inputs)
+                           if pos not in excl]
+                out_keys = [(id(node), i) for i in range(n_vis)]
+                if node.op.name == "Cast":
+                    out_dt = _np.dtype(getattr(params, "dtype", "float32"))
+                    for k in out_keys:
+                        if k not in dtype_of or dtype_of[k] != out_dt:
+                            dtype_of[k] = out_dt
+                            changed = True
+                    keys = in_keys  # input side unifies independently
+                else:
+                    keys = in_keys + out_keys
+                known = [dtype_of[k] for k in keys if k in dtype_of]
+                if not known:
+                    continue
+                for k in keys:
+                    if k not in dtype_of:
+                        dtype_of[k] = known[0]
+                        changed = True
+            if not changed:
+                break
+        default = _np.dtype(_np.float32)
+        name2var = {n.name: n for n in topo if n.is_variable}
+        arg_types = [dtype_of.get((id(name2var[n]), 0), default)
+                     for n in arg_names]
+        aux_types = [dtype_of.get((id(name2var[n]), 0), default)
+                     for n in self.list_auxiliary_states()]
+        out_types = [dtype_of.get((id(node), oidx), default)
+                     for node, oidx in self._outputs]
+        return arg_types, out_types, aux_types
+
     # -- serialization (the reference's symbol JSON) -----------------------
+    def save(self, fname):
+        from ..base import atomic_write
+        atomic_write(fname, self.tojson(), mode="w")
+
     def tojson(self):
         topo = self._topo()
         nid = {id(n): i for i, n in enumerate(topo)}
@@ -297,18 +460,16 @@ class Symbol:
 
 def _not_ported(name):
     def method(self, *args, **kwargs):
-        raise MXNetError("Symbol.%s is not yet ported (ROADMAP A4)" % name)
+        raise MXNetError("Symbol.%s is not yet ported (ROADMAP A6)" % name)
     method.__name__ = name
     return method
 
 
-for _name in ("__call__", "__getitem__", "get_internals", "get_children",
-              "infer_shape_partial", "infer_type", "__sub__", "__rsub__",
-              "__mul__", "__rmul__", "__truediv__", "__rtruediv__",
-              "__pow__", "__neg__", "reshape", "transpose", "flatten",
-              "astype", "sum", "mean", "slice_axis", "expand_dims",
-              "softmax", "attr", "list_inputs", "save", "bind", "eval",
-              "grad"):
+for _name in ("get_children", "attr", "infer_shape_partial", "__sub__",
+              "__rsub__", "__mul__", "__rmul__", "__truediv__",
+              "__rtruediv__", "__pow__", "__neg__", "reshape", "transpose",
+              "flatten", "astype", "sum", "mean", "slice_axis",
+              "expand_dims", "softmax", "bind", "eval", "grad"):
     setattr(Symbol, _name, _not_ported(_name))
 
 

@@ -1,0 +1,114 @@
+"""An MXNet example script run unchanged against the port, and against
+the JAX package, on the CPU.
+
+``example/image-classification/train_mnist.py --network lenet
+--num-epochs 2 --kv-store local`` (``MNIST_SYNTH_N=640``: its synthetic
+set, 640 training and 106 validation images) runs in a subprocess under
+each package with numpy's global RNG seeded alike (``--np-seed`` of the
+launcher ``python -m mxnet_tpu_torch.run_script``; a ``runpy`` wrapper for
+the JAX package), both resuming from one checkpoint the JAX package wrote
+(``--model-prefix``/``--load-epoch 0``), so ``fit.py``'s
+``sym.tojson() == network.tojson()`` check holds the port's symbol JSON
+to the reference's byte for byte. The port's run must not import jax.
+Each epoch's ``Train-accuracy`` and ``Validation-accuracy`` agree within
+2 samples' worth (2/640 and 2/128: validation counts the padded last
+batch, as the reference does) and the final ``-0002.params`` within 1e-6
+of each leaf's own max abs (observed 3.4e-7, at conv1_bias).
+The launcher's rules are in test_torch_port_rules.py.
+"""
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+
+import mxnet_tpu as jmx
+from mxnet_tpu.models import lenet as jlenet
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPT = os.path.join(REPO, "example", "image-classification",
+                      "train_mnist.py")
+ARGS = ["--network", "lenet", "--num-epochs", "2", "--kv-store", "local",
+        "--batch-size", "64", "--lr", "0.05"]
+SEED = 5
+PARAM_TOL = 1e-6
+TINY = np.finfo(np.float32).tiny    # a leaf that is all zeros
+
+_JAX_WRAPPER = """
+import runpy, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_default_matmul_precision", "highest")
+import numpy
+numpy.random.seed(int(sys.argv[1]))
+sys.argv = sys.argv[2:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def _run(cmd, cwd):
+    env = dict(os.environ, MNIST_SYNTH_N="640", JAX_PLATFORMS="cpu",
+               MNIST_DIR=os.path.join(cwd, "no-data"),
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    proc = subprocess.run([sys.executable] + cmd, cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=600)
+    out = proc.stdout + proc.stderr
+    assert proc.returncode == 0, out[-4000:]
+    return out
+
+
+def _accuracies(out, kind):
+    return {int(e): float(v) for e, v in re.findall(
+        r"Epoch\[(\d+)\] %s-accuracy=([0-9.]+)" % kind, out)}
+
+
+def _checkpoint(prefix):
+    """LeNet's symbol and seeded params, written by the JAX package."""
+    with jmx.name.NameManager():
+        sym = jlenet.get_symbol(num_classes=10)
+    rng = np.random.RandomState(SEED)
+    arg_shapes, _, _ = sym.infer_shape(data=(64, 1, 28, 28))
+    args = {n: jmx.nd.array((rng.normal(size=s) * (
+        np.prod(s[1:]) ** -0.5 if len(s) > 1 else 0.1)).astype(np.float32))
+        for n, s in zip(sym.list_arguments(), arg_shapes)
+        if n not in ("data", "softmax_label")}
+    jmx.model.save_checkpoint(prefix, 0, sym, args, {})
+
+
+def test_train_mnist_runs_unchanged_against_the_port(tmp_path):
+    runs = {}
+    for name in ("jax", "port"):
+        d = tmp_path / name
+        d.mkdir()
+        prefix = str(d / "lenet")
+        if name == "jax":
+            _checkpoint(prefix)
+            cmd = ["-c", _JAX_WRAPPER, str(SEED), SCRIPT]
+        else:
+            for suffix in ("-symbol.json", "-0000.params"):
+                shutil.copy(str(tmp_path / "jax" / "lenet") + suffix,
+                            prefix + suffix)
+            cmd = ["-m", "mxnet_tpu_torch.run_script", "--np-seed",
+                   str(SEED), SCRIPT]
+        out = _run(cmd + ARGS + ["--model-prefix", prefix,
+                                 "--load-epoch", "0"], str(d))
+        runs[name] = (out, jmx.model.load_params(prefix + "-0002.params"))
+    port_out = runs["port"][0]
+    assert "run_script: jax not in sys.modules" in port_out, port_out[-3000:]
+    assert "Loaded model" in port_out
+    for kind, n in (("Train", 640), ("Validation", 128)):
+        want = _accuracies(runs["jax"][0], kind)
+        got = _accuracies(port_out, kind)
+        assert sorted(got) == sorted(want) == [0, 1], (kind, got, want)
+        for epoch in want:
+            assert abs(got[epoch] - want[epoch]) <= 2.0 / n + 1e-9, \
+                (kind, epoch, got, want)
+    (want_arg, want_aux), (got_arg, got_aux) = runs["jax"][1], runs["port"][1]
+    assert sorted(got_arg) == sorted(want_arg) and not got_aux
+    for k, w in want_arg.items():
+        w, g = w.asnumpy(), got_arg[k].asnumpy()
+        err = np.abs(g - w).max() / max(np.abs(w).max(), TINY)
+        assert err <= PARAM_TOL, (k, err)

@@ -24,6 +24,15 @@
   grad under grad mode (also inside a training graph); the Pallas names
   raise with guidance; importing the port loads neither libcuda, NVRTC
   nor triton.
+- The Module slice: ``Module`` defaults to the card; what is not yet
+  ported (a supervisor, a checkpoint manager, optimizer-state files,
+  background checkpoints, distributed stores, more than one context,
+  other optimizers, monitors, ``BucketingModule``, ``DevicePrefetchIter``,
+  ``FeedForward``) raises naming its ROADMAP item; ``fit(kvstore=
+  'tpu_sync')`` under ``MXNET_TPU_FUSED_OPTUPDATE=1`` updates through
+  kernel #7's wrapper once a batch; the launcher ``run_script`` refuses a
+  process that has imported jax, and in a fresh one resolves
+  ``mxnet_tpu.*`` to the port's own module objects.
 """
 import ast
 import json
@@ -35,8 +44,10 @@ import numpy as np
 import pytest
 import torch
 
+import mxnet_tpu as jmx
+
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch import MXNetError, rtc
+from mxnet_tpu_torch import MXNetError, rtc, run_script
 from mxnet_tpu_torch.kernels import _build, _rtc_driver
 from mxnet_tpu_torch.kernels import flash_attention as tfa
 from mxnet_tpu_torch.kernels import opt_update as tou
@@ -272,10 +283,14 @@ def test_mesh_kernel_tier_knob_raises(monkeypatch, mode, match):
 # --------------------------------------------------- the symbolic slice ----
 
 
-def _tiny_sym():
-    x = tmx.sym.Variable("data")
-    fc = tmx.sym.FullyConnected(x, num_hidden=3, name="fc")
-    return tmx.sym.SoftmaxOutput(fc, name="softmax")
+def _tiny_sym(mx=tmx):
+    x = mx.sym.Variable("data")
+    fc = mx.sym.FullyConnected(x, num_hidden=3, name="fc")
+    return mx.sym.SoftmaxOutput(fc, name="softmax")
+
+
+def jmx_tiny_sym():
+    return _tiny_sym(jmx)
 
 
 def test_symbolic_entry_points_default_to_the_card(monkeypatch):
@@ -370,8 +385,8 @@ def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
         one.warmup()
     with pytest.raises(MXNetError, match="not yet ported"):
         one.comm_plan()
-    with pytest.raises(MXNetError, match="not yet ported"):
-        sym.infer_type()
+    # infer_type is ported: float32 throughout, as the reference infers
+    assert sym.infer_type() == jmx_tiny_sym().infer_type()
     with pytest.raises(MXNetError, match="not yet ported"):
         sym * 2
     with pytest.raises(AttributeError, match="not yet ported"):
@@ -380,11 +395,145 @@ def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
         tmx.sym.load_json('{"nodes": [{"op": "null", "name": "x", '
                           '"inputs": []}, {"op": "Dropout", "name": "d", '
                           '"inputs": [[0, 0, 0]]}], "heads": [[1, 0, 0]]}')
+    # reshape and indexed assignment are ported: the reference's behaviour
     exe = sym.simple_bind(tmx.cpu(), data=(2, 4))
-    with pytest.raises(MXNetError, match="not yet ported"):
-        exe.reshape(data=(3, 4))
-    with pytest.raises(MXNetError, match="not yet ported"):
-        exe.arg_dict["data"][0] = 1.0
+    jexe = jmx_tiny_sym().simple_bind(jmx.cpu(), data=(2, 4))
+    big, jbig = exe.reshape(data=(3, 4)), jexe.reshape(data=(3, 4))
+    assert big.arg_dict["data"].shape == jbig.arg_dict["data"].shape
+    assert [n for n, a in big.arg_dict.items() if a is exe.arg_dict[n]] == \
+        [n for n, a in jbig.arg_dict.items() if a is jexe.arg_dict[n]]
+    exe.arg_dict["data"][0] = 1.0
+    jexe.arg_dict["data"][0] = 1.0
+    np.testing.assert_array_equal(exe.arg_dict["data"].asnumpy(),
+                                  jexe.arg_dict["data"].asnumpy())
+
+
+# ------------------------------------------------------ the Module slice ----
+
+def test_module_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MXNetError, match="CUDA"):
+        tmx.mod.Module(_tiny_sym())
+    with pytest.raises(MXNetError, match="CUDA"):
+        tmx.mod.Module(_tiny_sym(), context=tmx.gpu(0))
+    with pytest.raises(MXNetError, match="CUDA"):
+        tmx.nd.ones((2,))
+    mod = tmx.mod.Module(_tiny_sym(), context=tmx.cpu())
+    assert mod._context == [torch.device("cpu")]
+
+
+def test_module_computes_in_float32_unless_asked(monkeypatch):
+    for allow in (None, "1"):
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+        if allow:
+            monkeypatch.setenv("MXNET_ALLOW_TF32", allow)
+        tmx.mod.Module(_tiny_sym(), context=tmx.cpu())
+        assert torch.backends.cuda.matmul.allow_tf32 is bool(allow)
+        assert torch.backends.cudnn.allow_tf32 is bool(allow)
+
+
+def _bound_module(**fit_kw):
+    rng = np.random.RandomState(0)
+    it = tmx.io.NDArrayIter(rng.normal(size=(8, 4)).astype(np.float32),
+                            rng.randint(0, 3, 8).astype(np.float32), 4)
+    mod = tmx.mod.Module(_tiny_sym(), context=tmx.cpu())
+    return mod, it
+
+
+@pytest.mark.parametrize("what,item", [
+    ("supervisor", "A8"), ("supervise_env", "A8"),
+    ("checkpoint_manager", "A8"), ("save_optimizer_states", "A8"),
+    ("background_checkpoint", "A8"), ("dist_kvstore", "A7"),
+    ("async_kvstore", "A7"), ("two_contexts", "A7"),
+    ("optimizer", "A2"), ("monitor", "A9"), ("bucketing", "A3"),
+    ("prefetch_iter", "A4"), ("feedforward", "A3")])
+def test_module_slice_raises_on_what_is_not_ported(what, item, monkeypatch):
+    mod, it = _bound_module()
+    fit = dict(num_epoch=1, optimizer_params={"learning_rate": 0.1})
+    calls = {
+        "supervisor": lambda: mod.fit(it, supervisor=object(), **fit),
+        "supervise_env": lambda: mod.fit(it, **fit),
+        "checkpoint_manager": lambda: mod.fit(it, checkpoint_manager=object(),
+                                              **fit),
+        "save_optimizer_states": lambda: (
+            mod.fit(it, **fit), mod.save_optimizer_states("x.states")),
+        "background_checkpoint": lambda: tmx.callback.do_checkpoint(
+            "x", background=True),
+        "dist_kvstore": lambda: tmx.kvstore.create("dist_sync"),
+        "async_kvstore": lambda: tmx.kvstore.create("dist_async"),
+        "two_contexts": lambda: tmx.mod.Module(
+            _tiny_sym(), context=[tmx.cpu(), tmx.cpu()]),
+        "optimizer": lambda: mod.fit(it, optimizer="nag", **fit),
+        "monitor": lambda: mod.fit(it, monitor=object(), **fit),
+        "bucketing": lambda: tmx.mod.BucketingModule,
+        "prefetch_iter": lambda: tmx.io.DevicePrefetchIter,
+        "feedforward": lambda: tmx.model.FeedForward,
+    }
+    if what == "supervise_env":
+        monkeypatch.setenv("MXNET_TPU_TRAIN_SUPERVISE", "1")
+    with pytest.raises(MXNetError, match="not yet ported \\(ROADMAP %s"
+                       % item):
+        calls[what]()
+
+
+def test_module_tpu_sync_routes_through_kernel_7_wrapper(monkeypatch):
+    """fit(kvstore='tpu_sync') builds the fused step on the module's
+    device, and MXNET_TPU_FUSED_OPTUPDATE=1 sends its update through
+    kernel #7's wrapper (on CPU tensors, its plain version)."""
+    calls = []
+    real = tou.fused_update_step
+    monkeypatch.setattr("mxnet_tpu_torch.parallel.tpu_step."
+                        "fused_update_step",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setenv("MXNET_TPU_FUSED_OPTUPDATE", "1")
+    mod, it = _bound_module()
+    mod.fit(it, kvstore="tpu_sync", num_epoch=1,
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+    assert mod._fused_step is not None and mod._fused_step.fused_optupdate
+    assert mod._fused_step.device == torch.device("cpu")
+    assert len(calls) == 2      # one per batch
+    monkeypatch.delenv("MXNET_TPU_FUSED_OPTUPDATE")
+    mod2, it = _bound_module()
+    mod2.fit(it, kvstore="local", num_epoch=1)
+    assert mod2._fused_step is None and len(calls) == 2
+
+
+def test_launcher_refuses_a_process_with_jax():
+    assert "jax" in sys.modules     # the tests' own process
+    with pytest.raises(RuntimeError, match="already imported"):
+        run_script.install()
+    with pytest.raises(RuntimeError, match="already imported"):
+        run_script.main(["script.py"])
+
+
+def test_launcher_aliases_the_same_module_objects(tmp_path):
+    """In a fresh process, mxnet_tpu and its submodules are the port's
+    module objects, and jax is never imported."""
+    script = tmp_path / "probe.py"
+    script.write_text(
+        "import sys\n"
+        "import mxnet_tpu as mx\n"
+        "from mxnet_tpu.models import resnet\n"
+        "from mxnet_tpu.io import DataIter\n"
+        "import mxnet_tpu.module.module as mm\n"
+        "import mxnet_tpu_torch\n"
+        "assert mx is mxnet_tpu_torch\n"
+        "assert resnet is sys.modules['mxnet_tpu_torch.models.resnet']\n"
+        "assert DataIter is mxnet_tpu_torch.io.DataIter\n"
+        "assert mm is sys.modules['mxnet_tpu_torch.module.module']\n"
+        "assert mx.models.get_symbol('mlp').name == 'softmax'\n"
+        "assert not any(m == 'mxnet_tpu' or m.startswith('mxnet_tpu.')\n"
+        "               for m in sys.modules if sys.modules[m].__name__\n"
+        "               .startswith('mxnet_tpu.'))\n"
+        "print('probe ok', sys.argv[1:])\n")
+    proc = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.run_script", str(script),
+         "a", "--b"], capture_output=True, text=True, timeout=120, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "probe ok ['a', '--b']" in proc.stdout
+    assert "run_script: jax not in sys.modules" in proc.stdout
 
 
 # --------------------------------------------------------- the rtc slice ----
