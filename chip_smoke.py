@@ -254,6 +254,59 @@ no result line):
              LeNet's last epoch above the first Speedometer window's
              accuracy and at or above the JAX package's value on the CPU
              (JAX_CPU_LENET_ACC) less 0.02.
+19. serve_bf16 — the serve phase's transformer with dtype bfloat16
+             (bf16 weights from the same seeded generator, bf16 KV pages)
+             through the same DecodeEngine and prompts. Checks: all served,
+             #1's bf16 entry (flash_fwd_offs.cu, flash_fwd_bf16.cuh)
+             launched at least 12 times per prefill call and the float32
+             one not at all, no KV block left live, every stream equal to
+             its solo decode. Reports tokens/s, TTFT and inter-token p50.
+20. train_bf16 — the train phase's model in bf16 through
+             ShardedTrainStep(adam, lr 1e-3, grad_clip 1.0), 20 steps of 8
+             x 512 tokens. Checks: every loss finite, the mean of the last 3
+             below the first, #5's and #2's bf16 entries launched 12 times
+             per step each and no float32 attention kernel; from the
+             first batch, the first loss within BF16_LOSS_RTOL and every
+             leaf's first gradient within BF16_GRAD_RTOL (relative L2) of
+             the float32 model's from the same weights, where two controls
+             (the model under a plain attention that drops each query
+             tile's own key tile, or skips the rescale of its running sum)
+             must fail the gradients' gate. The first Adam step leaves
+             float32 params (jnp's promotion, as the JAX step), which the
+             forward casts to bf16: float32 masters from step 2 on. Reports the step wall p50,
+             tokens/s, and one step under torch.profiler (device time, idle
+             share; DIR/profile_train_bf16.txt).
+21. symbolic_bf16 — module_fit's ResNet-50 run with optimizer_params
+             multi_precision=True: the fused step computes in bf16 with
+             float32 masters. Checks: the step's compute dtype bf16,
+             exactly 1 launch of #7 with 157 float32 leaves a step, every
+             master and BatchNorm running statistic float32, the
+             cross-entropy lower in the last quarter than in the first; from
+             the fitted params and one batch, a bf16 and a float32
+             DataParallelTrainStep: the bf16 step's outputs bf16, its
+             cross-entropy within BF16_CE_RTOL and its update of the
+             classifier within BF16_UPDATE_RTOL (relative L2) of the float32
+             step's, where two controls (the bf16 step on labels rounded to
+             bf16, and on masters rounded to float8 e4m3) must fail them
+             in turn. Reports img/s over the second half and both bare
+             steps under torch.profiler (device time by kind, idle share;
+             DIR/profile_symbolic_bf16.txt).
+22. bf16_kernel — #1, #5 and #2 on bf16 inputs against their plain bf16
+             versions (the JAX kernels' roundings): #1 at q (1, 8, C, D)
+             against k/v (1, 8, 512, D), C in {64, 256}, D in {32, 64,
+             128}, offsets including rows that see no key, with #2 through
+             flash_attention_with_lse and an lse cotangent; #5 and #2 at
+             (8, 8, 512, D) causal for D in {32, 64, 128}, (2, 8, 200, 64)
+             non-causal and bench.py's flash shape (4, 8, 4096, 128)
+             causal. Outputs and gradients within BF16_ULPS bf16 ulps of
+             each row's largest magnitude in the plain version
+             (mxnet_tpu_torch/kernels/bf16_gate.py), lse within 1e-4, rows
+             with no visible key exactly (0, -1e30) with zero gradients,
+             two calls bit-identical. Device times from CUDA graphs at the
+             serving shape (C 256 at offs [256, 0]), the training shape and
+             bench.py's: each kernel, the plain version, and as a
+             yardstick only F.scaled_dot_product_attention in bf16; the
+             bf16 bound (operations at 989 TFLOP/s, bytes at 3.35 TB/s).
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
@@ -262,15 +315,17 @@ phase, ``parent``: the attention kernels and #7 of the checkout in DIR
 one's and called through the same C entries on the same inputs (#7: DIR's
 per-leaf entries on the 71 leaves its rule takes and the plain expression
 on the rest, against this checkout's one launch, on one ResNet-50 update
-of each kind): #2's, #4's and #7's outputs must be the same bits in both,
-every kernel is timed in turns (DIR's, this, this, DIR's) at its path's
-shape, and the forwards' largest difference is reported.
+of each kind): the float32 forwards' (#5, #6, #1, #3), #2's, #4's and
+#7's outputs must be the same bits in both, and every kernel is timed in
+turns (DIR's, this, this, DIR's) at its path's shape.
 
 The line before last is ``{"kernels": [...]}`` with each kernel's launches
 on its path's run (serving, training, symbolic training, long-context
 serving or training, the rtc kernels' full-size run or the ResNet-50
-forwards; #7's adds its launches in module_fit and example_scripts, by
-path in ``launches_by_path``), its error and times; the last line is
+forwards, the bf16 serving and training runs; #7's adds its launches in
+module_fit, example_scripts and symbolic_bf16, by path in
+``launches_by_path``), its error (the bf16 entries in bf16 ulps) and
+times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import argparse
@@ -2545,12 +2600,15 @@ def phase_rtc_infer(torch, dev, seed, out_dir):
 
 def parent_opt_update(torch, dev, lib, result):
     """Kernel #7 of the parent checkout (``lib``: its ``opt_update``
-    library with the per-leaf entries) against this one's multi-tensor
-    launch on one ResNet-50 update of each kind: the parent's path is its
-    kernel on the 71 leaves ``_kernel_eligible`` takes and the plain
-    expression on the other 86, as its ``fused_update_step`` ran them. Both
-    must give the same bits; both are timed in turns (parent, this, this,
-    parent) as device time in a CUDA graph and as eager wall."""
+    library) against this one's multi-tensor launch on one ResNet-50
+    update of each kind. A parent with per-leaf entries
+    (``mx_optupdate_*_f32``) runs its kernel on the 71 leaves
+    ``_kernel_eligible`` takes and the plain expression on the other 86,
+    as its ``fused_update_step`` ran them; a parent with the multi-tensor
+    entries runs them through this checkout's wrapper with the parent's
+    functions. Both must give the same bits; both are timed in turns
+    (parent, this, this, parent) as device time in a CUDA graph and as
+    eager wall."""
     import ctypes
     from mxnet_tpu_torch.kernels import opt_update as tou
     from mxnet_tpu_torch.models import resnet as tres
@@ -2563,12 +2621,20 @@ def parent_opt_update(torch, dev, lib, result):
                     [P] * 4 + [N, F, F, I, F, F, F, P]),
         "adam": ("mx_optupdate_adam_f32",
                  [P] * 5 + [N] + [F] * 6 + [I] + [F] * 3 + [P])}
+    parent_fns = None
+    if hasattr(lib, tou._ENTRY["sgd"]):
+        parent_fns = {}
+        for name, argtypes in tou._ENTRIES.items():
+            parent_fns[name] = getattr(lib, name)
+            parent_fns[name].argtypes = argtypes
+            parent_fns[name].restype = ctypes.c_int
     _, shapes = resnet50_param_shapes(tres)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     kw = dict(rescale=1 / 32, clip=0.01, wd=1e-4)
     for kind, (name, argtypes) in entries.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        if parent_fns is None:
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
         opt = "adam" if kind == "adam" else "sgd"
         hp = _opt_hp(kind)
         lr_t = torch.full((), hp["lr"], device=dev)
@@ -2592,6 +2658,9 @@ def parent_opt_update(torch, dev, lib, result):
             extra = (hp["momentum"],) if kind == "sgd_mom" else ()
 
         def theirs(table=trees[0]):
+            if parent_fns is not None:
+                tou._launch(opt, hp, lr_t, table, **kw, fns=parent_fns)
+                return
             stream = torch.cuda.current_stream().cuda_stream
             for p_, g_, sl in table:
                 if not tou._kernel_eligible(p_):
@@ -2623,8 +2692,10 @@ def parent_opt_update(torch, dev, lib, result):
             "parent_ms": (ms[0] + ms[3]) / 2, "ms": (ms[1] + ms[2]) / 2,
             "parent_host_ms": (host[0] + host[3]) / 2,
             "host_ms": (host[1] + host[2]) / 2,
-            "leaves": len(names), "parent_launches": sum(
-                1 for p_, _, _ in trees[0] if tou._kernel_eligible(p_))}
+            "leaves": len(names), "parent_launches": (
+                -(-len(names) // tou._MAX_LEAVES) if parent_fns else sum(
+                    1 for p_, _, _ in trees[0]
+                    if tou._kernel_eligible(p_)))}
         del trees, params0, grads
         torch.cuda.empty_cache()
 
@@ -2634,10 +2705,9 @@ def phase_parent(torch, fa, dev, parent):
     (``--parent DIR``: a checkout, e.g. the parent commit unpacked with
     ``git archive``), built from DIR's ``csrc/`` and called through the
     same C entries (#7: the parent's per-leaf entries) on the same card.
-    The backward entries (#2, #4) and #7 must give the same bits in both;
-    every kernel is timed in turns (DIR's, this, this, DIR's) at its main
-    path's shape, and the forward outputs' largest difference is
-    reported."""
+    The float32 attention entries (forwards #5, #6, #1, #3 and backwards
+    #2, #4) and #7 must give the same bits in both; every kernel is timed
+    in turns (DIR's, this, this, DIR's) at its main path's shape."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
     csrc = os.path.join(parent, "mxnet_tpu_torch", "kernels", "csrc")
@@ -2660,8 +2730,17 @@ def phase_parent(torch, fa, dev, parent):
         return torch.randn(*shape, generator=gen).to(dev)
 
     result = {"phase": "parent", "dir": parent, "bwd_bit_identical": True,
-              "opt_bit_identical": True, "fwd_max_abs_diff": {},
-              "times": {}}
+              "fwd_bit_identical": True, "opt_bit_identical": True,
+              "fwd_max_abs_diff": {}, "times": {}}
+
+    def same_fwd(key, a, b_):
+        live = b_[1] > NEG / 2
+        result["fwd_max_abs_diff"][key] = max(
+            (a[0] - b_[0]).abs().max().item(),
+            (a[1] - b_[1])[live].abs().max().item())
+        if not all(torch.equal(x, y) for x, y in zip(a, b_)):
+            result["fwd_bit_identical"] = False
+            fail("parent: %s differs from the parent's bits" % key)
 
     def both(key, name, args, outs, iters=20):
         """Run entry ``name`` of both trees on ``args`` (outs are among
@@ -2709,10 +2788,7 @@ def phase_parent(torch, fa, dev, parent):
                                             v.data_ptr(), o_.data_ptr(),
                                             l_.data_ptr()] + list(bh),
                          [o_, l_], iters)
-            live = b_[1] > NEG / 2
-            result["fwd_max_abs_diff"][pre + "fwd"] = max(
-                (a[0] - b_[0]).abs().max().item(),
-                (a[1] - b_[1])[live].abs().max().item())
+            same_fwd(pre + "fwd", a, b_)
         sfx = "" if w is None else "_grid"
         for key, outs in (("dq", [dq]), ("dkv", [dk, dv])):
             a, b_ = both(pre + key, "mx_flash_bwd_%s%s_f32" % (key, sfx),
@@ -2743,10 +2819,7 @@ def phase_parent(torch, fa, dev, parent):
                                  offs.data_ptr(), o_.data_ptr(),
                                  l_.data_ptr(), H, C, SK, D] + list(grid)
                      + [sm, 1], [o_, l_])
-        live = b_[1] > NEG / 2
-        result["fwd_max_abs_diff"][key] = max(
-            (a[0] - b_[0]).abs().max().item(),
-            (a[1] - b_[1])[live].abs().max().item())
+        same_fwd(key, a, b_)
     parent_opt_update(torch, dev, libs["opt_update"], result)
     for v_ in result["times"].values():
         v_["speedup"] = v_["parent_ms"] / v_["ms"]
@@ -3051,10 +3124,612 @@ def phase_example_scripts(torch, dev, tmp):
     return result, {k: tuple(v) for k, v in total.items()}
 
 
+# --- bf16 compute (phases 19-22) --------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12
+BF16_COUNTERS = ("launches_bf16", "launches_fwd_bf16", "launches_bwd_dq_bf16",
+                 "launches_bwd_dkv_bf16")
+
+
+def bf16_bounds(flops, nbytes):
+    ms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    return {"bound_ms": ms, "bound_by": by}
+
+
+# Limits of the bf16 paths against float32, set from readings of seeds 0 to
+# 2 on the card beside controls that are wrong on purpose; every run reads
+# its controls again and fails if one passes the gate it is held to
+# (PERF.md, section 6).
+#: the bf16 model's first loss against the float32 model's from the same
+#: weights (relative): sound runs read at most 1.1e-5. At random init the
+#: loss hardly depends on attention (the controls read 1.7e-5 to 8.8e-4),
+#: so the gradients are the gate the controls must fail
+BF16_LOSS_RTOL = 3e-5
+#: the bf16 model's first gradients against the float32 model's from the
+#: same weights, the largest ||g_bf16 - g_f32|| / ||g_f32|| over the
+#: leaves: sound runs read at most 0.0146, both controls at least 0.72
+BF16_GRAD_RTOL = 0.1
+#: ResNet-50's first cross-entropy in bf16 against float32's from the same
+#: params and batch (relative): sound runs read at most 4.4e-3, the
+#: control on masters rounded to float8 e4m3 at least 2.5e-2
+BF16_CE_RTOL = 1e-2
+#: ResNet-50's first update of the classifier (fc1_weight, fc1_bias) in
+#: bf16 against float32's, ||dw_bf16 - dw_f32|| / ||dw_f32||, the layer
+#: the labels enter: sound runs read at most 0.046, the control on labels
+#: rounded to bf16 at least 1.16 (the float8 one 0.15-0.17). Over all 157
+#: masters sound runs already differ by 0.75-0.80, too much to gate on
+BF16_UPDATE_RTOL = 0.1
+#: key tile of the transformer's control attention (the kernels' at D 64)
+CONTROL_TILE = 64
+
+
+def _control_attention(torch, fault):
+    """Plain causal bf16 attention over key tiles of CONTROL_TILE with one
+    planted fault, a control for the bf16 model's gates (the signature of
+    ``models.transformer._attention``). "diagonal": each query tile's own
+    key tile is dropped, so its first rows see no key and give 0.
+    "rescale": a tile's P V joins the running sum without rescaling the
+    sum when the row max rises (the sums l are rescaled)."""
+    def attention(q, k, v, cfg, mesh):
+        B, H, S, D = q.shape
+        qs = (q.float() / math.sqrt(D)).to(q.dtype).float()
+        m = q.new_full((B, H, S), NEG, dtype=torch.float32)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, S, D, dtype=torch.float32, device=q.device)
+        qi = torch.arange(S, device=q.device)[:, None]
+        for t0 in range(0, S, CONTROL_TILE):
+            kj = torch.arange(t0, min(S, t0 + CONTROL_TILE),
+                              device=q.device)[None, :]
+            seen = kj <= qi
+            if fault == "diagonal":
+                seen = seen & (kj // CONTROL_TILE != qi // CONTROL_TILE)
+            s = (qs @ k[:, :, t0:t0 + CONTROL_TILE].float().transpose(-1, -2)
+                 ).masked_fill(~seen, NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None]) * seen
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            pv = p.to(q.dtype).float() @ v[:, :, t0:t0 + CONTROL_TILE].float()
+            acc = acc + pv if fault == "rescale" else \
+                acc * alpha[..., None] + pv
+            m = m_new
+        return (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+    return attention
+
+
+def _first_grads(torch, loss_fn, params, batch):
+    """(loss, gradients in ``tree_leaves`` order) of ``loss_fn`` at
+    ``params`` (nested dicts of tensors)."""
+    from mxnet_tpu_torch.parallel.optim_update import tree_leaves
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    it = iter(leaves)
+
+    def rebuild(tree):
+        if isinstance(tree, dict):
+            return {k: rebuild(tree[k]) for k in sorted(tree)}
+        return next(it)
+
+    loss = loss_fn(rebuild(params), batch)
+    return loss.item(), torch.autograd.grad(loss, leaves)
+
+
+def _leaf_names(tree, prefix=""):
+    """Names of ``tree``'s leaves in ``tree_leaves`` order."""
+    return [n for k in sorted(tree) for n in (
+        _leaf_names(tree[k], prefix + k + ".") if isinstance(tree[k], dict)
+        else [prefix + k])]
+
+
+def _rel_l2(got, want):
+    """||got - want|| / ||want|| over lists of tensors, in float64."""
+    num = sum(((g.double() - w.double()) ** 2).sum() for g, w in
+              zip(got, want))
+    return math.sqrt((num / sum((w.double() ** 2).sum()
+                                for w in want)).item())
+
+
+def _bf16_counts(fa):
+    return {name: getattr(fa, name) for name in BF16_COUNTERS}
+
+
+def _zero_attention_counts(fa):
+    for name in STREAM_COUNTERS + BF16_COUNTERS:
+        setattr(fa, name, 0)
+
+
+def phase_serve_bf16(torch, fa, dev):
+    """The serve phase's transformer in bf16 through DecodeEngine (module
+    docstring, phase 19). Returns (result, #1's bf16 launches)."""
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerDecodeModel)
+    from mxnet_tpu_torch.serving import DecodeEngine
+    cfg = TransformerConfig(vocab_size=32000, num_layers=12, num_heads=8,
+                            d_model=512, max_len=512, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = TransformerDecodeModel(cfg, seed=SEED, device=dev)
+    eng = DecodeEngine(block_size=16, num_blocks=257, batch_size=8,
+                       max_seq_len=512, prefill_buckets=(64, 256),
+                       prefill_chunk=256, **model.engine_kwargs())
+    setup_s = time.perf_counter() - t0
+    try:
+        if eng._k_pages.dtype != torch.bfloat16:
+            fail("serve_bf16: pages are %s" % eng._k_pages.dtype)
+        rng = torch.Generator().manual_seed(SEED + 1)
+        lengths = [5, 37, 64, 100, 200, 257, 380, 480]
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
+                   .tolist() for n in lengths]
+        new = 32
+        stamps = {}
+
+        def on_token(stream, seq_no, token):
+            stamps.setdefault(stream.rid, []).append(time.monotonic())
+
+        torch.cuda.synchronize()
+        _zero_attention_counts(fa)
+        t0 = time.perf_counter()
+        streams = [eng.submit(p, max_new_tokens=new, on_token=on_token)
+                   for p in prompts]
+        outs = [s.result_wait(600.0) for s in streams]
+        wall = time.perf_counter() - t0
+        counts = {**_bf16_counts(fa), "launches": fa.launches}
+        calls = sum(-(-n // 256) for n in lengths)
+        st = eng.stats()
+        if st["served"] != len(prompts):
+            fail("serve_bf16: served %d of %d" % (st["served"],
+                                                  len(prompts)))
+        if counts["launches_bf16"] < cfg.num_layers * calls or \
+                counts["launches"]:
+            fail("serve_bf16: #1 launches %s, want >= %d in bf16 and none "
+                 "in float32" % (counts, cfg.num_layers * calls))
+        if st["kv"]["blocks_live"] != 0:
+            fail("serve_bf16: %d KV blocks still live"
+                 % st["kv"]["blocks_live"])
+        for o in outs:
+            if len(o) != new or not all(0 <= t < cfg.vocab_size for t in o):
+                fail("serve_bf16: bad stream %s" % o)
+        ttft = [stamps[s.rid][0] - s.submitted_t for s in streams]
+        gaps = [b - a for s in streams
+                for a, b in zip(stamps[s.rid], stamps[s.rid][1:])]
+        solo = [eng.generate(p, max_new_tokens=new, timeout=600.0)
+                for p in prompts]
+        if solo != outs:
+            bad = [i for i, (a, b) in enumerate(zip(solo, outs)) if a != b]
+            fail("serve_bf16: continuous != solo for prompts %s" % bad)
+    finally:
+        eng.stop()
+    return {"phase": "serve_bf16", "setup_s": setup_s, "wall_s": wall,
+            "tokens": sum(len(o) for o in outs),
+            "tokens_per_s": sum(len(o) for o in outs) / wall,
+            "ttft_p50_ms": statistics.median(ttft) * 1e3,
+            "intertoken_p50_ms": statistics.median(gaps) * 1e3,
+            "prefill_calls": calls, "launches": counts,
+            "program_counts": list(eng.program_counts()),
+            "continuous_equals_solo": True,
+            "kv_page_bytes": eng._k_pages.element_size()}, \
+        counts["launches_bf16"]
+
+
+def phase_train_bf16(torch, fa, dev, seed, out_dir):
+    """The train phase's transformer in bf16 through ShardedTrainStep
+    (module docstring, phase 20). Returns (result, bf16 launch counts)."""
+    import mxnet_tpu_torch.models.transformer as tm
+    from mxnet_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer, transformer_loss)
+    from mxnet_tpu_torch.parallel import ShardedTrainStep
+    from mxnet_tpu_torch.parallel.optim_update import tree_leaves
+    cfg = TransformerConfig(vocab_size=32000, num_layers=12, num_heads=8,
+                            d_model=512, max_len=512, dtype=torch.bfloat16)
+    B, S = 8, 512
+    t0 = time.perf_counter()
+    params = init_transformer(cfg, torch.Generator().manual_seed(seed), dev)
+    make_batch = periodic_batches(seed, cfg.vocab_size, S, B)
+    batches = [make_batch() for _ in range(TRAIN_STEPS)]
+
+    def loss_fn(p, b):
+        return transformer_loss(p, b["tokens"], b["targets"], cfg)
+
+    # the first loss and gradients against the float32 model's from the
+    # same weights; then the bf16 model's under two faulty attentions, the
+    # controls of BF16_LOSS_RTOL and BF16_GRAD_RTOL
+    cfg32 = TransformerConfig(vocab_size=32000, num_layers=12, num_heads=8,
+                              d_model=512, max_len=512)
+    first = {k: torch.as_tensor(x).to(dev) for k, x in batches[0].items()}
+    params32 = {k: (v.float() if not isinstance(v, dict) else
+                    {kk: vv.float() for kk, vv in v.items()})
+                for k, v in params.items()}
+    loss32, g32 = _first_grads(
+        torch, lambda p, b: transformer_loss(p, b["tokens"], b["targets"],
+                                             cfg32), params32, first)
+    names = _leaf_names(params)
+
+    def readings(loss, grads):
+        errs = [_rel_l2([g], [w]) for g, w in zip(grads, g32)]
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        return {"loss_rel_err": abs(loss - loss32) / abs(loss32),
+                "grad_rel_err": errs[worst], "grad_worst_leaf": names[worst]}
+
+    gate = {"sound": readings(*_first_grads(torch, loss_fn, params, first))}
+    for fault in ("diagonal", "rescale"):
+        with mock.patch.object(tm, "_attention",
+                               _control_attention(torch, fault)):
+            gate[fault] = readings(*_first_grads(torch, loss_fn, params,
+                                                 first))
+    del params32, g32
+    step = ShardedTrainStep(loss_fn, optimizer="adam", lr=1e-3,
+                            grad_clip=1.0, device=dev).init(params)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_attention_counts(fa)
+    losses, walls = [], []
+    t0 = time.perf_counter()
+    for b in batches:
+        ts = time.perf_counter()
+        losses.append(step(b).item())
+        walls.append(time.perf_counter() - ts)
+    wall = time.perf_counter() - t0
+    counts = _bf16_counts(fa)
+    f32_counts = {n: getattr(fa, n) for n in STREAM_COUNTERS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(x) for x in losses):
+        fail("train_bf16: non-finite loss in %s" % losses)
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        fail("train_bf16: loss did not fall: %s" % losses)
+    want = cfg.num_layers * TRAIN_STEPS
+    for name in ("launches_fwd_bf16", "launches_bwd_dq_bf16",
+                 "launches_bwd_dkv_bf16"):
+        if counts[name] != want:
+            fail("train_bf16: %s = %d, want %d (12 per step)"
+                 % (name, counts[name], want))
+    if any(f32_counts.values()) or counts["launches_bf16"]:
+        fail("train_bf16: other attention kernels launched: %s %s"
+             % (f32_counts, counts))
+    rel = abs(losses[0] - loss32) / abs(loss32)
+    if not (rel <= BF16_LOSS_RTOL and gate["sound"]["grad_rel_err"]
+            <= BF16_GRAD_RTOL):
+        fail("train_bf16: first bf16 loss %r vs float32 %r (rel %g, limit "
+             "%g), gradients %s (limit %g)" % (losses[0], loss32, rel,
+                                               BF16_LOSS_RTOL, gate,
+                                               BF16_GRAD_RTOL))
+    if not min(gate[f]["grad_rel_err"] for f in ("diagonal", "rescale")) \
+            > BF16_GRAD_RTOL:
+        fail("train_bf16: a control passes the gradient gate: %s" % gate)
+    dtypes = sorted({str(t.dtype) for t in tree_leaves(step.params)})
+    step_ms = statistics.median(walls[1:]) * 1e3
+    prof = profile_calls(torch, lambda: step(batches[0]), "train_bf16",
+                         out_dir, warm=2, n=5, calls=3)
+    return {"phase": "train_bf16", "setup_s": setup_s, "steps": TRAIN_STEPS,
+            "batch": [B, S], "wall_s": wall, "first_step_ms": walls[0] * 1e3,
+            "step_ms_p50": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
+            "losses": losses, "loss_f32_same_weights": loss32,
+            "first_loss_rel_err": rel, "loss_rtol": BF16_LOSS_RTOL,
+            "grad_rtol": BF16_GRAD_RTOL, "gates": gate,
+            "param_dtypes_after": dtypes, "launches": counts,
+            "peak_mem_gb": peak / 1e9, "profile": prof}, counts
+
+
+def phase_symbolic_bf16(torch, dev, seed, out_dir):
+    """Full-width ResNet-50 through Module.fit(kvstore='tpu_sync',
+    multi_precision=True) (module docstring, phase 21). Returns (result,
+    kind -> (launches, leaves) of #7 on the path)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.models import resnet as tres
+    from mxnet_tpu_torch.parallel import DataParallelTrainStep
+    t0 = time.perf_counter()
+    with mx.name.NameManager():
+        sym = tres.get_symbol(num_classes=1000, num_layers=50,
+                              image_shape="3,224,224")
+    n_leaves = len(sym.list_arguments()) - 2
+    rng = np.random.RandomState(seed)
+    data = rng.uniform(-1, 1, (4 * SYM_BATCH, 3, 224, 224)).astype(
+        np.float32)
+    label = rng.randint(0, 1000, (4 * SYM_BATCH,)).astype(np.float32)
+    rows = np.arange(FIT_STEPS * SYM_BATCH) % (4 * SYM_BATCH)
+    train = mx.io.NDArrayIter(data[rows], label[rows], SYM_BATCH)
+    setup_s = time.perf_counter() - t0
+    stamps, quarters = [], []
+
+    def on_batch(p):
+        if p.nbatch in (FIT_STEPS // 2 - 1, FIT_STEPS - 1):
+            torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if p.nbatch % (FIT_STEPS // 4) == FIT_STEPS // 4 - 1:
+            quarters.append(float(p.eval_metric.get()[1]))
+            p.eval_metric.reset()
+
+    mx.random.seed(seed)
+    mod = mx.mod.Module(sym, context=dev)
+    torch.cuda.synchronize()
+    _reset_opt_counts(tou)
+    t1 = time.perf_counter()
+    with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+        mod.fit(train, eval_metric="crossentropy", kvstore="tpu_sync",
+                optimizer="sgd",
+                optimizer_params={**FIT_OPT, "multi_precision": True},
+                initializer=mx.init.Xavier(rnd_type="gaussian",
+                                           magnitude=2),
+                batch_end_callback=on_batch, num_epoch=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    counts = (_opt_counts(tou), _opt_leaves(tou))
+    want = ({"sgd": 0, "sgd_mom": FIT_STEPS, "adam": 0},
+            {"sgd": 0, "sgd_mom": n_leaves * FIT_STEPS, "adam": 0})
+    fused = mod._fused_step
+    if fused is None or fused.compute_dtype != torch.bfloat16:
+        fail("symbolic_bf16: the fused step is %s" % (
+            None if fused is None else fused.compute_dtype))
+    if counts != want:
+        fail("symbolic_bf16: kernel #7 (launches, leaves) %s, want %s"
+             % (counts, want))
+    bad = [n for n, t in list(fused.params.items()) + list(fused.aux.items())
+           if t.dtype != torch.float32]
+    if bad:
+        fail("symbolic_bf16: masters or aux not float32: %s" % bad[:5])
+    if len(quarters) != 4 or not all(math.isfinite(q) for q in quarters):
+        fail("symbolic_bf16: cross-entropy by quarter %s" % quarters)
+    if not quarters[-1] < quarters[0]:
+        fail("symbolic_bf16: the loss did not fall: %s" % quarters)
+    half = FIT_STEPS // 2
+    walls = [b - a for a, b in zip(stamps[half:], stamps[half + 1:])]
+    result = {"phase": "symbolic_bf16", "model": "resnet50",
+              "batch": [SYM_BATCH, 3, 224, 224], "steps": FIT_STEPS,
+              "setup_s": setup_s, "fit_s": fit_s,
+              "img_per_s_second_half": SYM_BATCH * (FIT_STEPS - half)
+              / (stamps[-1] - stamps[half - 1]),
+              "step_wall_ms_p50": statistics.median(walls) * 1e3,
+              "cross_entropy_by_quarter": quarters,
+              "launches_per_step": counts[0]["sgd_mom"] / FIT_STEPS,
+              "leaves_per_step": counts[1]["sgd_mom"] / FIT_STEPS}
+
+    # from fresh copies of the fitted params and one batch: the bf16 step's
+    # activations, its first cross-entropy and its first update of the
+    # masters against the float32 step's, and two controls: the bf16 step
+    # on labels rounded to bf16 (what the step must never do), and on
+    # masters rounded to float8 e4m3; then the bf16 step alone under the
+    # profiler
+    arg, aux = mod.get_params()
+    masters = {n: getattr(v, "_data", v).to(dev).float()
+               for n, v in arg.items()}
+    lab0 = torch.from_numpy(label[:SYM_BATCH]).to(dev)
+    staged = {"data": torch.from_numpy(data[:SYM_BATCH]).to(dev),
+              "softmax_label": lab0}
+    ces, deltas, steps = {}, {}, {}
+    for name, cdt, lab, start in (
+            ("f32", None, lab0, masters),
+            ("bf16", "bfloat16", lab0, masters),
+            ("labels_bf16", "bfloat16", lab0.to(torch.bfloat16).float(),
+             masters),
+            ("masters_f8", "bfloat16", lab0, {
+                n: v.to(torch.float8_e4m3fn).float()
+                for n, v in masters.items()})):
+        st = DataParallelTrainStep(
+            sym, lr=0.05, momentum=0.9, wd=1e-4,
+            rescale_grad=1.0 / SYM_BATCH, fused_optupdate=True,
+            compute_dtype=cdt, device=dev).init_from(start, aux,
+                                                     RESNET_SHAPES)
+        with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+            prob = st({**staged, "softmax_label": lab})[0]
+        want_dt = torch.bfloat16 if cdt else torch.float32
+        if prob.dtype != want_dt:
+            fail("symbolic_bf16: %s step's output is %s" % (name,
+                                                            prob.dtype))
+        ces[name] = _cross_entropy(torch, prob.float(), lab0).item()
+        deltas[name] = [st.params[n].detach() - start[n]
+                        for n in st.param_names]
+        if name in ("f32", "bf16"):
+            steps[name] = st
+    fc = [i for i, n in enumerate(steps["f32"].param_names)
+          if n.startswith("fc1_")]
+    gate = {name: {"ce_rel_err": abs(ces[name] - ces["f32"]) / ces["f32"],
+                   "update_rel_err": _rel_l2([deltas[name][i] for i in fc],
+                                             [deltas["f32"][i] for i in fc]),
+                   "update_all_rel_err": _rel_l2(deltas[name],
+                                                 deltas["f32"])}
+            for name in ("bf16", "labels_bf16", "masters_f8")}
+    del deltas
+    sound = gate["bf16"]
+    if not (sound["ce_rel_err"] <= BF16_CE_RTOL
+            and sound["update_rel_err"] <= BF16_UPDATE_RTOL):
+        fail("symbolic_bf16: bf16 against float32 %s (limits: cross-entropy "
+             "%g, update %g)" % (gate, BF16_CE_RTOL, BF16_UPDATE_RTOL))
+    if not (gate["masters_f8"]["ce_rel_err"] > BF16_CE_RTOL and
+            gate["labels_bf16"]["update_rel_err"] > BF16_UPDATE_RTOL):
+        fail("symbolic_bf16: a control passes the gates: %s" % gate)
+    result.update({"first_ce": ces, "first_ce_rel_err": sound["ce_rel_err"],
+                   "ce_rtol": BF16_CE_RTOL, "update_rtol": BF16_UPDATE_RTOL,
+                   "gates": gate})
+    for name, st in steps.items():
+        result["bare_step_" + name] = profile_calls(
+            torch, lambda: st(staged, lr=0.05),
+            "symbolic_bf16" if name == "bf16" else "symbolic_f32_same",
+            out_dir if name == "bf16" else None, warm=2, n=5, calls=3,
+            classify=kind_of)
+    return result, {k: (counts[0][k], counts[1][k]) for k in OPT_KERNELS}
+
+def phase_bf16_kernel(torch, fa, dev):
+    """#1, #5 and #2 in bf16 against their plain bf16 versions on the card
+    (module docstring, phase 22). Returns (worst ulps per kernel, rows of
+    times by kernel)."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.kernels.bf16_gate import BF16_ULPS, row_ulps
+    gen = torch.Generator().manual_seed(SEED + 7)
+    bf = torch.bfloat16
+    worst = {"offs": 0.0, "fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    lse_worst = 0.0
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, bf)
+
+    def leaves(*ts):
+        return [t.detach().clone().requires_grad_(True) for t in ts]
+
+    def check(kind, what, got, ref):
+        if got.dtype != ref.dtype:
+            fail("bf16_kernel %s: %s is %s, the plain version's %s"
+                 % (what, kind, got.dtype, ref.dtype))
+        u = row_ulps(got, ref)
+        if not u <= BF16_ULPS:
+            fail("bf16_kernel %s: %s %.2f bf16 ulps > %g" % (what, kind, u,
+                                                             BF16_ULPS))
+        if u >= worst[kind]:
+            worst[kind], worst[kind + "_at"] = u, what
+
+    def check_lse(what, lse, ref):
+        nonlocal lse_worst
+        live = ref > NEG / 2
+        if not bool((lse[~live] == NEG).all().item()):
+            fail("bf16_kernel %s: dead rows' lse not -1e30" % what)
+        err = scaled_err(lse[live], ref[live]) if bool(live.any()) else 0.0
+        if not err <= TOL:
+            fail("bf16_kernel %s: lse err %g > %g" % (what, err, TOL))
+        lse_worst = max(lse_worst, err)
+
+    def same(what, a, b):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail("bf16_kernel %s: two calls on the same inputs differ"
+                 % what)
+
+    # #1 at the serving shapes, rows that see no key included
+    SK = 512
+    for D in (32, 64, 128):
+        sm = 1.0 / math.sqrt(D)
+        for C, (q0, k0) in ((64, (0, 0)), (256, (0, 0)), (256, (256, 0)),
+                            (64, (448, 0)), (64, (0, 256))):
+            what = "#1 D=%d C=%d offs=%s" % (D, C, (q0, k0))
+            q, k, v = rand(1, 8, C, D), rand(1, 8, SK, D), rand(1, 8, SK, D)
+            offs = torch.tensor([q0, k0], dtype=torch.int32, device=dev)
+            out, lse = fa._flash_fwd_offs_cuda(q, k, v, offs, sm, True)
+            ref = fa.flash_fwd_offs_plain(q, k, v, offs, sm, True)
+            check("offs", what, out, ref[0])
+            check_lse(what, lse, ref[1])
+            dead = ref[1] == NEG
+            if not bool((out[dead] == 0).all().item()):
+                fail("bf16_kernel %s: dead rows' out not 0" % what)
+            same(what, fa._flash_fwd_offs_cuda(q, k, v, offs, sm, True),
+                 (out, lse))
+            # #2 through flash_attention_with_lse, lse cotangent included,
+            # against the plain backward on the inputs #2 got: the forward
+            # kernel's out and lse
+            do, dlse = rand(1, 8, C, D), rand(1, 8, C).float()
+            ts = leaves(q, k, v)
+            o, l = fa.flash_attention_with_lse(*ts, offs, sm, True)
+            torch.autograd.backward((o, l), (do, dlse))
+            want = fa.flash_bwd_offs_plain(q, k, v, offs, do, dlse,
+                                           o.detach(), l.detach(), sm, True)
+            check("dq", what + " dq", ts[0].grad, want[0])
+            check("dkv", what + " dk", ts[1].grad, want[1])
+            check("dkv", what + " dv", ts[2].grad, want[2])
+
+    # #5 and #2 at the training shape, other head dims, a non-causal
+    # ragged case and bench.py's flash shape
+    for (b, h, s, d), causal in (((8, 8, 512, 64), True),
+                                 ((8, 8, 512, 32), True),
+                                 ((8, 8, 512, 128), True),
+                                 ((2, 8, 200, 64), False),
+                                 ((4, 8, 4096, 128), True)):
+        what = "#5/#2 %s causal=%s" % ((b, h, s, d), causal)
+        sm = 1.0 / math.sqrt(d)
+        q, k, v, do = (rand(b, h, s, d) for _ in range(4))
+        out, lse = fa._flash_fwd_cuda(q, k, v, sm, causal)
+        ref = fa.flash_fwd_plain(q, k, v, sm, causal)
+        check("fwd", what + " out", out, ref[0])
+        check_lse(what, lse, ref[1])
+        same(what + " fwd", fa._flash_fwd_cuda(q, k, v, sm, causal),
+             (out, lse))
+        ts = leaves(q, k, v)
+        fa.flash_attention(*ts, causal=causal, sm_scale=sm,
+                           use_pallas=True).backward(do)
+        # the plain backward on the inputs #2 got: #5's out and lse
+        want = fa.flash_bwd_offs_plain(q, k, v, fa._offs0(dev), do, None,
+                                       out, lse, sm, causal)
+        check("dq", what + " dq", ts[0].grad, want[0])
+        check("dkv", what + " dk", ts[1].grad, want[1])
+        check("dkv", what + " dv", ts[2].grad, want[2])
+        again = leaves(q, k, v)
+        fa.flash_attention(*again, causal=causal, sm_scale=sm,
+                           use_pallas=True).backward(do)
+        same(what + " bwd", [t.grad for t in again], [t.grad for t in ts])
+        del q, k, v, do, out, lse, ref, ts, want, again
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # device times (CUDA graphs) at the path shapes and bench.py's flash
+    # shape, against the plain versions and SDPA in bf16
+    rows = {}
+    C, q0, D = 256, 256, 64
+    sm = 1.0 / math.sqrt(D)
+    q, k, v = rand(1, 8, C, D), rand(1, 8, SK, D), rand(1, 8, SK, D)
+    offs = torch.tensor([q0, 0], dtype=torch.int32, device=dev)
+    mask = (torch.arange(C, device=dev)[:, None] + q0
+            >= torch.arange(SK, device=dev)[None, :])
+    flops = 4.0 * 8 * sum(visible_keys(C, SK, q0, 0)) * D
+    nbytes = 2.0 * (2 * q.numel() + 2 * k.numel()) + 4.0 * 8 * C + 8
+    ms = time_ms(lambda: fa._flash_fwd_offs_cuda(q, k, v, offs, sm, True))
+    rows["offs"] = {
+        "shape": "q (1,8,256,64) k/v (1,8,512,64) bf16 offs [256,0]",
+        "ms": ms, "plain_ms": time_ms(lambda: fa.flash_fwd_offs_plain(
+            q, k, v, offs, sm, True)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=sm)),
+        "flops": flops, "bytes": nbytes, "tflops": tflops(flops, ms),
+        **bf16_bounds(flops, nbytes)}
+    for key, (B, H, S, D) in (("train", (8, 8, 512, 64)),
+                              ("bench", (4, 8, 4096, 128))):
+        sm = 1.0 / math.sqrt(D)
+        q, k, v, do = (rand(B, H, S, D) for _ in range(4))
+        offs0 = fa._offs0(dev)
+        out, lse = fa._flash_fwd_cuda(q, k, v, sm, True)
+        deff = fa._deff(do, out, None).contiguous()
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        common = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  offs0.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  deff.data_ptr())
+        tail = (B * H, S, S, D, sm, 1)
+        qg, kg, vg = leaves(q, k, v)
+        sdpa = lambda a, b_, c: F.scaled_dot_product_attention(
+            a, b_, c, is_causal=True, scale=sm)
+        iters = 20 if key == "train" else 5
+        t = {"fwd_ms": time_ms(lambda: fa._flash_fwd_cuda(q, k, v, sm, True),
+                               iters=iters),
+             "dq_ms": time_ms(lambda: fa._launch(
+                 "mx_flash_bwd_dq_bf16", *common, dq.data_ptr(), *tail,
+                 device=dev), iters=iters),
+             "dkv_ms": time_ms(lambda: fa._launch(
+                 "mx_flash_bwd_dkv_bf16", *common, dk.data_ptr(),
+                 dv.data_ptr(), *tail, device=dev), iters=iters),
+             "sdpa_fwd_ms": time_ms(lambda: sdpa(q, k, v), iters=iters),
+             "sdpa_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                 sdpa(qg, kg, vg), (qg, kg, vg), do), iters=iters)}
+        t["sdpa_bwd_ms"] = t["sdpa_fwd_bwd_ms"] - t["sdpa_fwd_ms"]
+        if key == "train":
+            t["fwd_plain_ms"] = time_ms(lambda: fa.flash_fwd_plain(
+                q, k, v, sm, True))
+            t["bwd_plain_ms"] = time_ms(lambda: fa.flash_bwd_offs_plain(
+                q, k, v, offs0, do, None, out, lse, sm, True))
+        vis = B * H * S * (S + 1) // 2
+        n, nrows = q.numel(), B * H * S
+        for name, fl, nb in (
+                ("fwd", 4.0 * vis * D, 2.0 * 4 * n + 4.0 * nrows),
+                ("dq", 6.0 * vis * D, 2.0 * 5 * n + 8.0 * nrows + 8),
+                ("dkv", 8.0 * vis * D, 2.0 * 6 * n + 8.0 * nrows + 8)):
+            t[name + "_flops"], t[name + "_bytes"] = fl, nb
+            t[name + "_tflops"] = tflops(fl, t[name + "_ms"])
+            for k_, v_ in bf16_bounds(fl, nb).items():
+                t[name + "_" + k_] = v_
+        t["fwd_vs_sdpa"] = t["fwd_ms"] / t["sdpa_fwd_ms"]
+        t["bwd_vs_sdpa"] = (t["dq_ms"] + t["dkv_ms"]) / t["sdpa_bwd_ms"]
+        rows[key] = t
+        del q, k, v, do, out, lse, deff, dq, dk, dv, qg, kg, vg
+        torch.cuda.empty_cache()
+    return worst, lse_worst, rows
+
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
           "grid_kernel", "serve_long", "train_long", "rtc_kernel",
-          "rtc_infer", "module_fit", "example_scripts")
+          "rtc_infer", "module_fit", "example_scripts", "serve_bf16",
+          "train_bf16", "symbolic_bf16", "bf16_kernel")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",)}
@@ -3112,6 +3787,7 @@ def main():
                     for k, v in _build.build_info.items()}})
 
     entries = []
+    opt_paths = {}
     src = "mxnet_tpu_torch/kernels/csrc/"
     ref = "mxnet_tpu/kernels/flash_attention.py:"
     if "kernel" in phases:
@@ -3286,7 +3962,6 @@ def main():
                      "32 (%d f32 elements), USER_RELU_SOURCE via NVRTC"
                      % row["elements"]})
     # kernel #7's launches on the Module paths join its entries
-    opt_paths = {}
     if "module_fit" in phases:
         fit_result, opt_paths["module_fit"] = phase_module_fit(
             torch, dev, args.seed, args.profile_dir)
@@ -3297,6 +3972,23 @@ def main():
             scripts, opt_paths["example_scripts"] = phase_example_scripts(
                 torch, dev, tmp)
         emit({**scripts, "card": card})
+    bf16_launches = {}
+    if "serve_bf16" in phases:
+        sb, bf16_launches["launches_bf16"] = phase_serve_bf16(torch, fa, dev)
+        emit({**sb, "card": card})
+        torch.cuda.empty_cache()
+    if "train_bf16" in phases:
+        tb, counts = phase_train_bf16(torch, fa, dev, args.seed,
+                                      args.profile_dir)
+        emit({**tb, "card": card})
+        bf16_launches.update((k, v) for k, v in counts.items()
+                             if k != "launches_bf16")
+        torch.cuda.empty_cache()
+    if "symbolic_bf16" in phases:
+        symb, opt_paths["symbolic_bf16"] = phase_symbolic_bf16(
+            torch, dev, args.seed, args.profile_dir)
+        emit({**symb, "card": card})
+        torch.cuda.empty_cache()
     for entry in entries:
         opt_kind = OPT_BY_ENTRY.get(entry["name"])
         if opt_kind is None:
@@ -3306,6 +3998,47 @@ def main():
             entry["leaves"] += counts[opt_kind][1]
             entry.setdefault("launches_by_path", {})[path] = \
                 counts[opt_kind][0]
+    if "bf16_kernel" in phases:
+        from mxnet_tpu_torch.kernels.bf16_gate import BF16_ULPS
+        bk_worst, bk_lse, bk = phase_bf16_kernel(torch, fa, dev)
+        emit({"phase": "bf16_kernel", "max_row_ulps": bk_worst,
+              "ulps_tol": BF16_ULPS, "lse_max_err": bk_lse, "lse_tol": TOL,
+              **bk, "card": card})
+        torch.cuda.empty_cache()
+        train_row = bk["train"]
+        for name, file, line, counter, key in (
+                ("flash_fwd_offs_bf16", "flash_fwd_offs.cu", "285",
+                 "launches_bf16", "offs"),
+                ("flash_fwd_bf16", "flash_fwd.cu", "205",
+                 "launches_fwd_bf16", "fwd"),
+                ("flash_bwd_dq_bf16", "flash_bwd_offs.cu", "402",
+                 "launches_bwd_dq_bf16", "dq"),
+                ("flash_bwd_dkv_bf16", "flash_bwd_offs.cu", "453",
+                 "launches_bwd_dkv_bf16", "dkv")):
+            if counter not in bf16_launches:
+                continue   # its path's phase did not run
+            if key == "offs":
+                row = bk["offs"]
+                times = {"ms": row["ms"], "plain_ms": row["plain_ms"],
+                         "bound_ms": row["bound_ms"],
+                         "bound_by": row["bound_by"],
+                         "library_ms": row["library_ms"],
+                         "tflops": row["tflops"], "shape": row["shape"]}
+            else:
+                plain = "fwd_plain_ms" if key == "fwd" else "bwd_plain_ms"
+                lib = "sdpa_fwd_ms" if key == "fwd" else "sdpa_bwd_ms"
+                times = {"ms": train_row[key + "_ms"],
+                         "plain_ms": train_row[plain],
+                         "bound_ms": train_row[key + "_bound_ms"],
+                         "bound_by": train_row[key + "_bound_by"],
+                         "library_ms": train_row[lib],
+                         "tflops": train_row[key + "_tflops"],
+                         "shape": "q/k/v (8,8,512,64) bf16 causal"}
+            entries.append({
+                "name": name, "route": "cuda", "source": src + file,
+                "replaces": ref + line, "launches": bf16_launches[counter],
+                "max_abs_err": bk_worst[key], "err_unit": "bf16 row ulps",
+                **times})
     if args.parent:
         emit({**phase_parent(torch, fa, dev, args.parent), "card": card})
     emit({"kernels": entries})

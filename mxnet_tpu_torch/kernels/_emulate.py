@@ -5,9 +5,11 @@ update's leaf table and chunks) runs in the CPU tests.
 
 The emulator (``emu/cuda_runtime.h``, ``emu/emu.cpp``) runs every block of
 a launch in turn and its threads as host threads: ``__syncthreads`` and
-the warp-collective ``__shfl_xor_sync`` and ``mma.sync`` meet at
-barriers, ``cp.async`` copies at once. On the way to ``g++`` each source
-is rewritten: the PTX helpers of ``csrc/tf32_mma.cuh`` call the emulator,
+the warp-collective ``__shfl_xor_sync`` and ``mma.sync`` (TF32 m16n8k8,
+bf16 m16n8k16) meet at barriers, ``cp.async`` copies at once, and the
+bf16 round (``cvt.rn.bf16x2.f32``) is done on the bits. On the way to
+``g++`` each source is rewritten: the PTX helpers of
+``csrc/tf32_mma.cuh`` and ``csrc/bf16_mma.cuh`` call the emulator,
 a ``<<<...>>>`` launch becomes ``emu_launch``, and dynamic shared memory
 comes from the launch. An emulated MMA rounds its sum to nearest, where
 the tensor cores round toward zero, so results agree with the card's to
@@ -36,13 +38,16 @@ __all__ = ["compiler", "load", "entry"]
 
 _EMU = os.path.join(_build._HERE, "emu")
 _OUT = os.path.join(_build._BUILD_DIR, "emu")
-#: the PTX helpers of csrc/tf32_mma.cuh -> their emulated bodies
+#: the PTX helpers of csrc/tf32_mma.cuh and bf16_mma.cuh -> their
+#: emulated bodies
 _HELPERS = {
     "cp_async16": "{ emu_cp_async(dst, src, valid, 16); }",
     "cp_async4": "{ emu_cp_async(dst, src, valid, 4); }",
     "cp_async_commit": "{}",
     "cp_async_wait_all": "{}",
     "mma_tf32": "{ emu_mma_tf32(c, a, b); }",
+    "mma_bf16": "{ emu_mma_bf16(c, a, b); }",
+    "pack_bf16x2": "{ d = emu_pack_bf16x2(lo, hi); }",
 }
 _LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\((.*?)\);",
                      re.S)

@@ -79,6 +79,11 @@ void emu_cp_async(void* dst, const void* src, bool valid, int n);
 // mma.sync.m16n8k8 f32.tf32.tf32.f32 for the calling thread's warp
 void emu_mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                   const uint32_t (&b)[2]);
+// mma.sync.m16n8k16 f32.bf16.bf16.f32 for the calling thread's warp
+void emu_mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                  const uint32_t (&b)[2]);
+// cvt.rn.bf16x2.f32: (lo, hi) rounded to nearest even, lo in the low half
+uint32_t emu_pack_bf16x2(float lo, float hi);
 // the block's dynamic shared memory
 float* emu_smem();
 void emu_launch(dim3 grid, int threads, size_t smem,

@@ -41,6 +41,18 @@ std::vector<float> smem_buf;
 // the value a TF32 operand holds: the tensor cores read 10 mantissa bits
 double tf32_value(uint32_t u) { return __uint_as_float(u & 0xFFFFE000u); }
 
+// half `hi` (0: bits 0-15, 1: bits 16-31) of a bf16x2 register
+float bf16_value(uint32_t w, int hi) {
+  return __uint_as_float(hi ? (w & 0xFFFF0000u) : (w << 16));
+}
+
+// x rounded to bf16, to nearest even (a NaN stays a NaN)
+uint32_t bf16_rn(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return (u >> 16) | 0x40u;
+  return (u + 0x7FFFu + ((u >> 16) & 1u)) >> 16;
+}
+
 }  // namespace
 
 float* emu_smem() { return smem_buf.data(); }
@@ -85,6 +97,39 @@ void emu_mma_tf32(float (&c)[4], const uint32_t (&a)[4],
   }
   warp_bar[w].wait();
   for (int e = 0; e < 4; ++e) c[e] = d[e];
+}
+
+// D = A B + C with the PTX fragment layout of m16n8k16 with bf16 operands
+// (g = lane / 4, t = lane % 4; two bf16 a register, the lower index in
+// the low half): a = A(g, 2t..), A(g + 8, 2t..), A(g, 2t + 8..),
+// A(g + 8, 2t + 8..); b = B(2t.., g), B(2t + 8.., g); c as m16n8k8.
+// Products (exact) and sums in double, rounded to float once.
+void emu_mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                  const uint32_t (&b)[2]) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int e = 0; e < 4; ++e) mma_a[w][lane][e] = a[e];
+  for (int e = 0; e < 2; ++e) mma_b[w][lane][e] = b[e];
+  warp_bar[w].wait();
+  const int g = lane >> 2, t = lane & 3;
+  float d[4];
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e >> 1), col = 2 * t + (e & 1);
+    double sum = c[e];
+    for (int k = 0; k < 16; ++k) {
+      const uint32_t aw =
+          mma_a[w][4 * (row % 8) + (k % 8) / 2][(row >= 8) + 2 * (k >= 8)];
+      const uint32_t bw = mma_b[w][4 * col + (k % 8) / 2][k >= 8];
+      sum += static_cast<double>(bf16_value(aw, k & 1)) *
+             bf16_value(bw, k & 1);
+    }
+    d[e] = static_cast<float>(sum);
+  }
+  warp_bar[w].wait();
+  for (int e = 0; e < 4; ++e) c[e] = d[e];
+}
+
+uint32_t emu_pack_bf16x2(float lo, float hi) {
+  return bf16_rn(lo) | (bf16_rn(hi) << 16);
 }
 
 void emu_launch(dim3 grid, int threads, size_t smem,

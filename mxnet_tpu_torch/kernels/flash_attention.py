@@ -35,6 +35,14 @@ Counterpart of ``mxnet_tpu/kernels/flash_attention.py``. Shapes follow
   tensors they launch the kernels or raise; on CPU tensors they run the
   plain versions; any other device raises. There is no fallback from the
   card to the plain version, nor from one variant to the other.
+- Dtypes: float32 everywhere; bfloat16 in the stream kernels (#1, #5 and
+  #2: ``csrc/flash_fwd_bf16.cuh`` and ``csrc/flash_bwd_bf16.cuh``, one
+  bf16 tensor-core product a step), whose plain versions then round where
+  the JAX kernels round on bf16 inputs: q folded and rounded, scores,
+  softmax statistics and every sum in float32, ``p`` and ``ds`` rounded
+  to the operand's dtype before their products, outputs rounded at the
+  end, lse float32. float16, and bfloat16 into the grid kernels, are not
+  yet ported and raise (ROADMAP A4).
 - ``resolve_kernel_tier`` keeps the JAX package's tier vocabulary
   (``MXNET_SERVING_DECODE_FLASH``, ``MXNET_TPU_MESH_KERNEL_TIER``): auto |
   1/on | 0/off, where ``interpret`` has no counterpart (a CUDA kernel has
@@ -69,7 +77,10 @@ _NEG_INF = -1e30
 #: ``launches_fwd_offs_grid_combine`` (``flash_fwd_offs_grid.cu``),
 #: ``launches_bwd_dq_grid`` / ``launches_bwd_dkv_grid`` and their
 #: ``_reduce`` passes (``flash_bwd_grid.cu``). A combine or reduce pass
-#: runs only when there is more than one split.
+#: runs only when there is more than one split. ``launches_bf16``,
+#: ``launches_fwd_bf16``, ``launches_bwd_dq_bf16`` and
+#: ``launches_bwd_dkv_bf16`` count the bf16 instantiations of the stream
+#: kernels (the same libraries, entries ``mx_*_bf16``).
 launches = 0
 launches_fwd = 0
 launches_bwd_dq = 0
@@ -82,6 +93,10 @@ launches_bwd_dq_grid = 0
 launches_bwd_dq_grid_reduce = 0
 launches_bwd_dkv_grid = 0
 launches_bwd_dkv_grid_reduce = 0
+launches_bf16 = 0
+launches_fwd_bf16 = 0
+launches_bwd_dq_bf16 = 0
+launches_bwd_dkv_bf16 = 0
 
 _HEAD_DIMS = (32, 64, 128)
 # the split unit, 32 rows (the kernels walk 64-row tiles, 32 at D = 128,
@@ -152,14 +167,17 @@ def merge_attention(out_a, lse_a, out_b, lse_b):
 def blockwise_attention(q, k, v, *, causal=False, sm_scale=None,
                         block_k=256, q_offset=0, k_offset=0):
     """Attention as a loop over KV blocks merged with ``merge_attention``
-    (online softmax); peak memory O(Sq * block_k)."""
+    (online softmax); peak memory O(Sq * block_k). The merged output is
+    carried in float32 at least and returned in q's dtype (the JAX
+    version's scan refuses the float32 carry that bf16 inputs produce)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     sk = k.shape[-2]
     block_k = min(block_k, sk)
     if sk % block_k != 0:   # one block if it does not divide
         block_k = sk
-    out = torch.zeros(q.shape[:-1] + (v.shape[-1],), dtype=q.dtype,
+    out = torch.zeros(q.shape[:-1] + (v.shape[-1],),
+                      dtype=torch.promote_types(q.dtype, torch.float32),
                       device=q.device)
     lse = torch.full(q.shape[:-1], _NEG_INF, dtype=torch.float32,
                      device=q.device)
@@ -170,15 +188,44 @@ def blockwise_attention(q, k, v, *, causal=False, sm_scale=None,
             sm_scale=sm_scale, q_offset=q_offset,
             k_offset=k_offset + i * block_k)
         out, lse = merge_attention(out, lse, ob, lb)
-    return out, lse
+    return out.to(q.dtype), lse
+
+
+def _attention_rounded(q, k, v, causal, q_offset, k_offset, sm_scale):
+    """(out, lse) of the stream forward on low-precision inputs, rounded
+    where the JAX kernels round (``_flash_fwd_kernel`` L205-260): the
+    folded q in q's dtype, scores and softmax statistics in float32,
+    ``p = exp(s - m)`` against the row max rounded to v's dtype before
+    ``p @ v`` with a float32 sum, out rounded to q's dtype at the end. The
+    kernels take the max over key tiles as they go; this takes the row's
+    max at once, so ``p`` rounds at another scale (within a bf16 ulp of
+    out). A row with no visible key gets out 0 and lse -1e30."""
+    qs = _fold_scale(q, sm_scale)
+    s = torch.einsum("...qd,...kd->...qk", qs.float(), k.float())
+    if causal:
+        s = torch.where(_visible(q.shape[-2], k.shape[-2], q_offset,
+                                 k_offset, q.device), s, _NEG_INF)
+    m = s.amax(-1)
+    m_safe = torch.where(m > _NEG_INF / 2, m, 0.0)
+    p = torch.exp(s - m_safe[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("...qk,...kd->...qd", p.to(v.dtype).float(), v.float())
+    denom = torch.where(l > 0.0, l, 1.0)
+    out = (o / denom[..., None]).to(q.dtype)
+    return out, torch.where(l > 0.0, m_safe + torch.log(denom), _NEG_INF)
 
 
 def flash_fwd_offs_plain(q, k, v, offs, sm_scale=None, causal=True):
     """Plain version of the offset-aware flash forward: the same folded
     scale and masking as the kernel, as one full softmax. ``offs`` is an
-    int tensor ``[q0, k0]`` of global offsets on q's device."""
+    int tensor ``[q0, k0]`` of global offsets on q's device. Inputs that
+    are not float32 take the kernel's roundings
+    (:func:`_attention_rounded`)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.dtype != torch.float32:
+        return _attention_rounded(q, k, v, causal, offs[0], offs[1],
+                                  sm_scale)
     return attention_with_lse(_fold_scale(q, sm_scale), k, v, causal=causal,
                               sm_scale=1.0, q_offset=offs[0],
                               k_offset=offs[1])
@@ -187,9 +234,12 @@ def flash_fwd_offs_plain(q, k, v, offs, sm_scale=None, causal=True):
 def flash_fwd_plain(q, k, v, sm_scale=None, causal=False):
     """Plain version of the flash forward without offsets (the TPU kernel
     ``_flash_fwd_kernel``): ``(out, lse)`` with the kernel's folded scale.
-    Without offsets no causal row is fully masked."""
+    Without offsets no causal row is fully masked. Inputs that are not
+    float32 take the kernel's roundings (:func:`_attention_rounded`)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.dtype != torch.float32:
+        return _attention_rounded(q, k, v, causal, 0, 0, sm_scale)
     return attention_with_lse(_fold_scale(q, sm_scale), k, v, causal=causal,
                               sm_scale=1.0)
 
@@ -203,19 +253,21 @@ def _deff(do, out, dlse):
 
 
 def _bwd_terms(q, k, v, offs, do, dlse, out, lse, sm_scale, causal):
-    """(folded q, p, ds) of the backward kernels' formulas. Scores come
-    from the folded q, as in the forward. Rows with lse pinned to -1e30
-    (no visible key) use a +1e30 substitute, so ``exp`` gives exactly 0
-    there."""
+    """(folded q, p, ds) of the backward kernels' formulas, in float32.
+    Scores come from the folded q, as in the forward; ``do`` enters the
+    products in v's dtype (the JAX kernels cast it once), ``deff`` from
+    ``do`` as given. Rows with lse pinned to -1e30 (no visible key) use a
+    +1e30 substitute, so ``exp`` gives exactly 0 there."""
     qs = _fold_scale(q, sm_scale)
-    s = torch.einsum("...qd,...kd->...qk", qs, k).float()
+    s = torch.einsum("...qd,...kd->...qk", qs.float(), k.float())
     if causal:
         s = torch.where(_visible(q.shape[-2], k.shape[-2], offs[0], offs[1],
                                  q.device), s, _NEG_INF)
     lse = lse.float()
     lse_safe = torch.where(lse > _NEG_INF / 2, lse, -_NEG_INF)
     p = torch.exp(s - lse_safe[..., None])
-    dp = torch.einsum("...qd,...kd->...qk", do, v).float()
+    dp = torch.einsum("...qd,...kd->...qk", do.to(v.dtype).float(),
+                      v.float())
     ds = p * (dp - _deff(do, out, dlse)[..., None])
     return qs, p, ds
 
@@ -226,14 +278,21 @@ def flash_bwd_offs_plain(q, k, v, offs, do, dlse, out, lse, sm_scale=None,
     [q0, k0]``: ``(dq, dk, dv)`` written out from the kernels' formulas
     (:func:`_bwd_terms`), not by autograd. ``dk`` accumulates against the
     folded q (no further ``sm_scale``) and ``dq`` takes ``sm_scale``
-    once."""
+    once. ``ds`` and ``p`` round to the dtype of the operand they meet
+    before each product, as the JAX kernels round them (L433, L485-488);
+    the sums are float32 and the results round once, at the end. On
+    float32 inputs the roundings are no-ops."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     qs, p, ds = _bwd_terms(q, k, v, offs, do, dlse, out, lse, sm_scale,
                            causal)
-    dq = torch.einsum("...qk,...kd->...qd", ds, k.float()) * sm_scale
-    dk = torch.einsum("...qk,...qd->...kd", ds, qs.float())
-    dv = torch.einsum("...qk,...qd->...kd", p, do.float())
+    do = do.to(v.dtype)
+    dq = torch.einsum("...qk,...kd->...qd", ds.to(k.dtype).float(),
+                      k.float()) * sm_scale
+    dk = torch.einsum("...qk,...qd->...kd", ds.to(qs.dtype).float(),
+                      qs.float())
+    dv = torch.einsum("...qk,...qd->...kd", p.to(do.dtype).float(),
+                      do.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -429,7 +488,17 @@ _ENTRIES = {
                                         [_P] * 3 + [_I] * 5 + [_F, _I, _P]),
     "mx_flash_bwd_dkv_grid_reduce_f32": ("flash_bwd_grid",
                                          [_P] * 5 + [_I] * 7 + [_P]),
+    "mx_flash_fwd_offs_bf16": ("flash_fwd_offs",
+                               [_P] * 6 + [_I] * 4 + [_F, _I, _P]),
+    "mx_flash_fwd_bf16": ("flash_fwd", [_P] * 5 + [_I] * 4 + [_F, _I, _P]),
+    "mx_flash_bwd_dq_bf16": ("flash_bwd_offs",
+                             [_P] * 8 + [_I] * 4 + [_F, _I, _P]),
+    "mx_flash_bwd_dkv_bf16": ("flash_bwd_offs",
+                              [_P] * 9 + [_I] * 4 + [_F, _I, _P]),
 }
+#: what the stream kernels take (entries ``*_f32`` and ``*_bf16``); the
+#: grid kernels take float32 only
+_STREAM_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns = {}
 
 
@@ -460,9 +529,15 @@ def _check(where, name, t, device, dtype, ndim):
     if t.device != device:
         raise MXNetError("%s: %s on %s, q on %s" % (where, name, t.device,
                                                     device))
-    if t.dtype in (torch.float16, torch.bfloat16):
-        raise MXNetError("%s: %s is %s: half-precision kernels are not yet "
-                         "ported (float32 only)" % (where, name, t.dtype))
+    if t.dtype == torch.float16 and dtype != torch.float16:
+        raise MXNetError("%s: %s is float16: the attention kernels' float16 "
+                         "path is not yet ported (ROADMAP A4); they take "
+                         "float32 and, in variant 'stream', bfloat16"
+                         % (where, name))
+    if t.dtype == torch.bfloat16 and dtype == torch.float32:
+        raise MXNetError("%s: %s is bfloat16: the grid kernels' bfloat16 "
+                         "path is not yet ported (ROADMAP A4); variant "
+                         "'stream' takes it" % (where, name))
     if t.dtype != dtype:
         raise MXNetError("%s: %s is %s, the kernel takes %s"
                          % (where, name, t.dtype, dtype))
@@ -473,12 +548,14 @@ def _check(where, name, t, device, dtype, ndim):
         raise MXNetError("%s: %s is not contiguous" % (where, name))
 
 
-def _check_qkv(where, q, k, v, offs=None):
-    """Shapes (b, h, sq, d) / (b, h, sk, d), float32, contiguous, one
-    device; d in the kernels' set. -> (b, h, sq, sk, d)."""
+def _check_qkv(where, q, k, v, offs=None, dtypes=(torch.float32,)):
+    """Shapes (b, h, sq, d) / (b, h, sk, d), contiguous, one device, q's
+    dtype one of ``dtypes`` and k's and v's the same; d in the kernels'
+    set. -> (b, h, sq, sk, d)."""
     dev = q.device
+    dtype = q.dtype if q.dtype in dtypes else torch.float32
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(where, name, t, dev, torch.float32, 4)
+        _check(where, name, t, dev, dtype, 4)
     if offs is not None:
         _check(where, "offs", offs, dev, torch.int32, 1)
         if offs.numel() != 2:
@@ -495,10 +572,12 @@ def _check_qkv(where, q, k, v, offs=None):
     return b, h, sq, sk, d
 
 
-def _check_bwd(where, q, k, v, offs, do, deff, lse):
-    """The backward kernels' inputs (``_check_qkv`` plus do, lse, deff)."""
-    b, h, sq, sk, d = _check_qkv(where, q, k, v, offs)
-    _check(where, "do", do, q.device, torch.float32, 4)
+def _check_bwd(where, q, k, v, offs, do, deff, lse,
+               dtypes=(torch.float32,)):
+    """The backward kernels' inputs (``_check_qkv`` plus do in q's dtype,
+    lse and deff in float32)."""
+    b, h, sq, sk, d = _check_qkv(where, q, k, v, offs, dtypes)
+    _check(where, "do", do, q.device, q.dtype, 4)
     if tuple(do.shape) != tuple(q.shape):
         raise MXNetError("%s: do %s, want %s" % (where, tuple(do.shape),
                                                  tuple(q.shape)))
@@ -512,53 +591,74 @@ def _check_bwd(where, q, k, v, offs, do, deff, lse):
 
 
 def _flash_fwd_offs_cuda(q, k, v, offs, sm_scale, causal):
-    global launches
-    b, h, sq, sk, d = _check_qkv("flash_attention_with_lse", q, k, v, offs)
+    """(out, lse) by ``flash_fwd_offs.cu`` (#1), float32 or bf16."""
+    global launches, launches_bf16
+    b, h, sq, sk, d = _check_qkv("flash_attention_with_lse", q, k, v, offs,
+                                 _STREAM_DTYPES)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * h * sq == 0:
         return out, lse
-    _launch("mx_flash_fwd_offs_f32", q.data_ptr(), k.data_ptr(),
+    suffix = _STREAM_DTYPES[q.dtype]
+    _launch("mx_flash_fwd_offs_" + suffix, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), offs.data_ptr(), out.data_ptr(), lse.data_ptr(),
             b * h, sq, sk, d, float(sm_scale), int(bool(causal)),
             device=q.device)
-    launches += 1
+    if suffix == "f32":
+        launches += 1
+    else:
+        launches_bf16 += 1
     return out, lse
 
 
 def _flash_fwd_cuda(q, k, v, sm_scale, causal):
-    global launches_fwd
-    b, h, sq, sk, d = _check_qkv("flash_attention", q, k, v)
+    """(out, lse) by ``flash_fwd.cu`` (#5), float32 or bf16."""
+    global launches_fwd, launches_fwd_bf16
+    b, h, sq, sk, d = _check_qkv("flash_attention", q, k, v,
+                                 dtypes=_STREAM_DTYPES)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * h * sq == 0:
         return out, lse
-    _launch("mx_flash_fwd_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b * h, sq, sk, d,
+    suffix = _STREAM_DTYPES[q.dtype]
+    _launch("mx_flash_fwd_" + suffix, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), b * h, sq, sk, d,
             float(sm_scale), int(bool(causal)), device=q.device)
-    launches_fwd += 1
+    if suffix == "f32":
+        launches_fwd += 1
+    else:
+        launches_fwd_bf16 += 1
     return out, lse
 
 
 def _flash_bwd_cuda(q, k, v, offs, do, deff, lse, sm_scale, causal):
-    """dq, dk, dv by the backward pair. ``deff`` is ``_deff``'s output."""
+    """dq, dk, dv by the backward pair (#2), float32 or bf16. ``deff`` is
+    ``_deff``'s output; ``do`` is in q's dtype."""
     global launches_bwd_dq, launches_bwd_dkv
+    global launches_bwd_dq_bf16, launches_bwd_dkv_bf16
     b, h, sq, sk, d = _check_bwd("flash attention backward", q, k, v, offs,
-                                 do, deff, lse)
+                                 do, deff, lse, _STREAM_DTYPES)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if b * h * sq == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    suffix = _STREAM_DTYPES[q.dtype]
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
               do.data_ptr(), lse.data_ptr(), deff.data_ptr())
     tail = (b * h, sq, sk, d, float(sm_scale), int(bool(causal)))
-    _launch("mx_flash_bwd_dq_f32", *common, dq.data_ptr(), *tail,
+    _launch("mx_flash_bwd_dq_" + suffix, *common, dq.data_ptr(), *tail,
             device=q.device)
-    launches_bwd_dq += 1
-    _launch("mx_flash_bwd_dkv_f32", *common, dk.data_ptr(), dv.data_ptr(),
-            *tail, device=q.device)
-    launches_bwd_dkv += 1
+    if suffix == "f32":
+        launches_bwd_dq += 1
+    else:
+        launches_bwd_dq_bf16 += 1
+    _launch("mx_flash_bwd_dkv_" + suffix, *common, dk.data_ptr(),
+            dv.data_ptr(), *tail, device=q.device)
+    if suffix == "f32":
+        launches_bwd_dkv += 1
+    else:
+        launches_bwd_dkv_bf16 += 1
     return dq, dk, dv
 
 
@@ -697,8 +797,9 @@ def _flash_bwd(q, k, v, offs, do, dlse, out, lse, sm_scale, causal, splits):
     """dq, dk, dv by the backward of the variant: ``splits`` None is the
     stream pair, ``(wq, wk)`` the split (grid) pair."""
     if _on_cuda(q, "flash attention backward"):
-        do = do.contiguous()   # one copy at most, shared by deff and kernels
         deff = _deff(do, out, dlse).contiguous()
+        # in v's dtype, as the JAX kernels cast it; one copy at most
+        do = do.to(v.dtype).contiguous()
         if splits is None:
             return _flash_bwd_cuda(q, k, v, offs, do, deff, lse, sm_scale,
                                    causal)

@@ -203,11 +203,13 @@ def _records(leaves):
     return array.array("q", words)
 
 
-def _launch(optimizer, hp, lr_t, leaves, rescale, clip, wd):
+def _launch(optimizer, hp, lr_t, leaves, rescale, clip, wd, fns=None):
     """Launch the kernel of ``optimizer`` over ``leaves`` ((p, g, slots)
     of one CUDA device, nonempty, whose tensors ``_check_leaf`` passed),
     in order, at most ``_MAX_LEAVES`` a launch; ``lr_t`` is the float32
-    device scalar it reads (Adam: lr * corr)."""
+    device scalar it reads (Adam: lr * corr). ``fns``: entry name -> the
+    ctypes function to call instead of this build's (another build of
+    ``opt_update.cu`` with the same entries)."""
     kind = _kind(optimizer, leaves[0][2])
     pro = (float(rescale), int(clip is not None),
            -float(clip) if clip is not None else 0.0,
@@ -219,7 +221,7 @@ def _launch(optimizer, hp, lr_t, leaves, rescale, clip, wd):
         args = (hp.get("momentum", 0.0),) + pro
     else:
         args = pro
-    fn = _entry(_ENTRY[kind])
+    fn = _entry(_ENTRY[kind]) if fns is None else fns[_ENTRY[kind]]
     device = leaves[0][0].device
     for i in range(0, len(leaves), _MAX_LEAVES):
         part = leaves[i:i + _MAX_LEAVES]

@@ -97,6 +97,10 @@ class EvalMetric:
         return False
 
     def _fold(self, inc, n):
+        # a bf16 increment (a bf16 step's outputs, as the reference sums
+        # them) widens exactly: numpy has no bf16
+        if inc.dtype == torch.bfloat16:
+            inc = inc.float()
         self.sum_metric += inc.cpu().numpy()[()]
         self.num_inst += n
 

@@ -3,7 +3,7 @@
 Counterpart of ``mxnet_tpu/models/transformer.py``: ``TransformerConfig``,
 ``init_transformer``, ``params_from_jax``, the training forward and loss
 ``transformer_forward`` / ``transformer_loss`` (single device; a mesh
-raises until distribution is ported, ROADMAP A10), and the paged-KV
+raises until distribution is ported, ROADMAP A7), and the paged-KV
 decode bodies ``transformer_decode_prefill`` / ``transformer_decode_step``
 behind ``TransformerDecodeModel``.
 
@@ -69,7 +69,7 @@ class TransformerConfig:
         # torch.utils.checkpoint around each block (jax.checkpoint there)
         self.remat = remat
         # 'ring' | 'ulysses' | 'full': how a mesh's 'sp' axis splits the
-        # sequence; read only with a mesh (not yet ported, ROADMAP A10)
+        # sequence; read only with a mesh (not yet ported, ROADMAP A7)
         self.attn_impl = attn_impl
         self.block_k = block_k
         self.dropout = dropout
@@ -123,6 +123,14 @@ def params_from_jax(np_params, device):
     return torch.from_numpy(_np.array(np_params)).to(device)
 
 
+def _in_dtype(tree, dtype):
+    """Nested dicts of tensors cast to ``dtype`` (no copy where they are
+    in it already)."""
+    if isinstance(tree, dict):
+        return {k: _in_dtype(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
 def _layer_norm(x, scale, bias, eps=1e-5):
     mu = x.mean(-1, keepdim=True)
     var = ((x - mu) ** 2).mean(-1, keepdim=True)
@@ -145,7 +153,7 @@ def _attention(q, k, v, cfg, mesh):
     ``blockwise_attention`` with ``cfg.block_k``."""
     if mesh is not None:
         raise MXNetError("transformer attention over a mesh: distribution "
-                         "is not yet ported (ROADMAP A10)")
+                         "is not yet ported (ROADMAP A7)")
     use_kernel = mesh_kernels.resolve_kernel_tier(device=q.device)
     return flash_attention(q, k, v, causal=True, block_k=cfg.block_k,
                            use_pallas=use_kernel, variant=cfg.attn_variant)
@@ -198,10 +206,17 @@ def transformer_forward(params, tokens, cfg, mesh=None, rng=None,
     ``torch.Generator``) is given: each layer draws one seed from ``rng``,
     the analog of the per-layer key split. The JAX package's random bits
     are not reproduced. ``mesh`` must be None (distribution is not yet
-    ported, ROADMAP A10)."""
+    ported, ROADMAP A7).
+
+    Computes in ``cfg.dtype``: every param is cast to it first, a no-op
+    for params in it (the JAX forward's case). float32 params of a bf16
+    config, what a bf16 model's first Adam step leaves, are float32
+    masters whose gradients flow back through the cast; the JAX forward
+    raises on them (its layer scan's carry changes dtype, ROADMAP C)."""
     if mesh is not None:
         raise MXNetError("transformer_forward(mesh=...): distribution is "
-                         "not yet ported (ROADMAP A10)")
+                         "not yet ported (ROADMAP A7)")
+    params = _in_dtype(params, cfg.dtype)
     B, S = tokens.shape
     tokens = tokens.long()
     x = params["embed"][tokens].to(cfg.dtype)

@@ -14,7 +14,10 @@ torch's TF32 matmuls and convolutions (``context.pin_float32``;
   update, through kernel #7 under ``MXNET_TPU_FUSED_OPTUPDATE=1``), fed the
   optimizer's scheduled lr; ``backward`` and ``update`` are no-ops, and
   the step's params are copied into the executor group before anything
-  reads them there (``score``, ``predict``, ``get_params``).
+  reads them there (``score``, ``predict``, ``get_params``). An optimizer
+  with ``multi_precision=True``, or ``MXNET_FUSED_COMPUTE_DTYPE``, gives
+  the step a compute dtype (bf16 with float32 masters); a value that is no
+  dtype logs a warning and the step runs in float32.
 - any other kvstore pushes each gradient and pulls each weight through
   the store's ``Updater``, and no kvstore runs the module's own
   ``Updater`` on each parameter (``optimizer.SGD``/``Adam``).
@@ -46,6 +49,7 @@ from ..model import (_create_kvstore, _initialize_kvstore,
                      load_checkpoint)
 from ..io import DataDesc
 from ..ndarray.ndarray import NDArray
+from ..ops.elemwise import torch_dtype
 from ..resilience import faults as _faults
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
@@ -390,9 +394,19 @@ class Module(BaseModule):
         from ..parallel.tpu_step import DataParallelTrainStep
         batch_shapes = {d.name: d.shape for d in self._data_shapes}
         batch_shapes.update({l.name: l.shape for l in self._label_shapes})
-        # bf16 compute with fp32 masters: the step raises (not yet ported)
+        # mixed precision: optimizer multi_precision=True or
+        # MXNET_FUSED_COMPUTE_DTYPE picks the step's compute dtype; masters,
+        # optimizer state and BatchNorm's running statistics stay float32
         compute_dtype = get_env("MXNET_FUSED_COMPUTE_DTYPE") or \
             ("bfloat16" if getattr(opt, "multi_precision", False) else None)
+        if compute_dtype is not None:
+            try:
+                torch_dtype(compute_dtype)
+            except TypeError:
+                self.logger.warning(
+                    "MXNET_FUSED_COMPUTE_DTYPE=%r is not a dtype; "
+                    "running the fused step in fp32", compute_dtype)
+                compute_dtype = None
         step = DataParallelTrainStep(
             self._symbol, lr=opt.lr, wd=opt.wd,
             data_names=self._data_names, label_names=self._label_names,

@@ -1,5 +1,5 @@
 """Training steps and their pieces (single device; distribution is
-ROADMAP A10)."""
+ROADMAP A7)."""
 from .mesh_kernels import kernel_tier_mode, resolve_kernel_tier
 from .optim_update import apply_update, grad_prologue, init_opt_state
 from .sharded_step import ShardedTrainStep

@@ -13,7 +13,7 @@ in the port's vocabulary (``kernels.flash_attention.resolve_kernel_tier``):
 ``interpret`` (the JAX package's Pallas interpret mode) has no counterpart
 and raises, as does any other value. The mesh islands of that module
 (``flash_attention_mesh``, ``fused_update_mesh``) arrive with distribution
-(ROADMAP A10).
+(ROADMAP A7).
 """
 from __future__ import annotations
 

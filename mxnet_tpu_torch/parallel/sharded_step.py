@@ -12,7 +12,13 @@ added ``wd * param``); the port walks the tree's leaves, so the nested
 transformer params work.
 
 Params and optimizer slots live on the device and are updated IN PLACE
-each step (the eager analog of the jitted step's buffer donation). The
+each step (the eager analog of the jitted step's buffer donation), in
+jnp's dtype promotion: a bf16 model's params and Adam slots leave the
+first Adam step as float32, as the JAX step returns them (its float32
+``corr`` and clip scale promote them), and are rebound in ``params`` and
+``opt_state`` (``optim_update.apply_update``). The port's transformer
+forward computes in its config's dtype whatever its params' (the JAX
+forward's layer scan raises on the float32 params there, ROADMAP C). The
 step body goes through ``compile.ProgramBuilder`` under the site
 ``train.sharded_step``: its ``program_count()`` is the number of distinct
 shape signatures it ran, 1 for a fixed batch shape.
@@ -25,7 +31,8 @@ from ..base import MXNetError, env_flag
 from ..compile.builder import ProgramBuilder
 from ..context import resolve_device
 from ..kernels.opt_update import fused_update_step
-from .optim_update import apply_update, init_opt_state, tree_leaves, tree_map
+from .optim_update import (_jnp_cast, apply_update, init_opt_state,
+                           tree_leaves, tree_map)
 
 __all__ = ["ShardedTrainStep"]
 
@@ -42,7 +49,7 @@ class ShardedTrainStep:
     loss_fn : callable(params, batch) -> scalar loss tensor
         ``batch`` is a dict of tensors on the step's device.
     mesh : None
-        A mesh raises: distribution is not yet ported (ROADMAP A10).
+        A mesh raises: distribution is not yet ported (ROADMAP A7).
     optimizer : 'adam' | 'sgd' (``momentum`` 0 for plain SGD)
     grad_clip : float or None
         Global-norm clip: grads scale by ``min(1, clip / (norm + 1e-6))``.
@@ -65,7 +72,7 @@ class ShardedTrainStep:
                  fused_optupdate=None, device=None):
         if mesh is not None:
             raise MXNetError("ShardedTrainStep(mesh=...): distribution is not "
-                             "yet ported (ROADMAP A10); pass mesh=None")
+                             "yet ported (ROADMAP A7); pass mesh=None")
         if shard_update or zero:
             # as the JAX constructor does without a 'dp' axis of size > 1
             raise MXNetError("%s=True needs a 'dp' mesh axis of size > 1; "
@@ -116,7 +123,7 @@ class ShardedTrainStep:
                                        for g in grads))
                 scale = torch.clamp(hp["grad_clip"] / (gnorm + 1e-6),
                                     max=1.0)
-                grads = [g * scale for g in grads]
+                grads = [_jnp_cast(g, scale) * scale for g in grads]
             if hp["wd"]:
                 grads = [g + hp["wd"] * p for g, p in zip(grads, leaves)]
             it = iter(grads)
@@ -126,8 +133,9 @@ class ShardedTrainStep:
                    tree_map(lambda _: next(it), params))
             if self.skip_nonfinite:
                 # carry the pre-step state through a bad update
-                for new, prev in zip(leaves + tree_leaves(opt_state), old):
-                    new.copy_(torch.where(good, new, prev))
+                for new, prev in zip(tree_leaves(params)
+                                     + tree_leaves(opt_state), old):
+                    new.copy_(torch.where(good, new, prev.to(new.dtype)))
                 return loss, good
         return loss
 

@@ -24,15 +24,23 @@ the update.
 - ``init`` draws He-normal weights, zero biases and betas, unit gammas and
   a unit ``moving_var`` (as L152-177 does) from a ``torch.Generator``; the
   values differ from JAX's RNG, so parity runs go through ``init_from``.
+- ``compute_dtype`` (``"bfloat16"`` or ``"float16"``, a torch or numpy
+  dtype; L72-80, L293-360): the reference's mixed precision. Params stay
+  float32 masters; each step casts them, and the floating data inputs,
+  to the compute dtype before the forward and backward, never the labels
+  (ResNet-50's 1000 class indices do not fit bf16's significand).
+  Gradients reach the masters through the cast as float32, so the
+  prologue and the update (#7's one launch over every float32 leaf) run
+  as without it; the outputs and the activations are in the compute
+  dtype; BatchNorm's updated running statistics go back to float32.
 
 Not yet ported, and raising: a mesh of more than one device and ``zero``
-(distribution, ROADMAP A10), ``compute_dtype`` (bf16 compute with fp32
-masters, ROADMAP A7), ``supervise`` (ROADMAP A11), ``warmup`` /
-``abstract_step_args`` / ``comm_plan`` (ROADMAP A9), the lint hooks of
-``MXNET_TPU_LINT`` (ROADMAP A12),
-and graphs with stochastic ops. ``shard_update`` on one device is the
-no-op it is in the JAX package, and ``sharding_config`` has nothing to
-shard: both are accepted and ignored.
+(distribution, ROADMAP A7), ``supervise`` (ROADMAP A4), ``warmup`` /
+``abstract_step_args`` / ``comm_plan`` (ROADMAP A4), the lint hooks of
+``MXNET_TPU_LINT`` (ROADMAP A9, analysis/), and graphs with stochastic
+ops (ROADMAP A6). ``shard_update`` on one device is the no-op it is in
+the JAX package, and ``sharding_config`` has nothing to shard: both are
+accepted and ignored.
 """
 from __future__ import annotations
 
@@ -90,25 +98,21 @@ class DataParallelTrainStep:
             if devices is None or len(devices) != 1:
                 raise MXNetError("DataParallelTrainStep(mesh=...): "
                                  "distribution is not yet ported (ROADMAP "
-                                 "A10); pass mesh=None or one device")
+                                 "A7); pass mesh=None or one device")
             if device is None:
                 device = devices[0]
         if zero:
             raise MXNetError("DataParallelTrainStep(zero=True): ZeRO is not "
-                             "yet ported (distribution, ROADMAP A10)")
-        if compute_dtype is not None:
-            raise MXNetError("DataParallelTrainStep(compute_dtype=...): "
-                             "low-precision compute with fp32 masters is not "
-                             "yet ported (ROADMAP A7)")
+                             "yet ported (distribution, ROADMAP A7)")
         if supervise:
             raise MXNetError("DataParallelTrainStep(supervise=True) is not "
-                             "yet ported (ROADMAP A11)")
+                             "yet ported (ROADMAP A4)")
         if env_flag("MXNET_TPU_LINT"):
             raise MXNetError("MXNET_TPU_LINT: the train step's lint hooks are "
-                             "not yet ported (ROADMAP A12, analysis/)")
+                             "not yet ported (ROADMAP A9, analysis/)")
         if symbol._needs_rng():
             raise MXNetError("DataParallelTrainStep: graphs with stochastic "
-                             "ops are not yet ported (ROADMAP A3)")
+                             "ops are not yet ported (ROADMAP A6)")
         if optimizer not in ("sgd", "adam"):
             raise MXNetError("unknown optimizer %r" % optimizer)
         self.device = resolve_device(device)
@@ -127,6 +131,9 @@ class DataParallelTrainStep:
                 self.opt_hp.setdefault(k, v)
         self.fixed_param_names = frozenset(fixed_param_names or ())
         self.clip_gradient = clip_gradient
+        # mixed precision: float32 masters, the graph in compute_dtype
+        self.compute_dtype = (None if compute_dtype is None
+                              else torch_dtype(compute_dtype))
         if fused_optupdate is None:
             fused_optupdate = env_flag("MXNET_TPU_FUSED_OPTUPDATE")
         self.fused_optupdate = bool(fused_optupdate)
@@ -200,8 +207,17 @@ class DataParallelTrainStep:
                                     donate_argnums=(0, 1))
 
     def _body(self, params, opt_state, aux, batch, lr):
-        outs, aux_upd = run_graph(self._plan, {**params, **batch}, aux, True)
         leaves = [params[n] for n in self.param_names]
+        cdt = self.compute_dtype
+        if cdt is None:
+            args = {**params, **batch}
+        else:
+            # never the labels: class indices past 256 do not fit bf16
+            args = {n: (v.to(cdt) if n in self.data_names
+                        and v.is_floating_point() else v)
+                    for n, v in batch.items()}
+            args.update((n, p.to(cdt)) for n, p in params.items())
+        outs, aux_upd = run_graph(self._plan, args, aux, True)
         grads = torch.autograd.grad(
             [o for o in outs if o.requires_grad], leaves,
             [torch.ones_like(o) for o in outs if o.requires_grad],
@@ -220,6 +236,7 @@ class DataParallelTrainStep:
             else:
                 apply_update(self.optimizer, hp, target, opt_state,
                              grad_prologue(target, grads, **kw))
+            # copy_ casts: running statistics stay float32
             for name, val in aux_upd.items():
                 if val is not aux[name]:
                     aux[name].copy_(val)
@@ -242,6 +259,6 @@ class DataParallelTrainStep:
         shape)."""
         return 0 if self._step is None else self._step.program_count()
 
-    warmup = _not_ported("warmup", "A9")
-    abstract_step_args = _not_ported("abstract_step_args", "A9")
-    comm_plan = _not_ported("comm_plan", "A9")
+    warmup = _not_ported("warmup", "A4")
+    abstract_step_args = _not_ported("abstract_step_args", "A4")
+    comm_plan = _not_ported("comm_plan", "A4")

@@ -141,6 +141,19 @@ def _params_to(params, device):
     return torch.as_tensor(params).to(device)
 
 
+def _float_dtype(params):
+    """The dtype of the first floating leaf of the params pytree; float32
+    where there is none."""
+    todo = [params]
+    while todo:
+        leaf = todo.pop(0)
+        if isinstance(leaf, dict):
+            todo.extend(leaf.values())
+        elif leaf.is_floating_point():
+            return leaf.dtype
+    return torch.float32
+
+
 def _to_device(arr, device):
     """Host numpy array -> tensor on ``device`` without a host sync: a
     pinned staging copy, then an asynchronous transfer (the caching host
@@ -334,10 +347,13 @@ class DecodeEngine:
                 next(iter(params.values())).shape[-1])
             kv_shape = (dim,)
         self._params = _params_to(params, self.device)
+        # the pages take the params' floating dtype: float32 pages (the
+        # JAX engine's only ones) for a float32 model, bf16 pages, half
+        # the bytes of every page gathered, for a bf16 one
         self._k_pages = torch.zeros(
             (self._kv.num_blocks, self._kv.block_size)
-            + tuple(int(d) for d in kv_shape), dtype=torch.float32,
-            device=self.device)
+            + tuple(int(d) for d in kv_shape),
+            dtype=_float_dtype(self._params), device=self.device)
         self._v_pages = torch.zeros_like(self._k_pages)
         # the bodies update the pages in place and return them (the
         # analog of the JAX engine donating arguments 1 and 2)

@@ -19,7 +19,16 @@ emulator runs every thread of every block as a host thread:
   offset where some blocks' splits are dead, D = 32;
 - two calls on the same inputs give the same bits;
 - the backward pair #2 (``flash_bwd_offs.cu``), whose helpers the forward
-  now shares, D = 32.
+  now shares, D = 32;
+- the bf16 bodies (``flash_fwd_bf16.cuh``, ``flash_bwd_bf16.cuh``) behind
+  the ``*_bf16`` entries of #5, #1 and #2 at D = 32, 64 and 128, against
+  the plain versions on the same bf16 inputs. Tolerance in bf16 ulps of
+  each row's largest magnitude (``bf16_gate``'s ``row_ulps`` and
+  ``BF16_ULPS``): the emulated MMA sums in double and rounds once where
+  the plain version sums in float32, and the kernels round ``p`` against the running row max of each key tile
+  where the plain version takes the row's max at once. lse (float32) is
+  held to ``GATE``; masked rows are exact, and two calls give the same
+  bits.
 Skipped where the host has no ``g++``.
 """
 import math
@@ -30,6 +39,7 @@ import torch
 
 from mxnet_tpu_torch.kernels import _emulate
 from mxnet_tpu_torch.kernels import flash_attention as tfa
+from mxnet_tpu_torch.kernels.bf16_gate import BF16_ULPS, row_ulps
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -162,3 +172,75 @@ def test_backward_pair_kernels(emu):
     errs = [_err(got, want) for got, want in zip((dq, dk, dv), ref)]
     print("#2: dq/dk/dv %s" % ["%.2e" % e for e in errs])
     assert max(errs) <= GATE, errs
+
+
+# --------------------------------------------------------------- bf16 ----
+
+def _bf16(*ts):
+    return [t.to(torch.bfloat16).contiguous() for t in ts]
+
+
+def _forward_bf16(emu, q, k, v, causal, offs=None):
+    b, h, sq, d = q.shape
+    sm = 1.0 / math.sqrt(d)
+    out = torch.full_like(q, math.nan)
+    lse = torch.full((b, h, sq), math.nan)
+    tail = [b * h, sq, k.shape[2], d, sm, int(causal)]
+    if offs is None:
+        _call(emu, "mx_flash_fwd_bf16", *_ptrs(q, k, v, out, lse), *tail)
+    else:
+        _call(emu, "mx_flash_fwd_offs_bf16", *_ptrs(q, k, v, offs, out, lse),
+              *tail)
+    return out, lse
+
+
+@pytest.mark.parametrize("entry,shape,q0,k0", [
+    ("#5", (1, 2, 96, 96, 32), 0, 0),
+    ("#5", (1, 1, 64, 64, 128), 0, 0),
+    ("#1", (1, 1, 64, 160, 64), 0, 24),
+    ("#1", (1, 1, 32, 80, 64), 48, 0)])
+def test_bf16_forward_kernels(emu, entry, shape, q0, k0):
+    b, h, sq, sk, d = shape
+    q, k, v = _bf16(*_qkv(b, h, sq, sk, d, 6))
+    sm = 1.0 / math.sqrt(d)
+    if entry == "#5":
+        offs = None
+        ref = tfa.flash_fwd_plain(q, k, v, sm, True)
+    else:
+        offs = torch.tensor([q0, k0], dtype=torch.int32)
+        ref = tfa.flash_fwd_offs_plain(q, k, v, offs, sm, True)
+    out, lse = _forward_bf16(emu, q, k, v, True, offs)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert not (torch.isnan(out.float()).any() or torch.isnan(lse).any())
+    dead = ref[1] == NEG
+    ulps, lerr = row_ulps(out, ref[0]), _err(lse[~dead], ref[1][~dead])
+    print("%s bf16 %s: out %.2f ulps, lse %.2e" % (entry, shape, ulps, lerr))
+    assert ulps <= BF16_ULPS and lerr <= GATE, (ulps, lerr)
+    assert (lse[dead] == NEG).all() and (out[dead] == 0).all()
+    again = _forward_bf16(emu, q, k, v, True, offs)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.parametrize("d,q0,k0", [(32, 0, 0), (64, 16, 40), (128, 0, 0)])
+def test_bf16_backward_pair_kernels(emu, d, q0, k0):
+    s = 64 if d == 128 else 96
+    q, k, v = _bf16(*_qkv(1, 1, s, s, d, 7))
+    rng = np.random.RandomState(8)
+    do, = _bf16(torch.from_numpy(rng.standard_normal(q.shape)
+                                 .astype(np.float32)))
+    sm = 1.0 / math.sqrt(d)
+    offs = torch.tensor([q0, k0], dtype=torch.int32)
+    out, lse = tfa.flash_fwd_offs_plain(q, k, v, offs, sm, True)
+    deff = tfa._deff(do, out, None).contiguous()
+    dq, dk, dv = (torch.full_like(q, math.nan) for _ in range(3))
+    common = _ptrs(q, k, v, offs, do, lse, deff)
+    tail = [1, s, s, d, sm, 1]
+    _call(emu, "mx_flash_bwd_dq_bf16", *common, dq.data_ptr(), *tail)
+    _call(emu, "mx_flash_bwd_dkv_bf16", *common, *_ptrs(dk, dv), *tail)
+    ref = tfa.flash_bwd_offs_plain(q, k, v, offs, do, None, out, lse, sm,
+                                   True)
+    ulps = [row_ulps(got, want) for got, want in zip((dq, dk, dv), ref)]
+    print("#2 bf16 D=%d: dq/dk/dv %s ulps" % (d, ["%.2f" % u for u in ulps]))
+    assert max(ulps) <= BF16_ULPS, ulps
+    if k0 > q0:   # rows that see no key, keys no row sees: exactly 0
+        assert (dq[..., :k0 - q0, :].float() == 0).all()

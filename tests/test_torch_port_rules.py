@@ -9,9 +9,10 @@
   on a device with no kernel raises instead of falling back, for both
   kernel variants ("stream" and "grid"), and an unknown variant raises.
 - The training slice: ShardedTrainStep needs CUDA unless given a device;
-  what is not yet ported (half-precision kernels, a mesh) raises instead
-  of running something else; fused_optupdate routes the update through
-  kernel #7's wrapper.
+  what is not yet ported (float16 attention kernels, bf16 grid kernels, a
+  mesh) raises instead of running something else, naming its ROADMAP
+  item; bf16 reaches the stream kernels' bf16 entries; fused_optupdate
+  routes the update through kernel #7's wrapper.
 - The symbolic slice: DataParallelTrainStep, simple_bind / Executor and
   the NDArray constructors default to the card; the kernel #7 wrapper
   never falls back (an eligible CUDA leaf with no nvcc raises, a bad
@@ -232,24 +233,39 @@ def test_flash_attention_never_falls_back():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_kernel_wrappers_refuse_half_precision(dtype):
-    """The CUDA wrappers check before they build or launch anything: half
-    precision raises "not yet ported", never a silent cast."""
+def test_kernel_wrappers_refuse_half_precision(dtype, monkeypatch):
+    """The CUDA wrappers check before they build or launch anything: what
+    is not yet ported raises "not yet ported (ROADMAP A4)", never a silent
+    cast: float16 everywhere, and bf16 in the grid kernels. bf16 reaches
+    the stream kernels' bf16 entries (a recording stand-in for the launch
+    here), a mixed dtype raises."""
+    launched = []
+    monkeypatch.setattr(tfa, "_launch",
+                        lambda name, *a, device: launched.append(name))
     q = torch.zeros(1, 2, 4, 64, dtype=dtype)
     offs = torch.zeros(2, dtype=torch.int32)
     lse = torch.zeros(1, 2, 4)
-    with pytest.raises(MXNetError, match="not yet ported"):
-        tfa._flash_fwd_cuda(q, q, q, 0.125, True)
-    with pytest.raises(MXNetError, match="not yet ported"):
-        tfa._flash_fwd_offs_cuda(q, q, q, offs, 0.125, True)
-    with pytest.raises(MXNetError, match="not yet ported"):
-        tfa._flash_bwd_cuda(q, q, q, offs, q, lse, lse, 0.125, True)
-    for grid_offs in (None, offs):
-        with pytest.raises(MXNetError, match="not yet ported"):
-            tfa._flash_fwd_grid_cuda(q, q, q, grid_offs, 0.125, True, 32)
-    with pytest.raises(MXNetError, match="not yet ported"):
-        tfa._flash_bwd_grid_cuda(q, q, q, offs, q, lse, lse, 0.125, True,
-                                 (32, 32))
+    stream = (lambda: tfa._flash_fwd_cuda(q, q, q, 0.125, True),
+              lambda: tfa._flash_fwd_offs_cuda(q, q, q, offs, 0.125, True),
+              lambda: tfa._flash_bwd_cuda(q, q, q, offs, q, lse, lse, 0.125,
+                                          True))
+    grid = (lambda: tfa._flash_fwd_grid_cuda(q, q, q, None, 0.125, True, 32),
+            lambda: tfa._flash_fwd_grid_cuda(q, q, q, offs, 0.125, True, 32),
+            lambda: tfa._flash_bwd_grid_cuda(q, q, q, offs, q, lse, lse,
+                                             0.125, True, (32, 32)))
+    for call in grid + (stream if dtype == torch.float16 else ()):
+        with pytest.raises(MXNetError,
+                           match=r"not yet ported \(ROADMAP A4\)"):
+            call()
+    if dtype == torch.bfloat16:
+        for call in stream:
+            call()
+        assert launched == ["mx_flash_fwd_bf16", "mx_flash_fwd_offs_bf16",
+                            "mx_flash_bwd_dq_bf16", "mx_flash_bwd_dkv_bf16"]
+        with pytest.raises(MXNetError, match="the kernel takes"):
+            tfa._flash_fwd_cuda(q, q.float(), q, 0.125, True)
+    else:
+        assert not launched
     assert not _build._libs
 
 
@@ -368,16 +384,27 @@ def test_opt_update_small_leaf_checked_before_building(monkeypatch):
 def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
     sym = _tiny_sym()
     monkeypatch.setenv("MXNET_TPU_LINT", "1")
-    with pytest.raises(MXNetError, match="ROADMAP A12"):
+    with pytest.raises(MXNetError, match="ROADMAP A9"):
         DataParallelTrainStep(sym, device="cpu")
     monkeypatch.delenv("MXNET_TPU_LINT")
-    for kw, match in ((dict(mesh=["cpu", "cpu"]), "ROADMAP A10"),
-                      (dict(mesh=object()), "ROADMAP A10"),
-                      (dict(zero=True), "ROADMAP A10"),
-                      (dict(compute_dtype="bfloat16"), "ROADMAP A7"),
-                      (dict(supervise=True), "ROADMAP A11")):
+    for kw, match in ((dict(mesh=["cpu", "cpu"]), "ROADMAP A7"),
+                      (dict(mesh=object()), "ROADMAP A7"),
+                      (dict(zero=True), "ROADMAP A7"),
+                      (dict(supervise=True), "ROADMAP A4")):
         with pytest.raises(MXNetError, match=match):
             DataParallelTrainStep(sym, device="cpu", **kw)
+    # compute_dtype is ported; what it would take into the attention
+    # kernels beyond the stream family's bf16 is not
+    assert DataParallelTrainStep(sym, device="cpu",
+                                 compute_dtype="bfloat16").compute_dtype \
+        == torch.bfloat16
+    q16 = torch.zeros(1, 2, 4, 64, dtype=torch.float16)
+    with pytest.raises(MXNetError, match=r"float16 .*ROADMAP A4"):
+        tfa._flash_fwd_cuda(q16, q16, q16, 0.125, True)
+    qbf = q16.to(torch.bfloat16)
+    with pytest.raises(MXNetError, match=r"grid kernels' bfloat16 .*"
+                                         r"ROADMAP A4"):
+        tfa._flash_fwd_grid_cuda(qbf, qbf, qbf, None, 0.125, True, 32)
     one = DataParallelTrainStep(sym, mesh=[torch.device("cpu")],
                                 shard_update=True)
     assert one.device.type == "cpu"
