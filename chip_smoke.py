@@ -307,6 +307,41 @@ no result line):
              bench.py's: each kernel, the plain version, and as a
              yardstick only F.scaled_dot_product_attention in bf16; the
              bf16 bound (operations at 989 TFLOP/s, bytes at 3.35 TB/s).
+             Then the grid kernels in bf16, held the same way: #6 and #4
+             through flash_attention(variant="grid") at (4, 8, 4096, 64)
+             and bench.py's (4, 8, 4096, 128) causal with 512-key blocks
+             (8 splits), (1, 4, 300, 32) with ragged 64-row splits and
+             (2, 8, 1000, 64) non-causal; #3 and #4 with an lse cotangent
+             through flash_attention_with_lse(variant="grid") at q (1, 8,
+             1024, 64) on 4096 keys at offset 2816, at a chunk whose rows
+             see no key (every split dead) and with one split per 32-key
+             tile; #4 against the plain backward fed the kernels' own out
+             and lse; the combine and reduce passes alone on the plain
+             version's float32 partials. Device times of each pass at the
+             long shapes (the bounds count bf16 inputs and outputs and
+             float32 workspaces), the plain versions, bf16 SDPA; at
+             bench.py's shape each family whole against SDPA.
+23. serve_long_bf16 — serve_long's configuration with dtype bfloat16
+             (bf16 weights from the same seeded generator, bf16 KV pages)
+             through the same DecodeEngine and prompts. Checks: all served,
+             #3's bf16 entries (flash_fwd_offs_grid.cu,
+             flash_fwd_bf16.cuh; and the bf16 combine) launched 12 times
+             per prefill call and no other attention kernel, no KV block
+             left live, every stream equal to its solo decode. Reports
+             tokens/s, TTFT and inter-token p50.
+24. train_long_bf16 — train_long's model in bf16 through
+             ShardedTrainStep(adam, lr 1e-3, grad_clip 1.0), 10 steps of 4
+             x 4096 tokens. Checks: every loss finite, the mean of the last
+             3 below the first, #6's and #4's bf16 entries and their
+             combine and reduce passes launched 12 times per step and no
+             other attention kernel, float32 masters after the steps; and,
+             at 2 layers from the first batch, the bf16 model's first loss
+             within BF16_LONG_LOSS_RTOL and every leaf's first gradient
+             within BF16_LONG_GRAD_RTOL (relative L2) of the float32
+             model's from the same weights, where the two controls of
+             train_bf16 must fail the gradients' gate. Reports the step
+             wall p50, tokens/s and one step under torch.profiler (device
+             time by kind, idle share; DIR/profile_train_long_bf16.txt).
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
@@ -315,14 +350,16 @@ phase, ``parent``: the attention kernels and #7 of the checkout in DIR
 one's and called through the same C entries on the same inputs (#7: DIR's
 per-leaf entries on the 71 leaves its rule takes and the plain expression
 on the rest, against this checkout's one launch, on one ResNet-50 update
-of each kind): the float32 forwards' (#5, #6, #1, #3), #2's, #4's and
-#7's outputs must be the same bits in both, and every kernel is timed in
-turns (DIR's, this, this, DIR's) at its path's shape.
+of each kind): the float32 forwards' (#5, #6, #1, #3), #2's, #4's, the
+bf16 stream entries' (#5, #2, #1) and #7's outputs must be the same bits
+in both, and every kernel is timed in turns (DIR's, this, this, DIR's) at
+its path's shape.
 
 The line before last is ``{"kernels": [...]}`` with each kernel's launches
 on its path's run (serving, training, symbolic training, long-context
 serving or training, the rtc kernels' full-size run or the ResNet-50
-forwards, the bf16 serving and training runs; #7's adds its launches in
+forwards, the bf16 serving and training runs, long ones included; #7's
+adds its launches in
 module_fit, example_scripts and symbolic_bf16, by path in
 ``launches_by_path``), its error (the bf16 entries in bf16 ulps) and
 times; the last line is
@@ -1522,12 +1559,15 @@ STREAM_COUNTERS = ("launches", "launches_fwd", "launches_bwd_dq",
                    "launches_bwd_dkv")
 
 
-def long_config(TransformerConfig, num_layers=12, variant="grid"):
+def long_config(TransformerConfig, num_layers=12, variant="grid",
+                dtype=None):
     """The long-context grid configuration: the serve phase's widths at
-    max_len 4096 with the grid kernels and 512-key blocks."""
+    max_len 4096 with the grid kernels and 512-key blocks (``dtype`` None:
+    float32)."""
+    kw = {} if dtype is None else {"dtype": dtype}
     return TransformerConfig(vocab_size=32000, num_layers=num_layers,
                              num_heads=8, d_model=512, max_len=LONG_S,
-                             attn_variant=variant, block_k=LONG_W)
+                             attn_variant=variant, block_k=LONG_W, **kw)
 
 
 def n_live_kv(rows_pos, k0, w, n_split):
@@ -1536,10 +1576,12 @@ def n_live_kv(rows_pos, k0, w, n_split):
             for p in rows_pos]
 
 
-def grid_bounds(b, h, sq, sk, d, q0, wq, wk):
+def grid_bounds(b, h, sq, sk, d, q0, wq, wk, es=4.0):
     """{kernel: (flops, bytes)} of the causal grid kernels at these shapes,
     counting what these inputs need: visible keys only, and the workspace
-    rows of the splits each row (key) can see."""
+    rows of the splits each row (key) can see. ``es``: bytes an element of
+    q, k, v, do and the outputs (4 float32, 2 bf16); the workspaces, lse
+    and deff are float32."""
     nk, nq = -(-sk // wk), -(-sq // wq)
     bh, f = b * h, 4.0
     vis = bh * sum(visible_keys(sq, sk, q0, 0))
@@ -1549,23 +1591,23 @@ def grid_bounds(b, h, sq, sk, d, q0, wq, wk):
                          nq - max(0, j - q0) // wq for j in range(sk))
     n_q, n_k = bh * sq * d, bh * sk * d
     return {
-        "fwd": (4.0 * vis * d, f * (n_q + 2 * n_k + live_rows * (d + 1))),
+        "fwd": (4.0 * vis * d, es * (n_q + 2 * n_k)
+                + f * live_rows * (d + 1)),
         "fwd_combine": (2.0 * live_rows * (d + 1),
-                        f * (live_rows + bh * sq) * (d + 1)),
-        "dq": (6.0 * vis * d, f * (2 * n_q + 2 * n_k + 2 * bh * sq
-                                   + live_rows * d)),
-        "dq_reduce": (1.0 * live_rows * d, f * (live_rows + bh * sq) * d),
-        "dkv": (8.0 * vis * d, f * (2 * n_q + 2 * n_k + 2 * bh * sq
-                                    + 2 * live_keys * d)),
+                        f * live_rows * (d + 1) + bh * sq * (es * d + f)),
+        "dq": (6.0 * vis * d, es * (2 * n_q + 2 * n_k)
+               + f * (2 * bh * sq + live_rows * d)),
+        "dq_reduce": (1.0 * live_rows * d, f * live_rows * d + es * n_q),
+        "dkv": (8.0 * vis * d, es * (2 * n_q + 2 * n_k)
+                + f * (2 * bh * sq + 2 * live_keys * d)),
         "dkv_reduce": (2.0 * live_keys * d,
-                       f * 2 * (live_keys + bh * sk) * d),
+                       2 * (f * live_keys * d + es * n_k)),
     }
 
 
 def phase_grid_kernel(torch, fa, dev):
     """The grid kernels against their plain versions (module docstring,
     phase 12). Returns (per-kernel worst errors, timing rows)."""
-    import torch.nn.functional as F
     gen = torch.Generator().manual_seed(SEED + 4)
     worst = {k: 0.0 for k in GRID_KERNELS}
     n_cases = 0
@@ -1677,41 +1719,65 @@ def phase_grid_kernel(torch, fa, dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # the combine and reduce passes alone, on the plain version's
-    # partials (a split a row cannot see holds (0, -1e30) or zeros there,
-    # which the kernels never read)
+    # each pass alone, timed
+    t = grid_pass_times(torch, fa, dev, rand, leaves, torch.float32,
+                        check, lambda kind, what, lse, ref: check(
+                            kind, what + " lse", lse, ref))
+    t["cases"] = n_cases
+    return worst, t
+
+
+def grid_pass_times(torch, fa, dev, rand, leaves, dtype, check,
+                    check_lse):
+    """Each grid kernel and pass alone in ``dtype`` (float32 or bf16): the
+    combine and reduce passes on the plain version's float32 partials (a
+    split a row cannot see holds (0, -1e30) or zeros there, which the
+    kernels never read), held by ``check(kind, what, got, ref)`` and
+    ``check_lse(kind, what, lse, ref)``; then device times (CUDA graphs)
+    at the long training shape (4, 8, 4096, 64) causal with 8 splits and
+    at #3's last chunk of a 3800-token prompt: each kernel and pass, the
+    whole wrapper, its plain version, the stream kernel at the same shape,
+    #4 with one split, and F.scaled_dot_product_attention as a yardstick
+    only; each kernel's bound (float32: attention_bounds, 3xTF32; bf16:
+    bf16_bounds), TFLOP/s and factor against SDPA. -> the row."""
+    import torch.nn.functional as F
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    es = float(torch.finfo(dtype).bits // 8)
+    bounds_of = attention_bounds if dtype == torch.float32 else bf16_bounds
     t = {}
-    B, H, S = 4, 8, LONG_S
+    B, H, S, D = 4, 8, LONG_S, 64
+    sm = 1.0 / math.sqrt(D)
     n_split = S // LONG_W
     q, k, v, do = (rand(B, H, S, D) for _ in range(4))
     offs0 = fa._offs0(dev)
     out_part, lse_part = fa.fwd_grid_parts(q, k, v, 0, 0, sm, True, LONG_W)
     out, lse = torch.empty_like(q), torch.empty(B, H, S, device=dev)
-    combine = lambda: fa._launch(
-        "mx_flash_fwd_grid_combine_f32", out_part.data_ptr(),
+    combine = lambda: fa._launch(   # noqa: E731
+        "mx_flash_fwd_grid_combine_" + sfx, out_part.data_ptr(),
         lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(), B * H, S, D,
         LONG_W, n_split, 1, device=dev)
     combine()
     ref_out, ref_lse = fa._combine_splits(out_part, lse_part)
-    check("fwd_combine", "combine out", out, ref_out)
-    check("fwd_combine", "combine lse", lse, ref_lse)
+    check("fwd_combine", "combine out", out, ref_out.to(dtype))
+    check_lse("fwd_combine", "combine", lse, ref_lse)
     t["fwd_combine_ms"] = time_ms(combine)
     t["fwd_combine_plain_ms"] = time_ms(
-        lambda: fa._combine_splits(out_part, lse_part), iters=5)
+        lambda: fa._combine_splits(out_part, lse_part)[0].to(dtype),
+        iters=5)
     t["fwd_plain_ms"] = time_ms(lambda: fa.fwd_grid_parts(
         q, k, v, 0, 0, sm, True, LONG_W), iters=3, reps=3)
     t["fwd_whole_plain_ms"] = time_ms(lambda: fa.flash_fwd_grid_plain(
         q, k, v, sm, True, LONG_W), iters=3, reps=3)
     ws_out, ws_lse = torch.empty_like(out_part), torch.empty_like(lse_part)
     t["fwd_ms"] = time_ms(lambda: fa._launch(
-        "mx_flash_fwd_grid_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        ws_out.data_ptr(), ws_lse.data_ptr(), B * H, S, S, D, LONG_W,
-        n_split, sm, 1, device=dev), iters=5)
+        "mx_flash_fwd_grid_" + sfx, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), ws_out.data_ptr(), ws_lse.data_ptr(), B * H, S, S, D,
+        LONG_W, n_split, sm, 1, device=dev), iters=5)
     t["fwd_whole_ms"] = time_ms(lambda: fa._flash_fwd_grid_cuda(
         q, k, v, None, sm, True, LONG_W), iters=5)
     t["fwd_stream_ms"] = time_ms(lambda: fa._flash_fwd_cuda(q, k, v, sm,
                                                             True), iters=5)
-    sdpa = lambda a, b_, c: F.scaled_dot_product_attention(
+    sdpa = lambda a, b_, c: F.scaled_dot_product_attention(  # noqa: E731
         a, b_, c, is_causal=True, scale=sm)
     t["sdpa_fwd_ms"] = time_ms(lambda: sdpa(q, k, v), iters=5)
     del out_part, lse_part, ws_out, ws_lse
@@ -1722,32 +1788,34 @@ def phase_grid_kernel(torch, fa, dev):
     dq_part, dk_part, dv_part = fa.bwd_grid_parts(
         q, k, v, offs0, do, None, out, lse, sm, True, LONG_W, LONG_W)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dq_reduce = lambda: fa._launch(
-        "mx_flash_bwd_dq_grid_reduce_f32", offs0.data_ptr(),
+    dq_reduce = lambda: fa._launch(   # noqa: E731
+        "mx_flash_bwd_dq_grid_reduce_" + sfx, offs0.data_ptr(),
         dq_part.data_ptr(), dq.data_ptr(), B * H, S, D, LONG_W, n_split, sm,
         1, device=dev)
-    dkv_reduce = lambda: fa._launch(
-        "mx_flash_bwd_dkv_grid_reduce_f32", offs0.data_ptr(),
+    dkv_reduce = lambda: fa._launch(   # noqa: E731
+        "mx_flash_bwd_dkv_grid_reduce_" + sfx, offs0.data_ptr(),
         dk_part.data_ptr(), dv_part.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B * H, S, S, D, LONG_W, n_split, 1, device=dev)
     dq_reduce()
     dkv_reduce()
-    check("dq_reduce", "dq reduce", dq, fa._sum_splits(dq_part) * sm)
-    check("dkv_reduce", "dk reduce", dk, fa._sum_splits(dk_part))
-    check("dkv_reduce", "dv reduce", dv, fa._sum_splits(dv_part))
+    check("dq_reduce", "dq reduce", dq,
+          (fa._sum_splits(dq_part) * sm).to(dtype))
+    check("dkv_reduce", "dk reduce", dk, fa._sum_splits(dk_part).to(dtype))
+    check("dkv_reduce", "dv reduce", dv, fa._sum_splits(dv_part).to(dtype))
     t["dq_reduce_ms"] = time_ms(dq_reduce)
     t["dkv_reduce_ms"] = time_ms(dkv_reduce)
     t["dq_reduce_plain_ms"] = time_ms(
-        lambda: fa._sum_splits(dq_part) * sm, iters=5)
+        lambda: (fa._sum_splits(dq_part) * sm).to(dtype), iters=5)
     t["dkv_reduce_plain_ms"] = time_ms(
-        lambda: (fa._sum_splits(dk_part), fa._sum_splits(dv_part)), iters=5)
+        lambda: (fa._sum_splits(dk_part).to(dtype),
+                 fa._sum_splits(dv_part).to(dtype)), iters=5)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), offs0.data_ptr(),
               do.data_ptr(), lse.data_ptr(), deff.data_ptr())
     t["dq_ms"] = time_ms(lambda: fa._launch(
-        "mx_flash_bwd_dq_grid_f32", *common, dq_part.data_ptr(), B * H, S, S,
-        D, LONG_W, n_split, sm, 1, device=dev), iters=5)
+        "mx_flash_bwd_dq_grid_" + sfx, *common, dq_part.data_ptr(), B * H,
+        S, S, D, LONG_W, n_split, sm, 1, device=dev), iters=5)
     t["dkv_ms"] = time_ms(lambda: fa._launch(
-        "mx_flash_bwd_dkv_grid_f32", *common, dk_part.data_ptr(),
+        "mx_flash_bwd_dkv_grid_" + sfx, *common, dk_part.data_ptr(),
         dv_part.data_ptr(), B * H, S, S, D, LONG_W, n_split, sm, 1,
         device=dev), iters=5)
     del dq_part, dk_part, dv_part
@@ -1760,25 +1828,25 @@ def phase_grid_kernel(torch, fa, dev):
     # #4 with one split (block 4096): the kernels write dq, dk, dv
     # directly and no reduce runs
     t["dq_1split_ms"] = time_ms(lambda: fa._launch(
-        "mx_flash_bwd_dq_grid_f32", *common, dq.data_ptr(), B * H, S, S, D,
-        S, 1, sm, 1, device=dev), iters=5)
+        "mx_flash_bwd_dq_grid_" + sfx, *common, dq.data_ptr(), B * H, S, S,
+        D, S, 1, sm, 1, device=dev), iters=5)
     t["dkv_1split_ms"] = time_ms(lambda: fa._launch(
-        "mx_flash_bwd_dkv_grid_f32", *common, dk.data_ptr(), dv.data_ptr(),
-        B * H, S, S, D, S, 1, sm, 1, device=dev), iters=5)
+        "mx_flash_bwd_dkv_grid_" + sfx, *common, dk.data_ptr(),
+        dv.data_ptr(), B * H, S, S, D, S, 1, sm, 1, device=dev), iters=5)
     t["bwd_whole_1split_ms"] = time_ms(lambda: fa._flash_bwd_grid_cuda(
         q, k, v, offs0, do, deff, lse, sm, True, (S, S)), iters=5)
     stream_tail = (B * H, S, S, D, sm, 1)
     t["dq_stream_ms"] = time_ms(lambda: fa._launch(
-        "mx_flash_bwd_dq_f32", *common, dq.data_ptr(), *stream_tail,
+        "mx_flash_bwd_dq_" + sfx, *common, dq.data_ptr(), *stream_tail,
         device=dev), iters=3)
     t["dkv_stream_ms"] = time_ms(lambda: fa._launch(
-        "mx_flash_bwd_dkv_f32", *common, dk.data_ptr(), dv.data_ptr(),
+        "mx_flash_bwd_dkv_" + sfx, *common, dk.data_ptr(), dv.data_ptr(),
         *stream_tail, device=dev), iters=3)
     qg, kg, vg = leaves(q, k, v)
     t["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
         sdpa(qg, kg, vg), (qg, kg, vg), do), iters=5)
     t["sdpa_bwd_ms"] = t["sdpa_fwd_bwd_ms"] - t["sdpa_fwd_ms"]
-    bounds = grid_bounds(B, H, S, S, D, 0, LONG_W, LONG_W)
+    bounds = grid_bounds(B, H, S, S, D, 0, LONG_W, LONG_W, es)
     del q, k, v, do, out, lse, deff, dq, dk, dv, qg, kg, vg
     torch.cuda.empty_cache()
 
@@ -1789,20 +1857,20 @@ def phase_grid_kernel(torch, fa, dev):
     out_part, lse_part = fa.fwd_grid_parts(q, k, v, offs[0], offs[1], sm,
                                            True, LONG_W)
     out, lse = torch.empty_like(q), torch.empty(1, H, C, device=dev)
-    combine = lambda: fa._launch(
-        "mx_flash_fwd_offs_grid_combine_f32", offs.data_ptr(),
+    combine = lambda: fa._launch(   # noqa: E731
+        "mx_flash_fwd_offs_grid_combine_" + sfx, offs.data_ptr(),
         out_part.data_ptr(), lse_part.data_ptr(), out.data_ptr(),
         lse.data_ptr(), H, C, D, LONG_W, n_split, 1, device=dev)
     combine()
     ref_out, ref_lse = fa._combine_splits(out_part, lse_part)
-    check("offs_combine", "offs combine out", out, ref_out)
-    check("offs_combine", "offs combine lse", lse, ref_lse)
+    check("offs_combine", "offs combine out", out, ref_out.to(dtype))
+    check_lse("offs_combine", "offs combine", lse, ref_lse)
     t["offs_combine_ms"] = time_ms(combine)
     t["offs_combine_plain_ms"] = time_ms(
-        lambda: fa._combine_splits(out_part, lse_part))
+        lambda: fa._combine_splits(out_part, lse_part)[0].to(dtype))
     ws_out, ws_lse = torch.empty_like(out_part), torch.empty_like(lse_part)
     t["offs_ms"] = time_ms(lambda: fa._launch(
-        "mx_flash_fwd_offs_grid_f32", q.data_ptr(), k.data_ptr(),
+        "mx_flash_fwd_offs_grid_" + sfx, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), offs.data_ptr(), ws_out.data_ptr(), ws_lse.data_ptr(),
         H, C, S, D, LONG_W, n_split, sm, 1, device=dev))
     t["offs_whole_ms"] = time_ms(lambda: fa._flash_fwd_grid_cuda(
@@ -1817,10 +1885,10 @@ def phase_grid_kernel(torch, fa, dev):
             >= torch.arange(S, device=dev)[None, :])
     t["sdpa_offs_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, scale=sm))
-    ob = grid_bounds(1, H, C, S, D, q0, LONG_W, LONG_W)
+    ob = grid_bounds(1, H, C, S, D, q0, LONG_W, LONG_W, es)
     bounds["offs"], bounds["offs_combine"] = ob["fwd"], ob["fwd_combine"]
     for name, (flops, nbytes) in bounds.items():
-        for key, val in attention_bounds(flops, nbytes).items():
+        for key, val in bounds_of(flops, nbytes).items():
             t[name + "_" + key] = val
         t[name + "_flops"], t[name + "_bytes"] = flops, nbytes
         t[name + "_tflops"] = tflops(flops, t[name + "_ms"])
@@ -1833,30 +1901,33 @@ def phase_grid_kernel(torch, fa, dev):
     t["dq_1split_tflops"] = tflops(t["dq_flops"], t["dq_1split_ms"])
     t["dkv_1split_tflops"] = tflops(t["dkv_flops"], t["dkv_1split_ms"])
     t["fwd_vs_sdpa"] = (t["fwd_ms"] + t["fwd_combine_ms"]) / t["sdpa_fwd_ms"]
-    t["cases"] = n_cases
-    return worst, t
+    del q, k, v, out_part, lse_part, ws_out, ws_lse, out, lse
+    torch.cuda.empty_cache()
+    return t
 
 
-def phase_serve_long(torch, fa, dev, seed, out_dir):
-    """The long-context configuration served (module docstring, phase
-    13). Returns (result, launches per grid kernel on the run)."""
+def serve_long_prompts(model, cfg, seed, counters, others, what):
+    """The long-context engine (``DecodeEngine`` over ``model``: block_size
+    16, 1025 blocks, batch 4, max_seq_len 4096, buckets (256, 1024),
+    prefill_chunk 1024) serving LONG_PROMPTS (+-32 tokens, ``seed``), 32
+    new tokens each, with the launch ``counters`` set to 0 just before and
+    read just after. Fails unless all are served, each counter reads 12
+    per prefill call, every counter of ``others`` reads 0, no KV block
+    stays live and every stream equals its solo decode. -> (result,
+    counts, prompts, engine setup seconds)."""
     import numpy as np
-    from mxnet_tpu_torch.models.transformer import (
-        TransformerConfig, TransformerDecodeModel, transformer_decode_prefill,
-        transformer_decode_step)
+    import torch
+    from mxnet_tpu_torch.kernels import flash_attention as fa
     from mxnet_tpu_torch.serving import DecodeEngine
-    cfg = long_config(TransformerConfig)
     t0 = time.perf_counter()
-    model = TransformerDecodeModel(cfg, seed=seed, device=dev)
-    if not model.use_kernel:
-        fail("serve_long: model on %s did not resolve to the kernel tier"
-             % dev)
     eng = DecodeEngine(block_size=16, num_blocks=1025, batch_size=4,
                        max_seq_len=LONG_S, prefill_buckets=(256, 1024),
                        prefill_chunk=1024, **model.engine_kwargs())
     setup_s = time.perf_counter() - t0
-    counters = [GRID_KERNELS[k][1] for k in ("offs", "offs_combine")]
     try:
+        if eng._k_pages.dtype != cfg.dtype:
+            fail("%s: pages are %s, the model's dtype %s"
+                 % (what, eng._k_pages.dtype, cfg.dtype))
         rng = np.random.RandomState(seed)
         lengths = [n + int(rng.randint(-32, 33)) for n in LONG_PROMPTS]
         prompts = [rng.randint(0, cfg.vocab_size, n).tolist()
@@ -1868,7 +1939,7 @@ def phase_serve_long(torch, fa, dev, seed, out_dir):
             stamps.setdefault(stream.rid, []).append(time.monotonic())
 
         torch.cuda.synchronize()
-        for name in counters + list(STREAM_COUNTERS):
+        for name in tuple(counters) + tuple(others):
             setattr(fa, name, 0)
         t0 = time.perf_counter()
         streams = [eng.submit(p, max_new_tokens=new, on_token=on_token)
@@ -1876,24 +1947,25 @@ def phase_serve_long(torch, fa, dev, seed, out_dir):
         outs = [s.result_wait(600.0) for s in streams]
         wall = time.perf_counter() - t0
         counts = {name: getattr(fa, name) for name in counters}
-        stream_counts = {name: getattr(fa, name) for name in STREAM_COUNTERS}
+        other_counts = {name: getattr(fa, name) for name in others}
         calls = sum(-(-n // 1024) for n in lengths)
         st = eng.stats()
         if st["served"] != len(prompts):
-            fail("serve_long: served %d of %d" % (st["served"], len(prompts)))
+            fail("%s: served %d of %d" % (what, st["served"], len(prompts)))
         for name in counters:
             if counts[name] != cfg.num_layers * calls:
-                fail("serve_long: %s = %d, want %d (12 per prefill call, %d "
-                     "calls)" % (name, counts[name], cfg.num_layers * calls,
-                                 calls))
-        if any(stream_counts.values()):
-            fail("serve_long: stream kernels launched: %s" % stream_counts)
+                fail("%s: %s = %d, want %d (12 per prefill call, %d calls)"
+                     % (what, name, counts[name], cfg.num_layers * calls,
+                        calls))
+        if any(other_counts.values()):
+            fail("%s: other attention kernels launched: %s"
+                 % (what, other_counts))
         if st["kv"]["blocks_live"] != 0:
-            fail("serve_long: %d KV blocks still live"
-                 % st["kv"]["blocks_live"])
+            fail("%s: %d KV blocks still live" % (what,
+                                                   st["kv"]["blocks_live"]))
         for o in outs:
             if len(o) != new or not all(0 <= t < cfg.vocab_size for t in o):
-                fail("serve_long: bad stream %s" % o)
+                fail("%s: bad stream %s" % (what, o))
         ttft = [stamps[s.rid][0] - s.submitted_t for s in streams]
         gaps = [b - a for s in streams
                 for a, b in zip(stamps[s.rid], stamps[s.rid][1:])]
@@ -1901,9 +1973,39 @@ def phase_serve_long(torch, fa, dev, seed, out_dir):
                 for p in prompts]
         if solo != outs:
             bad = [i for i, (a, b) in enumerate(zip(solo, outs)) if a != b]
-            fail("serve_long: continuous != solo for prompts %s" % bad)
+            fail("%s: continuous != solo for prompts %s" % (what, bad))
     finally:
         eng.stop()
+    result = {"wall_s": wall, "prompt_tokens": lengths,
+              "tokens": sum(len(o) for o in outs),
+              "tokens_per_s": sum(len(o) for o in outs) / wall,
+              "ttft_ms": [x * 1e3 for x in ttft],
+              "ttft_p50_ms": statistics.median(ttft) * 1e3,
+              "intertoken_p50_ms": statistics.median(gaps) * 1e3,
+              "prefill_calls": calls, "launches": counts,
+              "other_launches": other_counts, "steps": st["steps"],
+              "program_counts": list(eng.program_counts()),
+              "continuous_equals_solo": True,
+              "kv_page_bytes": eng._k_pages.element_size()}
+    return result, counts, prompts, setup_s
+
+
+def phase_serve_long(torch, fa, dev, seed, out_dir):
+    """The long-context configuration served (module docstring, phase
+    13). Returns (result, launches per grid kernel on the run)."""
+    from mxnet_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerDecodeModel, transformer_decode_prefill,
+        transformer_decode_step)
+    cfg = long_config(TransformerConfig)
+    t0 = time.perf_counter()
+    model = TransformerDecodeModel(cfg, seed=seed, device=dev)
+    if not model.use_kernel:
+        fail("serve_long: model on %s did not resolve to the kernel tier"
+             % dev)
+    setup_s = time.perf_counter() - t0
+    counters = [GRID_KERNELS[k][1] for k in ("offs", "offs_combine")]
+    served, counts, prompts, eng_s = serve_long_prompts(
+        model, cfg, seed, counters, STREAM_COUNTERS, "serve_long")
 
     # reference: the third 1024-token chunk of the longest prompt (start
     # 2048, 8 key splits of which 5-6 are live) through the kernel against
@@ -1955,17 +2057,7 @@ def phase_serve_long(torch, fa, dev, seed, out_dir):
                                     calls=3, classify=kind_of_attention)
                 for name, fn in programs.items()}
     del model, kp, vp
-    result = {"phase": "serve_long", "setup_s": setup_s, "wall_s": wall,
-              "prompt_tokens": lengths,
-              "tokens": sum(len(o) for o in outs),
-              "tokens_per_s": sum(len(o) for o in outs) / wall,
-              "ttft_ms": [x * 1e3 for x in ttft],
-              "ttft_p50_ms": statistics.median(ttft) * 1e3,
-              "intertoken_p50_ms": statistics.median(gaps) * 1e3,
-              "prefill_calls": calls, "launches": counts,
-              "stream_launches": stream_counts, "steps": st["steps"],
-              "program_counts": list(eng.program_counts()),
-              "continuous_equals_solo": True,
+    result = {"phase": "serve_long", "setup_s": setup_s + eng_s, **served,
               "prefill_pages_max_abs_err_vs_plain": page_err,
               "profile": profiles}
     return result, counts
@@ -1979,7 +2071,7 @@ def kind_of_attention(name):
     if "flash" in n:
         return "attention"
     if any(k in n for k in ("gemm", "sgemm", "cutlass", "xmma", "sm90",
-                            "sm80", "ampere", "matmul")):
+                            "sm80", "ampere", "matmul", "nvjet")):
         return "matmul"
     return "elementwise_other"
 
@@ -2706,8 +2798,9 @@ def phase_parent(torch, fa, dev, parent):
     ``git archive``), built from DIR's ``csrc/`` and called through the
     same C entries (#7: the parent's per-leaf entries) on the same card.
     The float32 attention entries (forwards #5, #6, #1, #3 and backwards
-    #2, #4) and #7 must give the same bits in both; every kernel is timed
-    in turns (DIR's, this, this, DIR's) at its main path's shape."""
+    #2, #4), the bf16 stream entries (#5, #1, #2) and #7 must give the
+    same bits in both; every kernel is timed in turns (DIR's, this, this,
+    DIR's) at its main path's shape."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
     csrc = os.path.join(parent, "mxnet_tpu_torch", "kernels", "csrc")
@@ -2820,6 +2913,39 @@ def phase_parent(torch, fa, dev, parent):
                                  l_.data_ptr(), H, C, SK, D] + list(grid)
                      + [sm, 1], [o_, l_])
         same_fwd(key, a, b_)
+
+    # the bf16 stream entries, whose bodies took the grid kernels' split
+    # axis: #5 and #2 at the training shape, #1 at the serving shape
+    bf = torch.bfloat16
+    B, H, S, D = 8, 8, 512, 64
+    sm = 1.0 / math.sqrt(D)
+    q, k, v, do = (rand(B, H, S, D).to(bf) for _ in range(4))
+    offs0 = fa._offs0(dev)
+    out, lse = fa.flash_fwd_plain(q, k, v, sm, True)
+    deff = fa._deff(do, out, None).contiguous()
+    o_, l_ = torch.empty_like(q), torch.empty(B, H, S, device=dev)
+    tail = [B * H, S, S, D, sm, 1]
+    a, b_ = both("bf16_fwd", "mx_flash_fwd_bf16",
+                 [t.data_ptr() for t in (q, k, v, o_, l_)] + tail, [o_, l_])
+    same_fwd("bf16_fwd", a, b_)
+    common = [t.data_ptr() for t in (q, k, v, offs0, do, lse, deff)]
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    for key, outs in (("dq", [dq]), ("dkv", [dk, dv])):
+        a, b_ = both("bf16_" + key, "mx_flash_bwd_%s_bf16" % key,
+                     common + [o.data_ptr() for o in outs] + tail, outs)
+        if not all(torch.equal(x, y) for x, y in zip(a, b_)):
+            result["bwd_bit_identical"] = False
+            fail("parent: bf16 %s differs from the parent's bits" % key)
+    C, SK, q0 = 256, 512, 256
+    q, k, v = (rand(1, H, n, D).to(bf) for n in (C, SK, SK))
+    offs = torch.tensor([q0, 0], dtype=torch.int32, device=dev)
+    o_, l_ = torch.empty_like(q), torch.empty(1, H, C, device=dev)
+    a, b_ = both("bf16_offs", "mx_flash_fwd_offs_bf16",
+                 [t.data_ptr() for t in (q, k, v, offs, o_, l_)]
+                 + [H, C, SK, D, sm, 1], [o_, l_])
+    same_fwd("bf16_offs", a, b_)
+    del q, k, v, do, out, lse, deff, o_, l_, dq, dk, dv
+    torch.cuda.empty_cache()
     parent_opt_update(torch, dev, libs["opt_update"], result)
     for v_ in result["times"].values():
         v_["speedup"] = v_["parent_ms"] / v_["ms"]
@@ -3124,11 +3250,14 @@ def phase_example_scripts(torch, dev, tmp):
     return result, {k: tuple(v) for k, v in total.items()}
 
 
-# --- bf16 compute (phases 19-22) --------------------------------------------
+# --- bf16 compute (phases 19-24) --------------------------------------------
 
 PEAK_BF16_FLOPS = 989e12
 BF16_COUNTERS = ("launches_bf16", "launches_fwd_bf16", "launches_bwd_dq_bf16",
                  "launches_bwd_dkv_bf16")
+#: grid kernel -> its bf16 instantiation's launch counter
+BF16_GRID_COUNTERS = {key: counter + "_bf16"
+                      for key, (_, counter, _, _) in GRID_KERNELS.items()}
 
 
 def bf16_bounds(flops, nbytes):
@@ -3235,6 +3364,14 @@ def _bf16_counts(fa):
 def _zero_attention_counts(fa):
     for name in STREAM_COUNTERS + BF16_COUNTERS:
         setattr(fa, name, 0)
+
+
+def _attention_counters(but):
+    """Every attention kernel's launch counter but those in ``but``."""
+    every = (STREAM_COUNTERS + BF16_COUNTERS
+             + tuple(v[1] for v in GRID_KERNELS.values())
+             + tuple(BF16_GRID_COUNTERS.values()))
+    return tuple(n for n in every if n not in but)
 
 
 def phase_serve_bf16(torch, fa, dev):
@@ -3548,6 +3685,163 @@ def phase_symbolic_bf16(torch, dev, seed, out_dir):
             classify=kind_of)
     return result, {k: (counts[0][k], counts[1][k]) for k in OPT_KERNELS}
 
+# The long bf16 model's first loss and gradients against the float32
+# model's from the same weights, at 2 layers (full width, 4 x 4096 tokens;
+# the controls' plain attention keeps every tile's scores for autograd).
+# Set from readings of seeds 0 to 2 on the card beside the controls of
+# _control_attention, which must fail the gradients' gate in every run
+# (PERF.md, section 6).
+#: the first loss (relative): sound runs read at most 7.1e-6; the controls
+#: read 1.2e-5 to 9.3e-5, too close to gate on, as at 512 tokens
+BF16_LONG_LOSS_RTOL = 3e-5
+#: the worst leaf's first gradient, ||g_bf16 - g_f32|| / ||g_f32||: sound
+#: runs read at most 0.0080, the controls at least 0.164 (one 64-key tile
+#: of 4096 dropped from each row moves less than at 512 tokens)
+BF16_LONG_GRAD_RTOL = 0.04
+#: layers of the long gate's models
+BF16_LONG_GATE_LAYERS = 2
+
+
+def phase_serve_long_bf16(torch, fa, dev, seed):
+    """The long-context configuration served in bf16 (module docstring,
+    phase 23). Returns (result, launches of #3's bf16 passes)."""
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerDecodeModel)
+    cfg = long_config(TransformerConfig, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = TransformerDecodeModel(cfg, seed=seed, device=dev)
+    if not model.use_kernel:
+        fail("serve_long_bf16: model on %s did not resolve to the kernel "
+             "tier" % dev)
+    setup_s = time.perf_counter() - t0
+    counters = [BF16_GRID_COUNTERS[k] for k in ("offs", "offs_combine")]
+    served, counts, _, eng_s = serve_long_prompts(
+        model, cfg, seed, counters, _attention_counters(counters),
+        "serve_long_bf16")
+    del model
+    return {"phase": "serve_long_bf16", "setup_s": setup_s + eng_s,
+            **served}, counts
+
+
+def phase_train_long_bf16(torch, fa, dev, seed, out_dir):
+    """The long-context configuration trained in bf16 (module docstring,
+    phase 24). Returns (result, launches per bf16 grid kernel and pass)."""
+    import mxnet_tpu_torch.models.transformer as tm
+    from mxnet_tpu_torch.models.transformer import (
+        TransformerConfig, init_transformer, transformer_loss)
+    from mxnet_tpu_torch.parallel import ShardedTrainStep
+    from mxnet_tpu_torch.parallel.optim_update import tree_leaves, tree_map
+    B, S = 4, LONG_S
+    t0 = time.perf_counter()
+    make_batch = periodic_batches(seed, 32000, S, B)
+    batches = [{k: torch.as_tensor(x).to(dev) for k, x in make_batch().items()}
+               for _ in range(LONG_STEPS)]
+
+    # the gate: first loss and gradients at 2 layers against the float32
+    # model from the same bf16 weights, then under the two controls
+    nl = BF16_LONG_GATE_LAYERS
+    cfg_g = long_config(TransformerConfig, nl, dtype=torch.bfloat16)
+    params_g = init_transformer(cfg_g, torch.Generator().manual_seed(seed),
+                                dev)
+    cfg32 = long_config(TransformerConfig, nl)
+    params32 = tree_map(lambda x: x.float(), params_g)
+
+    def loss_fn_of(c):
+        return lambda p, b: transformer_loss(p, b["tokens"], b["targets"], c)
+
+    loss32, g32 = _first_grads(torch, loss_fn_of(cfg32), params32,
+                               batches[0])
+    del params32
+    names = _leaf_names(params_g)
+
+    def readings(loss, grads):
+        errs = [_rel_l2([g], [w]) for g, w in zip(grads, g32)]
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        return {"loss_rel_err": abs(loss - loss32) / abs(loss32),
+                "grad_rel_err": errs[worst], "grad_worst_leaf": names[worst]}
+
+    gate_counters = [BF16_GRID_COUNTERS[k] for k in ("fwd", "dq", "dkv")]
+    for name in gate_counters:
+        setattr(fa, name, 0)
+    gate = {"sound": readings(*_first_grads(torch, loss_fn_of(cfg_g),
+                                            params_g, batches[0]))}
+    if any(getattr(fa, n) != nl for n in gate_counters):
+        fail("train_long_bf16: the gate's bf16 step launched %s, want %d "
+             "each" % ({n: getattr(fa, n) for n in gate_counters}, nl))
+    for fault in ("diagonal", "rescale"):
+        with mock.patch.object(tm, "_attention",
+                               _control_attention(torch, fault)):
+            gate[fault] = readings(*_first_grads(
+                torch, loss_fn_of(cfg_g), params_g, batches[0]))
+    del g32, params_g
+    torch.cuda.empty_cache()
+    if not (gate["sound"]["loss_rel_err"] <= BF16_LONG_LOSS_RTOL and
+            gate["sound"]["grad_rel_err"] <= BF16_LONG_GRAD_RTOL):
+        fail("train_long_bf16: first bf16 loss and gradients %s against "
+             "float32's (limits %g, %g)" % (gate["sound"],
+                                            BF16_LONG_LOSS_RTOL,
+                                            BF16_LONG_GRAD_RTOL))
+    if not min(gate[f]["grad_rel_err"] for f in ("diagonal", "rescale")) \
+            > BF16_LONG_GRAD_RTOL:
+        fail("train_long_bf16: a control passes the gradient gate: %s"
+             % gate)
+
+    # the path: 12 layers, 10 steps through the bf16 grid kernels
+    cfg = long_config(TransformerConfig, dtype=torch.bfloat16)
+    params = init_transformer(cfg, torch.Generator().manual_seed(seed), dev)
+    step = ShardedTrainStep(loss_fn_of(cfg), optimizer="adam", lr=1e-3,
+                            grad_clip=1.0, device=dev).init(params)
+    setup_s = time.perf_counter() - t0
+    counters = [BF16_GRID_COUNTERS[k] for k in GRID_KERNELS
+                if k not in ("offs", "offs_combine")]
+    others = _attention_counters(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name in tuple(counters) + others:
+        setattr(fa, name, 0)
+    losses, walls = [], []
+    t0 = time.perf_counter()
+    for b in batches:
+        ts = time.perf_counter()
+        losses.append(step(b).item())      # .item() synchronizes
+        walls.append(time.perf_counter() - ts)
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(fa, name) for name in counters}
+    other_counts = {name: getattr(fa, name) for name in others}
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(x) for x in losses):
+        fail("train_long_bf16: non-finite loss in %s" % losses)
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        fail("train_long_bf16: loss did not fall: %s" % losses)
+    want = cfg.num_layers * LONG_STEPS
+    for name in counters:
+        if counts[name] != want:
+            fail("train_long_bf16: %s = %d, want %d (12 per step)"
+                 % (name, counts[name], want))
+    if any(other_counts.values()):
+        fail("train_long_bf16: other attention kernels launched: %s"
+             % other_counts)
+    dtypes = sorted({str(t.dtype) for t in tree_leaves(step.params)})
+    if dtypes != ["torch.float32"]:
+        fail("train_long_bf16: masters are %s, want float32" % dtypes)
+    step_ms = statistics.median(walls[1:]) * 1e3
+    prof = profile_calls(torch, lambda: step(batches[0]).item(),
+                         "train_long_bf16", out_dir, warm=1, n=2, calls=1,
+                         classify=kind_of_attention)
+    del step
+    torch.cuda.empty_cache()
+    return {"phase": "train_long_bf16", "setup_s": setup_s,
+            "steps": LONG_STEPS, "batch": [B, S], "wall_s": wall,
+            "first_step_ms": walls[0] * 1e3, "step_ms_p50": step_ms,
+            "tokens_per_s": B * S / step_ms * 1e3, "losses": losses,
+            "gate_layers": nl, "loss_f32_same_weights": loss32,
+            "loss_rtol": BF16_LONG_LOSS_RTOL,
+            "grad_rtol": BF16_LONG_GRAD_RTOL, "gates": gate,
+            "param_dtypes_after": dtypes, "launches": counts,
+            "other_launches": other_counts, "peak_mem_gb": peak / 1e9,
+            "profile": prof}, counts
+
+
 def phase_bf16_kernel(torch, fa, dev):
     """#1, #5 and #2 in bf16 against their plain bf16 versions on the card
     (module docstring, phase 22). Returns (worst ulps per kernel, rows of
@@ -3556,7 +3850,8 @@ def phase_bf16_kernel(torch, fa, dev):
     from mxnet_tpu_torch.kernels.bf16_gate import BF16_ULPS, row_ulps
     gen = torch.Generator().manual_seed(SEED + 7)
     bf = torch.bfloat16
-    worst = {"offs": 0.0, "fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    worst = {"offs": 0.0, "fwd": 0.0, "dq": 0.0, "dkv": 0.0,
+             **{"grid_" + key: 0.0 for key in GRID_KERNELS}}
     lse_worst = 0.0
 
     def rand(*shape):
@@ -3723,13 +4018,137 @@ def phase_bf16_kernel(torch, fa, dev):
         rows[key] = t
         del q, k, v, do, out, lse, deff, dq, dk, dv, qg, kg, vg
         torch.cuda.empty_cache()
+    rows["grid"] = bf16_grid_rows(torch, fa, dev, rand, leaves, check,
+                                  check_lse, same)
     return worst, lse_worst, rows
+
+
+def bf16_grid_rows(torch, fa, dev, rand, leaves, check, check_lse, same):
+    """The grid kernels #6, #4 and #3 on bf16 inputs (module docstring,
+    phase 22): each against its plain bf16 version, then timed. ``check``
+    (kind, what, got, ref) holds a bf16 output to BF16_ULPS row ulps,
+    ``check_lse`` an lse to TOL, ``same`` two calls to the same bits.
+    Returns the timing row."""
+    import torch.nn.functional as F
+    sdpa = lambda a, b_, c, sm: F.scaled_dot_product_attention(  # noqa
+        a, b_, c, is_causal=True, scale=sm)
+
+    # #6 and #4 through flash_attention(variant="grid"): the long training
+    # shape (8 splits), bench.py's flash shape with its (512, 512) blocks,
+    # ragged splits at D 32 and a non-causal case; #4 against the plain
+    # backward on the inputs it got (the kernels' own out and lse)
+    for (b, h, s, d), causal, w in (((4, 8, LONG_S, 64), True, LONG_W),
+                                    ((4, 8, LONG_S, 128), True, LONG_W),
+                                    ((1, 4, 300, 32), True, 64),
+                                    ((2, 8, 1000, 64), False, 256)):
+        what = "#6/#4 %s causal=%s block=%d" % ((b, h, s, d), causal, w)
+        sm = 1.0 / math.sqrt(d)
+        q, k, v, do = (rand(b, h, s, d) for _ in range(4))
+        out, lse = fa._flash_fwd_grid_cuda(q, k, v, None, sm, causal,
+                                           fa.split_width(w, s))
+        ref = fa.flash_fwd_grid_plain(q, k, v, sm, causal, w)
+        check("grid_fwd", what + " out", out, ref[0])
+        check_lse(what, lse, ref[1])
+        same(what + " fwd", fa._flash_fwd_grid_cuda(
+            q, k, v, None, sm, causal, fa.split_width(w, s)), (out, lse))
+        runs = []
+        for _ in range(2):
+            ts = leaves(q, k, v)
+            fa.flash_attention(*ts, causal=causal, sm_scale=sm, block_q=w,
+                               block_k=w, use_pallas=True,
+                               variant="grid").backward(do)
+            runs.append([t.grad for t in ts])
+        same(what + " bwd", *runs)
+        want = fa.flash_bwd_offs_grid_plain(q, k, v, fa._offs0(dev), do,
+                                            None, out, lse, sm, causal, w, w)
+        check("grid_dq", what + " dq", runs[0][0], want[0])
+        check("grid_dkv", what + " dk", runs[0][1], want[1])
+        check("grid_dkv", what + " dv", runs[0][2], want[2])
+        del q, k, v, do, out, lse, ref, runs, want
+        torch.cuda.empty_cache()
+
+    # #3 (and #4 with an lse cotangent) through flash_attention_with_lse:
+    # the last chunk of a 3800-token prompt, a chunk whose rows see no key
+    # (every split dead), and one split per 32-key tile with most dead
+    D, SK = 64, LONG_S
+    sm = 1.0 / math.sqrt(D)
+    for C, (q0, k0), bk in ((1024, (2816, 0), LONG_W),
+                            (256, (0, 2048), LONG_W), (256, (768, 0), 32)):
+        what = "#3 C=%d offs=%s block_k=%d" % (C, (q0, k0), bk)
+        bq = min(LONG_W, C)
+        q, k, v = rand(1, 8, C, D), rand(1, 8, SK, D), rand(1, 8, SK, D)
+        do, dlse = rand(1, 8, C, D), rand(1, 8, C).float()
+        offs = torch.tensor([q0, k0], dtype=torch.int32, device=dev)
+        runs = []
+        for _ in range(2):
+            ts = leaves(q, k, v)
+            o, l = fa.flash_attention_with_lse(*ts, offs, sm, True, bq, bk,
+                                               variant="grid")
+            torch.autograd.backward((o, l), (do, dlse))
+            runs.append([o.detach(), l.detach()] + [t.grad for t in ts])
+        same(what, *runs)
+        out, lse = runs[0][:2]
+        ref = fa.flash_fwd_offs_grid_plain(q, k, v, offs, sm, True, bk)
+        check("grid_offs", what + " out", out, ref[0])
+        check_lse(what, lse, ref[1])
+        dead = ref[1] == NEG
+        if not bool((out[dead] == 0).all().item()):
+            fail("bf16_kernel %s: dead rows' out not 0" % what)
+        want = fa.flash_bwd_offs_grid_plain(q, k, v, offs, do, dlse, out,
+                                            lse, sm, True, bq, bk)
+        check("grid_dq", what + " dq", runs[0][2], want[0])
+        check("grid_dkv", what + " dk", runs[0][3], want[1])
+        check("grid_dkv", what + " dv", runs[0][4], want[2])
+        del q, k, v, do, runs, want, ref
+    torch.cuda.empty_cache()
+
+    # each pass alone at the long shapes, timed
+    t = grid_pass_times(
+        torch, fa, dev, rand, leaves, torch.bfloat16,
+        lambda kind, what, got, ref: check("grid_" + kind, what, got, ref),
+        lambda kind, what, lse, ref: check_lse(what, lse, ref))
+
+    # bench.py's flash shape (4, 8, 4096, 128) with its (512, 512) blocks:
+    # each family whole (pass 1 and its combine or reduce) against SDPA
+    B, H, S, D = 4, 8, LONG_S, 128
+    sm = 1.0 / math.sqrt(D)
+    q, k, v, do = (rand(B, H, S, D) for _ in range(4))
+    offs0 = fa._offs0(dev)
+    out, lse = fa._flash_fwd_grid_cuda(q, k, v, None, sm, True, LONG_W)
+    deff = fa._deff(do, out, None).contiguous()
+    bench = {
+        "fwd_ms": time_ms(lambda: fa._flash_fwd_grid_cuda(
+            q, k, v, None, sm, True, LONG_W), iters=5),
+        "bwd_ms": time_ms(lambda: fa._flash_bwd_grid_cuda(
+            q, k, v, offs0, do, deff, lse, sm, True, (LONG_W, LONG_W)),
+            iters=5),
+        "sdpa_fwd_ms": time_ms(lambda: sdpa(q, k, v, sm), iters=5)}
+    qg, kg, vg = leaves(q, k, v)
+    bench["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        sdpa(qg, kg, vg, sm), (qg, kg, vg), do), iters=5) \
+        - bench["sdpa_fwd_ms"]
+    bb = grid_bounds(B, H, S, S, D, 0, LONG_W, LONG_W, es=2.0)
+    for key, parts in (("fwd", ("fwd", "fwd_combine")),
+                       ("bwd", ("dq", "dq_reduce", "dkv", "dkv_reduce"))):
+        flops = sum(bb[p_][0] for p_ in parts)
+        nbytes = sum(bb[p_][1] for p_ in parts)
+        for k_, v_ in bf16_bounds(flops, nbytes).items():
+            bench[key + "_" + k_] = v_
+        bench[key + "_tflops"] = tflops(flops, bench[key + "_ms"])
+        bench[key + "_vs_sdpa"] = bench[key + "_ms"] / bench[
+            "sdpa_%s_ms" % key]
+    t["bench"] = bench
+    del q, k, v, do, out, lse, deff, qg, kg, vg
+    torch.cuda.empty_cache()
+    return t
+
 
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
           "grid_kernel", "serve_long", "train_long", "rtc_kernel",
           "rtc_infer", "module_fit", "example_scripts", "serve_bf16",
-          "train_bf16", "symbolic_bf16", "bf16_kernel")
+          "train_bf16", "symbolic_bf16", "bf16_kernel", "serve_long_bf16",
+          "train_long_bf16")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",)}
@@ -3989,6 +4408,17 @@ def main():
             torch, dev, args.seed, args.profile_dir)
         emit({**symb, "card": card})
         torch.cuda.empty_cache()
+    if "serve_long_bf16" in phases:
+        slb, counts = phase_serve_long_bf16(torch, fa, dev, args.seed)
+        emit({**slb, "card": card})
+        bf16_launches.update(counts)
+        torch.cuda.empty_cache()
+    if "train_long_bf16" in phases:
+        tlb, counts = phase_train_long_bf16(torch, fa, dev, args.seed,
+                                            args.profile_dir)
+        emit({**tlb, "card": card})
+        bf16_launches.update(counts)
+        torch.cuda.empty_cache()
     for entry in entries:
         opt_kind = OPT_BY_ENTRY.get(entry["name"])
         if opt_kind is None:
@@ -4039,6 +4469,28 @@ def main():
                 "replaces": ref + line, "launches": bf16_launches[counter],
                 "max_abs_err": bk_worst[key], "err_unit": "bf16 row ulps",
                 **times})
+        grid = bk["grid"]
+        for key, (entry, _, file, line) in GRID_KERNELS.items():
+            counter = BF16_GRID_COUNTERS[key]
+            if counter not in bf16_launches:
+                continue   # its path's phase did not run
+            lib = {"fwd": "sdpa_fwd_ms", "dq": "sdpa_bwd_ms",
+                   "dkv": "sdpa_bwd_ms", "offs": "sdpa_offs_ms"}.get(key)
+            plain = {"dkv": "bwd_plain_ms", "dq": "bwd_plain_ms"}.get(
+                key, key + "_plain_ms")
+            entries.append({
+                "name": entry[3:-3] + "bf16", "route": "cuda",
+                "source": src + file, "replaces": ref + line,
+                "launches": bf16_launches[counter],
+                "max_abs_err": bk_worst["grid_" + key],
+                "err_unit": "bf16 row ulps", "ms": grid[key + "_ms"],
+                "plain_ms": grid[plain], "bound_ms": grid[key + "_bound_ms"],
+                "bound_by": grid[key + "_bound_by"],
+                "library_ms": grid[lib] if lib else None,
+                "tflops": grid[key + "_tflops"],
+                "shape": ("q (1,8,1024,64) k/v (1,8,4096,64) bf16 offs "
+                          "[2816,0], 8 key splits" if key.startswith("offs")
+                          else "q/k/v (4,8,4096,64) bf16 causal, 8 splits")})
     if args.parent:
         emit({**phase_parent(torch, fa, dev, args.parent), "card": card})
     emit({"kernels": entries})

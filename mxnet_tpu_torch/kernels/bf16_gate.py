@@ -1,5 +1,5 @@
-"""The gate a bf16 attention kernel (#1, #5 and #2 on bf16 inputs) is held
-to against its plain bf16 version, and a script that reads it.
+"""The gate a bf16 attention kernel (#1-#6 on bf16 inputs) is held to
+against its plain bf16 version, and a script that reads it.
 
 A bf16 output keeps 8 significant bits, so its error is counted in bf16
 ulps, and ``row_ulps`` counts them against each row's own scale. A row is
@@ -16,13 +16,15 @@ Reading the gate::
 
     python -m mxnet_tpu_torch.kernels.bf16_gate [--seeds N] [--emulate]
 
-holds every output of the three kernels against its plain version over N
-seeds, through the C entries: on the card at the shapes of
-``chip_smoke.py``'s ``bf16_kernel`` phase, or with ``--emulate`` through
-the host emulator (``_emulate.py``) at the training sequence length on
-fewer heads. The backward pair gets the plain forward's out and lse, so
-each kernel is read on its own. It prints one JSON object: for each
-output, the largest reading of both measures and the shape it came from.
+holds every output of the six kernels against its plain version over N
+seeds, through the C entries: the stream kernels #5, #1 and #2, and the
+split-KV ("grid") kernels #6, #3 and #4 with their combine and reduce
+passes, on the card at the shapes of ``chip_smoke.py``'s ``bf16_kernel``
+phase, or with ``--emulate`` through the host emulator (``_emulate.py``)
+at the training sequence length on fewer heads. The backward pairs get
+the plain forward's out and lse, so each kernel is read on its own. It
+prints one JSON object: for each output, the largest reading of both
+measures and the shape it came from.
 """
 from __future__ import annotations
 
@@ -76,50 +78,106 @@ def tensor_ulps(got, ref):
 
 # --- readings -----------------------------------------------------------
 
-def _outputs(call, q, k, v, offs, do, dlse, sm, causal, entry):
+def _outputs(call, q, k, v, offs, do, dlse, sm, causal, entry, width):
     """{output: (kernel's, plain version's)} of forward entry ``entry``
-    ("fwd" for #5, "fwd_offs" for #1) and of the backward pair #2 on the
-    plain forward's out and lse. ``call(name, *args)`` runs a C entry."""
+    ("fwd" for #5, "fwd_offs" for #1, "grid" for #6, "offs_grid" for #3)
+    and of the backward pair of its family (#2, or #4 with ``width`` rows
+    a split on both axes) on the plain forward's out and lse. The grid
+    entries run their combine and reduce passes over float32 workspaces
+    when there is more than one split. ``call(name, *args)`` runs a C
+    entry."""
     from . import flash_attention as fa
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    tail = (b * h, sq, sk, d, sm, int(causal))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     ptr = lambda *ts: [t.data_ptr() for t in ts]   # noqa: E731
-    if entry == "fwd":
-        call("mx_flash_fwd_bf16", *ptr(q, k, v, out, lse), *tail)
-        ref = fa.flash_fwd_plain(q, k, v, sm, causal)
+    pre = [] if entry in ("fwd", "grid") else [offs]
+    if width is None:
+        tail = (b * h, sq, sk, d, sm, int(causal))
+        call("mx_flash_%s_bf16" % entry, *ptr(q, k, v, *pre, out, lse),
+             *tail)
+        ref = (fa.flash_fwd_plain(q, k, v, sm, causal) if entry == "fwd"
+               else fa.flash_fwd_offs_plain(q, k, v, offs, sm, causal))
     else:
-        call("mx_flash_fwd_offs_bf16", *ptr(q, k, v, offs, out, lse), *tail)
-        ref = fa.flash_fwd_offs_plain(q, k, v, offs, sm, causal)
+        n = len(fa._splits(sk, width))
+        nq = len(fa._splits(sq, width))
+        work = lambda m, like: torch.empty(   # noqa: E731
+            (m,) + tuple(like.shape), dtype=torch.float32, device=q.device)
+        dst = (out, lse) if n == 1 else (work(n, q), work(n, lse))
+        name = "mx_flash_fwd_%s" % entry
+        call(name + "_bf16", *ptr(q, k, v, *pre, *dst), b * h, sq, sk, d,
+             width, n, sm, int(causal))
+        if n > 1:
+            call(name + "_combine_bf16", *ptr(*pre, *dst, out, lse), b * h,
+                 sq, d, width, n, int(causal))
+        ref = (fa.flash_fwd_grid_plain(q, k, v, sm, causal, width)
+               if entry == "grid" else fa.flash_fwd_offs_grid_plain(
+                   q, k, v, offs, sm, causal, width))
     deff = fa._deff(do, ref[0], dlse).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     common = ptr(q, k, v, offs, do, ref[1], deff)
-    call("mx_flash_bwd_dq_bf16", *common, dq.data_ptr(), *tail)
-    call("mx_flash_bwd_dkv_bf16", *common, *ptr(dk, dv), *tail)
-    want = fa.flash_bwd_offs_plain(q, k, v, offs, do, dlse, ref[0], ref[1],
-                                   sm, causal)
-    return {entry + " out": (out, ref[0]), "dq": (dq, want[0]),
-            "dk": (dk, want[1]), "dv": (dv, want[2])}
+    if width is None:
+        call("mx_flash_bwd_dq_bf16", *common, dq.data_ptr(), *tail)
+        call("mx_flash_bwd_dkv_bf16", *common, *ptr(dk, dv), *tail)
+        want = fa.flash_bwd_offs_plain(q, k, v, offs, do, dlse, ref[0],
+                                       ref[1], sm, causal)
+    else:
+        flags = (sm, int(causal))
+        dq_dst = dq if n == 1 else work(n, q)
+        call("mx_flash_bwd_dq_grid_bf16", *common, dq_dst.data_ptr(), b * h,
+             sq, sk, d, width, n, *flags)
+        if n > 1:
+            call("mx_flash_bwd_dq_grid_reduce_bf16", *ptr(offs, dq_dst, dq),
+                 b * h, sq, d, width, n, *flags)
+        dkv_dst = (dk, dv) if nq == 1 else (work(nq, k), work(nq, v))
+        call("mx_flash_bwd_dkv_grid_bf16", *common, *ptr(*dkv_dst), b * h,
+             sq, sk, d, width, nq, *flags)
+        if nq > 1:
+            call("mx_flash_bwd_dkv_grid_reduce_bf16",
+                 *ptr(offs, *dkv_dst, dk, dv), b * h, sq, sk, d, width, nq,
+                 int(causal))
+        want = fa.flash_bwd_offs_grid_plain(q, k, v, offs, do, dlse, ref[0],
+                                            ref[1], sm, causal, width, width)
+    kind = "" if width is None else "grid "
+    return {entry + " out": (out, ref[0]), kind + "dq": (dq, want[0]),
+            kind + "dk": (dk, want[1]), kind + "dv": (dv, want[2])}
 
 
 def _cases(emulate):
-    """(entry, q shape, keys, (q0, k0), causal, with an lse cotangent)."""
+    """(entry, q shape, keys, (q0, k0), causal, with an lse cotangent,
+    split width or None)."""
     if emulate:
-        return [("fwd", (1, 2, 512, 64), 512, (0, 0), True, False),
-                ("fwd", (1, 2, 200, 32), 200, (0, 0), False, False),
-                ("fwd_offs", (1, 2, 256, 64), 512, (256, 0), True, True),
-                ("fwd_offs", (1, 2, 64, 128), 512, (0, 256), True, True)]
+        return [("fwd", (1, 2, 512, 64), 512, (0, 0), True, False, None),
+                ("fwd", (1, 2, 200, 32), 200, (0, 0), False, False, None),
+                ("fwd_offs", (1, 2, 256, 64), 512, (256, 0), True, True,
+                 None),
+                ("fwd_offs", (1, 2, 64, 128), 512, (0, 256), True, True,
+                 None),
+                ("grid", (1, 2, 512, 64), 512, (0, 0), True, False, 128),
+                ("offs_grid", (1, 2, 256, 64), 512, (256, 0), True, True,
+                 96),
+                ("offs_grid", (1, 2, 64, 128), 512, (0, 256), True, True,
+                 64)]
     cases = []
     for d in (32, 64, 128):
         for c, offs in ((64, (0, 0)), (256, (0, 0)), (256, (256, 0)),
                         (64, (448, 0)), (64, (0, 256))):
-            cases.append(("fwd_offs", (1, 8, c, d), 512, offs, True, True))
+            cases.append(("fwd_offs", (1, 8, c, d), 512, offs, True, True,
+                          None))
     for shape, causal in (((8, 8, 512, 64), True), ((8, 8, 512, 32), True),
                           ((8, 8, 512, 128), True), ((2, 8, 200, 64), False),
                           ((4, 8, 4096, 128), True)):
-        cases.append(("fwd", shape, shape[2], (0, 0), causal, False))
+        cases.append(("fwd", shape, shape[2], (0, 0), causal, False, None))
+    for shape, causal, w in (((4, 8, 4096, 64), True, 512),
+                             ((4, 8, 4096, 128), True, 512),
+                             ((1, 4, 300, 32), True, 64),
+                             ((2, 8, 1000, 64), False, 256)):
+        cases.append(("grid", shape, shape[2], (0, 0), causal, False, w))
+    for c, offs, w in ((1024, (2816, 0), 512), (256, (0, 2048), 512),
+                       (1024, (0, 0), 32)):
+        cases.append(("offs_grid", (1, 8, c, 64), 4096, offs, True, True,
+                      w))
     return cases
 
 
@@ -151,18 +209,18 @@ def main(argv=None):
         gen = torch.Generator().manual_seed(1000 + seed)
         rand = lambda *s: torch.randn(*s, generator=gen).to(   # noqa: E731
             dev, torch.bfloat16)
-        for entry, (b, h, sq, d), sk, offs, causal, lse_cot in _cases(
-                args.emulate):
+        for entry, (b, h, sq, d), sk, offs, causal, lse_cot, width in \
+                _cases(args.emulate):
             q, k, v, do = (rand(b, h, sq, d), rand(b, h, sk, d),
                            rand(b, h, sk, d), rand(b, h, sq, d))
             dlse = (torch.randn(b, h, sq, generator=gen).to(dev)
                     if lse_cot else None)
             o = torch.tensor(offs, dtype=torch.int32, device=dev)
-            what = "%s %s keys %d offs %s causal %s" % (entry, (b, h, sq, d),
-                                                        sk, offs, causal)
+            what = "%s %s keys %d offs %s causal %s split %s" % (
+                entry, (b, h, sq, d), sk, offs, causal, width)
             for name, (got, ref) in _outputs(call, q, k, v, o, do, dlse,
                                              1.0 / math.sqrt(d), causal,
-                                             entry).items():
+                                             entry, width).items():
                 w = worst.setdefault(name, {"row_ulps": 0.0,
                                             "tensor_ulps": 0.0})
                 r, t = row_ulps(got, ref), tensor_ulps(got, ref)

@@ -1,8 +1,9 @@
 // bf16 tensor-core helpers shared by the bf16 flash-attention bodies
 // (flash_fwd_bf16.cuh, flash_bwd_bf16.cuh), for Hopper (sm_90a): the
 // mma.sync.m16n8k16 product with bf16 operands and float32 accumulators,
-// its fragment loaders, the round to bf16, and cp.async staging of bf16
-// tiles into XOR-swizzled shared memory.
+// its fragment loaders, the round to bf16 (also the split passes' bf16
+// stores, store4), and cp.async staging of bf16 tiles into XOR-swizzled
+// shared memory.
 //
 // - Products: one mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 for each
 //   16 x 8 x 16 step. A bf16 product is exact in float32, so there is no
@@ -171,6 +172,21 @@ __device__ __forceinline__ void store2(bf16* out, float x0, float x1) {
   uint32_t d;
   pack_bf16x2(d, x0, x1);
   *reinterpret_cast<uint32_t*>(out) = d;
+}
+
+// out[0..3] = (a, b, c, d): one float4 store, or rounded to bf16 in one
+// 8-byte store (the split passes' float32 or bf16 outputs)
+__device__ __forceinline__ void store4(float* out, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(out) = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ void store4(bf16* out, float a, float b, float c,
+                                       float d) {
+  uint32_t lo, hi;
+  pack_bf16x2(lo, a, b);
+  pack_bf16x2(hi, c, d);
+  *reinterpret_cast<uint2*>(out) = make_uint2(lo, hi);
 }
 
 }  // namespace

@@ -1,9 +1,13 @@
 // The flash-attention backward body in bf16 on the tensor cores, for
 // Hopper (sm_90a): one dq kernel and one dk/dv kernel, `template <int D>`,
-// one block per 64 rows walking the whole other axis. flash_bwd_offs.cu
-// instantiates them beside the float32 body (flash_bwd.cuh) for TPU
-// kernels _flash_bwd_dq_offs_kernel / _flash_bwd_dkv_offs_kernel (#2).
-// The split-KV grid pair (#4) stays float32.
+// over splits of the walked axis (blockIdx.z; w rows each), as the float32
+// body (flash_bwd.cuh). flash_bwd_offs.cu instantiates them beside the
+// float32 body with one split over the whole axis, for TPU kernels
+// _flash_bwd_dq_offs_kernel / _flash_bwd_dkv_offs_kernel (#2), writing bf16
+// dq, dk, dv; flash_bwd_grid.cu over the JAX call's splits, for
+// _flash_bwd_dq_grid_kernel / _flash_bwd_dkv_grid_kernel (#4), writing
+// float32 partials (unscaled dq over key splits, dk and dv over query
+// splits) that its reduce passes sum, in split order, and round once.
 //
 // Function, with the roundings of the reference kernels
 // (mxnet_tpu/kernels/flash_attention.py:402 and :453 on bf16 inputs;
@@ -16,7 +20,9 @@
 //   dk_j  = bf16(sum_i bf16(ds_ij) qs_i),  dv_j = bf16(sum_i bf16(p_ij) do_i)
 // with every score, p, ds and sum in float32 and every product of two bf16
 // exact. Rows with no visible key and keys no row sees get exactly 0.
-// deff (float32) is computed by the caller.
+// deff (float32) is computed by the caller. With splits, the sums run over
+// the block's split and stay float32; sm_scale and the rounding come after
+// the split sum (the reference's flush, L767-769 and L823-824).
 //
 // Bound on one H100 SXM: operations 6 * B * H * sum_rows(visible keys) * D
 // for dq and 8 * ... * D for dk/dv at the 989 TFLOP/s dense bf16 rate;
@@ -40,21 +46,25 @@
 // - Staging: 16-byte cp.async copies of bf16 into swizzled tiles,
 //   zero-filled past the valid rows; the walked tile double-buffered.
 // - Tiles no row of the block can see under the causal mask are never
-//   loaded; tiles wholly visible skip the mask. A block owns its output
-//   rows: no atomics, bit-identical from call to call.
+//   loaded; tiles wholly visible skip the mask; a split range that is not a
+//   multiple of the tile is masked at its end, and a (block, split) pair no
+//   row of the block can see returns at once (flash_split.cuh). A block
+//   owns its output rows: no atomics, bit-identical from call to call.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bf16_mma.cuh"      // bf16 mma.sync, fragments, staging
-#include "flash_split.cuh"   // kNeg
+#include "flash_split.cuh"   // the split geometry, kNeg
 
 namespace mx_flash_bwd_bf16 {
 // Internal linkage, as flash_bwd.cuh's body.
 namespace {
 
 using namespace mx_bf;
+using mx_flash::first_live_q_split;
 using mx_flash::kNeg;
+using mx_flash::live_kv_splits;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -70,7 +80,9 @@ constexpr size_t dkv_bf16_smem_bytes() {
   return dq_bf16_smem_bytes<D>() + sizeof(float) * 4 * tile_rows<D>();
 }
 
-// dq. One block: 64 query rows of (b, h) = blockIdx.x.
+// dq. One block: 64 query rows of (b, h) = blockIdx.x, key split
+// blockIdx.z of width w (n_split == 1: w >= sk, the final bf16 dq; else
+// the split's unscaled float32 partial into dq_part).
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
@@ -80,8 +92,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ deff,
-                         bf16* __restrict__ dq, int sq, int sk,
-                         float sm_scale, int causal) {
+                         bf16* __restrict__ dq, float* __restrict__ dq_part,
+                         int sq, int sk, int w, int n_split, float sm_scale,
+                         int causal) {
   constexpr int kT = tile_rows<D>();
   constexpr int kNT = kT / 8;
   constexpr int kKT = kT / 16;
@@ -94,12 +107,21 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
 
   const int bh = blockIdx.x;
   const int rb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int split = blockIdx.z;
+  const bool direct = n_split == 1;
   const int q0 = rb * kRows;
   const int q_base = offs[0];
   const int k_base = offs[1];
   const int last_q = q_base + min(q0 + kRows, sq) - 1;
-  const int k_hi = causal ? min(sk, last_q - k_base + 1) : sk;
-  const int n_t = k_hi > 0 ? (k_hi + kT - 1) / kT : 0;
+  if (!direct &&
+      split >= live_kv_splits(last_q, k_base, w, n_split, causal))
+    return;   // dead: no row of the block sees a key of this split
+
+  // keys [k_lo, k_end) of the split, [k_lo, k_hi) seen by some row
+  const int k_lo = split * w;
+  const int k_end = min(k_lo + w, sk);
+  const int k_hi = causal ? min(k_end, last_q - k_base + 1) : k_end;
+  const int n_t = k_hi > k_lo ? (k_hi - k_lo + kT - 1) / kT : 0;
 
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2;
@@ -126,22 +148,22 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
     stage_bf<D, kRows>(qs, q + qoff * D, q0, sq);
     stage_bf<D, kRows>(dos, dout + qoff * D, q0, sq);
-    stage_bf<D, kT>(kvs, kb, 0, sk);
-    stage_bf<D, kT>(kvs + kT * D, vb, 0, sk);
+    stage_bf<D, kT>(kvs, kb, k_lo, k_end);
+    stage_bf<D, kT>(kvs + kT * D, vb, k_lo, k_end);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
     fold_tile<D, kRows>(qs, sm_scale);   // the loop's barrier publishes it
     for (int it = 0; it < n_t; ++it) {
-      const int kt0 = it * kT;
+      const int kt0 = k_lo + it * kT;
       const bf16* ks = kvs + (it & 1) * 2 * kT * D;
       const bf16* vs = ks + kT * D;
       cp_async_wait_all();
       __syncthreads();   // tile it landed; tile it - 1's reads are done
       if (it + 1 < n_t) {
         bf16* nk = kvs + ((it + 1) & 1) * 2 * kT * D;
-        stage_bf<D, kT>(nk, kb, kt0 + kT, sk);
-        stage_bf<D, kT>(nk + kT * D, vb, kt0 + kT, sk);
+        stage_bf<D, kT>(nk, kb, kt0 + kT, k_end);
+        stage_bf<D, kT>(nk + kT * D, vb, kt0 + kT, k_end);
         cp_async_commit();
       }
 
@@ -163,8 +185,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
         }
       }
 
-      // ds into s
-      const bool masked = kt0 + kT > sk ||
+      // ds into s; a tile wholly inside the split and seen by every row
+      // of the block needs no mask
+      const bool masked = kt0 + kT > k_end ||
                           (causal && k_base + kt0 + kT - 1 > q_base + q0);
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
@@ -173,7 +196,8 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
           const int h = e >> 1;
           const int kj = kt0 + j * 8 + 2 * t + (e & 1);
           float p = exp2f(fmaf(s[j][e], kLog2e, -lse_l2[h]));
-          if (masked && !(kj < sk && (!causal || q_pos[h] >= k_base + kj)))
+          if (masked &&
+              !(kj < k_end && (!causal || q_pos[h] >= k_base + kj)))
             p = 0.f;
           s[j][e] = p * (dp[j][e] - deff_r[h]);
         }
@@ -196,19 +220,31 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     }
   }
 
+  // direct: the final dq; else this split's unscaled float32 slot
+  const size_t base = direct ? 0 : static_cast<size_t>(split) * gridDim.x * sq;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = q0 + wr + g + 8 * h;
     if (i >= sq) continue;
-    bf16* o = dq + (qoff + i) * D + 2 * t;
+    if (direct) {
+      bf16* o = dq + (qoff + i) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kND; ++n)
-      store2(o + n * 8, acc[n][2 * h] * sm_scale,
-             acc[n][2 * h + 1] * sm_scale);
+      for (int n = 0; n < kND; ++n)
+        store2(o + n * 8, acc[n][2 * h] * sm_scale,
+               acc[n][2 * h + 1] * sm_scale);
+    } else {
+      float* o = dq_part + (base + qoff + i) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kND; ++n)
+        *reinterpret_cast<float2*>(o + n * 8) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+    }
   }
 }
 
-// dk/dv. One block: 64 keys of (b, h) = blockIdx.x.
+// dk/dv. One block: 64 keys of (b, h) = blockIdx.x, query split
+// blockIdx.z of width w (n_split == 1: w >= sq, the final bf16 dk and dv;
+// else the split's float32 partials into dk_part and dv_part).
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
@@ -219,7 +255,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const float* __restrict__ lse,
                           const float* __restrict__ deff,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          int sq, int sk, float sm_scale, int causal) {
+                          float* __restrict__ dk_part,
+                          float* __restrict__ dv_part, int sq, int sk, int w,
+                          int n_split, float sm_scale, int causal) {
   constexpr int kT = tile_rows<D>();
   constexpr int kNT = kT / 8;    // 8-query groups of a tile
   constexpr int kKT = kT / 16;   // 16-query steps of a tile
@@ -233,17 +271,25 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   // [2 stages][lse, deff][kT]
 
   const int bh = blockIdx.x;
+  const int split = blockIdx.z;
+  const bool direct = n_split == 1;
   const int k0 = blockIdx.y * kRows;
   const int q_base = offs[0];
   const int k_base = offs[1];
-  // under the causal mask the first query that sees key k0 is rel, and
-  // tiles start at the one holding it
-  int first = 0;
-  int n_t = (sq + kT - 1) / kT;
+  if (!direct && split < first_live_q_split(k_base + k0, q_base, sq, w,
+                                            n_split, causal))
+    return;   // dead: no query of this split sees a key of the block
+
+  // queries [q_lo, q_end) of the split; under the causal mask the first
+  // row that sees key k0 is rel, and tiles start at the one holding it
+  const int q_lo = split * w;
+  const int q_end = min(q_lo + w, sq);
+  int first = q_lo;
+  int n_t = (q_end - q_lo + kT - 1) / kT;
   if (causal) {
     const int rel = k_base + k0 - q_base;
-    if (rel > 0) first = rel / kT * kT;
-    n_t = rel >= sq ? 0 : (sq - first + kT - 1) / kT;
+    if (rel > q_lo) first = q_lo + (rel - q_lo) / kT * kT;
+    n_t = rel >= q_end ? 0 : (q_end - first + kT - 1) / kT;
   }
 
   const int warp = threadIdx.x >> 5;
@@ -263,12 +309,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     const bf16* dob = dout + qoff * D;
     auto stage_tile = [&](int st, int qt0) {
       bf16* dst = qds + st * 2 * kT * D;
-      stage_bf<D, kT>(dst, qb, qt0, sq);
-      stage_bf<D, kT>(dst + kT * D, dob, qt0, sq);
+      stage_bf<D, kT>(dst, qb, qt0, q_end);
+      stage_bf<D, kT>(dst + kT * D, dob, qt0, q_end);
       const int tid = threadIdx.x;
       if (tid < 2 * kT) {
         const int i = qt0 + tid % kT;
-        const bool ok = i < sq;
+        const bool ok = i < q_end;
         cp_async4(lds + st * 2 * kT + tid, (tid < kT ? lse : deff) + qoff +
                   (ok ? i : 0), ok);
       }
@@ -311,9 +357,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         }
       }
 
-      // p into s, ds into dp; a tile wholly inside the queries whose first
+      // p into s, ds into dp; a tile wholly inside the split whose first
       // query sees the block's last key needs no mask
-      const bool masked = qt0 + kT > sq ||
+      const bool masked = qt0 + kT > q_end ||
                           (causal && q_base + qt0 < k_base + k0 + kRows - 1);
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
@@ -324,7 +370,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
           const float l = ls[ci];
           const float l_safe = l > kNeg / 2 ? l : -kNeg;
           float p = exp2f(fmaf(s[j][e], kLog2e, -l_safe * kLog2e));
-          if (masked && !(qi < sq && (!causal || q_base + qi >= k_pos[e >> 1])))
+          if (masked &&
+              !(qi < q_end && (!causal || q_base + qi >= k_pos[e >> 1])))
             p = 0.f;
           s[j][e] = p;
           dp[j][e] = p * (dp[j][e] - dfs[ci]);
@@ -362,52 +409,68 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     }
   }
 
-  // dk is summed against the folded q: no further sm_scale
+  // dk is summed against the folded q: no further sm_scale. direct: the
+  // final dk, dv; else this split's float32 slots
+  const size_t base = direct ? 0 : static_cast<size_t>(split) * gridDim.x * sk;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int j = k0 + wr + g + 8 * h;
     if (j >= sk) continue;
-    const size_t r = (koff + j) * D + 2 * t;
+    const size_t r = (base + koff + j) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < kND; ++n) {
-      store2(dk + r + n * 8, acc_k[n][2 * h], acc_k[n][2 * h + 1]);
-      store2(dv + r + n * 8, acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+      if (direct) {
+        store2(dk + r + n * 8, acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+        store2(dv + r + n * 8, acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+      } else {
+        *reinterpret_cast<float2*>(dk_part + r + n * 8) =
+            make_float2(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+        *reinterpret_cast<float2*>(dv_part + r + n * 8) =
+            make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+      }
     }
   }
 }
 
 // --- launchers ---------------------------------------------------------------
 
+// dq (n_split == 1) or the float32 dq_part (n_split > 1 key splits of w)
 template <int D>
 int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
                    const int* offs, const bf16* dout, const float* lse,
-                   const float* deff, bf16* dq, int bh, int sq, int sk,
-                   float sm_scale, int causal, cudaStream_t stream) {
+                   const float* deff, bf16* dq, float* dq_part, int bh,
+                   int sq, int sk, int w, int n_split, float sm_scale,
+                   int causal, cudaStream_t stream) {
   constexpr size_t smem = dq_bf16_smem_bytes<D>();
   static const cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_bf16_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (sq + kRows - 1) / kRows);
+  const dim3 grid(bh, (sq + kRows - 1) / kRows, n_split);
   flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, offs, dout, lse, deff, dq, sq, sk, sm_scale, causal);
+      q, k, v, offs, dout, lse, deff, dq, dq_part, sq, sk, w, n_split,
+      sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+// dk, dv (n_split == 1) or the float32 dk_part, dv_part (n_split > 1 query
+// splits of w)
 template <int D>
 int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                     const int* offs, const bf16* dout, const float* lse,
-                    const float* deff, bf16* dk, bf16* dv, int bh, int sq,
-                    int sk, float sm_scale, int causal,
+                    const float* deff, bf16* dk, bf16* dv, float* dk_part,
+                    float* dv_part, int bh, int sq, int sk, int w,
+                    int n_split, float sm_scale, int causal,
                     cudaStream_t stream) {
   constexpr size_t smem = dkv_bf16_smem_bytes<D>();
   static const cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_bf16_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (sk + kRows - 1) / kRows);
+  const dim3 grid(bh, (sk + kRows - 1) / kRows, n_split);
   flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
-      q, k, v, offs, dout, lse, deff, dk, dv, sq, sk, sm_scale, causal);
+      q, k, v, offs, dout, lse, deff, dk, dv, dk_part, dv_part, sq, sk, w,
+      n_split, sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 

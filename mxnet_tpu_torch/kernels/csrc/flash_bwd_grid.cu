@@ -1,5 +1,5 @@
-// Split flash-attention backward at dynamic global offsets, float32, for
-// Hopper (sm_90a): the long-context training backward of
+// Split flash-attention backward at dynamic global offsets, float32 and
+// bf16, for Hopper (sm_90a): the long-context training backward of
 // TransformerConfig(attn_variant="grid"). Four kernels: dq over key splits,
 // dk/dv over query splits, and the two passes that sum the splits. Built by
 // mxnet_tpu_torch/kernels/_build.py into a shared library with a plain C
@@ -45,7 +45,17 @@
 // and 537 MB at w = 512), 0.16 and 0.32 ms at the memory rate. The reduce
 // passes are bytes-bound and run on CUDA cores, 32 rows a block, eight
 // threads to a row.
+//
+// bf16 inputs take flash_bwd_bf16.cuh's kernels over the same splits (one
+// bf16 mma.sync product a step, the reference kernels' roundings: dS and P
+// rounded before their products), writing float32 partials: dq unscaled,
+// dk against the folded q. Their reduce passes are the bf16-output
+// instantiations: dq summed in split order, times sm_scale, then rounded
+// (the reference's L769); dk and dv summed, then rounded (L823-824). At the
+// long training shape the 103.1 and 137.5 GFLOP of products above take
+// 0.104 ms (dq) and 0.139 ms (dk/dv) at the 989 TFLOP/s dense bf16 rate.
 #include "flash_bwd.cuh"
+#include "flash_bwd_bf16.cuh"   // and bf16_mma.cuh's store4
 
 namespace {
 
@@ -61,14 +71,15 @@ constexpr int kReduceRows = kReduceThreads / kRowThreads;   // 32
 // sum over the splits [lo_r, hi_r) that the row can see of part[s, r, :],
 // in split order; a row that sees none gets 0. kKeys: the rows are keys
 // (dk/dv: splits [first_live_q_split, n_split) of two arrays), else queries
-// (dq: splits [0, live_kv_splits) of one).
-template <int D, bool kKeys>
+// (dq: splits [0, live_kv_splits) of one). TOut: float, or bf16 (each sum
+// rounded once, after the scale).
+template <int D, bool kKeys, typename TOut>
 __global__ void __launch_bounds__(kReduceThreads)
 flash_bwd_grid_reduce_kernel(const int* __restrict__ offs,
                              const float* __restrict__ part_a,
                              const float* __restrict__ part_b,
-                             float* __restrict__ out_a,
-                             float* __restrict__ out_b,
+                             TOut* __restrict__ out_a,
+                             TOut* __restrict__ out_b,
                              int n_rows, int n_other, int w, int n_split,
                              float scale, int causal) {
   constexpr int kChunks = D / (4 * kRowThreads);
@@ -114,22 +125,23 @@ flash_bwd_grid_reduce_kernel(const int* __restrict__ offs,
   const size_t o = r * D + 4 * lane;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    *reinterpret_cast<float4*>(out_a + o + 4 * kRowThreads * c) = make_float4(
-        acc_a[c][0] * scale, acc_a[c][1] * scale, acc_a[c][2] * scale,
-        acc_a[c][3] * scale);
+    mx_bf::store4(out_a + o + 4 * kRowThreads * c, acc_a[c][0] * scale,
+                     acc_a[c][1] * scale, acc_a[c][2] * scale,
+                     acc_a[c][3] * scale);
     if (kKeys)
-      *reinterpret_cast<float4*>(out_b + o + 4 * kRowThreads * c) = make_float4(
-          acc_b[c][0], acc_b[c][1], acc_b[c][2], acc_b[c][3]);
+      mx_bf::store4(out_b + o + 4 * kRowThreads * c, acc_b[c][0],
+                       acc_b[c][1], acc_b[c][2], acc_b[c][3]);
   }
 }
 
-template <int D, bool kKeys>
+template <int D, bool kKeys, typename TOut>
 int launch_reduce(const int* offs, const float* part_a, const float* part_b,
-                  float* out_a, float* out_b, int bh, int n_rows,
+                  TOut* out_a, TOut* out_b, int bh, int n_rows,
                   int n_other, int w, int n_split, float scale, int causal,
                   cudaStream_t stream) {
   const dim3 grid((n_rows + kReduceRows - 1) / kReduceRows, bh);
-  flash_bwd_grid_reduce_kernel<D, kKeys><<<grid, kReduceThreads, 0, stream>>>(
+  flash_bwd_grid_reduce_kernel<D, kKeys, TOut><<<grid, kReduceThreads, 0,
+                                                 stream>>>(
       offs, part_a, part_b, out_a, out_b, n_rows, n_other, w, n_split, scale,
       causal);
   return static_cast<int>(cudaGetLastError());
@@ -183,9 +195,10 @@ extern "C" int mx_flash_bwd_dq_grid_reduce_f32(const int* offs,
                                                float sm_scale, int causal,
                                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_DISPATCH_D((launch_reduce<D, false>(offs, dq_part, nullptr, dq,
-                                           nullptr, bh, sq, 0, wk, n_split,
-                                           sm_scale, causal, s)))
+  MX_DISPATCH_D((launch_reduce<D, false, float>(offs, dq_part, nullptr, dq,
+                                                  nullptr, bh, sq, 0, wk,
+                                                  n_split, sm_scale, causal,
+                                                  s)))
 }
 
 // dk, dv [bh, sk, d] = the sums of dk_part, dv_part [n_split, bh, sk, d]
@@ -198,7 +211,76 @@ extern "C" int mx_flash_bwd_dkv_grid_reduce_f32(const int* offs,
                                                 int wq, int n_split,
                                                 int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_DISPATCH_D((launch_reduce<D, true>(offs, dk_part, dv_part, dk, dv,
-                                          bh, sk, sq, wq, n_split, 1.f,
-                                          causal, s)))
+  MX_DISPATCH_D((launch_reduce<D, true, float>(offs, dk_part, dv_part, dk,
+                                                 dv, bh, sk, sq, wq, n_split,
+                                                 1.f, causal, s)))
+}
+
+// As mx_flash_bwd_dq_grid_f32 in bf16: q, k, v and dout bf16 (their bits
+// as uint16_t). n_split == 1: dq is the bf16 output [bh, sq, d]; else dq is
+// the unscaled float32 workspace [n_split, bh, sq, d], to be summed by
+// mx_flash_bwd_dq_grid_reduce_bf16.
+extern "C" int mx_flash_bwd_dq_grid_bf16(const uint16_t* q, const uint16_t* k,
+                                         const uint16_t* v, const int* offs,
+                                         const uint16_t* dout,
+                                         const float* lse, const float* deff,
+                                         void* dq, int bh, int sq, int sk,
+                                         int d, int wk, int n_split,
+                                         float sm_scale, int causal,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((mx_flash_bwd_bf16::launch_dq_bf16<D>(
+      q, k, v, offs, dout, lse, deff, static_cast<uint16_t*>(dq),
+      static_cast<float*>(dq), bh, sq, sk, wk, n_split, sm_scale, causal,
+      s)))
+}
+
+// As mx_flash_bwd_dkv_grid_f32 in bf16. n_split == 1: dk and dv are the
+// bf16 outputs [bh, sk, d]; else the float32 workspaces [n_split, bh, sk,
+// d], to be summed by mx_flash_bwd_dkv_grid_reduce_bf16.
+extern "C" int mx_flash_bwd_dkv_grid_bf16(const uint16_t* q,
+                                          const uint16_t* k,
+                                          const uint16_t* v, const int* offs,
+                                          const uint16_t* dout,
+                                          const float* lse,
+                                          const float* deff, void* dk,
+                                          void* dv, int bh, int sq, int sk,
+                                          int d, int wq, int n_split,
+                                          float sm_scale, int causal,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((mx_flash_bwd_bf16::launch_dkv_bf16<D>(
+      q, k, v, offs, dout, lse, deff, static_cast<uint16_t*>(dk),
+      static_cast<uint16_t*>(dv), static_cast<float*>(dk),
+      static_cast<float*>(dv), bh, sq, sk, wq, n_split, sm_scale, causal,
+      s)))
+}
+
+// dq [bh, sq, d] bf16 = sm_scale * the float32 sum of dq_part over the key
+// splits each row sees, rounded once.
+extern "C" int mx_flash_bwd_dq_grid_reduce_bf16(const int* offs,
+                                                const float* dq_part,
+                                                uint16_t* dq, int bh, int sq,
+                                                int d, int wk, int n_split,
+                                                float sm_scale, int causal,
+                                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((launch_reduce<D, false, uint16_t>(
+      offs, dq_part, nullptr, dq, nullptr, bh, sq, 0, wk, n_split, sm_scale,
+      causal, s)))
+}
+
+// dk, dv [bh, sk, d] bf16 = the float32 sums of dk_part, dv_part over the
+// query splits that see each key, each rounded once.
+extern "C" int mx_flash_bwd_dkv_grid_reduce_bf16(const int* offs,
+                                                 const float* dk_part,
+                                                 const float* dv_part,
+                                                 uint16_t* dk, uint16_t* dv,
+                                                 int bh, int sq, int sk,
+                                                 int d, int wq, int n_split,
+                                                 int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((launch_reduce<D, true, uint16_t>(
+      offs, dk_part, dv_part, dk, dv, bh, sk, sq, wq, n_split, 1.f, causal,
+      s)))
 }

@@ -71,7 +71,8 @@ extern "C" int mx_flash_bwd_dq_bf16(const uint16_t* q, const uint16_t* k,
                                     int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MX_DISPATCH_D((mx_flash_bwd_bf16::launch_dq_bf16<D>(
-      q, k, v, offs, dout, lse, deff, dq, bh, sq, sk, sm_scale, causal, s)))
+      q, k, v, offs, dout, lse, deff, dq, nullptr, bh, sq, sk, sk, 1,
+      sm_scale, causal, s)))
 }
 
 extern "C" int mx_flash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k,
@@ -83,6 +84,6 @@ extern "C" int mx_flash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MX_DISPATCH_D((mx_flash_bwd_bf16::launch_dkv_bf16<D>(
-      q, k, v, offs, dout, lse, deff, dk, dv, bh, sq, sk, sm_scale, causal,
-      s)))
+      q, k, v, offs, dout, lse, deff, dk, dv, nullptr, nullptr, bh, sq, sk,
+      sq, 1, sm_scale, causal, s)))
 }

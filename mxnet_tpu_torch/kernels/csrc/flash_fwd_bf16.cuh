@@ -1,10 +1,15 @@
 // The flash-attention forward body in bf16 on the tensor cores, for Hopper
-// (sm_90a): one kernel, `template <int D, bool kOffs>`, one block per 64
-// query rows of one (b, h) walking the whole key axis. Two libraries
-// instantiate it beside the float32 body (flash_fwd.cuh), each with its own
-// C entry: flash_fwd.cu (TPU kernel _flash_fwd_kernel, #5; no offsets) and
-// flash_fwd_offs.cu (_flash_fwd_offs_kernel, #1; offsets read on the
-// device). The split-KV grid kernels (#6, #3) stay float32.
+// (sm_90a): one kernel, `template <int D, bool kOffs>`, over splits of the
+// key axis (blockIdx.z; w keys each), as the float32 body (flash_fwd.cuh).
+// Four libraries instantiate it beside the float32 body, each with its own
+// C entries:
+// - flash_fwd.cu (TPU kernel _flash_fwd_kernel, #5; no offsets) and
+//   flash_fwd_offs.cu (_flash_fwd_offs_kernel, #1; offsets read on the
+//   device): one split over the whole key axis, bf16 out;
+// - flash_fwd_grid.cu (_flash_fwd_grid_kernel, #6) and
+//   flash_fwd_offs_grid.cu (_flash_fwd_offs_grid_kernel, #3): the JAX
+//   call's splits, float32 partials into a workspace that the combine pass
+//   of flash_fwd_grid.cuh merges and rounds to bf16 once.
 //
 // Function, with the roundings of the reference kernel
 // (mxnet_tpu/kernels/flash_attention.py:205 and :285 on bf16 inputs; query
@@ -17,14 +22,22 @@
 //   p_ij   = exp(s_ij - m), l = sum p (float32, unrounded)
 //   O     += bf16(p_ij) v_j, float32 sums            (p.astype(v.dtype))
 //   out_i  = bf16(O_i / l_i),  lse_i = m_i + log l_i (float32)
-// Rows with no visible key get out = 0 and lse = -1e30 exactly.
+// over the keys of the block's split. Rows with no visible key get out = 0
+// and lse = -1e30 exactly. With n_split > 1 the block writes its split's
+// normalized partial O_i / l_i unrounded, in float32, and its lse into slot
+// `split` of the workspace [n_split, bh, sq, D] / [n_split, bh, sq] (the
+// reference carries acc, m and l in float32 scratch across its key blocks
+// and rounds once, at the last); a split that no row of the block can see
+// is dead and the block returns before loading anything (flash_split.cuh).
 //
 // Bound on one H100 SXM: operations 4 * B * H * sum_rows(visible keys) * D
 // (QK^T and PV) at the 989 TFLOP/s dense bf16 rate; bytes q, k, v and out
 // in bf16 and lse in float32, once each, at 3.35 TB/s. At (8, 8, 512, 64)
 // causal that is 2.15 GFLOP, 0.0022 ms, against 0.0052 ms of bytes: a
 // bytes-bound shape at this size. The serving shapes (q (1, 8, 256, 64)
-// on 512 keys) are latency bound: 32 blocks for 132 SMs.
+// on 512 keys) are latency bound: 32 blocks for 132 SMs. At the long
+// training shape (4, 8, 4096, 64) causal, 8 splits, 0.069 ms of operations
+// (plus the float32 workspace's bytes): operation bound.
 //
 // What the design does (bf16_mma.cuh):
 // - Products: one mma.sync.m16n8k16 bf16 product a 16 x 8 x 16 step; no
@@ -43,7 +56,8 @@
 //   while tile t computes. 40 KB of dynamic shared memory at D = 64.
 // - Masks as in the float32 body: tiles wholly visible skip the mask, a
 //   masked score becomes -1e30, whose exp2 is exactly 0; tiles past the
-//   causal frontier of the block's last row are never loaded; causal
+//   causal frontier of the block's last row are never loaded; a split
+//   range that is not a multiple of the tile is masked at its end; causal
 //   blocks launch heaviest first. A block owns its rows: no atomics, and
 //   two calls give identical bits.
 #pragma once
@@ -51,7 +65,7 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"      // bf16 mma.sync, fragments, staging
-#include "flash_split.cuh"   // kNeg
+#include "flash_split.cuh"   // the split geometry, kNeg
 
 namespace mx_flash_bf16 {
 // Internal linkage, as flash_fwd.cuh's body.
@@ -59,6 +73,7 @@ namespace {
 
 using namespace mx_bf;
 using mx_flash::kNeg;
+using mx_flash::live_kv_splits;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -73,13 +88,17 @@ constexpr size_t fwd_bf16_smem_bytes() {
   return sizeof(bf16) * (kRows * D + 4 * tile_rows<D>() * D);
 }
 
+// One block: 64 query rows of (b, h) = blockIdx.x, key split blockIdx.z of
+// width w (n_split == 1: w >= sk, the final bf16 out and lse into out and
+// lse; else the float32 partial into out_part and lse).
 template <int D, bool kOffs>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const int* __restrict__ offs, bf16* __restrict__ out,
-                      float* __restrict__ lse, int sq, int sk,
-                      float sm_scale, int causal) {
+                      float* __restrict__ out_part, float* __restrict__ lse,
+                      int sq, int sk, int w, int n_split, float sm_scale,
+                      int causal) {
   constexpr int kT = tile_rows<D>();
   constexpr int kNT = kT / 8;    // 8-key groups of a tile
   constexpr int kKT = kT / 16;   // 16-key steps of a tile
@@ -92,13 +111,21 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int bh = blockIdx.x;
   const int rb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int split = blockIdx.z;
+  const bool direct = n_split == 1;
   const int q0 = rb * kRows;
   const int q_base = kOffs ? offs[0] : 0;
   const int k_base = kOffs ? offs[1] : 0;
   const int last_q = q_base + min(q0 + kRows, sq) - 1;
-  // keys [0, k_hi) are seen by some row of the block
-  const int k_hi = causal ? min(sk, last_q - k_base + 1) : sk;
-  const int n_t = k_hi > 0 ? (k_hi + kT - 1) / kT : 0;
+  if (!direct &&
+      split >= live_kv_splits(last_q, k_base, w, n_split, causal))
+    return;   // dead: no row of the block sees a key of this split
+
+  // keys [k_lo, k_end) of the split, [k_lo, k_hi) seen by some row
+  const int k_lo = split * w;
+  const int k_end = min(k_lo + w, sk);
+  const int k_hi = causal ? min(k_end, last_q - k_base + 1) : k_end;
+  const int n_t = k_hi > k_lo ? (k_hi - k_lo + kT - 1) / kT : 0;
 
   const int warp = threadIdx.x >> 5;
   const int g = (threadIdx.x & 31) >> 2;
@@ -116,8 +143,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
     const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
     stage_bf<D, kRows>(qs, q + qoff * D, q0, sq);
-    stage_bf<D, kT>(kvs, kb, 0, sk);
-    stage_bf<D, kT>(kvs + kT * D, vb, 0, sk);
+    stage_bf<D, kT>(kvs, kb, k_lo, k_end);
+    stage_bf<D, kT>(kvs + kT * D, vb, k_lo, k_end);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
@@ -131,15 +158,15 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     for (int it = 0; it < n_t; ++it) {
-      const int kt0 = it * kT;
+      const int kt0 = k_lo + it * kT;
       const bf16* ks = kvs + (it & 1) * 2 * kT * D;
       const bf16* vs = ks + kT * D;
       cp_async_wait_all();
       __syncthreads();   // tile it landed; tile it - 1's reads are done
       if (it + 1 < n_t) {
         bf16* nk = kvs + ((it + 1) & 1) * 2 * kT * D;
-        stage_bf<D, kT>(nk, kb, kt0 + kT, sk);
-        stage_bf<D, kT>(nk + kT * D, vb, kt0 + kT, sk);
+        stage_bf<D, kT>(nk, kb, kt0 + kT, k_end);
+        stage_bf<D, kT>(nk + kT * D, vb, kt0 + kT, k_end);
         cp_async_commit();
       }
 
@@ -163,9 +190,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       }
 
-      // to log2 units; a tile wholly inside the keys and seen by every
+      // to log2 units; a tile wholly inside the split and seen by every
       // row of the block needs no mask
-      const bool masked = kt0 + kT > sk ||
+      const bool masked = kt0 + kT > k_end ||
                           (causal && k_base + kt0 + kT - 1 > q_base + q0);
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
@@ -174,7 +201,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           s[j][e] *= kLog2e;
           if (masked) {
             const int kj = kt0 + j * 8 + 2 * t + (e & 1);
-            if (!(kj < sk && (!causal || q_pos[e >> 1] >= k_base + kj)))
+            if (!(kj < k_end && (!causal || q_pos[e >> 1] >= k_base + kj)))
               s[j][e] = kNeg;
           }
         }
@@ -226,6 +253,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
+  // direct: the final (out, lse); else this split's slot of the workspace
+  const size_t base = direct ? 0 : static_cast<size_t>(split) * gridDim.x * sq;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float lr = l[h];
@@ -234,29 +263,42 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int i = q0 + wr + g + 8 * h;
     if (i >= sq) continue;
     const float denom = lr > 0.f ? lr : 1.f;
-    bf16* o = out + (qoff + i) * D + 2 * t;
+    if (direct) {
+      bf16* o = out + (qoff + i) * D + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kND; ++n)
-      store2(o + n * 8, acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
-    if (t == 0) lse[qoff + i] = lr > 0.f ? m[h] * kLn2 + logf(lr) : kNeg;
+      for (int n = 0; n < kND; ++n)
+        store2(o + n * 8, acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
+    } else {
+      float* o = out_part + (base + qoff + i) * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kND; ++n)
+        *reinterpret_cast<float2*>(o + n * 8) =
+            make_float2(acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
+    }
+    if (t == 0)
+      lse[base + qoff + i] = lr > 0.f ? m[h] * kLn2 + logf(lr) : kNeg;
   }
 }
 
 // The kernel with its dynamic shared memory allowed (the attribute set
 // once per instantiation, before any graph capture). Returns the CUDA
 // error of the launch.
+// out: the bf16 output (n_split == 1); out_part: the float32 workspace
+// (n_split > 1).
 template <int D, bool kOffs>
 int launch_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
-                    const int* offs, bf16* out, float* lse, int bh, int sq,
-                    int sk, float sm_scale, int causal, cudaStream_t stream) {
+                    const int* offs, bf16* out, float* out_part, float* lse,
+                    int bh, int sq, int sk, int w, int n_split,
+                    float sm_scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = fwd_bf16_smem_bytes<D>();
   static const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel<D, kOffs>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (sq + kRows - 1) / kRows);
+  const dim3 grid(bh, (sq + kRows - 1) / kRows, n_split);
   flash_fwd_bf16_kernel<D, kOffs><<<grid, kThreads, smem, stream>>>(
-      q, k, v, offs, out, lse, sq, sk, sm_scale, causal);
+      q, k, v, offs, out, out_part, lse, sq, sk, w, n_split, sm_scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,5 +44,6 @@ extern "C" int mx_flash_fwd_offs_bf16(const uint16_t* q, const uint16_t* k,
                                       int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MX_DISPATCH_D((mx_flash_bf16::launch_fwd_bf16<D, true>(
-      q, k, v, offs, out, lse, bh, sq, sk, sm_scale, causal, s)))
+      q, k, v, offs, out, nullptr, lse, bh, sq, sk, sk, 1, sm_scale,
+      causal, s)))
 }

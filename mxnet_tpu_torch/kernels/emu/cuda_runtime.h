@@ -55,6 +55,8 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
 
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};

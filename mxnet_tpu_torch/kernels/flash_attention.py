@@ -35,14 +35,15 @@ Counterpart of ``mxnet_tpu/kernels/flash_attention.py``. Shapes follow
   tensors they launch the kernels or raise; on CPU tensors they run the
   plain versions; any other device raises. There is no fallback from the
   card to the plain version, nor from one variant to the other.
-- Dtypes: float32 everywhere; bfloat16 in the stream kernels (#1, #5 and
-  #2: ``csrc/flash_fwd_bf16.cuh`` and ``csrc/flash_bwd_bf16.cuh``, one
-  bf16 tensor-core product a step), whose plain versions then round where
-  the JAX kernels round on bf16 inputs: q folded and rounded, scores,
-  softmax statistics and every sum in float32, ``p`` and ``ds`` rounded
-  to the operand's dtype before their products, outputs rounded at the
-  end, lse float32. float16, and bfloat16 into the grid kernels, are not
-  yet ported and raise (ROADMAP A4).
+- Dtypes: float32 and bfloat16 in every kernel. bf16 takes the bf16
+  bodies (``csrc/flash_fwd_bf16.cuh`` and ``csrc/flash_bwd_bf16.cuh``,
+  one bf16 tensor-core product a step), the grid kernels over the same
+  splits with float32 partials and a combine or reduce pass that rounds
+  once; their plain versions round where the JAX kernels round on bf16
+  inputs: q folded and rounded, scores, softmax statistics, split
+  partials and every sum in float32, ``p`` and ``ds`` rounded to the
+  operand's dtype before their products, outputs rounded once at the
+  end, lse float32. float16 is not yet ported and raises (ROADMAP B2).
 - ``resolve_kernel_tier`` keeps the JAX package's tier vocabulary
   (``MXNET_SERVING_DECODE_FLASH``, ``MXNET_TPU_MESH_KERNEL_TIER``): auto |
   1/on | 0/off, where ``interpret`` has no counterpart (a CUDA kernel has
@@ -77,10 +78,11 @@ _NEG_INF = -1e30
 #: ``launches_fwd_offs_grid_combine`` (``flash_fwd_offs_grid.cu``),
 #: ``launches_bwd_dq_grid`` / ``launches_bwd_dkv_grid`` and their
 #: ``_reduce`` passes (``flash_bwd_grid.cu``). A combine or reduce pass
-#: runs only when there is more than one split. ``launches_bf16``,
-#: ``launches_fwd_bf16``, ``launches_bwd_dq_bf16`` and
-#: ``launches_bwd_dkv_bf16`` count the bf16 instantiations of the stream
-#: kernels (the same libraries, entries ``mx_*_bf16``).
+#: runs only when there is more than one split. Each counter's ``_bf16``
+#: sibling (``launches_bf16``, ``launches_fwd_grid_bf16``,
+#: ``launches_bwd_dkv_grid_reduce_bf16``, ...) counts the bf16
+#: instantiation of the same kernel (the same library, entry
+#: ``mx_*_bf16``).
 launches = 0
 launches_fwd = 0
 launches_bwd_dq = 0
@@ -97,6 +99,14 @@ launches_bf16 = 0
 launches_fwd_bf16 = 0
 launches_bwd_dq_bf16 = 0
 launches_bwd_dkv_bf16 = 0
+launches_fwd_grid_bf16 = 0
+launches_fwd_grid_combine_bf16 = 0
+launches_fwd_offs_grid_bf16 = 0
+launches_fwd_offs_grid_combine_bf16 = 0
+launches_bwd_dq_grid_bf16 = 0
+launches_bwd_dq_grid_reduce_bf16 = 0
+launches_bwd_dkv_grid_bf16 = 0
+launches_bwd_dkv_grid_reduce_bf16 = 0
 
 _HEAD_DIMS = (32, 64, 128)
 # the split unit, 32 rows (the kernels walk 64-row tiles, 32 at D = 128,
@@ -191,28 +201,40 @@ def blockwise_attention(q, k, v, *, causal=False, sm_scale=None,
     return out.to(q.dtype), lse
 
 
-def _attention_rounded(q, k, v, causal, q_offset, k_offset, sm_scale):
-    """(out, lse) of the stream forward on low-precision inputs, rounded
-    where the JAX kernels round (``_flash_fwd_kernel`` L205-260): the
-    folded q in q's dtype, scores and softmax statistics in float32,
-    ``p = exp(s - m)`` against the row max rounded to v's dtype before
-    ``p @ v`` with a float32 sum, out rounded to q's dtype at the end. The
-    kernels take the max over key tiles as they go; this takes the row's
-    max at once, so ``p`` rounds at another scale (within a bf16 ulp of
-    out). A row with no visible key gets out 0 and lse -1e30."""
-    qs = _fold_scale(q, sm_scale)
+def _rounded_parts(qs, k, v, causal, q_offset, k_offset):
+    """(out, lse) in float32 of the stream forward's maths on
+    low-precision inputs, before the output's rounding: ``qs`` the folded
+    q in q's dtype, scores and softmax statistics in float32, ``p = exp(s
+    - m)`` against the row max rounded to v's dtype before ``p @ v`` with
+    a float32 sum, out normalized in float32. A row with no visible key
+    gets out 0 and lse -1e30."""
     s = torch.einsum("...qd,...kd->...qk", qs.float(), k.float())
     if causal:
-        s = torch.where(_visible(q.shape[-2], k.shape[-2], q_offset,
-                                 k_offset, q.device), s, _NEG_INF)
+        s = torch.where(_visible(qs.shape[-2], k.shape[-2], q_offset,
+                                 k_offset, qs.device), s, _NEG_INF)
     m = s.amax(-1)
     m_safe = torch.where(m > _NEG_INF / 2, m, 0.0)
     p = torch.exp(s - m_safe[..., None])
     l = p.sum(-1)
     o = torch.einsum("...qk,...kd->...qd", p.to(v.dtype).float(), v.float())
     denom = torch.where(l > 0.0, l, 1.0)
-    out = (o / denom[..., None]).to(q.dtype)
-    return out, torch.where(l > 0.0, m_safe + torch.log(denom), _NEG_INF)
+    return (o / denom[..., None],
+            torch.where(l > 0.0, m_safe + torch.log(denom), _NEG_INF))
+
+
+def _attention_rounded(q, k, v, causal, q_offset, k_offset, sm_scale):
+    """(out, lse) of the stream forward on low-precision inputs, rounded
+    where the JAX kernels round (``_flash_fwd_kernel`` L205-260): the
+    folded q in q's dtype, scores and softmax statistics in float32,
+    ``p = exp(s - m)`` against the row max rounded to v's dtype before
+    ``p @ v`` with a float32 sum, out rounded to q's dtype at the end
+    (:func:`_rounded_parts`). The kernels take the max over key tiles as
+    they go; this takes the row's max at once, so ``p`` rounds at another
+    scale (within a bf16 ulp of out). A row with no visible key gets out
+    0 and lse -1e30."""
+    out, lse = _rounded_parts(_fold_scale(q, sm_scale), k, v, causal,
+                              q_offset, k_offset)
+    return out.to(q.dtype), lse
 
 
 def flash_fwd_offs_plain(q, k, v, offs, sm_scale=None, causal=True):
@@ -345,25 +367,40 @@ def fwd_grid_parts(q, k, v, q0, k0, sm_scale, causal, block_k):
     """The split forward's per-split partials ``(out_part [n_split, ...,
     sq, D], lse_part [n_split, ..., sq])``: each split's own softmax over
     its :func:`split_width` ``(block_k)`` keys, with the kernel's folded
-    scale; a row that sees no key of a split holds (0, -1e30) there."""
+    scale; a row that sees no key of a split holds (0, -1e30) there.
+    Inputs that are not float32 take the stream forward's roundings
+    (:func:`_rounded_parts`: scores, statistics and sums in float32, ``p``
+    rounded before ``p @ v``) and give float32 partials, as the JAX grid
+    kernels carry their float32 scratch across key blocks."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     qs = _fold_scale(q, sm_scale)
     sk = k.shape[-2]
-    parts = [attention_with_lse(qs, k[..., sl, :], v[..., sl, :],
-                                causal=causal, sm_scale=1.0, q_offset=q0,
-                                k_offset=k0 + sl.start)
-             for sl in _splits(sk, split_width(block_k, sk))]
+    if q.dtype == torch.float32:
+        def part(sl):
+            return attention_with_lse(qs, k[..., sl, :], v[..., sl, :],
+                                      causal=causal, sm_scale=1.0,
+                                      q_offset=q0, k_offset=k0 + sl.start)
+    else:
+        def part(sl):
+            return _rounded_parts(qs, k[..., sl, :], v[..., sl, :], causal,
+                                  q0, k0 + sl.start)
+    parts = [part(sl) for sl in _splits(sk, split_width(block_k, sk))]
     return (torch.stack([o for o, _ in parts]),
             torch.stack([l for _, l in parts]))
 
 
 def _fwd_grid_plain(q, k, v, q0, k0, sm_scale, causal, block_k):
+    """(out, lse): the partials merged (one split: its partial), out
+    rounded to q's dtype once, at the end; lse float32 for inputs that
+    are not float32."""
     out_part, lse_part = fwd_grid_parts(q, k, v, q0, k0, sm_scale, causal,
                                         block_k)
     if out_part.shape[0] == 1:     # one split: its partial is the result
-        return out_part[0], lse_part[0]
-    return _combine_splits(out_part, lse_part)
+        out, lse = out_part[0], lse_part[0]
+    else:
+        out, lse = _combine_splits(out_part, lse_part)
+    return out.to(q.dtype), lse
 
 
 def flash_fwd_grid_plain(q, k, v, sm_scale=None, causal=False, block_k=512):
@@ -406,17 +443,24 @@ def bwd_grid_parts(q, k, v, offs, do, dlse, out, lse, sm_scale, causal,
     """The split backward's per-split partials in float32: unscaled
     ``dq`` over key splits of :func:`split_width` ``(block_k)``, ``dk`` and
     ``dv`` over query splits of ``split_width(block_q)``, each stacked on
-    a leading split axis; a split a row (key) cannot see holds zeros."""
+    a leading split axis; a split a row (key) cannot see holds zeros.
+    ``ds`` and ``p`` round to the dtype of the operand they meet before
+    each product, as in :func:`flash_bwd_offs_plain` (no-ops on float32);
+    the partials stay float32."""
     qs, p, ds = _bwd_terms(q, k, v, offs, do, dlse, out, lse, sm_scale,
                            causal)
+    do = do.to(v.dtype)
     sq, sk = q.shape[-2], k.shape[-2]
     kf, qsf, dof = k.float(), qs.float(), do.float()
-    dq = torch.stack([ds[..., sl] @ kf[..., sl, :]
+    ds_k = ds.to(k.dtype).float()
+    ds_q = ds.to(qs.dtype).float()
+    p_do = p.to(do.dtype).float()
+    dq = torch.stack([ds_k[..., sl] @ kf[..., sl, :]
                       for sl in _splits(sk, split_width(block_k, sk))])
     q_splits = _splits(sq, split_width(block_q, sq))
-    dk = torch.stack([ds[..., sl, :].transpose(-1, -2) @ qsf[..., sl, :]
+    dk = torch.stack([ds_q[..., sl, :].transpose(-1, -2) @ qsf[..., sl, :]
                       for sl in q_splits])
-    dv = torch.stack([p[..., sl, :].transpose(-1, -2) @ dof[..., sl, :]
+    dv = torch.stack([p_do[..., sl, :].transpose(-1, -2) @ dof[..., sl, :]
                       for sl in q_splits])
     return dq, dk, dv
 
@@ -496,9 +540,12 @@ _ENTRIES = {
     "mx_flash_bwd_dkv_bf16": ("flash_bwd_offs",
                               [_P] * 9 + [_I] * 4 + [_F, _I, _P]),
 }
-#: what the stream kernels take (entries ``*_f32`` and ``*_bf16``); the
-#: grid kernels take float32 only
-_STREAM_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the grid kernels' bf16 entries take the float32 entries' arguments (an
+# output is bf16 with one split, the float32 workspace with several)
+_ENTRIES.update({name[:-3] + "bf16": spec for name, spec in _ENTRIES.items()
+                 if "_grid" in name})
+#: what the kernels take, -> the suffix of their C entries
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _fns = {}
 
 
@@ -525,19 +572,20 @@ def _launch(name, *args, device):
         raise MXNetError("%s launch failed: CUDA error %d" % (name, err))
 
 
+def _count(counter, suffix):
+    """One launch more on ``counter``, or on its ``_bf16`` sibling."""
+    name = counter if suffix == "f32" else counter + "_" + suffix
+    globals()[name] += 1
+
+
 def _check(where, name, t, device, dtype, ndim):
     if t.device != device:
         raise MXNetError("%s: %s on %s, q on %s" % (where, name, t.device,
                                                     device))
     if t.dtype == torch.float16 and dtype != torch.float16:
         raise MXNetError("%s: %s is float16: the attention kernels' float16 "
-                         "path is not yet ported (ROADMAP A4); they take "
-                         "float32 and, in variant 'stream', bfloat16"
-                         % (where, name))
-    if t.dtype == torch.bfloat16 and dtype == torch.float32:
-        raise MXNetError("%s: %s is bfloat16: the grid kernels' bfloat16 "
-                         "path is not yet ported (ROADMAP A4); variant "
-                         "'stream' takes it" % (where, name))
+                         "path is not yet ported (ROADMAP B2); they take "
+                         "float32 and bfloat16" % (where, name))
     if t.dtype != dtype:
         raise MXNetError("%s: %s is %s, the kernel takes %s"
                          % (where, name, t.dtype, dtype))
@@ -548,12 +596,12 @@ def _check(where, name, t, device, dtype, ndim):
         raise MXNetError("%s: %s is not contiguous" % (where, name))
 
 
-def _check_qkv(where, q, k, v, offs=None, dtypes=(torch.float32,)):
+def _check_qkv(where, q, k, v, offs=None):
     """Shapes (b, h, sq, d) / (b, h, sk, d), contiguous, one device, q's
-    dtype one of ``dtypes`` and k's and v's the same; d in the kernels'
+    dtype one of ``_DTYPES`` and k's and v's the same; d in the kernels'
     set. -> (b, h, sq, sk, d)."""
     dev = q.device
-    dtype = q.dtype if q.dtype in dtypes else torch.float32
+    dtype = q.dtype if q.dtype in _DTYPES else torch.float32
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(where, name, t, dev, dtype, 4)
     if offs is not None:
@@ -572,11 +620,10 @@ def _check_qkv(where, q, k, v, offs=None, dtypes=(torch.float32,)):
     return b, h, sq, sk, d
 
 
-def _check_bwd(where, q, k, v, offs, do, deff, lse,
-               dtypes=(torch.float32,)):
+def _check_bwd(where, q, k, v, offs, do, deff, lse):
     """The backward kernels' inputs (``_check_qkv`` plus do in q's dtype,
     lse and deff in float32)."""
-    b, h, sq, sk, d = _check_qkv(where, q, k, v, offs, dtypes)
+    b, h, sq, sk, d = _check_qkv(where, q, k, v, offs)
     _check(where, "do", do, q.device, q.dtype, 4)
     if tuple(do.shape) != tuple(q.shape):
         raise MXNetError("%s: do %s, want %s" % (where, tuple(do.shape),
@@ -592,73 +639,55 @@ def _check_bwd(where, q, k, v, offs, do, deff, lse,
 
 def _flash_fwd_offs_cuda(q, k, v, offs, sm_scale, causal):
     """(out, lse) by ``flash_fwd_offs.cu`` (#1), float32 or bf16."""
-    global launches, launches_bf16
-    b, h, sq, sk, d = _check_qkv("flash_attention_with_lse", q, k, v, offs,
-                                 _STREAM_DTYPES)
+    b, h, sq, sk, d = _check_qkv("flash_attention_with_lse", q, k, v, offs)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * h * sq == 0:
         return out, lse
-    suffix = _STREAM_DTYPES[q.dtype]
+    suffix = _DTYPES[q.dtype]
     _launch("mx_flash_fwd_offs_" + suffix, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), offs.data_ptr(), out.data_ptr(), lse.data_ptr(),
             b * h, sq, sk, d, float(sm_scale), int(bool(causal)),
             device=q.device)
-    if suffix == "f32":
-        launches += 1
-    else:
-        launches_bf16 += 1
+    _count("launches", suffix)
     return out, lse
 
 
 def _flash_fwd_cuda(q, k, v, sm_scale, causal):
     """(out, lse) by ``flash_fwd.cu`` (#5), float32 or bf16."""
-    global launches_fwd, launches_fwd_bf16
-    b, h, sq, sk, d = _check_qkv("flash_attention", q, k, v,
-                                 dtypes=_STREAM_DTYPES)
+    b, h, sq, sk, d = _check_qkv("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * h * sq == 0:
         return out, lse
-    suffix = _STREAM_DTYPES[q.dtype]
+    suffix = _DTYPES[q.dtype]
     _launch("mx_flash_fwd_" + suffix, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(), b * h, sq, sk, d,
             float(sm_scale), int(bool(causal)), device=q.device)
-    if suffix == "f32":
-        launches_fwd += 1
-    else:
-        launches_fwd_bf16 += 1
+    _count("launches_fwd", suffix)
     return out, lse
 
 
 def _flash_bwd_cuda(q, k, v, offs, do, deff, lse, sm_scale, causal):
     """dq, dk, dv by the backward pair (#2), float32 or bf16. ``deff`` is
     ``_deff``'s output; ``do`` is in q's dtype."""
-    global launches_bwd_dq, launches_bwd_dkv
-    global launches_bwd_dq_bf16, launches_bwd_dkv_bf16
     b, h, sq, sk, d = _check_bwd("flash attention backward", q, k, v, offs,
-                                 do, deff, lse, _STREAM_DTYPES)
+                                 do, deff, lse)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if b * h * sq == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    suffix = _STREAM_DTYPES[q.dtype]
+    suffix = _DTYPES[q.dtype]
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
               do.data_ptr(), lse.data_ptr(), deff.data_ptr())
     tail = (b * h, sq, sk, d, float(sm_scale), int(bool(causal)))
     _launch("mx_flash_bwd_dq_" + suffix, *common, dq.data_ptr(), *tail,
             device=q.device)
-    if suffix == "f32":
-        launches_bwd_dq += 1
-    else:
-        launches_bwd_dq_bf16 += 1
+    _count("launches_bwd_dq", suffix)
     _launch("mx_flash_bwd_dkv_" + suffix, *common, dk.data_ptr(),
             dv.data_ptr(), *tail, device=q.device)
-    if suffix == "f32":
-        launches_bwd_dkv += 1
-    else:
-        launches_bwd_dkv_bf16 += 1
+    _count("launches_bwd_dkv", suffix)
     return dq, dk, dv
 
 
@@ -669,13 +698,12 @@ def _check_width(where, width):
 
 
 def _flash_fwd_grid_cuda(q, k, v, offs, sm_scale, causal, width):
-    """(out, lse) by the split-KV forward: ``flash_fwd_offs_grid.cu`` (#3)
-    with ``offs``, ``flash_fwd_grid.cu`` (#6) when ``offs`` is None. Pass
-    1 over ``ceil(sk / width)`` key splits, then, with more than one, the
-    combine pass over a float32 workspace allocated here on q's device
-    (the caller's stream orders its reuse)."""
-    global launches_fwd_grid, launches_fwd_grid_combine
-    global launches_fwd_offs_grid, launches_fwd_offs_grid_combine
+    """(out, lse) by the split-KV forward, float32 or bf16:
+    ``flash_fwd_offs_grid.cu`` (#3) with ``offs``, ``flash_fwd_grid.cu``
+    (#6) when ``offs`` is None. Pass 1 over ``ceil(sk / width)`` key
+    splits, then, with more than one, the combine pass over a float32
+    workspace allocated here on q's device (the caller's stream orders its
+    reuse), which writes out in q's dtype."""
     where = "flash_attention%s(variant='grid')" % (
         "" if offs is None else "_with_lse")
     b, h, sq, sk, d = _check_qkv(where, q, k, v, offs)
@@ -684,6 +712,7 @@ def _flash_fwd_grid_cuda(q, k, v, offs, sm_scale, causal, width):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b * h * sq == 0:
         return out, lse
+    suffix = _DTYPES[q.dtype]
     n_split = len(_splits(sk, width))
     if n_split == 1:
         dst_out, dst_lse = out, lse
@@ -695,37 +724,38 @@ def _flash_fwd_grid_cuda(q, k, v, offs, sm_scale, causal, width):
     geo = (b * h, sq, sk, d, width, n_split, float(sm_scale),
            int(bool(causal)))
     if offs is None:
-        _launch("mx_flash_fwd_grid_f32", q.data_ptr(), k.data_ptr(),
+        _launch("mx_flash_fwd_grid_" + suffix, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), dst_out.data_ptr(), dst_lse.data_ptr(), *geo,
                 device=q.device)
-        launches_fwd_grid += 1
+        _count("launches_fwd_grid", suffix)
     else:
-        _launch("mx_flash_fwd_offs_grid_f32", q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), offs.data_ptr(), dst_out.data_ptr(),
-                dst_lse.data_ptr(), *geo, device=q.device)
-        launches_fwd_offs_grid += 1
+        _launch("mx_flash_fwd_offs_grid_" + suffix, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), offs.data_ptr(),
+                dst_out.data_ptr(), dst_lse.data_ptr(), *geo,
+                device=q.device)
+        _count("launches_fwd_offs_grid", suffix)
     if n_split > 1:
         tail = (dst_out.data_ptr(), dst_lse.data_ptr(), out.data_ptr(),
                 lse.data_ptr(), b * h, sq, d, width, n_split,
                 int(bool(causal)))
         if offs is None:
-            _launch("mx_flash_fwd_grid_combine_f32", *tail, device=q.device)
-            launches_fwd_grid_combine += 1
+            _launch("mx_flash_fwd_grid_combine_" + suffix, *tail,
+                    device=q.device)
+            _count("launches_fwd_grid_combine", suffix)
         else:
-            _launch("mx_flash_fwd_offs_grid_combine_f32", offs.data_ptr(),
-                    *tail, device=q.device)
-            launches_fwd_offs_grid_combine += 1
+            _launch("mx_flash_fwd_offs_grid_combine_" + suffix,
+                    offs.data_ptr(), *tail, device=q.device)
+            _count("launches_fwd_offs_grid_combine", suffix)
     return out, lse
 
 
 def _flash_bwd_grid_cuda(q, k, v, offs, do, deff, lse, sm_scale, causal,
                          splits):
-    """dq, dk, dv by ``flash_bwd_grid.cu`` (#4): dq over key splits of
-    ``splits[1]`` keys, dk/dv over query splits of ``splits[0]`` rows, each
-    followed by its reduce pass when there is more than one split.
-    ``deff`` is ``_deff``'s output."""
-    global launches_bwd_dq_grid, launches_bwd_dq_grid_reduce
-    global launches_bwd_dkv_grid, launches_bwd_dkv_grid_reduce
+    """dq, dk, dv by ``flash_bwd_grid.cu`` (#4), float32 or bf16: dq over
+    key splits of ``splits[1]`` keys, dk/dv over query splits of
+    ``splits[0]`` rows, each followed by its reduce pass (float32
+    workspaces; the outputs in q's dtype) when there is more than one
+    split. ``deff`` is ``_deff``'s output."""
     where = "flash attention backward (variant='grid')"
     b, h, sq, sk, d = _check_bwd(where, q, k, v, offs, do, deff, lse)
     wq, wk = splits
@@ -736,6 +766,7 @@ def _flash_bwd_grid_cuda(q, k, v, offs, do, deff, lse, sm_scale, causal,
     dv = torch.empty_like(v)
     if b * h * sq == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    suffix = _DTYPES[q.dtype]
     nq, nk = len(_splits(sq, wq)), len(_splits(sk, wk))
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
               do.data_ptr(), lse.data_ptr(), deff.data_ptr())
@@ -747,25 +778,25 @@ def _flash_bwd_grid_cuda(q, k, v, offs, do, deff, lse, sm_scale, causal,
                            device=dev)
 
     dq_dst = dq if nk == 1 else workspace(nk, q)
-    _launch("mx_flash_bwd_dq_grid_f32", *common, dq_dst.data_ptr(),
+    _launch("mx_flash_bwd_dq_grid_" + suffix, *common, dq_dst.data_ptr(),
             b * h, sq, sk, d, wk, nk, *flags, device=dev)
-    launches_bwd_dq_grid += 1
+    _count("launches_bwd_dq_grid", suffix)
     if nk > 1:
-        _launch("mx_flash_bwd_dq_grid_reduce_f32", offs.data_ptr(),
+        _launch("mx_flash_bwd_dq_grid_reduce_" + suffix, offs.data_ptr(),
                 dq_dst.data_ptr(), dq.data_ptr(), b * h, sq, d, wk, nk,
                 *flags, device=dev)
-        launches_bwd_dq_grid_reduce += 1
+        _count("launches_bwd_dq_grid_reduce", suffix)
     dk_dst, dv_dst = (dk, dv) if nq == 1 else (workspace(nq, k),
                                                workspace(nq, v))
-    _launch("mx_flash_bwd_dkv_grid_f32", *common, dk_dst.data_ptr(),
+    _launch("mx_flash_bwd_dkv_grid_" + suffix, *common, dk_dst.data_ptr(),
             dv_dst.data_ptr(), b * h, sq, sk, d, wq, nq, *flags, device=dev)
-    launches_bwd_dkv_grid += 1
+    _count("launches_bwd_dkv_grid", suffix)
     if nq > 1:
-        _launch("mx_flash_bwd_dkv_grid_reduce_f32", offs.data_ptr(),
+        _launch("mx_flash_bwd_dkv_grid_reduce_" + suffix, offs.data_ptr(),
                 dk_dst.data_ptr(), dv_dst.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), b * h, sq, sk, d, wq, nq, flags[1],
                 device=dev)
-        launches_bwd_dkv_grid_reduce += 1
+        _count("launches_bwd_dkv_grid_reduce", suffix)
     return dq, dk, dv
 
 

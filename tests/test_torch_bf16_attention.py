@@ -8,6 +8,15 @@ JAX package's Pallas kernels in interpret mode, on the same bf16 inputs.
   rows see no key;
 - #2 ``flash_bwd_offs_plain`` against ``_flash_bwd_offs_pallas`` with an
   lse cotangent, from the JAX forward's own out and lse;
+- the split-KV ("grid") plain versions against the JAX grid kernels: #6
+  ``flash_fwd_grid_plain`` against ``_flash_fwd_grid_pallas``, #3
+  ``flash_fwd_offs_grid_plain`` against ``_flash_fwd_offs_grid_pallas``
+  (an offset whose first rows see no key) and #4
+  ``flash_bwd_offs_grid_plain`` against ``_flash_bwd_offs_grid_pallas``,
+  with one split and with several; at one split the plain grid forward
+  and backward are bit for bit the stream plain versions (the repairs of
+  ROADMAP C4 and C5: float32 scores, statistics and partials, ``p`` and
+  ``ds`` rounded before their products, the output rounded once);
 - the CPU path of the autograd Functions (``flash_attention_with_lse``,
   ``flash_attention(use_pallas=True)`` on CPU tensors raises, so the
   Function itself) carries bf16 through: bf16 out and grads, float32 lse.
@@ -120,6 +129,71 @@ def test_backward_pair_plain_matches_pallas(d, offs):
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         assert g.dtype == torch.bfloat16 and r.dtype == jnp.bfloat16, name
         assert row_ulps(_t(g), _t(r)) <= BF16_ULPS, name
+
+
+@pytest.mark.parametrize("causal,block", [(True, 128), (True, 32),
+                                          (False, 64)])
+def test_grid_forward_plain_matches_pallas(causal, block):
+    """#6 with one split (block 128) and with 4 or 2; at one split bit for
+    bit the stream plain forward."""
+    (q, k, v), (jq, jk, jv) = _bf16(5, *[(1, 2, 128, 64)] * 3)
+    ref = jfa._flash_fwd_grid_pallas(jq, jk, jv, 0.125, causal, block, block,
+                                     interpret=True)
+    got = tfa.flash_fwd_grid_plain(q, k, v, 0.125, causal, block)
+    _hold_fwd(*got, *ref)
+    if block == 128:
+        want = tfa.flash_fwd_plain(q, k, v, 0.125, causal)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("offs,block_k", [((0, 0), 128), ((64, 0), 32),
+                                          ((0, 32), 64)])
+def test_grid_offset_forward_plain_matches_pallas(offs, block_k):
+    """#3 at the start, one chunk in with 4 key splits, and at an offset
+    whose first rows see no key (2 splits, the second dead for them); at
+    one split bit for bit the stream plain offset forward."""
+    (q, k, v), (jq, jk, jv) = _bf16(6, (1, 2, 64, 64), (1, 2, 128, 64),
+                                    (1, 2, 128, 64))
+    toffs = torch.tensor(offs, dtype=torch.int32)
+    ref = jfa._flash_fwd_offs_grid_pallas(jq, jk, jv, jnp.asarray(
+        offs, jnp.int32), 0.125, True, 64, block_k, interpret=True)
+    got = tfa.flash_fwd_offs_grid_plain(q, k, v, toffs, 0.125, True, block_k)
+    _hold_fwd(*got, *ref)
+    if block_k == 128:
+        want = tfa.flash_fwd_offs_plain(q, k, v, toffs, 0.125, True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if offs[1] > offs[0]:
+        assert (_np(ref[1])[..., :offs[1] - offs[0]] == NEG).all()
+
+
+@pytest.mark.parametrize("offs,blocks", [((0, 0), (128, 128)),
+                                         ((0, 0), (32, 64)),
+                                         ((32, 0), (64, 32))])
+def test_grid_backward_plain_matches_pallas(offs, blocks):
+    """#4 with an lse cotangent from the JAX grid forward's out and lse,
+    with one split on each axis and with several; at one split bit for
+    bit the stream plain backward."""
+    (q, k, v, do), (jq, jk, jv, jdo) = _bf16(7, *[(1, 2, 128, 64)] * 4)
+    dlse = np.random.RandomState(8).standard_normal((1, 2, 128)).astype(
+        np.float32)
+    bq, bk = blocks
+    joffs = jnp.asarray(offs, jnp.int32)
+    jout, jlse = jfa._flash_fwd_offs_grid_pallas(jq, jk, jv, joffs, 0.125,
+                                                 True, bq, bk, interpret=True)
+    ref = jfa._flash_bwd_offs_grid_pallas(jq, jk, jv, joffs, jdo,
+                                          jnp.asarray(dlse), jout, jlse,
+                                          0.125, True, bq, bk,
+                                          interpret=True)
+    args = (q, k, v, torch.tensor(offs, dtype=torch.int32), do,
+            torch.from_numpy(dlse), torch.tensor(_np(jout)).to(torch.bfloat16),
+            torch.tensor(_np(jlse)), 0.125, True)
+    got = tfa.flash_bwd_offs_grid_plain(*args, bq, bk)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == torch.bfloat16 and r.dtype == jnp.bfloat16, name
+        assert row_ulps(_t(g), _t(r)) <= BF16_ULPS, name
+    if blocks == (128, 128):
+        want = tfa.flash_bwd_offs_plain(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_autograd_functions_carry_bf16_on_the_cpu():

@@ -20,7 +20,9 @@ the params' dtype, bf16.
   top logit (a tie at bf16's resolution, which the JAX step's float32
   attention and the port's bf16 one may break either way), and the port's
   batched streams equal its solo streams bit for bit.
-- Training: one step of ``ShardedTrainStep`` (Adam, grad_clip 1.0; SGD
+- Training: the loss and gradients of one batch, also through the grid
+  (split-KV) attention kernels at 64 tokens; one step of
+  ``ShardedTrainStep`` (Adam, grad_clip 1.0; SGD
   with momentum) from the same bf16 params and batch. The dtypes each
   step leaves are pinned as read from the JAX run: Adam returns float32
   params and float32 m and v (its float32 corr and clip scale promote
@@ -205,9 +207,18 @@ def _err(got, want):
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def test_bf16_loss_and_grads_match_jax(models, monkeypatch):
+@pytest.mark.parametrize("variant,seq", [("stream", 16), ("grid", 64)])
+def test_bf16_loss_and_grads_match_jax(models, monkeypatch, variant, seq):
+    """The loss and gradients of one batch. ``"grid"``: the long-context
+    variant at the model's max_len, 64 tokens, so its 16-key blocks are
+    several key splits (the JAX grid kernels' 4 blocks, the port's 32-key
+    split unit: 2 splits)."""
     jcfg, tcfg, jparams, tparams = models
-    tokens, targets = _batch(1)
+    jcfg = jt.TransformerConfig(**KW, dtype=jnp.bfloat16,
+                                attn_variant=variant)
+    tcfg = tt.TransformerConfig(**KW, dtype=torch.bfloat16,
+                                attn_variant=variant)
+    tokens, targets = _batch(1, s=seq)
     monkeypatch.setenv(TIER, "interpret")
     ref_loss, ref_grads = jax.value_and_grad(jt.transformer_loss)(
         jparams, jnp.asarray(tokens), jnp.asarray(targets), jcfg)

@@ -244,3 +244,108 @@ def test_bf16_backward_pair_kernels(emu, d, q0, k0):
     assert max(ulps) <= BF16_ULPS, ulps
     if k0 > q0:   # rows that see no key, keys no row sees: exactly 0
         assert (dq[..., :k0 - q0, :].float() == 0).all()
+
+
+# ---------------------------------------------------------- bf16 grid ----
+
+def _forward_grid_bf16(emu, q, k, v, causal, width, offs=None):
+    """(out, lse) through #6 (``offs`` None) or #3 in bf16 and, with more
+    than one split, the bf16 combine pass over the float32 workspace."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    n = len(tfa._splits(sk, width))
+    out = torch.full_like(q, math.nan)
+    lse = torch.full((b, h, sq), math.nan)
+    if n == 1:
+        dst = (out, lse)
+    else:
+        dst = (torch.full((n, b, h, sq, d), math.nan),
+               torch.full((n, b, h, sq), math.nan))
+    geo = [b * h, sq, sk, d, width, n, 1.0 / math.sqrt(d), int(causal)]
+    pre = [] if offs is None else [offs]
+    name = "mx_flash_fwd_grid" if offs is None else "mx_flash_fwd_offs_grid"
+    _call(emu, name + "_bf16", *_ptrs(q, k, v, *pre, *dst), *geo)
+    if n > 1:
+        _call(emu, name + "_combine_bf16", *_ptrs(*pre, *dst, out, lse),
+              b * h, sq, d, width, n, int(causal))
+    return out, lse
+
+
+@pytest.mark.parametrize("entry,shape,q0,k0,width", [
+    ("#6", (1, 1, 256, 256, 32), 0, 0, 96),
+    ("#6", (1, 1, 64, 64, 128), 0, 0, 32),
+    ("#3", (1, 1, 80, 192, 32), 40, 0, 64),
+    ("#3", (1, 1, 64, 160, 64), 0, 24, 64)])
+def test_bf16_split_forward_kernels_and_combine(emu, entry, shape, q0, k0,
+                                                width):
+    """#6 with three 96-key splits of 256 keys (the last ragged) and with
+    one split per 32-key tile at D = 128; #3 at an offset where some
+    blocks' splits are dead, and where the first rows see no key."""
+    b, h, sq, sk, d = shape
+    q, k, v = _bf16(*_qkv(b, h, sq, sk, d, 9))
+    sm = 1.0 / math.sqrt(d)
+    offs = None if entry == "#6" else torch.tensor([q0, k0],
+                                                   dtype=torch.int32)
+    if offs is None:
+        ref = tfa.flash_fwd_grid_plain(q, k, v, sm, True, width)
+    else:
+        ref = tfa.flash_fwd_offs_grid_plain(q, k, v, offs, sm, True, width)
+    out, lse = _forward_grid_bf16(emu, q, k, v, True, width, offs)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert not (torch.isnan(out.float()).any() or torch.isnan(lse).any())
+    dead = ref[1] == NEG
+    ulps, lerr = row_ulps(out, ref[0]), _err(lse[~dead], ref[1][~dead])
+    print("%s bf16 %s splits of %d: out %.2f ulps, lse %.2e"
+          % (entry, shape, width, ulps, lerr))
+    assert ulps <= BF16_ULPS and lerr <= GATE, (ulps, lerr)
+    assert (lse[dead] == NEG).all() and (out[dead] == 0).all()
+    again = _forward_grid_bf16(emu, q, k, v, True, width, offs)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.parametrize("d,s,q0,k0,widths", [(32, 160, 0, 0, (64, 96)),
+                                              (64, 96, 16, 40, (32, 64)),
+                                              (128, 64, 0, 0, (32, 32))])
+def test_bf16_split_backward_kernels_and_reduce(emu, d, s, q0, k0, widths):
+    """#4 in bf16: dq over key splits and dk/dv over query splits (ragged
+    last splits, dead (block, split) pairs at an offset), each with its
+    bf16 reduce pass, against the plain split backward; two calls give the
+    same bits."""
+    q, k, v = _bf16(*_qkv(1, 1, s, s, d, 10))
+    rng = np.random.RandomState(11)
+    do, = _bf16(torch.from_numpy(rng.standard_normal(q.shape)
+                                 .astype(np.float32)))
+    sm = 1.0 / math.sqrt(d)
+    offs = torch.tensor([q0, k0], dtype=torch.int32)
+    out, lse = tfa.flash_fwd_offs_plain(q, k, v, offs, sm, True)
+    deff = tfa._deff(do, out, None).contiguous()
+    wq, wk = widths
+    nq, nk = len(tfa._splits(s, wq)), len(tfa._splits(s, wk))
+    common = _ptrs(q, k, v, offs, do, lse, deff)
+
+    def run():
+        dq, dk, dv = (torch.full_like(q, math.nan) for _ in range(3))
+        parts = [torch.full((n, 1, 1, s, d), math.nan)
+                 for n in (nk, nq, nq)]
+        _call(emu, "mx_flash_bwd_dq_grid_bf16", *common, parts[0].data_ptr(),
+              1, s, s, d, wk, nk, sm, 1)
+        _call(emu, "mx_flash_bwd_dq_grid_reduce_bf16",
+              *_ptrs(offs, parts[0], dq), 1, s, d, wk, nk, sm, 1)
+        _call(emu, "mx_flash_bwd_dkv_grid_bf16", *common,
+              *_ptrs(parts[1], parts[2]), 1, s, s, d, wq, nq, sm, 1)
+        _call(emu, "mx_flash_bwd_dkv_grid_reduce_bf16",
+              *_ptrs(offs, parts[1], parts[2], dk, dv), 1, s, s, d, wq, nq,
+              1)
+        return dq, dk, dv
+
+    got = run()
+    ref = tfa.flash_bwd_offs_grid_plain(q, k, v, offs, do, None, out, lse,
+                                        sm, True, wq, wk)
+    ulps = [row_ulps(g, w) for g, w in zip(got, ref)]
+    print("#4 bf16 D=%d splits %s: dq/dk/dv %s ulps"
+          % (d, widths, ["%.2f" % u for u in ulps]))
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    assert max(ulps) <= BF16_ULPS, ulps
+    if k0 > q0:   # rows that see no key: exactly 0
+        assert (got[0][..., :k0 - q0, :].float() == 0).all()
+    assert all(torch.equal(a, b) for a, b in zip(run(), got))

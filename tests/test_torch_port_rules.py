@@ -235,36 +235,44 @@ def test_flash_attention_never_falls_back():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_kernel_wrappers_refuse_half_precision(dtype, monkeypatch):
     """The CUDA wrappers check before they build or launch anything: what
-    is not yet ported raises "not yet ported (ROADMAP A4)", never a silent
-    cast: float16 everywhere, and bf16 in the grid kernels. bf16 reaches
-    the stream kernels' bf16 entries (a recording stand-in for the launch
-    here), a mixed dtype raises."""
+    is not yet ported raises "not yet ported (ROADMAP B2)", never a silent
+    cast: float16 everywhere. bf16 reaches the bf16 entries of both
+    variants (a recording stand-in for the launch here; one split, so no
+    combine or reduce pass), a mixed dtype raises."""
     launched = []
     monkeypatch.setattr(tfa, "_launch",
                         lambda name, *a, device: launched.append(name))
     q = torch.zeros(1, 2, 4, 64, dtype=dtype)
     offs = torch.zeros(2, dtype=torch.int32)
     lse = torch.zeros(1, 2, 4)
-    stream = (lambda: tfa._flash_fwd_cuda(q, q, q, 0.125, True),
-              lambda: tfa._flash_fwd_offs_cuda(q, q, q, offs, 0.125, True),
-              lambda: tfa._flash_bwd_cuda(q, q, q, offs, q, lse, lse, 0.125,
-                                          True))
-    grid = (lambda: tfa._flash_fwd_grid_cuda(q, q, q, None, 0.125, True, 32),
-            lambda: tfa._flash_fwd_grid_cuda(q, q, q, offs, 0.125, True, 32),
-            lambda: tfa._flash_bwd_grid_cuda(q, q, q, offs, q, lse, lse,
-                                             0.125, True, (32, 32)))
-    for call in grid + (stream if dtype == torch.float16 else ()):
-        with pytest.raises(MXNetError,
-                           match=r"not yet ported \(ROADMAP A4\)"):
-            call()
+    calls = (lambda: tfa._flash_fwd_cuda(q, q, q, 0.125, True),
+             lambda: tfa._flash_fwd_offs_cuda(q, q, q, offs, 0.125, True),
+             lambda: tfa._flash_bwd_cuda(q, q, q, offs, q, lse, lse, 0.125,
+                                         True),
+             lambda: tfa._flash_fwd_grid_cuda(q, q, q, None, 0.125, True, 32),
+             lambda: tfa._flash_fwd_grid_cuda(q, q, q, offs, 0.125, True, 32),
+             lambda: tfa._flash_bwd_grid_cuda(q, q, q, offs, q, lse, lse,
+                                              0.125, True, (32, 32)))
     if dtype == torch.bfloat16:
-        for call in stream:
+        for call in calls:
             call()
         assert launched == ["mx_flash_fwd_bf16", "mx_flash_fwd_offs_bf16",
-                            "mx_flash_bwd_dq_bf16", "mx_flash_bwd_dkv_bf16"]
-        with pytest.raises(MXNetError, match="the kernel takes"):
-            tfa._flash_fwd_cuda(q, q.float(), q, 0.125, True)
+                            "mx_flash_bwd_dq_bf16", "mx_flash_bwd_dkv_bf16",
+                            "mx_flash_fwd_grid_bf16",
+                            "mx_flash_fwd_offs_grid_bf16",
+                            "mx_flash_bwd_dq_grid_bf16",
+                            "mx_flash_bwd_dkv_grid_bf16"]
+        for call in (lambda: tfa._flash_fwd_cuda(q, q.float(), q, 0.125,
+                                                 True),
+                     lambda: tfa._flash_fwd_grid_cuda(q, q, q.float(), None,
+                                                      0.125, True, 32)):
+            with pytest.raises(MXNetError, match="the kernel takes"):
+                call()
     else:
+        for call in calls:
+            with pytest.raises(MXNetError,
+                               match=r"not yet ported \(ROADMAP B2\)"):
+                call()
         assert not launched
     assert not _build._libs
 
@@ -393,18 +401,26 @@ def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
                       (dict(supervise=True), "ROADMAP A4")):
         with pytest.raises(MXNetError, match=match):
             DataParallelTrainStep(sym, device="cpu", **kw)
-    # compute_dtype is ported; what it would take into the attention
-    # kernels beyond the stream family's bf16 is not
+    # compute_dtype is ported, and the attention kernels of both variants
+    # take bf16; float16 into them is not ported
     assert DataParallelTrainStep(sym, device="cpu",
                                  compute_dtype="bfloat16").compute_dtype \
         == torch.bfloat16
     q16 = torch.zeros(1, 2, 4, 64, dtype=torch.float16)
-    with pytest.raises(MXNetError, match=r"float16 .*ROADMAP A4"):
-        tfa._flash_fwd_cuda(q16, q16, q16, 0.125, True)
+    for fn in (lambda q: tfa._flash_fwd_cuda(q, q, q, 0.125, True),
+               lambda q: tfa._flash_fwd_grid_cuda(q, q, q, None, 0.125,
+                                                  True, 32)):
+        with pytest.raises(MXNetError, match=r"float16 .*ROADMAP B2"):
+            fn(q16)
     qbf = q16.to(torch.bfloat16)
-    with pytest.raises(MXNetError, match=r"grid kernels' bfloat16 .*"
-                                         r"ROADMAP A4"):
-        tfa._flash_fwd_grid_cuda(qbf, qbf, qbf, None, 0.125, True, 32)
+    offs = torch.zeros(2, dtype=torch.int32)
+    lse = torch.zeros(1, 2, 4)
+    assert tfa._check_qkv("grid", qbf, qbf, qbf, offs) == (1, 2, 4, 4, 64)
+    assert tfa._check_bwd("grid", qbf, qbf, qbf, offs, qbf, lse, lse) \
+        == (1, 2, 4, 4, 64)
+    assert {tfa._ENTRIES[n][1] == tfa._ENTRIES[n[:-4] + "f32"][1]
+            for n in tfa._ENTRIES if "_grid" in n and n.endswith("bf16")} \
+        == {True}
     one = DataParallelTrainStep(sym, mesh=[torch.device("cpu")],
                                 shard_update=True)
     assert one.device.type == "cpu"
