@@ -320,7 +320,15 @@ no result line):
              version's float32 partials. Device times of each pass at the
              long shapes (the bounds count bf16 inputs and outputs and
              float32 workspaces), the plain versions, bf16 SDPA; at
-             bench.py's shape each family whole against SDPA.
+             bench.py's shape each family whole against SDPA. Then
+             ``hgmma``: ``cuobjdump -sass`` of every built flash_*
+             library; each bf16 body (flash_fwd_bf16_kernel,
+             flash_bwd_dq_bf16_kernel, flash_bwd_dkv_bf16_kernel) must
+             issue Hopper's warpgroup products (HGMMA) and every other
+             kernel, the float32 bodies and the passes, none. Each bf16
+             entry on the kernels line carries its bound share, TFLOP/s,
+             its time over SDPA's (``vs_library``) and its body's
+             registers and spill bytes.
 23. serve_long_bf16 — serve_long's configuration with dtype bfloat16
              (bf16 weights from the same seeded generator, bf16 KV pages)
              through the same DecodeEngine and prompts. Checks: all served,
@@ -350,10 +358,14 @@ phase, ``parent``: the attention kernels and #7 of the checkout in DIR
 one's and called through the same C entries on the same inputs (#7: DIR's
 per-leaf entries on the 71 leaves its rule takes and the plain expression
 on the rest, against this checkout's one launch, on one ResNet-50 update
-of each kind): the float32 forwards' (#5, #6, #1, #3), #2's, #4's, the
-bf16 stream entries' (#5, #2, #1) and #7's outputs must be the same bits
-in both, and every kernel is timed in turns (DIR's, this, this, DIR's) at
-its path's shape.
+of each kind): the float32 forwards' (#5, #6, #1, #3), #2's, #4's and
+#7's outputs must be the same bits in both; the bf16 entries (#5, #1 and
+#2 at their stream shapes, #6, #4 and #3 at the long shapes, the grid
+workspaces through this checkout's combine and reduce passes on both
+sides), whose bodies sum in another order than DIR's, are each held to
+BF16_ULPS row ulps of the plain version, with the row-ulp distance to
+DIR's output recorded (``bf16``); every kernel is timed in turns (DIR's,
+this, this, DIR's) at its path's shape.
 
 The line before last is ``{"kernels": [...]}`` with each kernel's launches
 on its path's run (serving, training, symbolic training, long-context
@@ -463,25 +475,30 @@ def time_host_ms(fn, iters=50, reps=7):
     return _event_ms(run, reps) / iters
 
 
+def kernel_name(mangled):
+    """``base<template ints>`` of a kernel's mangled name (the last name
+    of its nested names, and its integer and bool template arguments)."""
+    import re
+    base, i = None, 3 if mangled.startswith("_ZN") else 2
+    while i < len(mangled) and mangled[i].isdigit():   # <len><id>s
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        base, i = mangled[j:j + n], j + n
+    args = re.findall(r"L[ib](\d+)E", mangled)
+    return "%s<%s>" % (base or mangled, ",".join(args))
+
+
 def ptxas_kernels(log):
     """{kernel: [registers, spill store bytes, spill load bytes]} from
-    nvcc's ``-Xptxas -v`` report; kernels named ``base<template ints>``
-    from their mangled names."""
+    nvcc's ``-Xptxas -v`` report; kernels named by ``kernel_name``."""
     import re
     found, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            mangled, base = m.group(1), None
-            i = 3 if mangled.startswith("_ZN") else 2
-            while i < len(mangled) and mangled[i].isdigit():   # <len><id>s
-                j = i
-                while mangled[j].isdigit():
-                    j += 1
-                n = int(mangled[i:j])
-                base, i = mangled[j:j + n], j + n
-            args = re.findall(r"L[ib](\d+)E", mangled)
-            name = "%s<%s>" % (base or mangled, ",".join(args))
+            name = kernel_name(m.group(1))
             found[name] = [None, None, None]
         elif name and "spill stores" in ln:
             nums = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
@@ -490,6 +507,47 @@ def ptxas_kernels(log):
             found[name][0] = int(re.search(r"Used (\d+) registers",
                                            ln).group(1))
     return found
+
+
+#: the bf16 attention bodies, which must issue Hopper's warpgroup
+#: products (HGMMA in SASS); every other attention kernel issues none
+BF16_BODIES = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+               "flash_bwd_dkv_bf16_kernel")
+
+
+def hgmma_counts(paths):
+    """{library: {kernel: HGMMA instructions}} from ``cuobjdump -sass``
+    of each built ``flash_*`` library (``paths``: name -> file); fails
+    unless every bf16 body has some and every other kernel none."""
+    import re
+    from mxnet_tpu_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    counts = {}
+    for lib, path in sorted(paths.items()):
+        if not lib.startswith("flash"):
+            continue
+        sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True, check=True).stdout
+        found, name = {}, None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\w+)", ln)
+            if m:
+                name = kernel_name(m.group(1))
+                found[name] = 0
+            elif name and "HGMMA" in ln:
+                found[name] += 1
+        for name, n in found.items():
+            body = name.split("<")[0] in BF16_BODIES
+            if body and n == 0:
+                fail("hgmma: %s of %s issues no warpgroup product"
+                     % (name, lib))
+            if not body and n:
+                fail("hgmma: %s of %s issues %d warpgroup products"
+                     % (name, lib, n))
+        if not any(n for n in found.values()):
+            fail("hgmma: %s holds no bf16 body" % lib)
+        counts[lib] = found
+    return counts
 
 
 def visible_keys(sq, sk, q0, k0):
@@ -2798,9 +2856,12 @@ def phase_parent(torch, fa, dev, parent):
     ``git archive``), built from DIR's ``csrc/`` and called through the
     same C entries (#7: the parent's per-leaf entries) on the same card.
     The float32 attention entries (forwards #5, #6, #1, #3 and backwards
-    #2, #4), the bf16 stream entries (#5, #1, #2) and #7 must give the
-    same bits in both; every kernel is timed in turns (DIR's, this, this,
-    DIR's) at its main path's shape."""
+    #2, #4) and #7 must give the same bits in both; the bf16 entries
+    (#5, #1, #2, #6, #3, #4) are each held to BF16_ULPS row ulps of the
+    plain version in both trees, with the row-ulp distance between the
+    trees recorded; every kernel is timed in turns (DIR's, this, this,
+    DIR's) at its main path's shape. The registers and spill bytes of
+    DIR's bf16 bodies are reported beside this tree's (the build line)."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
     csrc = os.path.join(parent, "mxnet_tpu_torch", "kernels", "csrc")
@@ -2914,9 +2975,37 @@ def phase_parent(torch, fa, dev, parent):
                      + [sm, 1], [o_, l_])
         same_fwd(key, a, b_)
 
-    # the bf16 stream entries, whose bodies took the grid kernels' split
-    # axis: #5 and #2 at the training shape, #1 at the serving shape
+    # the bf16 entries: their bodies' sums run in another order than the
+    # parent's, so each tree is held to BF16_ULPS row ulps of the plain
+    # version (lse to TOL) and the distance between the trees is printed.
+    # The grid entries' workspaces go through this tree's combine or
+    # reduce pass on both sides. #5 and #2 at the training shape, #1 at the
+    # serving shape, #6 and #4 at the long training shape (8 splits), #3
+    # at the long prefill's last chunk
+    from mxnet_tpu_torch.kernels.bf16_gate import BF16_ULPS, row_ulps
     bf = torch.bfloat16
+    result["bf16"] = {}
+
+    def hold_bf16(key, a, b_, ref):
+        """a, b_: the parent's and this tree's final outputs; ref: the
+        plain version's, in the same order (bf16 outputs, float32 lse)."""
+        row = {"ulps": [], "parent_ulps": [], "to_parent_ulps": []}
+        for x, y, r in zip(a, b_, ref):
+            if r.dtype != bf:   # lse
+                live = r > NEG / 2
+                err = scaled_err(y[live], r[live])
+                if not err <= TOL or not bool((y[~live] == NEG).all()):
+                    fail("parent: bf16 %s lse err %g" % (key, err))
+                continue
+            u = row_ulps(y, r)
+            if not u <= BF16_ULPS:
+                fail("parent: bf16 %s %.2f row ulps off the plain version"
+                     % (key, u))
+            row["ulps"].append(u)
+            row["parent_ulps"].append(row_ulps(x, r))
+            row["to_parent_ulps"].append(row_ulps(y, x))
+        result["bf16"][key] = row
+
     B, H, S, D = 8, 8, 512, 64
     sm = 1.0 / math.sqrt(D)
     q, k, v, do = (rand(B, H, S, D).to(bf) for _ in range(4))
@@ -2927,15 +3016,16 @@ def phase_parent(torch, fa, dev, parent):
     tail = [B * H, S, S, D, sm, 1]
     a, b_ = both("bf16_fwd", "mx_flash_fwd_bf16",
                  [t.data_ptr() for t in (q, k, v, o_, l_)] + tail, [o_, l_])
-    same_fwd("bf16_fwd", a, b_)
+    hold_bf16("bf16_fwd", a, b_, (out, lse))
     common = [t.data_ptr() for t in (q, k, v, offs0, do, lse, deff)]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    for key, outs in (("dq", [dq]), ("dkv", [dk, dv])):
+    ref = fa.flash_bwd_offs_plain(q, k, v, offs0, do, None, out, lse, sm,
+                                  True)
+    for key, outs, want in (("dq", [dq], ref[:1]),
+                            ("dkv", [dk, dv], ref[1:])):
         a, b_ = both("bf16_" + key, "mx_flash_bwd_%s_bf16" % key,
                      common + [o.data_ptr() for o in outs] + tail, outs)
-        if not all(torch.equal(x, y) for x, y in zip(a, b_)):
-            result["bwd_bit_identical"] = False
-            fail("parent: bf16 %s differs from the parent's bits" % key)
+        hold_bf16("bf16_" + key, a, b_, want)
     C, SK, q0 = 256, 512, 256
     q, k, v = (rand(1, H, n, D).to(bf) for n in (C, SK, SK))
     offs = torch.tensor([q0, 0], dtype=torch.int32, device=dev)
@@ -2943,12 +3033,91 @@ def phase_parent(torch, fa, dev, parent):
     a, b_ = both("bf16_offs", "mx_flash_fwd_offs_bf16",
                  [t.data_ptr() for t in (q, k, v, offs, o_, l_)]
                  + [H, C, SK, D, sm, 1], [o_, l_])
-    same_fwd("bf16_offs", a, b_)
-    del q, k, v, do, out, lse, deff, o_, l_, dq, dk, dv
+    hold_bf16("bf16_offs", a, b_,
+              fa.flash_fwd_offs_plain(q, k, v, offs, sm, True))
+    del q, k, v, do, out, lse, deff, o_, l_, dq, dk, dv, ref
+    torch.cuda.empty_cache()
+
+    def launch(name, *args):   # this tree's pass (raises if refused)
+        fa._launch(name, *args, device=dev)
+
+    B, S, w = 4, LONG_S, LONG_W
+    n = S // w
+    q, k, v, do = (rand(B, H, S, D).to(bf) for _ in range(4))
+    out, lse = fa.flash_fwd_grid_plain(q, k, v, sm, True, w)
+    deff = fa._deff(do, out, None).contiguous()
+    po, pl = (torch.empty(n, B, H, S, D, device=dev),
+              torch.empty(n, B, H, S, device=dev))
+    a, b_ = both("bf16_grid_fwd", "mx_flash_fwd_grid_bf16",
+                 [t.data_ptr() for t in (q, k, v, po, pl)]
+                 + [B * H, S, S, D, w, n, sm, 1], [po, pl], iters=5)
+    finals = []
+    for po_, pl_ in (a, b_):
+        o_, l_ = torch.empty_like(q), torch.empty(B, H, S, device=dev)
+        launch("mx_flash_fwd_grid_combine_bf16", po_.data_ptr(),
+               pl_.data_ptr(), o_.data_ptr(), l_.data_ptr(), B * H, S, D,
+               w, n, 1)
+        finals.append([o_, l_])
+    hold_bf16("bf16_grid_fwd", *finals, (out, lse))
+    del po, pl, a, b_, finals
+    common = [t.data_ptr() for t in (q, k, v, offs0, do, lse, deff)]
+    ref = fa.flash_bwd_offs_grid_plain(q, k, v, offs0, do, None, out, lse,
+                                       sm, True, w, w)
+    parts = [torch.empty(n, B, H, S, D, device=dev) for _ in range(3)]
+    for key, outs, want in (("dq", parts[:1], ref[:1]),
+                            ("dkv", parts[1:], ref[1:])):
+        a, b_ = both("bf16_grid_" + key, "mx_flash_bwd_%s_grid_bf16" % key,
+                     common + [o.data_ptr() for o in outs]
+                     + [B * H, S, S, D, w, n, sm, 1], outs, iters=5)
+        finals = []
+        for got in (a, b_):
+            fin = [torch.empty_like(q) for _ in got]
+            if key == "dq":
+                launch("mx_flash_bwd_dq_grid_reduce_bf16", offs0.data_ptr(),
+                       got[0].data_ptr(), fin[0].data_ptr(), B * H, S, D, w,
+                       n, sm, 1)
+            else:
+                launch("mx_flash_bwd_dkv_grid_reduce_bf16",
+                       offs0.data_ptr(), got[0].data_ptr(),
+                       got[1].data_ptr(), fin[0].data_ptr(),
+                       fin[1].data_ptr(), B * H, S, S, D, w, n, 1)
+            finals.append(fin)
+        hold_bf16("bf16_grid_" + key, *finals, want)
+        del a, b_, finals
+    del q, k, v, do, out, lse, deff, ref, parts
+    torch.cuda.empty_cache()
+    C, q0 = 1024, 2816
+    q, k, v = rand(1, H, C, D).to(bf), rand(1, H, S, D).to(bf), \
+        rand(1, H, S, D).to(bf)
+    offs = torch.tensor([q0, 0], dtype=torch.int32, device=dev)
+    po, pl = (torch.empty(n, 1, H, C, D, device=dev),
+              torch.empty(n, 1, H, C, device=dev))
+    a, b_ = both("bf16_grid_offs", "mx_flash_fwd_offs_grid_bf16",
+                 [t.data_ptr() for t in (q, k, v, offs, po, pl)]
+                 + [H, C, S, D, w, n, sm, 1], [po, pl])
+    finals = []
+    for po_, pl_ in (a, b_):
+        o_, l_ = torch.empty_like(q), torch.empty(1, H, C, device=dev)
+        launch("mx_flash_fwd_offs_grid_combine_bf16", offs.data_ptr(),
+               po_.data_ptr(), pl_.data_ptr(), o_.data_ptr(), l_.data_ptr(),
+               H, C, D, w, n, 1)
+        finals.append([o_, l_])
+    hold_bf16("bf16_grid_offs", *finals,
+              fa.flash_fwd_offs_grid_plain(q, k, v, offs, sm, True, w))
+    del q, k, v, po, pl, a, b_, finals
     torch.cuda.empty_cache()
     parent_opt_update(torch, dev, libs["opt_update"], result)
     for v_ in result["times"].values():
         v_["speedup"] = v_["parent_ms"] / v_["ms"]
+    # the parent's bf16 bodies: [registers, spill store, spill load bytes]
+    result["ptxas"] = {}
+    for n in paths:
+        info = _build.csrc_build_info.get((csrc, n))
+        bodies = {k: v for k, v in ptxas_kernels(
+            info["ptxas"] if info else "").items()
+                  if k.split("<")[0] in BF16_BODIES}
+        if bodies:
+            result["ptxas"][n] = bodies
     return result
 
 
@@ -4199,11 +4368,11 @@ def main():
 
     t0 = time.perf_counter()
     paths = _build.build_all()
+    # per library: kernel -> [registers, spill stores, spill loads]
+    ptxas = {k: ptxas_kernels(v["ptxas"])
+             for k, v in _build.build_info.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": sorted(paths),
-          # per library: kernel -> [registers, spill stores, spill loads]
-          "ptxas": {k: ptxas_kernels(v["ptxas"])
-                    for k, v in _build.build_info.items()}})
+          "libraries": sorted(paths), "ptxas": ptxas})
 
     entries = []
     opt_paths = {}
@@ -4435,7 +4604,35 @@ def main():
               "ulps_tol": BF16_ULPS, "lse_max_err": bk_lse, "lse_tol": TOL,
               **bk, "card": card})
         torch.cuda.empty_cache()
+        hgmma = hgmma_counts(paths)
+        emit({"phase": "hgmma", "card": card,
+              # per library: each kernel's HGMMA instructions in SASS
+              "counts": hgmma})
+
+        def body_ptxas(lib, kernel, d=64):
+            """The registers and spill bytes of the body instantiation an
+            entry runs at its path's head dim."""
+            args = {"flash_fwd_bf16_kernel": "%d,%d" % (
+                d, lib in ("flash_fwd_offs", "flash_fwd_offs_grid"))}.get(
+                    kernel, "%d" % d)
+            regs, st, ld = ptxas.get(lib, {}).get(
+                "%s<%s>" % (kernel, args), (None, None, None))
+            return {"registers": regs, "spill_bytes": [st, ld]}
+
+        def shares(row, pair=None, of=None):
+            """Bound share and the time over the library call's. SDPA's
+            backward computes dq, dk and dv together, so dq and dk/dv are
+            held to it by ``pair``, the summed ms of what ``of`` names."""
+            ms = row["ms"] if pair is None else pair
+            out = {"bound_share": row["bound_ms"] / row["ms"],
+                   "vs_library": (ms / row["library_ms"]
+                                  if row.get("library_ms") else None)}
+            if of:
+                out["vs_library_of"] = of
+            return out
         train_row = bk["train"]
+        bwd_pair = {"pair": train_row["dq_ms"] + train_row["dkv_ms"],
+                    "of": "dq + dk/dv"}
         for name, file, line, counter, key in (
                 ("flash_fwd_offs_bf16", "flash_fwd_offs.cu", "285",
                  "launches_bf16", "offs"),
@@ -4464,12 +4661,22 @@ def main():
                          "library_ms": train_row[lib],
                          "tflops": train_row[key + "_tflops"],
                          "shape": "q/k/v (8,8,512,64) bf16 causal"}
+            kernel = {"offs": "flash_fwd_bf16_kernel",
+                      "fwd": "flash_fwd_bf16_kernel",
+                      "dq": "flash_bwd_dq_bf16_kernel",
+                      "dkv": "flash_bwd_dkv_bf16_kernel"}[key]
             entries.append({
                 "name": name, "route": "cuda", "source": src + file,
                 "replaces": ref + line, "launches": bf16_launches[counter],
                 "max_abs_err": bk_worst[key], "err_unit": "bf16 row ulps",
-                **times})
+                **times,
+                **shares(times, **(bwd_pair if key in ("dq", "dkv")
+                                   else {})),
+                **body_ptxas(file[:-3], kernel)})
         grid = bk["grid"]
+        grid_pair = {"pair": sum(grid[k + "_ms"] for k in (
+            "dq", "dq_reduce", "dkv", "dkv_reduce")),
+                     "of": "dq + dk/dv with their reduce passes"}
         for key, (entry, _, file, line) in GRID_KERNELS.items():
             counter = BF16_GRID_COUNTERS[key]
             if counter not in bf16_launches:
@@ -4478,16 +4685,26 @@ def main():
                    "dkv": "sdpa_bwd_ms", "offs": "sdpa_offs_ms"}.get(key)
             plain = {"dkv": "bwd_plain_ms", "dq": "bwd_plain_ms"}.get(
                 key, key + "_plain_ms")
+            row = {"ms": grid[key + "_ms"],
+                   "bound_ms": grid[key + "_bound_ms"],
+                   "library_ms": grid[lib] if lib else None}
+            kernel = {"fwd": "flash_fwd_bf16_kernel",
+                      "offs": "flash_fwd_bf16_kernel",
+                      "dq": "flash_bwd_dq_bf16_kernel",
+                      "dkv": "flash_bwd_dkv_bf16_kernel"}.get(key)
             entries.append({
                 "name": entry[3:-3] + "bf16", "route": "cuda",
                 "source": src + file, "replaces": ref + line,
                 "launches": bf16_launches[counter],
                 "max_abs_err": bk_worst["grid_" + key],
-                "err_unit": "bf16 row ulps", "ms": grid[key + "_ms"],
-                "plain_ms": grid[plain], "bound_ms": grid[key + "_bound_ms"],
+                "err_unit": "bf16 row ulps", **row,
+                "plain_ms": grid[plain],
                 "bound_by": grid[key + "_bound_by"],
-                "library_ms": grid[lib] if lib else None,
                 "tflops": grid[key + "_tflops"],
+                **shares(row, **(grid_pair if key in ("dq", "dkv")
+                                 else {})),
+                **(body_ptxas(file[:-3], kernel) if kernel else
+                   {"registers": None, "spill_bytes": None}),
                 "shape": ("q (1,8,1024,64) k/v (1,8,4096,64) bf16 offs "
                           "[2816,0], 8 key splits" if key.startswith("offs")
                           else "q/k/v (4,8,4096,64) bf16 causal, 8 splits")})

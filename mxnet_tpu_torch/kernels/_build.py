@@ -56,6 +56,9 @@ _libs = {}
 #: name -> {"seconds": build wall time (0.0 when loaded from a previous
 #: build), "ptxas": the compiler's register/shared-memory report}
 build_info = {}
+#: (csrc directory, name) -> the same, for builds of another checkout's
+#: sources (``build_all(csrc=...)``)
+csrc_build_info = {}
 
 
 def nvcc_path():
@@ -84,7 +87,7 @@ def build_all(names=None, csrc=None):
     returns ``{name: path}``. Raises RuntimeError with the compiler's
     output when a build fails or ``nvcc`` is missing. ``csrc``: build the
     sources of another checkout's ``csrc/`` directory (same names and
-    flags; not recorded in ``build_info``)."""
+    flags; recorded in ``csrc_build_info``, not ``build_info``)."""
     names = list(SOURCES) if names is None else list(names)
     own = csrc is None
     todo, paths = [], {}
@@ -118,9 +121,11 @@ def build_all(names=None, csrc=None):
                                                       log))
             continue
         os.replace(tmp, path)   # atomic: a concurrent loader never sees half
+        info = {"seconds": time.perf_counter() - t0, "ptxas": log}
         if own:
-            build_info[name] = {"seconds": time.perf_counter() - t0,
-                                "ptxas": log}
+            build_info[name] = info
+        else:
+            csrc_build_info[csrc, name] = info
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return paths

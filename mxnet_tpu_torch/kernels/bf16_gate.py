@@ -55,10 +55,10 @@ def _ulp(scale):
 def row_ulps(got, ref):
     """Largest |got - ref| of each row (the last axis) in bf16 ulps of that
     row's largest |ref|, floored at ``ROW_FLOOR`` of the tensor's largest
-    |ref|; the largest over the rows. An all-zero ``ref`` must be met
-    exactly."""
+    |ref|; the largest over the rows (inf where ``got`` holds a NaN). An
+    all-zero ``ref`` must be met exactly."""
     got, ref = got.float(), ref.float()
-    err = (got - ref).abs().amax(-1)
+    err = (got - ref).abs().nan_to_num(math.inf).amax(-1)   # NaN: inf
     top = ref.abs().max()
     if top.item() == 0:
         return math.inf if err.max().item() > 0 else 0.0
@@ -70,10 +70,11 @@ def tensor_ulps(got, ref):
     """Largest |got - ref| in bf16 ulps of the whole tensor's largest |ref|
     (the measure ``row_ulps`` replaces; kept for the readings)."""
     got, ref = got.float(), ref.float()
+    err = (got - ref).abs().nan_to_num(math.inf).max()   # NaN: inf
     top = ref.abs().max()
     if top.item() == 0:
-        return math.inf if (got - ref).abs().max().item() > 0 else 0.0
-    return ((got - ref).abs().max() / _ulp(top)).item()
+        return math.inf if err.item() > 0 else 0.0
+    return (err / _ulp(top)).item()
 
 
 # --- readings -----------------------------------------------------------

@@ -1,5 +1,5 @@
-// The flash-attention backward body in bf16 on the tensor cores, for
-// Hopper (sm_90a): one dq kernel and one dk/dv kernel, `template <int D>`,
+// The flash-attention backward body in bf16 on Hopper's warpgroup tensor
+// cores (sm_90a): one dq kernel and one dk/dv kernel, `template <int D>`,
 // over splits of the walked axis (blockIdx.z; w rows each), as the float32
 // body (flash_bwd.cuh). flash_bwd_offs.cu instantiates them beside the
 // float32 body with one split over the whole axis, for TPU kernels
@@ -30,21 +30,29 @@
 // At (8, 8, 512, 64) causal: dq 3.2 GFLOP (0.0033 ms) against 0.0067 ms of
 // bytes, dk/dv 4.3 GFLOP (0.0043 ms) against 0.0078 ms: bytes bound.
 //
-// What the design does (bf16_mma.cuh):
-// - Products: one mma.sync.m16n8k16 bf16 product a 16 x 8 x 16 step.
-//   dS and P are rounded to bf16 straight from the accumulator registers
-//   into the A fragments of the second products (acc_to_a_bf).
-// - dq: a block owns 64 query rows, q (folded in place once) and dO in
-//   shared memory, and walks K and V in tiles of 64 keys (32 at D = 128):
-//   S = qs K^T and dP = dO V^T, P and dS on the registers, dQ_t = dS K
-//   summed from zero and added to the running sum.
-// - dk/dv: a block owns 64 keys, K and V in shared memory, and walks q,
-//   dO, lse and deff in tiles; each q tile is folded in place when it
-//   lands (one more barrier a tile). S^T = K qs^T and dP^T = V dO^T, so
-//   P^T and dS^T belong to the warp's keys; then dV_t = P^T dO and dK_t =
-//   dS^T qs.
-// - Staging: 16-byte cp.async copies of bf16 into swizzled tiles,
-//   zero-filled past the valid rows; the walked tile double-buffered.
+// What the design does (bf16_wgmma.cuh):
+// - Products: wgmma.mma_async m64nNk16, one warpgroup for 64 rows. The
+//   first products read both operands from shared memory (K-major); dS and
+//   P are rounded to bf16 straight from their accumulators into the A
+//   fragments of the second products, whose B (K, dO, qs) is read
+//   transposed (MN-major) from shared memory. The sums of dQ, dK and dV
+//   stay in the accumulators of the second products across the tiles.
+// - dq: a block of one warpgroup owns 64 query rows, q (folded in
+//   place once) and dO in shared memory, and walks K and V in tiles of 64
+//   keys: S = qs K^T and dP = dO V^T, P and dS on the registers, dQ += dS K.
+// - dk/dv: a block of one warpgroup owns 64 keys, K and V in shared
+//   memory, and walks q, dO, lse and deff in tiles of 64 queries (32 at
+//   D = 128, where dK and dV take 128 registers a thread): S^T = K qs^T and
+//   dP^T = V dO^T, so P^T and dS^T belong to the warpgroup's keys; then
+//   dV += P^T dO and dK += dS^T qs. Each q tile is folded in place by the
+//   threads that copied it, before the barrier that publishes the tile.
+//   At D <= 64 its registers are held to 168 a thread, so three blocks run
+//   on an SM (dkv_min_blocks), and P^T and dS^T are packed a 16-query step
+//   at a time, as each is done, which keeps them within 168 unspilled.
+// - Each block runs on its own schedule (two warpgroups sharing each
+//   staged tile measured slower: PERF.md). The walked tiles go through a
+//   ring of kStages = 3 stages: tile it + 2 loads while tile it computes,
+//   waited on with cp.async.wait_group 1.
 // - Tiles no row of the block can see under the causal mask are never
 //   loaded; tiles wholly visible skip the mask; a split range that is not a
 //   multiple of the tile is masked at its end, and a (block, split) pair no
@@ -54,37 +62,68 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"      // bf16 mma.sync, fragments, staging
+#include "bf16_wgmma.cuh"    // wgmma, descriptors, staging
 #include "flash_split.cuh"   // the split geometry, kNeg
 
 namespace mx_flash_bwd_bf16 {
 // Internal linkage, as flash_bwd.cuh's body.
 namespace {
 
-using namespace mx_bf;
+using namespace mx_wg;
 using mx_flash::first_live_q_split;
 using mx_flash::kNeg;
 using mx_flash::live_kv_splits;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStages = 3;   // ring of the walked tiles
 
-// owned q and dO (or k and v), and two stages of the walked pair
+// keys of the dq kernel's walked tile, queries of the dk/dv kernel's
+constexpr int kDqTile = 64;
 template <int D>
-constexpr size_t dq_bf16_smem_bytes() {
-  return sizeof(bf16) * (2 * kRows * D + 4 * tile_rows<D>() * D);
+__host__ __device__ constexpr int dkv_tile() { return D == 128 ? 32 : 64; }
+
+// dk/dv blocks an SM the registers must leave room for: three at D <= 64
+// (168 registers a thread, where the compiler would take ~206 and fit two)
+template <int D>
+__host__ __device__ constexpr int dkv_min_blocks() {
+  return D <= 64 ? 3 : 1;
 }
 
-// as dq, plus two stages of the walked tile's lse and deff
+// owned q and dO, and the ring of K and V tiles
+template <int D>
+constexpr size_t dq_bf16_smem_bytes() {
+  return sizeof(bf16) * (2 * kWGRows * D + kStages * 2 * kDqTile * D);
+}
+
+// owned K and V, the ring of q and dO tiles, then the ring's lse and deff
 template <int D>
 constexpr size_t dkv_bf16_smem_bytes() {
-  return dq_bf16_smem_bytes<D>() + sizeof(float) * 4 * tile_rows<D>();
+  return sizeof(bf16) * (2 * kWGRows * D +
+                         kStages * 2 * dkv_tile<D>() * D) +
+         sizeof(float) * kStages * 2 * dkv_tile<D>();
+}
+
+// D += A B for the MN-major B of rows [r0, r0 + 16) of an [R][D] tile: one
+// product, or one a 64-column half at D = 128
+template <int D, int R>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[D / 2],
+                                            const uint32_t (&a)[4],
+                                            const bf16* tile, int r0) {
+  if constexpr (D == 128) {
+    wgmma_rs<64, 1>(*reinterpret_cast<float(*)[32]>(d), a,
+                    desc_mn<D, R>(tile, r0, 0), 1);
+    wgmma_rs<64, 1>(*reinterpret_cast<float(*)[32]>(d + 32), a,
+                    desc_mn<D, R>(tile, r0, 64), 1);
+  } else {
+    wgmma_rs<D, 1>(d, a, desc_mn<D, R>(tile, r0, 0), 1);
+  }
 }
 
 // dq. One block: 64 query rows of (b, h) = blockIdx.x, key split
 // blockIdx.z of width w (n_split == 1: w >= sk, the final bf16 dq; else
 // the split's unscaled float32 partial into dq_part).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWGThreads)
 flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -95,24 +134,26 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                          bf16* __restrict__ dq, float* __restrict__ dq_part,
                          int sq, int sk, int w, int n_split, float sm_scale,
                          int causal) {
-  constexpr int kT = tile_rows<D>();
+  constexpr int kR = kWGRows;
+  constexpr int kTh = kWGThreads;
+  constexpr int kT = kDqTile;
   constexpr int kNT = kT / 8;
   constexpr int kKT = kT / 16;
   constexpr int kND = D / 8;
   constexpr int kKD = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);   // [kRows][D]
-  bf16* dos = qs + kRows * D;                 // [kRows][D]
-  bf16* kvs = dos + kRows * D;                // [2 stages][k, v][kT][D]
+  extern __shared__ __align__(1024) unsigned char mx_smem[];
+  bf16* qs = smem_base(mx_smem);   // [kR][D]
+  bf16* dos = qs + kR * D;         // [kR][D]
+  bf16* kvs = dos + kR * D;        // [kStages][k, v][kT][D]
 
   const int bh = blockIdx.x;
   const int rb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int split = blockIdx.z;
   const bool direct = n_split == 1;
-  const int q0 = rb * kRows;
+  const int q0 = rb * kR;
   const int q_base = offs[0];
   const int k_base = offs[1];
-  const int last_q = q_base + min(q0 + kRows, sq) - 1;
+  const int last_q = q_base + min(q0 + kR, sq) - 1;
   if (!direct &&
       split >= live_kv_splits(last_q, k_base, w, n_split, causal))
     return;   // dead: no row of the block sees a key of this split
@@ -123,10 +164,10 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   const int k_hi = causal ? min(k_end, last_q - k_base + 1) : k_end;
   const int n_t = k_hi > k_lo ? (k_hi - k_lo + kT - 1) / kT : 0;
 
-  const int warp = threadIdx.x >> 5;
+  // the warp's 16 rows from block row wr
   const int g = (threadIdx.x & 31) >> 2;
   const int t = threadIdx.x & 3;
-  const int wr = warp * 16;
+  const int wr = (threadIdx.x >> 5) * 16;
   const size_t qoff = static_cast<size_t>(bh) * sq;
   float lse_l2[2], deff_r[2];
   int q_pos[2];
@@ -140,50 +181,52 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     q_pos[h] = q_base + i;
   }
 
-  float acc[kND][4];
+  float acc[D / 2];
   zero(acc);
 
   if (n_t > 0) {
     const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
     const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
-    stage_bf<D, kRows>(qs, q + qoff * D, q0, sq);
-    stage_bf<D, kRows>(dos, dout + qoff * D, q0, sq);
-    stage_bf<D, kT>(kvs, kb, k_lo, k_end);
-    stage_bf<D, kT>(kvs + kT * D, vb, k_lo, k_end);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    fold_tile<D, kRows>(qs, sm_scale);   // the loop's barrier publishes it
+    auto stage_kv = [&](int it) {
+      if (it < n_t) {
+        bf16* dst = kvs + (it % kStages) * 2 * kT * D;
+        stage_tile<D, kT, kTh>(dst, kb, k_lo + it * kT, k_end);
+        stage_tile<D, kT, kTh>(dst + kT * D, vb, k_lo + it * kT, k_end);
+      }
+      cp_async_commit();
+    };
+    stage_tile<D, kR, kTh>(qs, q + qoff * D, q0, sq);
+    stage_tile<D, kR, kTh>(dos, dout + qoff * D, q0, sq);
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) stage_kv(st);
+
     for (int it = 0; it < n_t; ++it) {
       const int kt0 = k_lo + it * kT;
-      const bf16* ks = kvs + (it & 1) * 2 * kT * D;
+      const bf16* ks = kvs + (it % kStages) * 2 * kT * D;
       const bf16* vs = ks + kT * D;
-      cp_async_wait_all();
-      __syncthreads();   // tile it landed; tile it - 1's reads are done
-      if (it + 1 < n_t) {
-        bf16* nk = kvs + ((it + 1) & 1) * 2 * kT * D;
-        stage_bf<D, kT>(nk, kb, kt0 + kT, k_end);
-        stage_bf<D, kT>(nk + kT * D, vb, kt0 + kT, k_end);
-        cp_async_commit();
-      }
+      cp_async_wait<kStages - 2>();   // this thread's copies of tile it
+      if (it == 0) fold_own<D, kR, kTh>(qs, sm_scale);
+      fence_proxy_async();
+      __syncthreads();   // tile it landed; tile it - 1's products are done
+      stage_kv(it + kStages - 1);
 
-      float s[kNT][4], dp[kNT][4];
+      // S = qs K^T, dP = dO V^T
+      float s[kT / 2], dp[kT / 2];
       zero(s);
       zero(dp);
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kKD; ++kk) {
-        uint32_t aq[4], ao[4];
-        load_a_bf<D>(qs, wr, kk * 16, g, t, aq);
-        load_a_bf<D>(dos, wr, kk * 16, g, t, ao);
+      for (int kk = 0; kk < kKD; ++kk)
+        wgmma_ss<kT, 0>(s, desc_k<D, kR>(qs, 0, kk * 16),
+                        desc_k<D, kT>(ks, 0, kk * 16), kk);
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          uint32_t b[2];
-          load_b_rows<D>(ks, j * 8, kk * 16, g, t, b);
-          mma_bf16(s[j], aq, b);
-          load_b_rows<D>(vs, j * 8, kk * 16, g, t, b);
-          mma_bf16(dp[j], ao, b);
-        }
-      }
+      for (int kk = 0; kk < kKD; ++kk)
+        wgmma_ss<kT, 0>(dp, desc_k<D, kR>(dos, 0, kk * 16),
+                        desc_k<D, kT>(vs, 0, kk * 16), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
 
       // ds into s; a tile wholly inside the split and seen by every row
       // of the block needs no mask
@@ -195,28 +238,25 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
           const int kj = kt0 + j * 8 + 2 * t + (e & 1);
-          float p = exp2f(fmaf(s[j][e], kLog2e, -lse_l2[h]));
+          float p = exp2f(fmaf(s[4 * j + e], kLog2e, -lse_l2[h]));
           if (masked &&
               !(kj < k_end && (!causal || q_pos[h] >= k_base + kj)))
             p = 0.f;
-          s[j][e] = p * (dp[j][e] - deff_r[h]);
+          s[4 * j + e] = p * (dp[4 * j + e] - deff_r[h]);
         }
 
-      // dQ_t = bf16(dS) K, summed from zero, then added
-      float part[kND][4];
-      zero(part);
+      // dQ += bf16(dS) K
+      uint32_t da[kKT][4];
 #pragma unroll
-      for (int jj = 0; jj < kKT; ++jj) {
-        uint32_t a[4];
-        acc_to_a_bf(s[2 * jj], s[2 * jj + 1], a);
+      for (int jj = 0; jj < kKT; ++jj) pack_a(s + 8 * jj, da[jj]);
+      wgmma_fence();
 #pragma unroll
-        for (int n = 0; n < kND; ++n) {
-          uint32_t b[2];
-          load_b_cols<D>(ks, jj * 16, n * 8, g, t, b);
-          mma_bf16(part[n], a, b);
-        }
-      }
-      add(acc, part);
+      for (int jj = 0; jj < kKT; ++jj)
+        wgmma_rs_mn<D, kT>(acc, da[jj], ks, jj * 16);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_frags(da);
     }
   }
 
@@ -230,14 +270,14 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
       bf16* o = dq + (qoff + i) * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < kND; ++n)
-        store2(o + n * 8, acc[n][2 * h] * sm_scale,
-               acc[n][2 * h + 1] * sm_scale);
+        store2(o + n * 8, acc[4 * n + 2 * h] * sm_scale,
+               acc[4 * n + 2 * h + 1] * sm_scale);
     } else {
       float* o = dq_part + (base + qoff + i) * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < kND; ++n)
         *reinterpret_cast<float2*>(o + n * 8) =
-            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+            make_float2(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
     }
   }
 }
@@ -246,7 +286,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
 // blockIdx.z of width w (n_split == 1: w >= sq, the final bf16 dk and dv;
 // else the split's float32 partials into dk_part and dv_part).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWGThreads, (dkv_min_blocks<D>()))
 flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v,
@@ -258,22 +298,24 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
                           float* __restrict__ dk_part,
                           float* __restrict__ dv_part, int sq, int sk, int w,
                           int n_split, float sm_scale, int causal) {
-  constexpr int kT = tile_rows<D>();
+  constexpr int kR = kWGRows;
+  constexpr int kTh = kWGThreads;
+  constexpr int kT = dkv_tile<D>();
   constexpr int kNT = kT / 8;    // 8-query groups of a tile
   constexpr int kKT = kT / 16;   // 16-query steps of a tile
   constexpr int kND = D / 8;
   constexpr int kKD = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);   // [kRows][D]
-  bf16* vs = ks + kRows * D;                  // [kRows][D]
-  bf16* qds = vs + kRows * D;                 // [2 stages][q, do][kT][D]
-  float* lds = reinterpret_cast<float*>(qds + 4 * kT * D);
-  // [2 stages][lse, deff][kT]
+  extern __shared__ __align__(1024) unsigned char mx_smem[];
+  bf16* ks = smem_base(mx_smem);   // [kR][D]
+  bf16* vs = ks + kR * D;          // [kR][D]
+  bf16* qds = vs + kR * D;         // [kStages][q, do][kT][D]
+  float* lds = reinterpret_cast<float*>(qds + kStages * 2 * kT * D);
+  // [kStages][lse, deff][kT]
 
   const int bh = blockIdx.x;
   const int split = blockIdx.z;
   const bool direct = n_split == 1;
-  const int k0 = blockIdx.y * kRows;
+  const int k0 = blockIdx.y * kR;
   const int q_base = offs[0];
   const int k_base = offs[1];
   if (!direct && split < first_live_q_split(k_base + k0, q_base, sq, w,
@@ -292,120 +334,117 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     n_t = rel >= q_end ? 0 : (q_end - first + kT - 1) / kT;
   }
 
-  const int warp = threadIdx.x >> 5;
+  // the warp's 16 keys from block row wr
   const int g = (threadIdx.x & 31) >> 2;
   const int t = threadIdx.x & 3;
-  const int wr = warp * 16;
+  const int wr = (threadIdx.x >> 5) * 16;
   const size_t qoff = static_cast<size_t>(bh) * sq;
   const size_t koff = static_cast<size_t>(bh) * sk;
-  const int k_pos[2] = {k_base + k0 + wr + g, k_base + k0 + wr + g + 8};
+  const int k_pos = k_base + k0 + wr + g;   // the thread's first key
 
-  float acc_k[kND][4], acc_v[kND][4];
+  float acc_k[D / 2], acc_v[D / 2];
   zero(acc_k);
   zero(acc_v);
 
   if (n_t > 0) {
     const bf16* qb = q + qoff * D;
     const bf16* dob = dout + qoff * D;
-    auto stage_tile = [&](int st, int qt0) {
-      bf16* dst = qds + st * 2 * kT * D;
-      stage_bf<D, kT>(dst, qb, qt0, q_end);
-      stage_bf<D, kT>(dst + kT * D, dob, qt0, q_end);
-      const int tid = threadIdx.x;
-      if (tid < 2 * kT) {
-        const int i = qt0 + tid % kT;
-        const bool ok = i < q_end;
-        cp_async4(lds + st * 2 * kT + tid, (tid < kT ? lse : deff) + qoff +
-                  (ok ? i : 0), ok);
-      }
-    };
-    stage_bf<D, kRows>(ks, k + koff * D, k0, sk);
-    stage_bf<D, kRows>(vs, v + koff * D, k0, sk);
-    stage_tile(0, first);
-    cp_async_commit();
-    for (int it = 0; it < n_t; ++it) {
-      const int qt0 = first + it * kT;
-      bf16* qs = qds + (it & 1) * 2 * kT * D;
-      const bf16* os = qs + kT * D;
-      const float* ls = lds + (it & 1) * 2 * kT;
-      const float* dfs = ls + kT;
-      cp_async_wait_all();
-      __syncthreads();   // tile it landed; tile it - 1's reads are done
-      if (it + 1 < n_t) {
-        stage_tile((it + 1) & 1, qt0 + kT);
-        cp_async_commit();
-      }
-      fold_tile<D, kT>(qs, sm_scale);
-      __syncthreads();   // the folded tile is published
-
-      // S^T = K qs^T and dP^T = V dO^T: rows are the warp's keys
-      float s[kNT][4], dp[kNT][4];
-      zero(s);
-      zero(dp);
-#pragma unroll
-      for (int kk = 0; kk < kKD; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a_bf<D>(ks, wr, kk * 16, g, t, ak);
-        load_a_bf<D>(vs, wr, kk * 16, g, t, av);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          uint32_t b[2];
-          load_b_rows<D>(qs, j * 8, kk * 16, g, t, b);
-          mma_bf16(s[j], ak, b);
-          load_b_rows<D>(os, j * 8, kk * 16, g, t, b);
-          mma_bf16(dp[j], av, b);
+    auto stage_qd = [&](int it) {
+      if (it < n_t) {
+        const int st = it % kStages, qt0 = first + it * kT;
+        bf16* dst = qds + st * 2 * kT * D;
+        stage_tile<D, kT, kTh>(dst, qb, qt0, q_end);
+        stage_tile<D, kT, kTh>(dst + kT * D, dob, qt0, q_end);
+        const int tid = threadIdx.x;
+        if (tid < 2 * kT) {
+          const int i = qt0 + tid % kT;
+          const bool ok = i < q_end;
+          cp_async4(lds + st * 2 * kT + tid,
+                    (tid < kT ? lse : deff) + qoff + (ok ? i : 0), ok);
         }
       }
+      cp_async_commit();
+    };
+    stage_tile<D, kR, kTh>(ks, k + koff * D, k0, sk);
+    stage_tile<D, kR, kTh>(vs, v + koff * D, k0, sk);
+#pragma unroll
+    for (int st = 0; st < kStages - 1; ++st) stage_qd(st);
+
+    for (int it = 0; it < n_t; ++it) {
+      const int qt0 = first + it * kT;
+      bf16* qs = qds + (it % kStages) * 2 * kT * D;
+      const bf16* os = qs + kT * D;
+      const float* ls = lds + (it % kStages) * 2 * kT;
+      const float* dfs = ls + kT;
+      cp_async_wait<kStages - 2>();   // this thread's copies of tile it
+      fold_own<D, kT, kTh>(qs, sm_scale);
+      fence_proxy_async();
+      __syncthreads();   // tile it landed and folded; it - 1's are done
+      stage_qd(it + kStages - 1);
+
+      // S^T = K qs^T and dP^T = V dO^T: rows are the block's keys
+      float s[kT / 2], dp[kT / 2];
+      zero(s);
+      zero(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKD; ++kk)
+        wgmma_ss<kT, 0>(s, desc_k<D, kR>(ks, 0, kk * 16),
+                        desc_k<D, kT>(qs, 0, kk * 16), kk);
+#pragma unroll
+      for (int kk = 0; kk < kKD; ++kk)
+        wgmma_ss<kT, 0>(dp, desc_k<D, kR>(vs, 0, kk * 16),
+                        desc_k<D, kT>(os, 0, kk * 16), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
 
       // p into s, ds into dp; a tile wholly inside the split whose first
       // query sees the block's last key needs no mask
-      const bool masked = qt0 + kT > q_end ||
-                          (causal && q_base + qt0 < k_base + k0 + kRows - 1);
+      const bool masked =
+          qt0 + kT > q_end || (causal && q_base + qt0 < k_base + k0 + kR - 1);
+      // a 16-query step at a time, each packed as soon as it is done
+      uint32_t pa[kKT][4], da[kKT][4];
 #pragma unroll
-      for (int j = 0; j < kNT; ++j)
+      for (int jj = 0; jj < kKT; ++jj) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ci = j * 8 + 2 * t + (e & 1);
-          const int qi = qt0 + ci;
-          const float l = ls[ci];
-          const float l_safe = l > kNeg / 2 ? l : -kNeg;
-          float p = exp2f(fmaf(s[j][e], kLog2e, -l_safe * kLog2e));
-          if (masked &&
-              !(qi < q_end && (!causal || q_base + qi >= k_pos[e >> 1])))
-            p = 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dfs[ci]);
+        for (int j = 2 * jj; j < 2 * jj + 2; ++j) {
+          const int c0 = j * 8 + 2 * t;   // the step's two queries
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + c0);
+          const float2 f2 = *reinterpret_cast<const float2*>(dfs + c0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = qt0 + c0 + (e & 1);
+            const float l = e & 1 ? l2.y : l2.x;
+            const float l_safe = l > kNeg / 2 ? l : -kNeg;
+            float p = exp2f(fmaf(s[4 * j + e], kLog2e, -l_safe * kLog2e));
+            if (masked &&
+                !(qi < q_end &&
+                  (!causal || q_base + qi >= k_pos + 8 * (e >> 1))))
+              p = 0.f;
+            s[4 * j + e] = p;
+            dp[4 * j + e] = p * (dp[4 * j + e] - (e & 1 ? f2.y : f2.x));
+          }
         }
+        pack_a(s + 8 * jj, pa[jj]);
+        pack_a(dp + 8 * jj, da[jj]);
+      }
 
-      // dV_t = bf16(P^T) dO, then dK_t = bf16(dS^T) qs, each summed from
-      // zero and added
-      float part[kND][4];
-      zero(part);
+      // dV += bf16(P^T) dO, dK += bf16(dS^T) qs
+      wgmma_fence();
 #pragma unroll
-      for (int jj = 0; jj < kKT; ++jj) {
-        uint32_t a[4];
-        acc_to_a_bf(s[2 * jj], s[2 * jj + 1], a);
+      for (int jj = 0; jj < kKT; ++jj)
+        wgmma_rs_mn<D, kT>(acc_v, pa[jj], os, jj * 16);
 #pragma unroll
-        for (int n = 0; n < kND; ++n) {
-          uint32_t b[2];
-          load_b_cols<D>(os, jj * 16, n * 8, g, t, b);
-          mma_bf16(part[n], a, b);
-        }
-      }
-      add(acc_v, part);
-      zero(part);
-#pragma unroll
-      for (int jj = 0; jj < kKT; ++jj) {
-        uint32_t a[4];
-        acc_to_a_bf(dp[2 * jj], dp[2 * jj + 1], a);
-#pragma unroll
-        for (int n = 0; n < kND; ++n) {
-          uint32_t b[2];
-          load_b_cols<D>(qs, jj * 16, n * 8, g, t, b);
-          mma_bf16(part[n], a, b);
-        }
-      }
-      add(acc_k, part);
+      for (int jj = 0; jj < kKT; ++jj)
+        wgmma_rs_mn<D, kT>(acc_k, da[jj], qs, jj * 16);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      fence_frags(pa);
+      fence_frags(da);
     }
   }
 
@@ -419,20 +458,25 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
     const size_t r = (base + koff + j) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < kND; ++n) {
+      const float* ck = acc_k + 4 * n + 2 * h;
+      const float* cv = acc_v + 4 * n + 2 * h;
       if (direct) {
-        store2(dk + r + n * 8, acc_k[n][2 * h], acc_k[n][2 * h + 1]);
-        store2(dv + r + n * 8, acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+        store2(dk + r + n * 8, ck[0], ck[1]);
+        store2(dv + r + n * 8, cv[0], cv[1]);
       } else {
         *reinterpret_cast<float2*>(dk_part + r + n * 8) =
-            make_float2(acc_k[n][2 * h], acc_k[n][2 * h + 1]);
+            make_float2(ck[0], ck[1]);
         *reinterpret_cast<float2*>(dv_part + r + n * 8) =
-            make_float2(acc_v[n][2 * h], acc_v[n][2 * h + 1]);
+            make_float2(cv[0], cv[1]);
       }
     }
   }
 }
 
 // --- launchers ---------------------------------------------------------------
+
+// The kernels with their dynamic shared memory allowed (once per
+// instantiation). Return the CUDA error of the launch.
 
 // dq (n_split == 1) or the float32 dq_part (n_split > 1 key splits of w)
 template <int D>
@@ -446,8 +490,8 @@ int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
       flash_bwd_dq_bf16_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (sq + kRows - 1) / kRows, n_split);
-  flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(bh, (sq + kWGRows - 1) / kWGRows, n_split);
+  flash_bwd_dq_bf16_kernel<D><<<grid, kWGThreads, smem, stream>>>(
       q, k, v, offs, dout, lse, deff, dq, dq_part, sq, sk, w, n_split,
       sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -467,8 +511,8 @@ int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
       flash_bwd_dkv_bf16_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (sk + kRows - 1) / kRows, n_split);
-  flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(bh, (sk + kWGRows - 1) / kWGRows, n_split);
+  flash_bwd_dkv_bf16_kernel<D><<<grid, kWGThreads, smem, stream>>>(
       q, k, v, offs, dout, lse, deff, dk, dv, dk_part, dv_part, sq, sk, w,
       n_split, sm_scale, causal);
   return static_cast<int>(cudaGetLastError());

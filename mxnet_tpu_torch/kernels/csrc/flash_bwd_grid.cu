@@ -46,8 +46,8 @@
 // passes are bytes-bound and run on CUDA cores, 32 rows a block, eight
 // threads to a row.
 //
-// bf16 inputs take flash_bwd_bf16.cuh's kernels over the same splits (one
-// bf16 mma.sync product a step, the reference kernels' roundings: dS and P
+// bf16 inputs take flash_bwd_bf16.cuh's kernels over the same splits
+// (Hopper's warpgroup products, the reference kernels' roundings: dS and P
 // rounded before their products), writing float32 partials: dq unscaled,
 // dk against the folded q. Their reduce passes are the bf16-output
 // instantiations: dq summed in split order, times sm_scale, then rounded

@@ -25,8 +25,8 @@
 // inputs read once and the outputs written once at 3.35 TB/s. At the
 // training shape (B=8, H=8, S=512, D=64, causal) that is 0.0196 ms (dq) and
 // 0.0261 ms (dk/dv) of operations against 0.0126 and 0.015 ms of bytes:
-// operation bound. bf16 inputs take flash_bwd_bf16.cuh's body (one bf16
-// mma.sync product a step, the reference kernels' roundings), bytes bound
+// operation bound. bf16 inputs take flash_bwd_bf16.cuh's body (Hopper's
+// warpgroup products, the reference kernels' roundings), bytes bound
 // at that shape: 0.0067 ms (dq) and 0.0078 ms (dk/dv).
 #include "flash_bwd.cuh"
 #include "flash_bwd_bf16.cuh"

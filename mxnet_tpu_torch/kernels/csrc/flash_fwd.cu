@@ -12,8 +12,8 @@
 // split over the whole key axis. Bound: operations, 0.0130 ms of
 // float32-accurate tensor-core work (three TF32 products each at 495
 // TFLOP/s) at q/k/v (8, 8, 512, 64) causal, against 0.010 ms of bytes.
-// bf16 inputs take flash_fwd_bf16.cuh's body (one bf16 mma.sync product a
-// step, the reference kernel's roundings): 0.0022 ms of operations at 989
+// bf16 inputs take flash_fwd_bf16.cuh's body (Hopper's warpgroup
+// products, the reference kernel's roundings): 0.0022 ms of operations at 989
 // TFLOP/s against 0.0052 ms of bytes at that shape.
 #include "flash_fwd.cuh"
 #include "flash_fwd_bf16.cuh"

@@ -1,8 +1,8 @@
-// The flash-attention forward body in bf16 on the tensor cores, for Hopper
-// (sm_90a): one kernel, `template <int D, bool kOffs>`, over splits of the
-// key axis (blockIdx.z; w keys each), as the float32 body (flash_fwd.cuh).
-// Four libraries instantiate it beside the float32 body, each with its own
-// C entries:
+// The flash-attention forward body in bf16 on Hopper's warpgroup tensor
+// cores (sm_90a): one kernel, `template <int D, bool kOffs>`, over splits
+// of the key axis (blockIdx.z; w keys each), as the float32 body
+// (flash_fwd.cuh). Four libraries instantiate it beside the float32 body,
+// each with its own C entries:
 // - flash_fwd.cu (TPU kernel _flash_fwd_kernel, #5; no offsets) and
 //   flash_fwd_offs.cu (_flash_fwd_offs_kernel, #1; offsets read on the
 //   device): one split over the whole key axis, bf16 out;
@@ -39,21 +39,21 @@
 // training shape (4, 8, 4096, 64) causal, 8 splits, 0.069 ms of operations
 // (plus the float32 workspace's bytes): operation bound.
 //
-// What the design does (bf16_mma.cuh):
-// - Products: one mma.sync.m16n8k16 bf16 product a 16 x 8 x 16 step; no
-//   split, the operands are the reference's bf16 values.
-// - Q is staged once, sm_scale folded in place and rounded to bf16 (the
-//   reference's folded q), then held as A fragments in registers at D <=
-//   64 or read from shared memory each tile at D = 128.
-// - Per key tile (64 keys; 32 at D = 128): S = Q K^T, scores to log2
-//   units, the online softmax on the accumulator registers (row max over
-//   the thread quad by __shfl_xor_sync), then P V with P rounded to bf16
-//   straight from the accumulators: two adjacent 8-key C tiles are one
-//   16-deep A fragment. Each tile's P V is summed from zero and folded
-//   into O as O * alpha + PV_t with one float32 fma.
-// - Staging: q once, then K and V double-buffered with 16-byte cp.async
-//   into swizzled rows, zero-filled past the valid keys; tile t + 1 loads
-//   while tile t computes. 40 KB of dynamic shared memory at D = 64.
+// What the design does (bf16_wgmma.cuh):
+// - Products: wgmma.mma_async m64nNk16, one warpgroup for 64 query rows.
+//   S = qs K^T reads both operands from shared memory (K K-major); P is
+//   rounded to bf16 straight from S's accumulators into A fragments, and
+//   O += P V reads V transposed (MN-major) from shared memory. O is
+//   rescaled by the online softmax's alpha in its registers before each
+//   tile's product adds to it.
+// - Block: one warpgroup and its 64 query rows, so at D = 64 four blocks
+//   run on an SM (~120 registers a thread, 56 KB of shared memory), each
+//   on its own schedule: one block's softmax overlaps another's products.
+//   (Two warpgroups sharing each staged tile measured slower: PERF.md.)
+// - Tiles of 64 keys in a ring of kStages = 3 stages: tile it + 2 loads
+//   while tile it computes, waited on with cp.async.wait_group 1. q is
+//   staged with the first tile and folded (sm_scale, rounded to bf16) in
+//   place by the threads that copied it, before the first barrier.
 // - Masks as in the float32 body: tiles wholly visible skip the mask, a
 //   masked score becomes -1e30, whose exp2 is exactly 0; tiles past the
 //   causal frontier of the block's last row are never loaded; a split
@@ -64,59 +64,60 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"      // bf16 mma.sync, fragments, staging
+#include "bf16_wgmma.cuh"    // wgmma, descriptors, staging
 #include "flash_split.cuh"   // the split geometry, kNeg
 
 namespace mx_flash_bf16 {
 // Internal linkage, as flash_fwd.cuh's body.
 namespace {
 
-using namespace mx_bf;
+using namespace mx_wg;
 using mx_flash::kNeg;
 using mx_flash::live_kv_splits;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kStages = 3;   // K/V ring
 
-// Q's A fragments live in registers at D <= 64
-template <int D>
-__host__ __device__ constexpr bool q_in_regs_bf() { return D <= 64; }
+// keys of a walked tile
+constexpr int kFwdTile = 64;
 
-// q, and two stages of K and V
+// q, and the ring of K and V tiles
 template <int D>
 constexpr size_t fwd_bf16_smem_bytes() {
-  return sizeof(bf16) * (kRows * D + 4 * tile_rows<D>() * D);
+  return sizeof(bf16) * (kWGRows * D + kStages * 2 * kFwdTile * D);
 }
 
-// One block: 64 query rows of (b, h) = blockIdx.x, key split blockIdx.z of
-// width w (n_split == 1: w >= sk, the final bf16 out and lse into out and
-// lse; else the float32 partial into out_part and lse).
+// One block: 64 query rows of (b, h) = blockIdx.x, key split
+// blockIdx.z of width w (n_split == 1: w >= sk, the final bf16 out and lse
+// into out and lse; else the float32 partial into out_part and lse).
 template <int D, bool kOffs>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWGThreads)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const int* __restrict__ offs, bf16* __restrict__ out,
                       float* __restrict__ out_part, float* __restrict__ lse,
                       int sq, int sk, int w, int n_split, float sm_scale,
                       int causal) {
-  constexpr int kT = tile_rows<D>();
+  constexpr int kR = kWGRows;   // query rows of the block
+  constexpr int kTh = kWGThreads;
+  constexpr int kT = kFwdTile;
   constexpr int kNT = kT / 8;    // 8-key groups of a tile
   constexpr int kKT = kT / 16;   // 16-key steps of a tile
   constexpr int kND = D / 8;     // 8-column groups of a row
   constexpr int kKD = D / 16;    // 16-column steps of a row
-  constexpr bool kQReg = q_in_regs_bf<D>();
-  extern __shared__ __align__(16) float smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);   // [kRows][D]
-  bf16* kvs = qs + kRows * D;                 // [2][k, v][kT][D]
+  extern __shared__ __align__(1024) unsigned char mx_smem[];
+  bf16* qs = smem_base(mx_smem);   // [kR][D]
+  bf16* kvs = qs + kR * D;         // [kStages][k, v][kT][D]
 
   const int bh = blockIdx.x;
   const int rb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int split = blockIdx.z;
   const bool direct = n_split == 1;
-  const int q0 = rb * kRows;
+  const int q0 = rb * kR;
   const int q_base = kOffs ? offs[0] : 0;
   const int k_base = kOffs ? offs[1] : 0;
-  const int last_q = q_base + min(q0 + kRows, sq) - 1;
+  const int last_q = q_base + min(q0 + kR, sq) - 1;
   if (!direct &&
       split >= live_kv_splits(last_q, k_base, w, n_split, causal))
     return;   // dead: no row of the block sees a key of this split
@@ -127,14 +128,14 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_hi = causal ? min(k_end, last_q - k_base + 1) : k_end;
   const int n_t = k_hi > k_lo ? (k_hi - k_lo + kT - 1) / kT : 0;
 
-  const int warp = threadIdx.x >> 5;
+  // the warp's 16 rows from block row wr
   const int g = (threadIdx.x & 31) >> 2;
   const int t = threadIdx.x & 3;
-  const int wr = warp * 16;
+  const int wr = (threadIdx.x >> 5) * 16;
   const size_t qoff = static_cast<size_t>(bh) * sq;
   const int q_pos[2] = {q_base + q0 + wr + g, q_base + q0 + wr + g + 8};
 
-  float acc[kND][4];   // O, unnormalized
+  float acc[D / 2];   // O, unnormalized
   zero(acc);
   float m[2] = {kNeg, kNeg};   // row max of the scores (log2 units)
   float l[2] = {0.f, 0.f};     // the thread's share of the row sums
@@ -142,53 +143,40 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (n_t > 0) {
     const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
     const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
-    stage_bf<D, kRows>(qs, q + qoff * D, q0, sq);
-    stage_bf<D, kT>(kvs, kb, k_lo, k_end);
-    stage_bf<D, kT>(kvs + kT * D, vb, k_lo, k_end);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    fold_tile<D, kRows>(qs, sm_scale);
-    __syncthreads();
-    uint32_t qa[kQReg ? kKD : 1][4];
-    if constexpr (kQReg) {
+    // one cp.async group a tile (empty past the last)
+    auto stage_kv = [&](int it) {
+      if (it < n_t) {
+        bf16* dst = kvs + (it % kStages) * 2 * kT * D;
+        stage_tile<D, kT, kTh>(dst, kb, k_lo + it * kT, k_end);
+        stage_tile<D, kT, kTh>(dst + kT * D, vb, k_lo + it * kT, k_end);
+      }
+      cp_async_commit();
+    };
+    stage_tile<D, kR, kTh>(qs, q + qoff * D, q0, sq);
 #pragma unroll
-      for (int kk = 0; kk < kKD; ++kk)
-        load_a_bf<D>(qs, wr, kk * 16, g, t, qa[kk]);
-    }
+    for (int st = 0; st < kStages - 1; ++st) stage_kv(st);
 
     for (int it = 0; it < n_t; ++it) {
       const int kt0 = k_lo + it * kT;
-      const bf16* ks = kvs + (it & 1) * 2 * kT * D;
+      const bf16* ks = kvs + (it % kStages) * 2 * kT * D;
       const bf16* vs = ks + kT * D;
-      cp_async_wait_all();
-      __syncthreads();   // tile it landed; tile it - 1's reads are done
-      if (it + 1 < n_t) {
-        bf16* nk = kvs + ((it + 1) & 1) * 2 * kT * D;
-        stage_bf<D, kT>(nk, kb, kt0 + kT, k_end);
-        stage_bf<D, kT>(nk + kT * D, vb, kt0 + kT, k_end);
-        cp_async_commit();
-      }
+      cp_async_wait<kStages - 2>();   // this thread's copies of tile it
+      if (it == 0) fold_own<D, kR, kTh>(qs, sm_scale);
+      fence_proxy_async();
+      __syncthreads();   // tile it landed; tile it - 1's products are done
+      stage_kv(it + kStages - 1);
 
-      // S = Q K^T
-      float s[kNT][4];
+      // S = qs K^T
+      float s[kT / 2];
       zero(s);
+      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kKD; ++kk) {
-        uint32_t a[4];
-        if constexpr (kQReg) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
-        } else {
-          load_a_bf<D>(qs, wr, kk * 16, g, t, a);
-        }
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          uint32_t b[2];
-          load_b_rows<D>(ks, j * 8, kk * 16, g, t, b);
-          mma_bf16(s[j], a, b);
-        }
-      }
+      for (int kk = 0; kk < kKD; ++kk)
+        wgmma_ss<kT, 0>(s, desc_k<D, kR>(qs, 0, kk * 16),
+                        desc_k<D, kT>(ks, 0, kk * 16), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
 
       // to log2 units; a tile wholly inside the split and seen by every
       // row of the block needs no mask
@@ -198,11 +186,12 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j = 0; j < kNT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[j][e] *= kLog2e;
+          float& x = s[4 * j + e];
+          x *= kLog2e;
           if (masked) {
             const int kj = kt0 + j * 8 + 2 * t + (e & 1);
             if (!(kj < k_end && (!causal || q_pos[e >> 1] >= k_base + kj)))
-              s[j][e] = kNeg;
+              x = kNeg;
           }
         }
 
@@ -214,7 +203,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float mx = m[h];
 #pragma unroll
         for (int j = 0; j < kNT; ++j)
-          mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+          mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         m_safe[h] = mx > kNeg / 2 ? mx : 0.f;
@@ -222,34 +211,39 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         m[h] = mx;
         l[h] *= alpha[h];
       }
+      uint32_t pa[kKT][4];   // P rounded to bf16, as A fragments
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[j][e] - m_safe[e >> 1]);
+          const float p = exp2f(s[4 * j + e] - m_safe[e >> 1]);
           l[e >> 1] += p;
-          s[j][e] = p;
+          s[4 * j + e] = p;
         }
+#pragma unroll
+      for (int jj = 0; jj < kKT; ++jj) pack_a(s + 8 * jj, pa[jj]);
 
-      // PV_t with P rounded to bf16, summed from zero; O = O * alpha + PV_t
-      float part[kND][4];
-      zero(part);
-#pragma unroll
-      for (int jj = 0; jj < kKT; ++jj) {
-        uint32_t a[4];
-        acc_to_a_bf(s[2 * jj], s[2 * jj + 1], a);
-#pragma unroll
-        for (int n = 0; n < kND; ++n) {
-          uint32_t b[2];
-          load_b_cols<D>(vs, jj * 16, n * 8, g, t, b);
-          mma_bf16(part[n], a, b);
-        }
-      }
+      // O = O * alpha + P V
 #pragma unroll
       for (int n = 0; n < kND; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], part[n][e]);
+        for (int e = 0; e < 4; ++e) acc[4 * n + e] *= alpha[e >> 1];
+      wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < kKT; ++jj) {
+        if constexpr (D == 128) {
+          wgmma_rs<64, 1>(*reinterpret_cast<float(*)[32]>(acc), pa[jj],
+                          desc_mn<D, kT>(vs, jj * 16, 0), 1);
+          wgmma_rs<64, 1>(*reinterpret_cast<float(*)[32]>(acc + 32), pa[jj],
+                          desc_mn<D, kT>(vs, jj * 16, 64), 1);
+        } else {
+          wgmma_rs<D, 1>(acc, pa[jj], desc_mn<D, kT>(vs, jj * 16, 0), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_frags(pa);
     }
   }
 
@@ -267,13 +261,14 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       bf16* o = out + (qoff + i) * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < kND; ++n)
-        store2(o + n * 8, acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
+        store2(o + n * 8, acc[4 * n + 2 * h] / denom,
+               acc[4 * n + 2 * h + 1] / denom);
     } else {
       float* o = out_part + (base + qoff + i) * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < kND; ++n)
-        *reinterpret_cast<float2*>(o + n * 8) =
-            make_float2(acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
+        *reinterpret_cast<float2*>(o + n * 8) = make_float2(
+            acc[4 * n + 2 * h] / denom, acc[4 * n + 2 * h + 1] / denom);
     }
     if (t == 0)
       lse[base + qoff + i] = lr > 0.f ? m[h] * kLn2 + logf(lr) : kNeg;
@@ -281,10 +276,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // The kernel with its dynamic shared memory allowed (the attribute set
-// once per instantiation, before any graph capture). Returns the CUDA
-// error of the launch.
-// out: the bf16 output (n_split == 1); out_part: the float32 workspace
-// (n_split > 1).
+// once per instantiation, before any graph capture). out: the bf16 output
+// (n_split == 1); out_part: the float32 workspace (n_split > 1). Returns
+// the CUDA error of the launch.
 template <int D, bool kOffs>
 int launch_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
                     const int* offs, bf16* out, float* out_part, float* lse,
@@ -295,8 +289,8 @@ int launch_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
       flash_fwd_bf16_kernel<D, kOffs>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (sq + kRows - 1) / kRows, n_split);
-  flash_fwd_bf16_kernel<D, kOffs><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(bh, (sq + kWGRows - 1) / kWGRows, n_split);
+  flash_fwd_bf16_kernel<D, kOffs><<<grid, kWGThreads, smem, stream>>>(
       q, k, v, offs, out, out_part, lse, sq, sk, w, n_split, sm_scale,
       causal);
   return static_cast<int>(cudaGetLastError());

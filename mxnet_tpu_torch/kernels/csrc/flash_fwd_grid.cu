@@ -12,8 +12,8 @@
 // the key splits (3xTF32 mma.sync products; bound: operations, 0.417 ms at
 // q/k/v (4, 8, 4096, 64) causal), pass 2 the combine of flash_fwd_grid.cuh
 // (bytes-bound); both with offsets fixed at 0. bf16 inputs take
-// flash_fwd_bf16.cuh's body over the same splits (one bf16 mma.sync product
-// a step, the reference kernel's roundings; 0.069 ms of operations at 989
+// flash_fwd_bf16.cuh's body over the same splits (Hopper's warpgroup
+// products, the reference kernel's roundings; 0.069 ms of operations at 989
 // TFLOP/s at that shape), float32 partials, and the combine's bf16-output
 // instantiation, which rounds out once.
 #include "flash_fwd.cuh"

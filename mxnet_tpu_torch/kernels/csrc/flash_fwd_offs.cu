@@ -14,7 +14,7 @@
 // round trip; rows with no visible key get out = 0 and lse = -1e30. At
 // the serving shapes (q (1, 8, 64 or 256, 64) on 512 keys) it is latency
 // bound: 8 or 32 blocks for 132 SMs. bf16 inputs (a bf16 model's prefill)
-// take flash_fwd_bf16.cuh's body: one bf16 mma.sync product a step, the
+// take flash_fwd_bf16.cuh's body: Hopper's warpgroup products, the
 // reference kernel's roundings.
 #include "flash_fwd.cuh"
 #include "flash_fwd_bf16.cuh"

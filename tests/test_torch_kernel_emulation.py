@@ -20,8 +20,9 @@ emulator runs every thread of every block as a host thread:
 - two calls on the same inputs give the same bits;
 - the backward pair #2 (``flash_bwd_offs.cu``), whose helpers the forward
   now shares, D = 32;
-- the bf16 bodies (``flash_fwd_bf16.cuh``, ``flash_bwd_bf16.cuh``) behind
-  the ``*_bf16`` entries of #5, #1 and #2 at D = 32, 64 and 128, against
+- the bf16 bodies (``flash_fwd_bf16.cuh``, ``flash_bwd_bf16.cuh``, on the
+  warpgroup products of ``bf16_wgmma.cuh``) behind the ``*_bf16``
+  entries of #5, #1 and #2 at D = 32, 64 and 128, against
   the plain versions on the same bf16 inputs. Tolerance in bf16 ulps of
   each row's largest magnitude (``bf16_gate``'s ``row_ulps`` and
   ``BF16_ULPS``): the emulated MMA sums in double and rounds once where
