@@ -257,9 +257,9 @@ no result line):
 19. serve_bf16 — the serve phase's transformer with dtype bfloat16
              (bf16 weights from the same seeded generator, bf16 KV pages)
              through the same DecodeEngine and prompts. Checks: all served,
-             #1's bf16 entry (flash_fwd_offs.cu, flash_fwd_bf16.cuh)
-             launched at least 12 times per prefill call and the float32
-             one not at all, no KV block left live, every stream equal to
+             #1's bf16 entry (flash_fwd_offs.cu, flash_fwd_half.cuh)
+             launched at least 12 times per prefill call and no other
+             attention kernel, no KV block left live, every stream equal to
              its solo decode. Reports tokens/s, TTFT and inter-token p50.
 20. train_bf16 — the train phase's model in bf16 through
              ShardedTrainStep(adam, lr 1e-3, grad_clip 1.0), 20 steps of 8
@@ -273,9 +273,10 @@ no result line):
              tile's own key tile, or skips the rescale of its running sum)
              must fail the gradients' gate. The first Adam step leaves
              float32 params (jnp's promotion, as the JAX step), which the
-             forward casts to bf16: float32 masters from step 2 on. Reports the step wall p50,
-             tokens/s, and one step under torch.profiler (device time, idle
-             share; DIR/profile_train_bf16.txt).
+             forward casts to bf16: float32 masters from step 2 on (checked
+             after the steps). Reports the step wall p50, tokens/s, and one
+             step under torch.profiler (device time, idle share;
+             DIR/profile_train_bf16.txt).
 21. symbolic_bf16 — module_fit's ResNet-50 run with optimizer_params
              multi_precision=True: the fused step computes in bf16 with
              float32 masters. Checks: the step's compute dtype bf16,
@@ -321,19 +322,20 @@ no result line):
              long shapes (the bounds count bf16 inputs and outputs and
              float32 workspaces), the plain versions, bf16 SDPA; at
              bench.py's shape each family whole against SDPA. Then
-             ``hgmma``: ``cuobjdump -sass`` of every built flash_*
-             library; each bf16 body (flash_fwd_bf16_kernel,
-             flash_bwd_dq_bf16_kernel, flash_bwd_dkv_bf16_kernel) must
-             issue Hopper's warpgroup products (HGMMA) and every other
-             kernel, the float32 bodies and the passes, none. Each bf16
-             entry on the kernels line carries its bound share, TFLOP/s,
-             its time over SDPA's (``vs_library``) and its body's
-             registers and spill bytes.
+             ``hgmma`` (after this phase or f16_kernel): ``cuobjdump
+             -sass`` of every built flash_* library; each 16-bit body
+             (flash_fwd_half_kernel, flash_bwd_dq_half_kernel,
+             flash_bwd_dkv_half_kernel), in both its bf16 and its float16
+             instantiation, must issue Hopper's warpgroup products (HGMMA)
+             and every other kernel, the float32 bodies and the passes,
+             none. Each 16-bit entry on the kernels line carries its bound
+             share, TFLOP/s, its time over SDPA's (``vs_library``) and its
+             body's registers and spill bytes.
 23. serve_long_bf16 — serve_long's configuration with dtype bfloat16
              (bf16 weights from the same seeded generator, bf16 KV pages)
              through the same DecodeEngine and prompts. Checks: all served,
              #3's bf16 entries (flash_fwd_offs_grid.cu,
-             flash_fwd_bf16.cuh; and the bf16 combine) launched 12 times
+             flash_fwd_half.cuh; and the bf16 combine) launched 12 times
              per prefill call and no other attention kernel, no KV block
              left live, every stream equal to its solo decode. Reports
              tokens/s, TTFT and inter-token p50.
@@ -350,6 +352,38 @@ no result line):
              train_bf16 must fail the gradients' gate. Reports the step
              wall p50, tokens/s and one step under torch.profiler (device
              time by kind, idle share; DIR/profile_train_long_bf16.txt).
+25. serve_f16 — serve_bf16 with dtype float16 (float16 weights from the
+             same seeded generator, float16 KV pages): #1's f16 entry
+             launched at least 12 times per prefill call and no other
+             attention kernel, every stream equal to its solo decode.
+26. train_f16 — train_bf16 with dtype float16 for 10 steps
+             (HALF_TRAIN_STEPS; Adam's first step leaves float32 masters,
+             as in bf16): #5's and #2's f16 entries 12 times per step each
+             and no other attention kernel, the loss falls, float32
+             masters after the steps. The gate: a
+             float16 gradient at full width is not float32's in either
+             package (the cotangent of the float16 logits rounds its
+             off-target entries, ~(1/32000)/4096, to 0), so the first loss
+             and every leaf's first gradient are held within F16_LOSS_RTOL
+             and F16_GRAD_RTOL of the same float16 model through the
+             kernels' plain versions (their roundings; ``first_step_gate``)
+             from the same weights, on the card, where train_bf16's two
+             controls must fail the gradients' gate; the gap to the
+             float32 model is printed (``f32_gap``), not gated.
+27. f16_kernel — bf16_kernel's rows in float16: all six kernels and their
+             passes against their plain float16 versions at the same shapes
+             (F16_ULPS float16 ulps of each row's scale,
+             kernels/bf16_gate.py), timed against float16 SDPA; the hgmma
+             check follows.
+28. serve_long_f16 — serve_long_bf16 with dtype float16: #3's f16 entry
+             and its combine 12 times per prefill call, no other attention
+             kernel, streams equal to their solo decodes.
+29. train_long_f16 — train_long_bf16 with dtype float16: #6's and #4's
+             f16 entries and passes 12
+             times per step, no other attention kernel; the gate at 2
+             layers against the plain versions (F16_LONG_LOSS_RTOL,
+             F16_LONG_GRAD_RTOL), the controls failing it, the float32 gap
+             printed.
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
@@ -365,16 +399,17 @@ workspaces through this checkout's combine and reduce passes on both
 sides), whose bodies sum in another order than DIR's, are each held to
 BF16_ULPS row ulps of the plain version, with the row-ulp distance to
 DIR's output recorded (``bf16``); every kernel is timed in turns (DIR's,
-this, this, DIR's) at its path's shape.
+this, this, DIR's) at its path's shape. The float16 entries, which DIR
+may lack, are held to F16_ULPS of the plain version and timed in this
+checkout only (``f16``).
 
 The line before last is ``{"kernels": [...]}`` with each kernel's launches
 on its path's run (serving, training, symbolic training, long-context
 serving or training, the rtc kernels' full-size run or the ResNet-50
-forwards, the bf16 serving and training runs, long ones included; #7's
-adds its launches in
-module_fit, example_scripts and symbolic_bf16, by path in
-``launches_by_path``), its error (the bf16 entries in bf16 ulps) and
-times; the last line is
+forwards, the bf16 and float16 serving and training runs, long ones
+included; #7's adds its launches in module_fit, example_scripts and
+symbolic_bf16, by path in ``launches_by_path``), its error (the 16-bit
+entries in row ulps of their dtype) and times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import argparse
@@ -476,8 +511,10 @@ def time_host_ms(fn, iters=50, reps=7):
 
 
 def kernel_name(mangled):
-    """``base<template ints>`` of a kernel's mangled name (the last name
-    of its nested names, and its integer and bool template arguments)."""
+    """``base<template arguments>`` of a kernel's mangled name (the last
+    name of its nested names; its element type, half_mma.cuh's Bf16, F16
+    or F32, as ``bf16``, ``f16`` or ``f32``, then its integer and bool
+    template arguments)."""
     import re
     base, i = None, 3 if mangled.startswith("_ZN") else 2
     while i < len(mangled) and mangled[i].isdigit():   # <len><id>s
@@ -486,8 +523,9 @@ def kernel_name(mangled):
             j += 1
         n = int(mangled[i:j])
         base, i = mangled[j:j + n], j + n
+    types = [t.lower() for t in re.findall(r"\d(Bf16|F16|F32)E", mangled)]
     args = re.findall(r"L[ib](\d+)E", mangled)
-    return "%s<%s>" % (base or mangled, ",".join(args))
+    return "%s<%s>" % (base or mangled, ",".join(types + args))
 
 
 def ptxas_kernels(log):
@@ -509,16 +547,21 @@ def ptxas_kernels(log):
     return found
 
 
-#: the bf16 attention bodies, which must issue Hopper's warpgroup
-#: products (HGMMA in SASS); every other attention kernel issues none
-BF16_BODIES = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
-               "flash_bwd_dkv_bf16_kernel")
+#: the 16-bit attention bodies (each instantiated for bf16 and float16),
+#: which must issue Hopper's warpgroup products (HGMMA in SASS); every
+#: other attention kernel issues none
+HALF_BODIES = ("flash_fwd_half_kernel", "flash_bwd_dq_half_kernel",
+               "flash_bwd_dkv_half_kernel")
+#: the same bodies in a parent checkout that had only bf16 ones
+PARENT_BF16_BODIES = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                      "flash_bwd_dkv_bf16_kernel")
 
 
 def hgmma_counts(paths):
     """{library: {kernel: HGMMA instructions}} from ``cuobjdump -sass``
     of each built ``flash_*`` library (``paths``: name -> file); fails
-    unless every bf16 body has some and every other kernel none."""
+    unless every 16-bit body, in both dtypes, has some and every other
+    kernel none."""
     import re
     from mxnet_tpu_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
@@ -537,15 +580,17 @@ def hgmma_counts(paths):
             elif name and "HGMMA" in ln:
                 found[name] += 1
         for name, n in found.items():
-            body = name.split("<")[0] in BF16_BODIES
+            body = name.split("<")[0] in HALF_BODIES
             if body and n == 0:
                 fail("hgmma: %s of %s issues no warpgroup product"
                      % (name, lib))
             if not body and n:
                 fail("hgmma: %s of %s issues %d warpgroup products"
                      % (name, lib, n))
-        if not any(n for n in found.values()):
-            fail("hgmma: %s holds no bf16 body" % lib)
+        for dt in ("bf16", "f16"):
+            if not any(n and name.split("<")[0] in HALF_BODIES
+                       and "<%s," % dt in name for name, n in found.items()):
+                fail("hgmma: %s holds no %s body" % (lib, dt))
         counts[lib] = found
     return counts
 
@@ -1787,7 +1832,8 @@ def phase_grid_kernel(torch, fa, dev):
 
 def grid_pass_times(torch, fa, dev, rand, leaves, dtype, check,
                     check_lse):
-    """Each grid kernel and pass alone in ``dtype`` (float32 or bf16): the
+    """Each grid kernel and pass alone in ``dtype`` (float32, bf16 or
+    float16): the
     combine and reduce passes on the plain version's float32 partials (a
     split a row cannot see holds (0, -1e30) or zeros there, which the
     kernels never read), held by ``check(kind, what, got, ref)`` and
@@ -1796,12 +1842,12 @@ def grid_pass_times(torch, fa, dev, rand, leaves, dtype, check,
     at #3's last chunk of a 3800-token prompt: each kernel and pass, the
     whole wrapper, its plain version, the stream kernel at the same shape,
     #4 with one split, and F.scaled_dot_product_attention as a yardstick
-    only; each kernel's bound (float32: attention_bounds, 3xTF32; bf16:
-    bf16_bounds), TFLOP/s and factor against SDPA. -> the row."""
+    only; each kernel's bound (float32: attention_bounds, 3xTF32; 16-bit:
+    half_bounds), TFLOP/s and factor against SDPA. -> the row."""
     import torch.nn.functional as F
-    sfx = "f32" if dtype == torch.float32 else "bf16"
+    sfx = fa._DTYPES[dtype]
     es = float(torch.finfo(dtype).bits // 8)
-    bounds_of = attention_bounds if dtype == torch.float32 else bf16_bounds
+    bounds_of = attention_bounds if dtype == torch.float32 else half_bounds
     t = {}
     B, H, S, D = 4, 8, LONG_S, 64
     sm = 1.0 / math.sqrt(D)
@@ -2850,6 +2896,158 @@ def parent_opt_update(torch, dev, lib, result):
         torch.cuda.empty_cache()
 
 
+def parent_half(torch, fa, dev, sfx, rand, both, ours, result, gates,
+                row_ulps):
+    """``phase_parent``'s 16-bit part in bf16 (``sfx`` "bf16": both trees,
+    each held to the plain version, the distance between them recorded,
+    timed in turns) or float16 ("f16": this tree only, held to the plain
+    version and timed). ``both(key, name, args, outs, iters)`` runs an
+    entry of both trees and times them, ``ours(name)`` this tree's entry;
+    readings go to ``result[sfx]``."""
+    bf = getattr(torch, HALF[sfx])
+    limit = gates[bf][2]
+    result[sfx] = {}
+
+    def pair(key, name, args, outs, iters=20):
+        """[the parent's outputs, this tree's], or [this tree's] in
+        float16."""
+        if sfx == "bf16":
+            return both(key, name, args, outs, iters)
+        fn = ours(name)
+        for o in outs:
+            o.zero_()
+        fn(*args)
+        torch.cuda.synchronize()
+        got = [o.clone() for o in outs]
+        result["times"][key] = {"ms": time_ms(lambda: fn(*args),
+                                              iters=iters)}
+        return [got]
+
+    def hold(key, runs, ref):
+        """runs: [the parent's final outputs, this tree's] or [this
+        tree's]; ref: the plain version's, in the same order (16-bit
+        outputs, float32 lse)."""
+        a, b_ = runs if len(runs) == 2 else (None, runs[0])
+        row = {"ulps": [], "parent_ulps": [], "to_parent_ulps": []}
+        for i, (y, r) in enumerate(zip(b_, ref)):
+            if r.dtype != bf:   # lse
+                live = r > NEG / 2
+                err = scaled_err(y[live], r[live])
+                if not err <= TOL or not bool((y[~live] == NEG).all()):
+                    fail("parent: %s %s lse err %g" % (sfx, key, err))
+                continue
+            u = row_ulps(y, r)
+            if not u <= limit:
+                fail("parent: %s %s %.2f row ulps off the plain version"
+                     % (sfx, key, u))
+            row["ulps"].append(u)
+            if a is not None:
+                row["parent_ulps"].append(row_ulps(a[i], r))
+                row["to_parent_ulps"].append(row_ulps(y, a[i]))
+        result[sfx][key] = row
+
+    B, H, S, D = 8, 8, 512, 64
+    sm = 1.0 / math.sqrt(D)
+    q, k, v, do = (rand(B, H, S, D).to(bf) for _ in range(4))
+    offs0 = fa._offs0(dev)
+    out, lse = fa.flash_fwd_plain(q, k, v, sm, True)
+    deff = fa._deff(do, out, None).contiguous()
+    o_, l_ = torch.empty_like(q), torch.empty(B, H, S, device=dev)
+    tail = [B * H, S, S, D, sm, 1]
+    hold(sfx + "_fwd", pair(sfx + "_fwd", "mx_flash_fwd_" + sfx,
+                            [t.data_ptr() for t in (q, k, v, o_, l_)]
+                            + tail, [o_, l_]), (out, lse))
+    common = [t.data_ptr() for t in (q, k, v, offs0, do, lse, deff)]
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    ref = fa.flash_bwd_offs_plain(q, k, v, offs0, do, None, out, lse, sm,
+                                  True)
+    for key, outs, want in (("dq", [dq], ref[:1]),
+                            ("dkv", [dk, dv], ref[1:])):
+        hold(sfx + "_" + key,
+             pair(sfx + "_" + key, "mx_flash_bwd_%s_%s" % (key, sfx),
+                  common + [o.data_ptr() for o in outs] + tail, outs), want)
+    C, SK, q0 = 256, 512, 256
+    q, k, v = (rand(1, H, n, D).to(bf) for n in (C, SK, SK))
+    offs = torch.tensor([q0, 0], dtype=torch.int32, device=dev)
+    o_, l_ = torch.empty_like(q), torch.empty(1, H, C, device=dev)
+    hold(sfx + "_offs", pair(sfx + "_offs", "mx_flash_fwd_offs_" + sfx,
+                             [t.data_ptr() for t in (q, k, v, offs, o_, l_)]
+                             + [H, C, SK, D, sm, 1], [o_, l_]),
+         fa.flash_fwd_offs_plain(q, k, v, offs, sm, True))
+    del q, k, v, do, out, lse, deff, o_, l_, dq, dk, dv, ref
+    torch.cuda.empty_cache()
+
+    def launch(name, *args):   # this tree's pass (raises if refused)
+        fa._launch(name, *args, device=dev)
+
+    B, S, w = 4, LONG_S, LONG_W
+    n = S // w
+    q, k, v, do = (rand(B, H, S, D).to(bf) for _ in range(4))
+    out, lse = fa.flash_fwd_grid_plain(q, k, v, sm, True, w)
+    deff = fa._deff(do, out, None).contiguous()
+    po, pl = (torch.empty(n, B, H, S, D, device=dev),
+              torch.empty(n, B, H, S, device=dev))
+    runs = pair(sfx + "_grid_fwd", "mx_flash_fwd_grid_" + sfx,
+                [t.data_ptr() for t in (q, k, v, po, pl)]
+                + [B * H, S, S, D, w, n, sm, 1], [po, pl], iters=5)
+    finals = []
+    for po_, pl_ in runs:
+        o_, l_ = torch.empty_like(q), torch.empty(B, H, S, device=dev)
+        launch("mx_flash_fwd_grid_combine_" + sfx, po_.data_ptr(),
+               pl_.data_ptr(), o_.data_ptr(), l_.data_ptr(), B * H, S, D,
+               w, n, 1)
+        finals.append([o_, l_])
+    hold(sfx + "_grid_fwd", finals, (out, lse))
+    del po, pl, runs, finals
+    common = [t.data_ptr() for t in (q, k, v, offs0, do, lse, deff)]
+    ref = fa.flash_bwd_offs_grid_plain(q, k, v, offs0, do, None, out, lse,
+                                       sm, True, w, w)
+    parts = [torch.empty(n, B, H, S, D, device=dev) for _ in range(3)]
+    for key, outs, want in (("dq", parts[:1], ref[:1]),
+                            ("dkv", parts[1:], ref[1:])):
+        runs = pair(sfx + "_grid_" + key,
+                    "mx_flash_bwd_%s_grid_%s" % (key, sfx),
+                    common + [o.data_ptr() for o in outs]
+                    + [B * H, S, S, D, w, n, sm, 1], outs, iters=5)
+        finals = []
+        for got in runs:
+            fin = [torch.empty_like(q) for _ in got]
+            if key == "dq":
+                launch("mx_flash_bwd_dq_grid_reduce_" + sfx,
+                       offs0.data_ptr(), got[0].data_ptr(),
+                       fin[0].data_ptr(), B * H, S, D, w, n, sm, 1)
+            else:
+                launch("mx_flash_bwd_dkv_grid_reduce_" + sfx,
+                       offs0.data_ptr(), got[0].data_ptr(),
+                       got[1].data_ptr(), fin[0].data_ptr(),
+                       fin[1].data_ptr(), B * H, S, S, D, w, n, 1)
+            finals.append(fin)
+        hold(sfx + "_grid_" + key, finals, want)
+        del runs, finals
+    del q, k, v, do, out, lse, deff, ref, parts
+    torch.cuda.empty_cache()
+    C, q0 = 1024, 2816
+    q, k, v = rand(1, H, C, D).to(bf), rand(1, H, S, D).to(bf), \
+        rand(1, H, S, D).to(bf)
+    offs = torch.tensor([q0, 0], dtype=torch.int32, device=dev)
+    po, pl = (torch.empty(n, 1, H, C, D, device=dev),
+              torch.empty(n, 1, H, C, device=dev))
+    runs = pair(sfx + "_grid_offs", "mx_flash_fwd_offs_grid_" + sfx,
+                [t.data_ptr() for t in (q, k, v, offs, po, pl)]
+                + [H, C, S, D, w, n, sm, 1], [po, pl])
+    finals = []
+    for po_, pl_ in runs:
+        o_, l_ = torch.empty_like(q), torch.empty(1, H, C, device=dev)
+        launch("mx_flash_fwd_offs_grid_combine_" + sfx, offs.data_ptr(),
+               po_.data_ptr(), pl_.data_ptr(), o_.data_ptr(), l_.data_ptr(),
+               H, C, D, w, n, 1)
+        finals.append([o_, l_])
+    hold(sfx + "_grid_offs", finals,
+         fa.flash_fwd_offs_grid_plain(q, k, v, offs, sm, True, w))
+    del q, k, v, po, pl, runs, finals
+    torch.cuda.empty_cache()
+
+
 def phase_parent(torch, fa, dev, parent):
     """This checkout's attention kernels and #7 against another's
     (``--parent DIR``: a checkout, e.g. the parent commit unpacked with
@@ -2857,11 +3055,13 @@ def phase_parent(torch, fa, dev, parent):
     same C entries (#7: the parent's per-leaf entries) on the same card.
     The float32 attention entries (forwards #5, #6, #1, #3 and backwards
     #2, #4) and #7 must give the same bits in both; the bf16 entries
-    (#5, #1, #2, #6, #3, #4) are each held to BF16_ULPS row ulps of the
-    plain version in both trees, with the row-ulp distance between the
-    trees recorded; every kernel is timed in turns (DIR's, this, this,
-    DIR's) at its main path's shape. The registers and spill bytes of
-    DIR's bf16 bodies are reported beside this tree's (the build line)."""
+    (#5, #1, #2, #6, #3, #4) are each held to the bf16 row-ulp limit of
+    the plain version in both trees, with the row-ulp distance between
+    the trees recorded, and the float16 entries, which DIR may lack, in
+    this tree only (``parent_half``); every kernel is timed in turns
+    (DIR's, this, this, DIR's) at its main path's shape, the float16 ones
+    in this tree alone. The registers and spill bytes of DIR's 16-bit
+    bodies are reported beside this tree's (the build line)."""
     import ctypes
     from mxnet_tpu_torch.kernels import _build
     csrc = os.path.join(parent, "mxnet_tpu_torch", "kernels", "csrc")
@@ -2975,147 +3175,30 @@ def phase_parent(torch, fa, dev, parent):
                      + [sm, 1], [o_, l_])
         same_fwd(key, a, b_)
 
-    # the bf16 entries: their bodies' sums run in another order than the
-    # parent's, so each tree is held to BF16_ULPS row ulps of the plain
-    # version (lse to TOL) and the distance between the trees is printed.
-    # The grid entries' workspaces go through this tree's combine or
-    # reduce pass on both sides. #5 and #2 at the training shape, #1 at the
-    # serving shape, #6 and #4 at the long training shape (8 splits), #3
-    # at the long prefill's last chunk
-    from mxnet_tpu_torch.kernels.bf16_gate import BF16_ULPS, row_ulps
-    bf = torch.bfloat16
-    result["bf16"] = {}
-
-    def hold_bf16(key, a, b_, ref):
-        """a, b_: the parent's and this tree's final outputs; ref: the
-        plain version's, in the same order (bf16 outputs, float32 lse)."""
-        row = {"ulps": [], "parent_ulps": [], "to_parent_ulps": []}
-        for x, y, r in zip(a, b_, ref):
-            if r.dtype != bf:   # lse
-                live = r > NEG / 2
-                err = scaled_err(y[live], r[live])
-                if not err <= TOL or not bool((y[~live] == NEG).all()):
-                    fail("parent: bf16 %s lse err %g" % (key, err))
-                continue
-            u = row_ulps(y, r)
-            if not u <= BF16_ULPS:
-                fail("parent: bf16 %s %.2f row ulps off the plain version"
-                     % (key, u))
-            row["ulps"].append(u)
-            row["parent_ulps"].append(row_ulps(x, r))
-            row["to_parent_ulps"].append(row_ulps(y, x))
-        result["bf16"][key] = row
-
-    B, H, S, D = 8, 8, 512, 64
-    sm = 1.0 / math.sqrt(D)
-    q, k, v, do = (rand(B, H, S, D).to(bf) for _ in range(4))
-    offs0 = fa._offs0(dev)
-    out, lse = fa.flash_fwd_plain(q, k, v, sm, True)
-    deff = fa._deff(do, out, None).contiguous()
-    o_, l_ = torch.empty_like(q), torch.empty(B, H, S, device=dev)
-    tail = [B * H, S, S, D, sm, 1]
-    a, b_ = both("bf16_fwd", "mx_flash_fwd_bf16",
-                 [t.data_ptr() for t in (q, k, v, o_, l_)] + tail, [o_, l_])
-    hold_bf16("bf16_fwd", a, b_, (out, lse))
-    common = [t.data_ptr() for t in (q, k, v, offs0, do, lse, deff)]
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    ref = fa.flash_bwd_offs_plain(q, k, v, offs0, do, None, out, lse, sm,
-                                  True)
-    for key, outs, want in (("dq", [dq], ref[:1]),
-                            ("dkv", [dk, dv], ref[1:])):
-        a, b_ = both("bf16_" + key, "mx_flash_bwd_%s_bf16" % key,
-                     common + [o.data_ptr() for o in outs] + tail, outs)
-        hold_bf16("bf16_" + key, a, b_, want)
-    C, SK, q0 = 256, 512, 256
-    q, k, v = (rand(1, H, n, D).to(bf) for n in (C, SK, SK))
-    offs = torch.tensor([q0, 0], dtype=torch.int32, device=dev)
-    o_, l_ = torch.empty_like(q), torch.empty(1, H, C, device=dev)
-    a, b_ = both("bf16_offs", "mx_flash_fwd_offs_bf16",
-                 [t.data_ptr() for t in (q, k, v, offs, o_, l_)]
-                 + [H, C, SK, D, sm, 1], [o_, l_])
-    hold_bf16("bf16_offs", a, b_,
-              fa.flash_fwd_offs_plain(q, k, v, offs, sm, True))
-    del q, k, v, do, out, lse, deff, o_, l_, dq, dk, dv, ref
-    torch.cuda.empty_cache()
-
-    def launch(name, *args):   # this tree's pass (raises if refused)
-        fa._launch(name, *args, device=dev)
-
-    B, S, w = 4, LONG_S, LONG_W
-    n = S // w
-    q, k, v, do = (rand(B, H, S, D).to(bf) for _ in range(4))
-    out, lse = fa.flash_fwd_grid_plain(q, k, v, sm, True, w)
-    deff = fa._deff(do, out, None).contiguous()
-    po, pl = (torch.empty(n, B, H, S, D, device=dev),
-              torch.empty(n, B, H, S, device=dev))
-    a, b_ = both("bf16_grid_fwd", "mx_flash_fwd_grid_bf16",
-                 [t.data_ptr() for t in (q, k, v, po, pl)]
-                 + [B * H, S, S, D, w, n, sm, 1], [po, pl], iters=5)
-    finals = []
-    for po_, pl_ in (a, b_):
-        o_, l_ = torch.empty_like(q), torch.empty(B, H, S, device=dev)
-        launch("mx_flash_fwd_grid_combine_bf16", po_.data_ptr(),
-               pl_.data_ptr(), o_.data_ptr(), l_.data_ptr(), B * H, S, D,
-               w, n, 1)
-        finals.append([o_, l_])
-    hold_bf16("bf16_grid_fwd", *finals, (out, lse))
-    del po, pl, a, b_, finals
-    common = [t.data_ptr() for t in (q, k, v, offs0, do, lse, deff)]
-    ref = fa.flash_bwd_offs_grid_plain(q, k, v, offs0, do, None, out, lse,
-                                       sm, True, w, w)
-    parts = [torch.empty(n, B, H, S, D, device=dev) for _ in range(3)]
-    for key, outs, want in (("dq", parts[:1], ref[:1]),
-                            ("dkv", parts[1:], ref[1:])):
-        a, b_ = both("bf16_grid_" + key, "mx_flash_bwd_%s_grid_bf16" % key,
-                     common + [o.data_ptr() for o in outs]
-                     + [B * H, S, S, D, w, n, sm, 1], outs, iters=5)
-        finals = []
-        for got in (a, b_):
-            fin = [torch.empty_like(q) for _ in got]
-            if key == "dq":
-                launch("mx_flash_bwd_dq_grid_reduce_bf16", offs0.data_ptr(),
-                       got[0].data_ptr(), fin[0].data_ptr(), B * H, S, D, w,
-                       n, sm, 1)
-            else:
-                launch("mx_flash_bwd_dkv_grid_reduce_bf16",
-                       offs0.data_ptr(), got[0].data_ptr(),
-                       got[1].data_ptr(), fin[0].data_ptr(),
-                       fin[1].data_ptr(), B * H, S, S, D, w, n, 1)
-            finals.append(fin)
-        hold_bf16("bf16_grid_" + key, *finals, want)
-        del a, b_, finals
-    del q, k, v, do, out, lse, deff, ref, parts
-    torch.cuda.empty_cache()
-    C, q0 = 1024, 2816
-    q, k, v = rand(1, H, C, D).to(bf), rand(1, H, S, D).to(bf), \
-        rand(1, H, S, D).to(bf)
-    offs = torch.tensor([q0, 0], dtype=torch.int32, device=dev)
-    po, pl = (torch.empty(n, 1, H, C, D, device=dev),
-              torch.empty(n, 1, H, C, device=dev))
-    a, b_ = both("bf16_grid_offs", "mx_flash_fwd_offs_grid_bf16",
-                 [t.data_ptr() for t in (q, k, v, offs, po, pl)]
-                 + [H, C, S, D, w, n, sm, 1], [po, pl])
-    finals = []
-    for po_, pl_ in (a, b_):
-        o_, l_ = torch.empty_like(q), torch.empty(1, H, C, device=dev)
-        launch("mx_flash_fwd_offs_grid_combine_bf16", offs.data_ptr(),
-               po_.data_ptr(), pl_.data_ptr(), o_.data_ptr(), l_.data_ptr(),
-               H, C, D, w, n, 1)
-        finals.append([o_, l_])
-    hold_bf16("bf16_grid_offs", *finals,
-              fa.flash_fwd_offs_grid_plain(q, k, v, offs, sm, True, w))
-    del q, k, v, po, pl, a, b_, finals
-    torch.cuda.empty_cache()
+    # the 16-bit entries: their bodies' sums run in another order than the
+    # parent's, so each tree is held to its dtype's row-ulp limit of the
+    # plain version (lse to TOL) and the distance between the trees is
+    # printed. The parent has no float16 entries: float16 is held in this
+    # tree only. The grid entries' workspaces go through this tree's
+    # combine or reduce pass on both sides. #5 and #2 at the training
+    # shape, #1 at the serving shape, #6 and #4 at the long training shape
+    # (8 splits), #3 at the long prefill's last chunk
+    from mxnet_tpu_torch.kernels.bf16_gate import GATES, row_ulps
+    for sfx in HALF:
+        parent_half(torch, fa, dev, sfx, rand, both, ours, result,
+                    GATES, row_ulps)
     parent_opt_update(torch, dev, libs["opt_update"], result)
     for v_ in result["times"].values():
-        v_["speedup"] = v_["parent_ms"] / v_["ms"]
-    # the parent's bf16 bodies: [registers, spill store, spill load bytes]
+        if "parent_ms" in v_:   # the float16 entries run in this tree only
+            v_["speedup"] = v_["parent_ms"] / v_["ms"]
+    # the parent's 16-bit bodies: [registers, spill store, spill load
+    # bytes]
     result["ptxas"] = {}
     for n in paths:
         info = _build.csrc_build_info.get((csrc, n))
         bodies = {k: v for k, v in ptxas_kernels(
             info["ptxas"] if info else "").items()
-                  if k.split("<")[0] in BF16_BODIES}
+                  if k.split("<")[0] in HALF_BODIES + PARENT_BF16_BODIES}
         if bodies:
             result["ptxas"][n] = bodies
     return result
@@ -3419,18 +3502,27 @@ def phase_example_scripts(torch, dev, tmp):
     return result, {k: tuple(v) for k, v in total.items()}
 
 
-# --- bf16 compute (phases 19-24) --------------------------------------------
+# --- 16-bit compute: bf16 (phases 19-24) and float16 (25-29) ----------------
 
-PEAK_BF16_FLOPS = 989e12
-BF16_COUNTERS = ("launches_bf16", "launches_fwd_bf16", "launches_bwd_dq_bf16",
-                 "launches_bwd_dkv_bf16")
-#: grid kernel -> its bf16 instantiation's launch counter
-BF16_GRID_COUNTERS = {key: counter + "_bf16"
-                      for key, (_, counter, _, _) in GRID_KERNELS.items()}
+#: the dense bf16 and float16 tensor-core rate of one H100 SXM (the same)
+PEAK_HALF_FLOPS = 989e12
+#: the 16-bit paths: entry and counter suffix -> torch dtype name
+HALF = {"bf16": "bfloat16", "f16": "float16"}
 
 
-def bf16_bounds(flops, nbytes):
-    ms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+def half_counters(sfx):
+    """The stream kernels' launch counters of the ``sfx`` entries."""
+    return tuple(n + "_" + sfx for n in STREAM_COUNTERS)
+
+
+def half_grid_counters(sfx):
+    """grid kernel -> the launch counter of its ``sfx`` instantiation."""
+    return {key: counter + "_" + sfx
+            for key, (_, counter, _, _) in GRID_KERNELS.items()}
+
+
+def half_bounds(flops, nbytes):
+    ms, by = bound_ms(flops, nbytes, PEAK_HALF_FLOPS)
     return {"bound_ms": ms, "bound_by": by}
 
 
@@ -3457,17 +3549,43 @@ BF16_CE_RTOL = 1e-2
 #: rounded to bf16 at least 1.16 (the float8 one 0.15-0.17). Over all 157
 #: masters sound runs already differ by 0.75-0.80, too much to gate on
 BF16_UPDATE_RTOL = 0.1
+# Limits of the float16 paths. A float16 gradient at full width is not the
+# float32 one in either package (the cotangent of the float16 logits rounds
+# its off-target entries, ~(1/32000)/4096, to 0, and dS falls into
+# float16's subnormals), so the float16 model through the kernels is held
+# to the same float16 model through the kernels' plain versions from the
+# same weights, on the card; the gap to float32 is printed, not gated.
+# Set from readings of seeds 0 to 2 on the card beside the two controls,
+# which must fail the gradients' gate in every run (PERF.md, section 6).
+#: the first loss (relative): sound runs read 4.6e-7 to 1.09e-6, the
+#: controls 1.49e-5 to 9.0e-4
+F16_LOSS_RTOL = 5e-6
+#: the worst leaf's first gradient (relative L2): sound runs read 0.0439
+#: to 0.0453 (layers.wq: dS falls into float16's subnormals, where the
+#: kernel's and the plain version's float32 sums round it apart), the
+#: controls 0.744 to 0.792; the float32 model is 0.54-0.58 away
+F16_GRAD_RTOL = 0.15
+#: path -> (loss limit, gradient limit) of the first step's gate
+GATE_LIMITS = {"bf16": (BF16_LOSS_RTOL, BF16_GRAD_RTOL),
+               "f16": (F16_LOSS_RTOL, F16_GRAD_RTOL)}
+#: path -> the train phase's steps. float16 takes the 10 the loss falls
+#: in: at lr 1e-3 the residual stream passes 256 around step 12, where
+#: the layer norm's float16 (x - mu)^2 overflows, its variance is inf and
+#: the model's output collapses to uniform (loss 10.36, ln 32000), in the
+#: reference's function as in the port's (PERF.md, section 6)
+HALF_TRAIN_STEPS = {"bf16": TRAIN_STEPS, "f16": 10}
 #: key tile of the transformer's control attention (the kernels' at D 64)
 CONTROL_TILE = 64
 
 
 def _control_attention(torch, fault):
-    """Plain causal bf16 attention over key tiles of CONTROL_TILE with one
-    planted fault, a control for the bf16 model's gates (the signature of
-    ``models.transformer._attention``). "diagonal": each query tile's own
-    key tile is dropped, so its first rows see no key and give 0.
-    "rescale": a tile's P V joins the running sum without rescaling the
-    sum when the row max rises (the sums l are rescaled)."""
+    """Plain causal 16-bit attention over key tiles of CONTROL_TILE with
+    one planted fault, a control for the 16-bit model's gates (the
+    signature of ``models.transformer._attention``). "diagonal": each
+    query tile's own key tile is dropped, so its first rows see no key and
+    give 0. "rescale": a tile's P V joins the running sum without
+    rescaling the sum when the row max rises (the sums l are
+    rescaled)."""
     def attention(q, k, v, cfg, mesh):
         B, H, S, D = q.shape
         qs = (q.float() / math.sqrt(D)).to(q.dtype).float()
@@ -3526,31 +3644,36 @@ def _rel_l2(got, want):
                                 for w in want)).item())
 
 
-def _bf16_counts(fa):
-    return {name: getattr(fa, name) for name in BF16_COUNTERS}
+def _half_counts(fa, sfx):
+    return {name: getattr(fa, name) for name in half_counters(sfx)}
 
 
-def _zero_attention_counts(fa):
-    for name in STREAM_COUNTERS + BF16_COUNTERS:
-        setattr(fa, name, 0)
-
-
-def _attention_counters(but):
-    """Every attention kernel's launch counter but those in ``but``."""
-    every = (STREAM_COUNTERS + BF16_COUNTERS
-             + tuple(v[1] for v in GRID_KERNELS.values())
-             + tuple(BF16_GRID_COUNTERS.values()))
+def _attention_counters(but=()):
+    """Every attention kernel's launch counter, of every dtype, but those
+    in ``but``."""
+    every = STREAM_COUNTERS + tuple(v[1] for v in GRID_KERNELS.values())
+    for sfx in HALF:
+        every += half_counters(sfx) + tuple(half_grid_counters(sfx).values())
     return tuple(n for n in every if n not in but)
 
 
-def phase_serve_bf16(torch, fa, dev):
-    """The serve phase's transformer in bf16 through DecodeEngine (module
-    docstring, phase 19). Returns (result, #1's bf16 launches)."""
+def _zero_attention_counts(fa):
+    for name in _attention_counters():
+        setattr(fa, name, 0)
+
+
+def phase_serve_half(torch, fa, dev, sfx):
+    """The serve phase's transformer in bf16 (``sfx`` "bf16") or float16
+    ("f16") through DecodeEngine (module docstring, phases 19 and 25).
+    Returns (result, #1's launches in that dtype)."""
     from mxnet_tpu_torch.models.transformer import (TransformerConfig,
                                                     TransformerDecodeModel)
     from mxnet_tpu_torch.serving import DecodeEngine
+    phase = "serve_" + sfx
+    dtype = getattr(torch, HALF[sfx])
+    counter = "launches_" + sfx
     cfg = TransformerConfig(vocab_size=32000, num_layers=12, num_heads=8,
-                            d_model=512, max_len=512, dtype=torch.bfloat16)
+                            d_model=512, max_len=512, dtype=dtype)
     t0 = time.perf_counter()
     model = TransformerDecodeModel(cfg, seed=SEED, device=dev)
     eng = DecodeEngine(block_size=16, num_blocks=257, batch_size=8,
@@ -3558,8 +3681,8 @@ def phase_serve_bf16(torch, fa, dev):
                        prefill_chunk=256, **model.engine_kwargs())
     setup_s = time.perf_counter() - t0
     try:
-        if eng._k_pages.dtype != torch.bfloat16:
-            fail("serve_bf16: pages are %s" % eng._k_pages.dtype)
+        if eng._k_pages.dtype != dtype:
+            fail("%s: pages are %s" % (phase, eng._k_pages.dtype))
         rng = torch.Generator().manual_seed(SEED + 1)
         lengths = [5, 37, 64, 100, 200, 257, 380, 480]
         prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
@@ -3577,22 +3700,22 @@ def phase_serve_bf16(torch, fa, dev):
                    for p in prompts]
         outs = [s.result_wait(600.0) for s in streams]
         wall = time.perf_counter() - t0
-        counts = {**_bf16_counts(fa), "launches": fa.launches}
+        counts = {name: getattr(fa, name) for name in _attention_counters()}
         calls = sum(-(-n // 256) for n in lengths)
         st = eng.stats()
         if st["served"] != len(prompts):
-            fail("serve_bf16: served %d of %d" % (st["served"],
-                                                  len(prompts)))
-        if counts["launches_bf16"] < cfg.num_layers * calls or \
-                counts["launches"]:
-            fail("serve_bf16: #1 launches %s, want >= %d in bf16 and none "
-                 "in float32" % (counts, cfg.num_layers * calls))
+            fail("%s: served %d of %d" % (phase, st["served"], len(prompts)))
+        others = {n: c for n, c in counts.items() if c and n != counter}
+        if counts[counter] < cfg.num_layers * calls or others:
+            fail("%s: #1 launches %d, want >= %d in %s; other attention "
+                 "kernels %s" % (phase, counts[counter],
+                                 cfg.num_layers * calls, HALF[sfx], others))
         if st["kv"]["blocks_live"] != 0:
-            fail("serve_bf16: %d KV blocks still live"
-                 % st["kv"]["blocks_live"])
+            fail("%s: %d KV blocks still live" % (phase,
+                                                  st["kv"]["blocks_live"]))
         for o in outs:
             if len(o) != new or not all(0 <= t < cfg.vocab_size for t in o):
-                fail("serve_bf16: bad stream %s" % o)
+                fail("%s: bad stream %s" % (phase, o))
         ttft = [stamps[s.rid][0] - s.submitted_t for s in streams]
         gaps = [b - a for s in streams
                 for a, b in zip(stamps[s.rid], stamps[s.rid][1:])]
@@ -3600,67 +3723,97 @@ def phase_serve_bf16(torch, fa, dev):
                 for p in prompts]
         if solo != outs:
             bad = [i for i, (a, b) in enumerate(zip(solo, outs)) if a != b]
-            fail("serve_bf16: continuous != solo for prompts %s" % bad)
+            fail("%s: continuous != solo for prompts %s" % (phase, bad))
     finally:
         eng.stop()
-    return {"phase": "serve_bf16", "setup_s": setup_s, "wall_s": wall,
+    return {"phase": phase, "setup_s": setup_s, "wall_s": wall,
             "tokens": sum(len(o) for o in outs),
             "tokens_per_s": sum(len(o) for o in outs) / wall,
             "ttft_p50_ms": statistics.median(ttft) * 1e3,
             "intertoken_p50_ms": statistics.median(gaps) * 1e3,
-            "prefill_calls": calls, "launches": counts,
+            "prefill_calls": calls, "launches": _half_counts(fa, sfx),
             "program_counts": list(eng.program_counts()),
             "continuous_equals_solo": True,
-            "kv_page_bytes": eng._k_pages.element_size()}, \
-        counts["launches_bf16"]
+            "kv_page_bytes": eng._k_pages.element_size()}, counts[counter]
 
 
-def phase_train_bf16(torch, fa, dev, seed, out_dir):
-    """The train phase's transformer in bf16 through ShardedTrainStep
-    (module docstring, phase 20). Returns (result, bf16 launch counts)."""
+def _gate_readings(names, ref):
+    """readings(loss, grads) against ``ref`` = (loss, grads): the loss's
+    relative error and the worst leaf's relative L2 gradient error."""
+    loss_ref, g_ref = ref
+
+    def readings(loss, grads):
+        errs = [_rel_l2([g], [w]) for g, w in zip(grads, g_ref)]
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        return {"loss_rel_err": abs(loss - loss_ref) / abs(loss_ref),
+                "grad_rel_err": errs[worst], "grad_worst_leaf": names[worst]}
+    return readings
+
+
+def first_step_gate(torch, tm, loss_fn, loss_fn32, params, batch, sfx):
+    """The 16-bit model's first loss and gradients (through the kernels)
+    and under the two faulty attentions of ``_control_attention``, read
+    against the gate's reference from the same weights and batch: for
+    bf16 the float32 model, for float16 the same float16 model under the
+    plain attention, the kernels' own plain versions with the reference
+    kernels' roundings (``_FlashAttention`` on its CPU path, run on the
+    card: ``flash_attention._on_cuda`` reads False), its float32 gap read
+    and printed as ``f32_gap``, not gated (module docstring, phases 20 and
+    26). -> (readings, the reference's loss)."""
+    from mxnet_tpu_torch.kernels import flash_attention as fa
+    from mxnet_tpu_torch.parallel.optim_update import tree_map
+    names = _leaf_names(params)
+    f32 = _first_grads(torch, loss_fn32, tree_map(lambda x: x.float(),
+                                                  params), batch)
+    if sfx == "bf16":
+        ref = f32
+    else:
+        with mock.patch.object(fa, "_on_cuda", lambda t, where: False):
+            ref = _first_grads(torch, loss_fn, params, batch)
+    readings = _gate_readings(names, ref)
+    sound = _first_grads(torch, loss_fn, params, batch)
+    gate = {"sound": readings(*sound)}
+    if sfx != "bf16":
+        gate["f32_gap"] = _gate_readings(names, f32)(*sound)
+    del f32, sound
+    for fault in ("diagonal", "rescale"):
+        with mock.patch.object(tm, "_attention",
+                               _control_attention(torch, fault)):
+            gate[fault] = readings(*_first_grads(torch, loss_fn, params,
+                                                 batch))
+    return gate, ref[0]
+
+
+def phase_train_half(torch, fa, dev, seed, out_dir, sfx):
+    """The train phase's transformer in bf16 (``sfx`` "bf16") or float16
+    ("f16") through ShardedTrainStep (module docstring, phases 20 and
+    26). Returns (result, launch counts in that dtype)."""
     import mxnet_tpu_torch.models.transformer as tm
     from mxnet_tpu_torch.models.transformer import (
         TransformerConfig, init_transformer, transformer_loss)
     from mxnet_tpu_torch.parallel import ShardedTrainStep
     from mxnet_tpu_torch.parallel.optim_update import tree_leaves
+    phase = "train_" + sfx
+    loss_rtol, grad_rtol = GATE_LIMITS[sfx]
     cfg = TransformerConfig(vocab_size=32000, num_layers=12, num_heads=8,
-                            d_model=512, max_len=512, dtype=torch.bfloat16)
+                            d_model=512, max_len=512,
+                            dtype=getattr(torch, HALF[sfx]))
     B, S = 8, 512
     t0 = time.perf_counter()
     params = init_transformer(cfg, torch.Generator().manual_seed(seed), dev)
     make_batch = periodic_batches(seed, cfg.vocab_size, S, B)
-    batches = [make_batch() for _ in range(TRAIN_STEPS)]
+    steps = HALF_TRAIN_STEPS[sfx]
+    batches = [make_batch() for _ in range(steps)]
 
     def loss_fn(p, b):
         return transformer_loss(p, b["tokens"], b["targets"], cfg)
 
-    # the first loss and gradients against the float32 model's from the
-    # same weights; then the bf16 model's under two faulty attentions, the
-    # controls of BF16_LOSS_RTOL and BF16_GRAD_RTOL
     cfg32 = TransformerConfig(vocab_size=32000, num_layers=12, num_heads=8,
                               d_model=512, max_len=512)
     first = {k: torch.as_tensor(x).to(dev) for k, x in batches[0].items()}
-    params32 = {k: (v.float() if not isinstance(v, dict) else
-                    {kk: vv.float() for kk, vv in v.items()})
-                for k, v in params.items()}
-    loss32, g32 = _first_grads(
-        torch, lambda p, b: transformer_loss(p, b["tokens"], b["targets"],
-                                             cfg32), params32, first)
-    names = _leaf_names(params)
-
-    def readings(loss, grads):
-        errs = [_rel_l2([g], [w]) for g, w in zip(grads, g32)]
-        worst = max(range(len(errs)), key=errs.__getitem__)
-        return {"loss_rel_err": abs(loss - loss32) / abs(loss32),
-                "grad_rel_err": errs[worst], "grad_worst_leaf": names[worst]}
-
-    gate = {"sound": readings(*_first_grads(torch, loss_fn, params, first))}
-    for fault in ("diagonal", "rescale"):
-        with mock.patch.object(tm, "_attention",
-                               _control_attention(torch, fault)):
-            gate[fault] = readings(*_first_grads(torch, loss_fn, params,
-                                                 first))
-    del params32, g32
+    gate, loss_ref = first_step_gate(
+        torch, tm, loss_fn, lambda p, b: transformer_loss(
+            p, b["tokens"], b["targets"], cfg32), params, first, sfx)
     step = ShardedTrainStep(loss_fn, optimizer="adam", lr=1e-3,
                             grad_clip=1.0, device=dev).init(params)
     setup_s = time.perf_counter() - t0
@@ -3674,42 +3827,46 @@ def phase_train_bf16(torch, fa, dev, seed, out_dir):
         losses.append(step(b).item())
         walls.append(time.perf_counter() - ts)
     wall = time.perf_counter() - t0
-    counts = _bf16_counts(fa)
-    f32_counts = {n: getattr(fa, n) for n in STREAM_COUNTERS}
+    counts = _half_counts(fa, sfx)
+    others = {n: getattr(fa, n) for n in _attention_counters(
+        half_counters(sfx)) if getattr(fa, n)}
     peak = torch.cuda.max_memory_allocated(dev)
     if not all(math.isfinite(x) for x in losses):
-        fail("train_bf16: non-finite loss in %s" % losses)
+        fail("%s: non-finite loss in %s" % (phase, losses))
     if not statistics.mean(losses[-3:]) < losses[0]:
-        fail("train_bf16: loss did not fall: %s" % losses)
-    want = cfg.num_layers * TRAIN_STEPS
-    for name in ("launches_fwd_bf16", "launches_bwd_dq_bf16",
-                 "launches_bwd_dkv_bf16"):
-        if counts[name] != want:
-            fail("train_bf16: %s = %d, want %d (12 per step)"
-                 % (name, counts[name], want))
-    if any(f32_counts.values()) or counts["launches_bf16"]:
-        fail("train_bf16: other attention kernels launched: %s %s"
-             % (f32_counts, counts))
-    rel = abs(losses[0] - loss32) / abs(loss32)
-    if not (rel <= BF16_LOSS_RTOL and gate["sound"]["grad_rel_err"]
-            <= BF16_GRAD_RTOL):
-        fail("train_bf16: first bf16 loss %r vs float32 %r (rel %g, limit "
-             "%g), gradients %s (limit %g)" % (losses[0], loss32, rel,
-                                               BF16_LOSS_RTOL, gate,
-                                               BF16_GRAD_RTOL))
+        fail("%s: loss did not fall: %s" % (phase, losses))
+    want = cfg.num_layers * steps
+    for name in ("launches_fwd_", "launches_bwd_dq_", "launches_bwd_dkv_"):
+        if counts[name + sfx] != want:
+            fail("%s: %s = %d, want %d (12 per step)"
+                 % (phase, name + sfx, counts[name + sfx], want))
+    if others or counts["launches_" + sfx]:
+        fail("%s: other attention kernels launched: %s %s"
+             % (phase, others, counts))
+    rel = abs(losses[0] - loss_ref) / abs(loss_ref)
+    if not (rel <= loss_rtol and gate["sound"]["grad_rel_err"]
+            <= grad_rtol):
+        fail("%s: first loss %r vs the reference's %r (rel %g, limit %g), "
+             "gradients %s (limit %g)" % (phase, losses[0], loss_ref, rel,
+                                          loss_rtol, gate, grad_rtol))
     if not min(gate[f]["grad_rel_err"] for f in ("diagonal", "rescale")) \
-            > BF16_GRAD_RTOL:
-        fail("train_bf16: a control passes the gradient gate: %s" % gate)
+            > grad_rtol:
+        fail("%s: a control passes the gradient gate: %s" % (phase, gate))
     dtypes = sorted({str(t.dtype) for t in tree_leaves(step.params)})
+    if dtypes != ["torch.float32"]:
+        fail("%s: masters are %s after Adam, want float32" % (phase,
+                                                              dtypes))
     step_ms = statistics.median(walls[1:]) * 1e3
-    prof = profile_calls(torch, lambda: step(batches[0]), "train_bf16",
-                         out_dir, warm=2, n=5, calls=3)
-    return {"phase": "train_bf16", "setup_s": setup_s, "steps": TRAIN_STEPS,
+    prof = profile_calls(torch, lambda: step(batches[0]), phase, out_dir,
+                         warm=2, n=5, calls=3)
+    return {"phase": phase, "setup_s": setup_s, "steps": steps,
             "batch": [B, S], "wall_s": wall, "first_step_ms": walls[0] * 1e3,
             "step_ms_p50": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
-            "losses": losses, "loss_f32_same_weights": loss32,
-            "first_loss_rel_err": rel, "loss_rtol": BF16_LOSS_RTOL,
-            "grad_rtol": BF16_GRAD_RTOL, "gates": gate,
+            "losses": losses, "loss_gate_reference": loss_ref,
+            "gate_reference": "float32 model" if sfx == "bf16" else
+            "plain attention, same float16 model",
+            "first_loss_rel_err": rel, "loss_rtol": loss_rtol,
+            "grad_rtol": grad_rtol, "gates": gate,
             "param_dtypes_after": dtypes, "launches": counts,
             "peak_mem_gb": peak / 1e9, "profile": prof}, counts
 
@@ -3854,10 +4011,11 @@ def phase_symbolic_bf16(torch, dev, seed, out_dir):
             classify=kind_of)
     return result, {k: (counts[0][k], counts[1][k]) for k in OPT_KERNELS}
 
-# The long bf16 model's first loss and gradients against the float32
-# model's from the same weights, at 2 layers (full width, 4 x 4096 tokens;
-# the controls' plain attention keeps every tile's scores for autograd).
-# Set from readings of seeds 0 to 2 on the card beside the controls of
+# The long 16-bit model's first loss and gradients at 2 layers (full width,
+# 4 x 4096 tokens; the controls' plain attention keeps every tile's scores
+# for autograd), against the float32 model's from the same weights (bf16)
+# or the same float16 model's under the plain attention (float16). Set from
+# readings of seeds 0 to 2 on the card beside the controls of
 # _control_attention, which must fail the gradients' gate in every run
 # (PERF.md, section 6).
 #: the first loss (relative): sound runs read at most 7.1e-6; the controls
@@ -3867,101 +4025,94 @@ BF16_LONG_LOSS_RTOL = 3e-5
 #: runs read at most 0.0080, the controls at least 0.164 (one 64-key tile
 #: of 4096 dropped from each row moves less than at 512 tokens)
 BF16_LONG_GRAD_RTOL = 0.04
+#: the float16 ones, against the same model through the kernels' plain
+#: versions: sound runs read losses of 0 to 2.7e-7 and worst leaves
+#: (layers.wq) of 0.0323-0.0335; the controls 2.1e-5 to 9.0e-5 and
+#: 0.450-0.611; the float32 model is 0.41-0.45 away
+F16_LONG_LOSS_RTOL = 5e-6
+F16_LONG_GRAD_RTOL = 0.08
+#: path -> (loss limit, gradient limit) of the long first step's gate
+LONG_GATE_LIMITS = {"bf16": (BF16_LONG_LOSS_RTOL, BF16_LONG_GRAD_RTOL),
+                    "f16": (F16_LONG_LOSS_RTOL, F16_LONG_GRAD_RTOL)}
 #: layers of the long gate's models
-BF16_LONG_GATE_LAYERS = 2
+HALF_LONG_GATE_LAYERS = 2
 
 
-def phase_serve_long_bf16(torch, fa, dev, seed):
-    """The long-context configuration served in bf16 (module docstring,
-    phase 23). Returns (result, launches of #3's bf16 passes)."""
+def phase_serve_long_half(torch, fa, dev, seed, sfx):
+    """The long-context configuration served in bf16 (``sfx`` "bf16") or
+    float16 ("f16") (module docstring, phases 23 and 28). Returns (result,
+    launches of #3's passes in that dtype)."""
     from mxnet_tpu_torch.models.transformer import (TransformerConfig,
                                                     TransformerDecodeModel)
-    cfg = long_config(TransformerConfig, dtype=torch.bfloat16)
+    phase = "serve_long_" + sfx
+    cfg = long_config(TransformerConfig, dtype=getattr(torch, HALF[sfx]))
     t0 = time.perf_counter()
     model = TransformerDecodeModel(cfg, seed=seed, device=dev)
     if not model.use_kernel:
-        fail("serve_long_bf16: model on %s did not resolve to the kernel "
-             "tier" % dev)
+        fail("%s: model on %s did not resolve to the kernel tier"
+             % (phase, dev))
     setup_s = time.perf_counter() - t0
-    counters = [BF16_GRID_COUNTERS[k] for k in ("offs", "offs_combine")]
+    counters = [half_grid_counters(sfx)[k] for k in ("offs", "offs_combine")]
     served, counts, _, eng_s = serve_long_prompts(
-        model, cfg, seed, counters, _attention_counters(counters),
-        "serve_long_bf16")
+        model, cfg, seed, counters, _attention_counters(counters), phase)
     del model
-    return {"phase": "serve_long_bf16", "setup_s": setup_s + eng_s,
-            **served}, counts
+    return {"phase": phase, "setup_s": setup_s + eng_s, **served}, counts
 
 
-def phase_train_long_bf16(torch, fa, dev, seed, out_dir):
-    """The long-context configuration trained in bf16 (module docstring,
-    phase 24). Returns (result, launches per bf16 grid kernel and pass)."""
+def phase_train_long_half(torch, fa, dev, seed, out_dir, sfx):
+    """The long-context configuration trained in bf16 (``sfx`` "bf16") or
+    float16 ("f16") (module docstring, phases 24 and 29). Returns (result,
+    launches per grid kernel and pass in that dtype)."""
     import mxnet_tpu_torch.models.transformer as tm
     from mxnet_tpu_torch.models.transformer import (
         TransformerConfig, init_transformer, transformer_loss)
     from mxnet_tpu_torch.parallel import ShardedTrainStep
-    from mxnet_tpu_torch.parallel.optim_update import tree_leaves, tree_map
+    from mxnet_tpu_torch.parallel.optim_update import tree_leaves
+    phase = "train_long_" + sfx
+    dtype = getattr(torch, HALF[sfx])
+    grid_counters = half_grid_counters(sfx)
+    loss_rtol, grad_rtol = LONG_GATE_LIMITS[sfx]
     B, S = 4, LONG_S
     t0 = time.perf_counter()
     make_batch = periodic_batches(seed, 32000, S, B)
     batches = [{k: torch.as_tensor(x).to(dev) for k, x in make_batch().items()}
                for _ in range(LONG_STEPS)]
 
-    # the gate: first loss and gradients at 2 layers against the float32
-    # model from the same bf16 weights, then under the two controls
-    nl = BF16_LONG_GATE_LAYERS
-    cfg_g = long_config(TransformerConfig, nl, dtype=torch.bfloat16)
-    params_g = init_transformer(cfg_g, torch.Generator().manual_seed(seed),
-                                dev)
-    cfg32 = long_config(TransformerConfig, nl)
-    params32 = tree_map(lambda x: x.float(), params_g)
-
     def loss_fn_of(c):
         return lambda p, b: transformer_loss(p, b["tokens"], b["targets"], c)
 
-    loss32, g32 = _first_grads(torch, loss_fn_of(cfg32), params32,
-                               batches[0])
-    del params32
-    names = _leaf_names(params_g)
-
-    def readings(loss, grads):
-        errs = [_rel_l2([g], [w]) for g, w in zip(grads, g32)]
-        worst = max(range(len(errs)), key=errs.__getitem__)
-        return {"loss_rel_err": abs(loss - loss32) / abs(loss32),
-                "grad_rel_err": errs[worst], "grad_worst_leaf": names[worst]}
-
-    gate_counters = [BF16_GRID_COUNTERS[k] for k in ("fwd", "dq", "dkv")]
+    # the gate at 2 layers, its counters read on the sound step
+    nl = HALF_LONG_GATE_LAYERS
+    cfg_g = long_config(TransformerConfig, nl, dtype=dtype)
+    params_g = init_transformer(cfg_g, torch.Generator().manual_seed(seed),
+                                dev)
+    gate_counters = [grid_counters[k] for k in ("fwd", "dq", "dkv")]
     for name in gate_counters:
         setattr(fa, name, 0)
-    gate = {"sound": readings(*_first_grads(torch, loss_fn_of(cfg_g),
-                                            params_g, batches[0]))}
+    gate, loss_ref = first_step_gate(
+        torch, tm, loss_fn_of(cfg_g),
+        loss_fn_of(long_config(TransformerConfig, nl)), params_g,
+        batches[0], sfx)
     if any(getattr(fa, n) != nl for n in gate_counters):
-        fail("train_long_bf16: the gate's bf16 step launched %s, want %d "
-             "each" % ({n: getattr(fa, n) for n in gate_counters}, nl))
-    for fault in ("diagonal", "rescale"):
-        with mock.patch.object(tm, "_attention",
-                               _control_attention(torch, fault)):
-            gate[fault] = readings(*_first_grads(
-                torch, loss_fn_of(cfg_g), params_g, batches[0]))
-    del g32, params_g
+        fail("%s: the gate's step launched %s, want %d each"
+             % (phase, {n: getattr(fa, n) for n in gate_counters}, nl))
+    del params_g
     torch.cuda.empty_cache()
-    if not (gate["sound"]["loss_rel_err"] <= BF16_LONG_LOSS_RTOL and
-            gate["sound"]["grad_rel_err"] <= BF16_LONG_GRAD_RTOL):
-        fail("train_long_bf16: first bf16 loss and gradients %s against "
-             "float32's (limits %g, %g)" % (gate["sound"],
-                                            BF16_LONG_LOSS_RTOL,
-                                            BF16_LONG_GRAD_RTOL))
+    if not (gate["sound"]["loss_rel_err"] <= loss_rtol and
+            gate["sound"]["grad_rel_err"] <= grad_rtol):
+        fail("%s: first loss and gradients %s against the reference's "
+             "(limits %g, %g)" % (phase, gate, loss_rtol, grad_rtol))
     if not min(gate[f]["grad_rel_err"] for f in ("diagonal", "rescale")) \
-            > BF16_LONG_GRAD_RTOL:
-        fail("train_long_bf16: a control passes the gradient gate: %s"
-             % gate)
+            > grad_rtol:
+        fail("%s: a control passes the gradient gate: %s" % (phase, gate))
 
-    # the path: 12 layers, 10 steps through the bf16 grid kernels
-    cfg = long_config(TransformerConfig, dtype=torch.bfloat16)
+    # the path: 12 layers, 10 steps through the grid kernels
+    cfg = long_config(TransformerConfig, dtype=dtype)
     params = init_transformer(cfg, torch.Generator().manual_seed(seed), dev)
     step = ShardedTrainStep(loss_fn_of(cfg), optimizer="adam", lr=1e-3,
                             grad_clip=1.0, device=dev).init(params)
     setup_s = time.perf_counter() - t0
-    counters = [BF16_GRID_COUNTERS[k] for k in GRID_KERNELS
+    counters = [grid_counters[k] for k in GRID_KERNELS
                 if k not in ("offs", "offs_combine")]
     others = _attention_counters(counters)
     torch.cuda.synchronize()
@@ -3979,46 +4130,50 @@ def phase_train_long_bf16(torch, fa, dev, seed, out_dir):
     other_counts = {name: getattr(fa, name) for name in others}
     peak = torch.cuda.max_memory_allocated(dev)
     if not all(math.isfinite(x) for x in losses):
-        fail("train_long_bf16: non-finite loss in %s" % losses)
+        fail("%s: non-finite loss in %s" % (phase, losses))
     if not statistics.mean(losses[-3:]) < losses[0]:
-        fail("train_long_bf16: loss did not fall: %s" % losses)
+        fail("%s: loss did not fall: %s" % (phase, losses))
     want = cfg.num_layers * LONG_STEPS
     for name in counters:
         if counts[name] != want:
-            fail("train_long_bf16: %s = %d, want %d (12 per step)"
-                 % (name, counts[name], want))
+            fail("%s: %s = %d, want %d (12 per step)"
+                 % (phase, name, counts[name], want))
     if any(other_counts.values()):
-        fail("train_long_bf16: other attention kernels launched: %s"
-             % other_counts)
+        fail("%s: other attention kernels launched: %s"
+             % (phase, {n: c for n, c in other_counts.items() if c}))
     dtypes = sorted({str(t.dtype) for t in tree_leaves(step.params)})
     if dtypes != ["torch.float32"]:
-        fail("train_long_bf16: masters are %s, want float32" % dtypes)
+        fail("%s: masters are %s, want float32" % (phase, dtypes))
     step_ms = statistics.median(walls[1:]) * 1e3
-    prof = profile_calls(torch, lambda: step(batches[0]).item(),
-                         "train_long_bf16", out_dir, warm=1, n=2, calls=1,
+    prof = profile_calls(torch, lambda: step(batches[0]).item(), phase,
+                         out_dir, warm=1, n=2, calls=1,
                          classify=kind_of_attention)
     del step
     torch.cuda.empty_cache()
-    return {"phase": "train_long_bf16", "setup_s": setup_s,
+    return {"phase": phase, "setup_s": setup_s,
             "steps": LONG_STEPS, "batch": [B, S], "wall_s": wall,
             "first_step_ms": walls[0] * 1e3, "step_ms_p50": step_ms,
             "tokens_per_s": B * S / step_ms * 1e3, "losses": losses,
-            "gate_layers": nl, "loss_f32_same_weights": loss32,
-            "loss_rtol": BF16_LONG_LOSS_RTOL,
-            "grad_rtol": BF16_LONG_GRAD_RTOL, "gates": gate,
+            "gate_layers": nl, "loss_gate_reference": loss_ref,
+            "gate_reference": "float32 model" if sfx == "bf16" else
+            "plain attention, same float16 model",
+            "loss_rtol": loss_rtol, "grad_rtol": grad_rtol, "gates": gate,
             "param_dtypes_after": dtypes, "launches": counts,
-            "other_launches": other_counts, "peak_mem_gb": peak / 1e9,
-            "profile": prof}, counts
+            "other_launches": {n: c for n, c in other_counts.items() if c},
+            "peak_mem_gb": peak / 1e9, "profile": prof}, counts
 
 
-def phase_bf16_kernel(torch, fa, dev):
-    """#1, #5 and #2 in bf16 against their plain bf16 versions on the card
-    (module docstring, phase 22). Returns (worst ulps per kernel, rows of
-    times by kernel)."""
+def phase_half_kernel(torch, fa, dev, sfx):
+    """The six attention kernels in bf16 (``sfx`` "bf16") or float16
+    ("f16") against their plain versions in that dtype on the card (module
+    docstring, phases 22 and 27). Returns (worst ulps per kernel, worst
+    lse error, rows of times by kernel)."""
     import torch.nn.functional as F
-    from mxnet_tpu_torch.kernels.bf16_gate import BF16_ULPS, row_ulps
+    from mxnet_tpu_torch.kernels.bf16_gate import GATES, row_ulps
     gen = torch.Generator().manual_seed(SEED + 7)
-    bf = torch.bfloat16
+    bf = getattr(torch, HALF[sfx])
+    limit = GATES[bf][2]
+    phase = sfx + "_kernel"
     worst = {"offs": 0.0, "fwd": 0.0, "dq": 0.0, "dkv": 0.0,
              **{"grid_" + key: 0.0 for key in GRID_KERNELS}}
     lse_worst = 0.0
@@ -4030,13 +4185,13 @@ def phase_bf16_kernel(torch, fa, dev):
         return [t.detach().clone().requires_grad_(True) for t in ts]
 
     def check(kind, what, got, ref):
-        if got.dtype != ref.dtype:
-            fail("bf16_kernel %s: %s is %s, the plain version's %s"
-                 % (what, kind, got.dtype, ref.dtype))
+        if got.dtype != ref.dtype or got.dtype != bf:
+            fail("%s %s: %s is %s, the plain version's %s"
+                 % (phase, what, kind, got.dtype, ref.dtype))
         u = row_ulps(got, ref)
-        if not u <= BF16_ULPS:
-            fail("bf16_kernel %s: %s %.2f bf16 ulps > %g" % (what, kind, u,
-                                                             BF16_ULPS))
+        if not u <= limit:
+            fail("%s %s: %s %.2f row ulps > %g" % (phase, what, kind, u,
+                                                   limit))
         if u >= worst[kind]:
             worst[kind], worst[kind + "_at"] = u, what
 
@@ -4044,16 +4199,16 @@ def phase_bf16_kernel(torch, fa, dev):
         nonlocal lse_worst
         live = ref > NEG / 2
         if not bool((lse[~live] == NEG).all().item()):
-            fail("bf16_kernel %s: dead rows' lse not -1e30" % what)
+            fail("%s %s: dead rows' lse not -1e30" % (phase, what))
         err = scaled_err(lse[live], ref[live]) if bool(live.any()) else 0.0
         if not err <= TOL:
-            fail("bf16_kernel %s: lse err %g > %g" % (what, err, TOL))
+            fail("%s %s: lse err %g > %g" % (phase, what, err, TOL))
         lse_worst = max(lse_worst, err)
 
     def same(what, a, b):
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            fail("bf16_kernel %s: two calls on the same inputs differ"
-                 % what)
+            fail("%s %s: two calls on the same inputs differ"
+                 % (phase, what))
 
     # #1 at the serving shapes, rows that see no key included
     SK = 512
@@ -4070,7 +4225,7 @@ def phase_bf16_kernel(torch, fa, dev):
             check_lse(what, lse, ref[1])
             dead = ref[1] == NEG
             if not bool((out[dead] == 0).all().item()):
-                fail("bf16_kernel %s: dead rows' out not 0" % what)
+                fail("%s %s: dead rows' out not 0" % (phase, what))
             same(what, fa._flash_fwd_offs_cuda(q, k, v, offs, sm, True),
                  (out, lse))
             # #2 through flash_attention_with_lse, lse cotangent included,
@@ -4120,7 +4275,7 @@ def phase_bf16_kernel(torch, fa, dev):
     torch.cuda.empty_cache()
 
     # device times (CUDA graphs) at the path shapes and bench.py's flash
-    # shape, against the plain versions and SDPA in bf16
+    # shape, against the plain versions and SDPA in the dtype
     rows = {}
     C, q0, D = 256, 256, 64
     sm = 1.0 / math.sqrt(D)
@@ -4132,13 +4287,13 @@ def phase_bf16_kernel(torch, fa, dev):
     nbytes = 2.0 * (2 * q.numel() + 2 * k.numel()) + 4.0 * 8 * C + 8
     ms = time_ms(lambda: fa._flash_fwd_offs_cuda(q, k, v, offs, sm, True))
     rows["offs"] = {
-        "shape": "q (1,8,256,64) k/v (1,8,512,64) bf16 offs [256,0]",
+        "shape": "q (1,8,256,64) k/v (1,8,512,64) %s offs [256,0]" % sfx,
         "ms": ms, "plain_ms": time_ms(lambda: fa.flash_fwd_offs_plain(
             q, k, v, offs, sm, True)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=sm)),
         "flops": flops, "bytes": nbytes, "tflops": tflops(flops, ms),
-        **bf16_bounds(flops, nbytes)}
+        **half_bounds(flops, nbytes)}
     for key, (B, H, S, D) in (("train", (8, 8, 512, 64)),
                               ("bench", (4, 8, 4096, 128))):
         sm = 1.0 / math.sqrt(D)
@@ -4158,10 +4313,10 @@ def phase_bf16_kernel(torch, fa, dev):
         t = {"fwd_ms": time_ms(lambda: fa._flash_fwd_cuda(q, k, v, sm, True),
                                iters=iters),
              "dq_ms": time_ms(lambda: fa._launch(
-                 "mx_flash_bwd_dq_bf16", *common, dq.data_ptr(), *tail,
+                 "mx_flash_bwd_dq_" + sfx, *common, dq.data_ptr(), *tail,
                  device=dev), iters=iters),
              "dkv_ms": time_ms(lambda: fa._launch(
-                 "mx_flash_bwd_dkv_bf16", *common, dk.data_ptr(),
+                 "mx_flash_bwd_dkv_" + sfx, *common, dk.data_ptr(),
                  dv.data_ptr(), *tail, device=dev), iters=iters),
              "sdpa_fwd_ms": time_ms(lambda: sdpa(q, k, v), iters=iters),
              "sdpa_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
@@ -4180,24 +4335,26 @@ def phase_bf16_kernel(torch, fa, dev):
                 ("dkv", 8.0 * vis * D, 2.0 * 6 * n + 8.0 * nrows + 8)):
             t[name + "_flops"], t[name + "_bytes"] = fl, nb
             t[name + "_tflops"] = tflops(fl, t[name + "_ms"])
-            for k_, v_ in bf16_bounds(fl, nb).items():
+            for k_, v_ in half_bounds(fl, nb).items():
                 t[name + "_" + k_] = v_
         t["fwd_vs_sdpa"] = t["fwd_ms"] / t["sdpa_fwd_ms"]
         t["bwd_vs_sdpa"] = (t["dq_ms"] + t["dkv_ms"]) / t["sdpa_bwd_ms"]
         rows[key] = t
         del q, k, v, do, out, lse, deff, dq, dk, dv, qg, kg, vg
         torch.cuda.empty_cache()
-    rows["grid"] = bf16_grid_rows(torch, fa, dev, rand, leaves, check,
-                                  check_lse, same)
+    rows["grid"] = half_grid_rows(torch, fa, dev, rand, leaves, check,
+                                  check_lse, same, bf)
     return worst, lse_worst, rows
 
 
-def bf16_grid_rows(torch, fa, dev, rand, leaves, check, check_lse, same):
-    """The grid kernels #6, #4 and #3 on bf16 inputs (module docstring,
-    phase 22): each against its plain bf16 version, then timed. ``check``
-    (kind, what, got, ref) holds a bf16 output to BF16_ULPS row ulps,
-    ``check_lse`` an lse to TOL, ``same`` two calls to the same bits.
-    Returns the timing row."""
+def half_grid_rows(torch, fa, dev, rand, leaves, check, check_lse, same,
+                   dtype):
+    """The grid kernels #6, #4 and #3 on bf16 or float16 inputs
+    (``dtype``; module docstring, phases 22 and 27): each against its
+    plain version in that dtype, then timed. ``check`` (kind, what, got,
+    ref) holds a 16-bit output to the dtype's row-ulp limit, ``check_lse``
+    an lse to TOL, ``same`` two calls to the same bits. Returns the timing
+    row."""
     import torch.nn.functional as F
     sdpa = lambda a, b_, c, sm: F.scaled_dot_product_attention(  # noqa
         a, b_, c, is_causal=True, scale=sm)
@@ -4262,7 +4419,7 @@ def bf16_grid_rows(torch, fa, dev, rand, leaves, check, check_lse, same):
         check_lse(what, lse, ref[1])
         dead = ref[1] == NEG
         if not bool((out[dead] == 0).all().item()):
-            fail("bf16_kernel %s: dead rows' out not 0" % what)
+            fail("%s kernel %s: dead rows' out not 0" % (dtype, what))
         want = fa.flash_bwd_offs_grid_plain(q, k, v, offs, do, dlse, out,
                                             lse, sm, True, bq, bk)
         check("grid_dq", what + " dq", runs[0][2], want[0])
@@ -4273,7 +4430,7 @@ def bf16_grid_rows(torch, fa, dev, rand, leaves, check, check_lse, same):
 
     # each pass alone at the long shapes, timed
     t = grid_pass_times(
-        torch, fa, dev, rand, leaves, torch.bfloat16,
+        torch, fa, dev, rand, leaves, dtype,
         lambda kind, what, got, ref: check("grid_" + kind, what, got, ref),
         lambda kind, what, lse, ref: check_lse(what, lse, ref))
 
@@ -4301,7 +4458,7 @@ def bf16_grid_rows(torch, fa, dev, rand, leaves, check, check_lse, same):
                        ("bwd", ("dq", "dq_reduce", "dkv", "dkv_reduce"))):
         flops = sum(bb[p_][0] for p_ in parts)
         nbytes = sum(bb[p_][1] for p_ in parts)
-        for k_, v_ in bf16_bounds(flops, nbytes).items():
+        for k_, v_ in half_bounds(flops, nbytes).items():
             bench[key + "_" + k_] = v_
         bench[key + "_tflops"] = tflops(flops, bench[key + "_ms"])
         bench[key + "_vs_sdpa"] = bench[key + "_ms"] / bench[
@@ -4317,7 +4474,8 @@ PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "grid_kernel", "serve_long", "train_long", "rtc_kernel",
           "rtc_infer", "module_fit", "example_scripts", "serve_bf16",
           "train_bf16", "symbolic_bf16", "bf16_kernel", "serve_long_bf16",
-          "train_long_bf16")
+          "train_long_bf16", "serve_f16", "train_f16", "f16_kernel",
+          "serve_long_f16", "train_long_f16")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",)}
@@ -4560,34 +4718,39 @@ def main():
             scripts, opt_paths["example_scripts"] = phase_example_scripts(
                 torch, dev, tmp)
         emit({**scripts, "card": card})
-    bf16_launches = {}
-    if "serve_bf16" in phases:
-        sb, bf16_launches["launches_bf16"] = phase_serve_bf16(torch, fa, dev)
-        emit({**sb, "card": card})
-        torch.cuda.empty_cache()
-    if "train_bf16" in phases:
-        tb, counts = phase_train_bf16(torch, fa, dev, args.seed,
-                                      args.profile_dir)
-        emit({**tb, "card": card})
-        bf16_launches.update((k, v) for k, v in counts.items()
-                             if k != "launches_bf16")
-        torch.cuda.empty_cache()
-    if "symbolic_bf16" in phases:
-        symb, opt_paths["symbolic_bf16"] = phase_symbolic_bf16(
-            torch, dev, args.seed, args.profile_dir)
-        emit({**symb, "card": card})
-        torch.cuda.empty_cache()
-    if "serve_long_bf16" in phases:
-        slb, counts = phase_serve_long_bf16(torch, fa, dev, args.seed)
-        emit({**slb, "card": card})
-        bf16_launches.update(counts)
-        torch.cuda.empty_cache()
-    if "train_long_bf16" in phases:
-        tlb, counts = phase_train_long_bf16(torch, fa, dev, args.seed,
-                                            args.profile_dir)
-        emit({**tlb, "card": card})
-        bf16_launches.update(counts)
-        torch.cuda.empty_cache()
+    # the 16-bit paths, bf16 then float16; symbolic_bf16 between them
+    half_launches = {sfx: {} for sfx in HALF}
+    for sfx in HALF:
+        hl = half_launches[sfx]
+        if "serve_" + sfx in phases:
+            res, hl["launches_" + sfx] = phase_serve_half(torch, fa, dev,
+                                                          sfx)
+            emit({**res, "card": card})
+            torch.cuda.empty_cache()
+        if "train_" + sfx in phases:
+            res, counts = phase_train_half(torch, fa, dev, args.seed,
+                                           args.profile_dir, sfx)
+            emit({**res, "card": card})
+            hl.update((k, v) for k, v in counts.items()
+                      if k != "launches_" + sfx)
+            torch.cuda.empty_cache()
+        if sfx == "bf16" and "symbolic_bf16" in phases:
+            symb, opt_paths["symbolic_bf16"] = phase_symbolic_bf16(
+                torch, dev, args.seed, args.profile_dir)
+            emit({**symb, "card": card})
+            torch.cuda.empty_cache()
+        if "serve_long_" + sfx in phases:
+            res, counts = phase_serve_long_half(torch, fa, dev, args.seed,
+                                                sfx)
+            emit({**res, "card": card})
+            hl.update(counts)
+            torch.cuda.empty_cache()
+        if "train_long_" + sfx in phases:
+            res, counts = phase_train_long_half(torch, fa, dev, args.seed,
+                                                args.profile_dir, sfx)
+            emit({**res, "card": card})
+            hl.update(counts)
+            torch.cuda.empty_cache()
     for entry in entries:
         opt_kind = OPT_BY_ENTRY.get(entry["name"])
         if opt_kind is None:
@@ -4597,52 +4760,53 @@ def main():
             entry["leaves"] += counts[opt_kind][1]
             entry.setdefault("launches_by_path", {})[path] = \
                 counts[opt_kind][0]
-    if "bf16_kernel" in phases:
-        from mxnet_tpu_torch.kernels.bf16_gate import BF16_ULPS
-        bk_worst, bk_lse, bk = phase_bf16_kernel(torch, fa, dev)
-        emit({"phase": "bf16_kernel", "max_row_ulps": bk_worst,
-              "ulps_tol": BF16_ULPS, "lse_max_err": bk_lse, "lse_tol": TOL,
-              **bk, "card": card})
+    from mxnet_tpu_torch.kernels.bf16_gate import GATES
+
+    def body_ptxas(lib, kernel, sfx, d=64):
+        """The registers and spill bytes of the body instantiation an
+        entry runs at its path's head dim."""
+        args = "%s,%d" % (sfx, d)
+        if kernel == "flash_fwd_half_kernel":
+            args += ",%d" % (lib in ("flash_fwd_offs", "flash_fwd_offs_grid"))
+        regs, st, ld = ptxas.get(lib, {}).get(
+            "%s<%s>" % (kernel, args), (None, None, None))
+        return {"registers": regs, "spill_bytes": [st, ld]}
+
+    def shares(row, pair=None, of=None):
+        """Bound share and the time over the library call's. SDPA's
+        backward computes dq, dk and dv together, so dq and dk/dv are
+        held to it by ``pair``, the summed ms of what ``of`` names."""
+        ms = row["ms"] if pair is None else pair
+        out = {"bound_share": row["bound_ms"] / row["ms"],
+               "vs_library": (ms / row["library_ms"]
+                              if row.get("library_ms") else None)}
+        if of:
+            out["vs_library_of"] = of
+        return out
+
+    kernel_phases = [sfx for sfx in HALF if sfx + "_kernel" in phases]
+    for sfx in kernel_phases:
+        dtype = getattr(torch, HALF[sfx])
+        bk_worst, bk_lse, bk = phase_half_kernel(torch, fa, dev, sfx)
+        emit({"phase": sfx + "_kernel", "max_row_ulps": bk_worst,
+              "ulps_tol": GATES[dtype][2], "lse_max_err": bk_lse,
+              "lse_tol": TOL, **bk, "card": card})
         torch.cuda.empty_cache()
-        hgmma = hgmma_counts(paths)
-        emit({"phase": "hgmma", "card": card,
-              # per library: each kernel's HGMMA instructions in SASS
-              "counts": hgmma})
-
-        def body_ptxas(lib, kernel, d=64):
-            """The registers and spill bytes of the body instantiation an
-            entry runs at its path's head dim."""
-            args = {"flash_fwd_bf16_kernel": "%d,%d" % (
-                d, lib in ("flash_fwd_offs", "flash_fwd_offs_grid"))}.get(
-                    kernel, "%d" % d)
-            regs, st, ld = ptxas.get(lib, {}).get(
-                "%s<%s>" % (kernel, args), (None, None, None))
-            return {"registers": regs, "spill_bytes": [st, ld]}
-
-        def shares(row, pair=None, of=None):
-            """Bound share and the time over the library call's. SDPA's
-            backward computes dq, dk and dv together, so dq and dk/dv are
-            held to it by ``pair``, the summed ms of what ``of`` names."""
-            ms = row["ms"] if pair is None else pair
-            out = {"bound_share": row["bound_ms"] / row["ms"],
-                   "vs_library": (ms / row["library_ms"]
-                                  if row.get("library_ms") else None)}
-            if of:
-                out["vs_library_of"] = of
-            return out
+        hl = half_launches[sfx]
+        unit = "%s row ulps" % sfx
         train_row = bk["train"]
         bwd_pair = {"pair": train_row["dq_ms"] + train_row["dkv_ms"],
                     "of": "dq + dk/dv"}
         for name, file, line, counter, key in (
-                ("flash_fwd_offs_bf16", "flash_fwd_offs.cu", "285",
-                 "launches_bf16", "offs"),
-                ("flash_fwd_bf16", "flash_fwd.cu", "205",
-                 "launches_fwd_bf16", "fwd"),
-                ("flash_bwd_dq_bf16", "flash_bwd_offs.cu", "402",
-                 "launches_bwd_dq_bf16", "dq"),
-                ("flash_bwd_dkv_bf16", "flash_bwd_offs.cu", "453",
-                 "launches_bwd_dkv_bf16", "dkv")):
-            if counter not in bf16_launches:
+                ("flash_fwd_offs", "flash_fwd_offs.cu", "285", "launches",
+                 "offs"),
+                ("flash_fwd", "flash_fwd.cu", "205", "launches_fwd", "fwd"),
+                ("flash_bwd_dq", "flash_bwd_offs.cu", "402",
+                 "launches_bwd_dq", "dq"),
+                ("flash_bwd_dkv", "flash_bwd_offs.cu", "453",
+                 "launches_bwd_dkv", "dkv")):
+            counter += "_" + sfx
+            if counter not in hl:
                 continue   # its path's phase did not run
             if key == "offs":
                 row = bk["offs"]
@@ -4660,26 +4824,26 @@ def main():
                          "bound_by": train_row[key + "_bound_by"],
                          "library_ms": train_row[lib],
                          "tflops": train_row[key + "_tflops"],
-                         "shape": "q/k/v (8,8,512,64) bf16 causal"}
-            kernel = {"offs": "flash_fwd_bf16_kernel",
-                      "fwd": "flash_fwd_bf16_kernel",
-                      "dq": "flash_bwd_dq_bf16_kernel",
-                      "dkv": "flash_bwd_dkv_bf16_kernel"}[key]
+                         "shape": "q/k/v (8,8,512,64) %s causal" % sfx}
+            kernel = {"offs": "flash_fwd_half_kernel",
+                      "fwd": "flash_fwd_half_kernel",
+                      "dq": "flash_bwd_dq_half_kernel",
+                      "dkv": "flash_bwd_dkv_half_kernel"}[key]
             entries.append({
-                "name": name, "route": "cuda", "source": src + file,
-                "replaces": ref + line, "launches": bf16_launches[counter],
-                "max_abs_err": bk_worst[key], "err_unit": "bf16 row ulps",
-                **times,
+                "name": name + "_" + sfx, "route": "cuda",
+                "source": src + file, "replaces": ref + line,
+                "launches": hl[counter], "max_abs_err": bk_worst[key],
+                "err_unit": unit, **times,
                 **shares(times, **(bwd_pair if key in ("dq", "dkv")
                                    else {})),
-                **body_ptxas(file[:-3], kernel)})
+                **body_ptxas(file[:-3], kernel, sfx)})
         grid = bk["grid"]
         grid_pair = {"pair": sum(grid[k + "_ms"] for k in (
             "dq", "dq_reduce", "dkv", "dkv_reduce")),
                      "of": "dq + dk/dv with their reduce passes"}
         for key, (entry, _, file, line) in GRID_KERNELS.items():
-            counter = BF16_GRID_COUNTERS[key]
-            if counter not in bf16_launches:
+            counter = half_grid_counters(sfx)[key]
+            if counter not in hl:
                 continue   # its path's phase did not run
             lib = {"fwd": "sdpa_fwd_ms", "dq": "sdpa_bwd_ms",
                    "dkv": "sdpa_bwd_ms", "offs": "sdpa_offs_ms"}.get(key)
@@ -4688,26 +4852,31 @@ def main():
             row = {"ms": grid[key + "_ms"],
                    "bound_ms": grid[key + "_bound_ms"],
                    "library_ms": grid[lib] if lib else None}
-            kernel = {"fwd": "flash_fwd_bf16_kernel",
-                      "offs": "flash_fwd_bf16_kernel",
-                      "dq": "flash_bwd_dq_bf16_kernel",
-                      "dkv": "flash_bwd_dkv_bf16_kernel"}.get(key)
+            kernel = {"fwd": "flash_fwd_half_kernel",
+                      "offs": "flash_fwd_half_kernel",
+                      "dq": "flash_bwd_dq_half_kernel",
+                      "dkv": "flash_bwd_dkv_half_kernel"}.get(key)
             entries.append({
-                "name": entry[3:-3] + "bf16", "route": "cuda",
+                "name": entry[3:-3] + sfx, "route": "cuda",
                 "source": src + file, "replaces": ref + line,
-                "launches": bf16_launches[counter],
+                "launches": hl[counter],
                 "max_abs_err": bk_worst["grid_" + key],
-                "err_unit": "bf16 row ulps", **row,
+                "err_unit": unit, **row,
                 "plain_ms": grid[plain],
                 "bound_by": grid[key + "_bound_by"],
                 "tflops": grid[key + "_tflops"],
                 **shares(row, **(grid_pair if key in ("dq", "dkv")
                                  else {})),
-                **(body_ptxas(file[:-3], kernel) if kernel else
+                **(body_ptxas(file[:-3], kernel, sfx) if kernel else
                    {"registers": None, "spill_bytes": None}),
-                "shape": ("q (1,8,1024,64) k/v (1,8,4096,64) bf16 offs "
-                          "[2816,0], 8 key splits" if key.startswith("offs")
-                          else "q/k/v (4,8,4096,64) bf16 causal, 8 splits")})
+                "shape": ("q (1,8,1024,64) k/v (1,8,4096,64) %s offs "
+                          "[2816,0], 8 key splits" % sfx
+                          if key.startswith("offs") else
+                          "q/k/v (4,8,4096,64) %s causal, 8 splits" % sfx)})
+    if kernel_phases:
+        emit({"phase": "hgmma", "card": card,
+              # per library: each kernel's HGMMA instructions in SASS
+              "counts": hgmma_counts(paths)})
     if args.parent:
         emit({**phase_parent(torch, fa, dev, args.parent), "card": card})
     emit({"kernels": entries})

@@ -7,38 +7,42 @@ the CPU tests.
 The emulator (``emu/cuda_runtime.h``, ``emu/emu.cpp``) runs every block of
 a launch in turn and its threads as host threads: ``__syncthreads`` and
 the warp-collective ``__shfl_xor_sync`` and ``mma.sync`` (TF32 m16n8k8)
-meet at barriers. The warpgroup's ``wgmma.mma_async`` (bf16 m64nNk16, A
-from registers or through a shared-memory descriptor, B through one: the
-descriptor's start address, leading and stride byte offsets and swizzle
-mode are decoded, and the operand is read through the hardware's address
-swizzle) is asynchronous as on the card: issuing one records it and sets
-its accumulators to NaN, and the ``wgmma.wait_group`` that retires its
-``commit_group`` runs it, the warpgroup meeting there, reading A's
-registers and the shared tiles then and writing the accumulators last. So
-accumulators read before their wait, or A registers and tiles overwritten
-before it, show in the results. What it cannot see: a missing
-``wgmma.fence`` (the card may read registers written just before the
-product without one), and anything ptxas does with the products.
+meet at barriers. The warpgroup's ``wgmma.mma_async`` (bf16 or float16
+m64nNk16, A from registers or through a shared-memory descriptor, B
+through one: the descriptor's start address, leading and stride byte
+offsets and swizzle mode are decoded, and the operand is read through the
+hardware's address swizzle) is asynchronous as on the card: issuing one
+records it and sets its accumulators to NaN, and the ``wgmma.wait_group``
+that retires its ``commit_group`` runs it, the warpgroup meeting there,
+reading A's registers and the shared tiles then and writing the
+accumulators last. So accumulators read before their wait, or A registers
+and tiles overwritten before it, show in the results. What it cannot see:
+a missing ``wgmma.fence`` (the card may read registers written just before
+the product without one), and anything ptxas does with the products.
 ``cp.async`` copies at once (so its ``wait_group`` and
-``fence.proxy.async`` have nothing to do), and the bf16 round
-(``cvt.rn.bf16x2.f32``) is done on the bits. On the way to ``g++`` each
-source is rewritten: the PTX helpers of ``csrc/tf32_mma.cuh``,
-``csrc/bf16_mma.cuh`` and ``csrc/bf16_wgmma.cuh`` call the emulator, a
-``<<<...>>>`` launch becomes ``emu_launch``, and dynamic shared memory
-comes from the launch. An emulated product sums in double and rounds once,
-where the tensor cores round toward zero, so results agree with the card's
-to rounding, not bit for bit. The optimizer update has no product and
-builds with ``-ffp-contract=off`` (the card's ``--fmad=false``), so its
-results are the card's bit for bit. The emulator is slow (a host thread
-per CUDA thread, a thread switch per barrier): tests give it a few blocks.
+``fence.proxy.async`` have nothing to do), and the 16-bit rounds
+(``cvt.rn.bf16x2.f32``, ``cvt.rn.f16x2.f32``: to nearest even, float16's
+subnormals kept and overflow to inf) and ``cvt.f32.f16`` are done on the
+bits. On the way to ``g++`` each source is rewritten: the PTX helpers of
+``csrc/tf32_mma.cuh``, ``csrc/half_mma.cuh`` and ``csrc/half_wgmma.cuh``
+call the emulator, a ``<<<...>>>`` launch becomes ``emu_launch``, and
+dynamic shared memory comes from the launch. An emulated product sums in
+double and rounds once, where the tensor cores round toward zero, so
+results agree with the card's to rounding, not bit for bit. The optimizer
+update has no product and builds with ``-ffp-contract=off`` (the card's
+``--fmad=false``), so its results are the card's bit for bit. The emulator
+is slow (a host thread per CUDA thread, a thread switch per barrier):
+tests give it a few blocks.
 
 Builds under ``mxnet_tpu_torch/_build/emu/``, named by a hash of the
-rewritten sources, and needs ``g++``. The C entries keep their argument
+rewritten sources, one process at a time a library (a file lock), and
+needs ``g++``. The C entries keep their argument
 lists; their stream argument is ignored. One launch at a time.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -52,7 +56,7 @@ __all__ = ["compiler", "load", "load_source", "entry"]
 
 _EMU = os.path.join(_build._HERE, "emu")
 _OUT = os.path.join(_build._BUILD_DIR, "emu")
-#: the PTX helpers of csrc/tf32_mma.cuh, bf16_mma.cuh and bf16_wgmma.cuh
+#: the PTX helpers of csrc/tf32_mma.cuh, half_mma.cuh and half_wgmma.cuh
 #: -> their emulated bodies
 _HELPERS = {
     "cp_async16": "{ emu_cp_async(dst, src, valid, 16); }",
@@ -62,9 +66,12 @@ _HELPERS = {
     "cp_async_wait": "{}",
     "mma_tf32": "{ emu_mma_tf32(c, a, b); }",
     "pack_bf16x2": "{ d = emu_pack_bf16x2(lo, hi); }",
-    "wgmma_rs": "{ emu_wgmma(d, N, a, 0, desc_b, scale_d, 0, kTransB); }",
+    "pack_f16x2": "{ d = emu_pack_f16x2(lo, hi); }",
+    "widen_f16": "{ d = emu_f16_value(h); }",
+    "wgmma_rs": ("{ emu_wgmma(d, N, a, 0, desc_b, scale_d, 0, kTransB, "
+                 "T::kF16); }"),
     "wgmma_ss": ("{ emu_wgmma(d, N, nullptr, desc_a, desc_b, scale_d, 0, "
-                 "kTransB); }"),
+                 "kTransB, T::kF16); }"),
     "wgmma_fence": "{ emu_warpgroup_sync(); }",
     "wgmma_commit": "{ emu_wgmma_commit(); }",
     "wgmma_wait": "{ emu_wgmma_wait(N); }",
@@ -136,20 +143,26 @@ def _build_lib(name, text=None):
     if cxx is None:
         raise RuntimeError("g++ not found: cannot emulate %s" % name)
     os.makedirs(work, exist_ok=True)
-    for n, text in files.items():
-        with open(os.path.join(work, n), "w") as f:
-            f.write(text)
-    tmp = "%s.%d.tmp" % (path, os.getpid())
-    proc = subprocess.run(
-        [cxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-pthread", *flags,
-         "-I", _EMU, "-I", work, "-include", "cuda_runtime.h",
-         "-x", "c++", os.path.join(work, main),
-         "-x", "none", os.path.join(_EMU, "emu.cpp"), "-o", tmp],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("emulated build of %s failed:\n%s"
-                           % (name, proc.stdout))
-    os.replace(tmp, path)
+    # one build of a library at a time across processes (test workers):
+    # the one that waited finds it built
+    with open(os.path.join(work, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return path
+        for n, text in files.items():
+            with open(os.path.join(work, n), "w") as f:
+                f.write(text)
+        tmp = "%s.%d.tmp" % (path, os.getpid())
+        proc = subprocess.run(
+            [cxx, "-std=c++17", "-O1", "-fPIC", "-shared", "-pthread",
+             *flags, "-I", _EMU, "-I", work, "-include", "cuda_runtime.h",
+             "-x", "c++", os.path.join(work, main),
+             "-x", "none", os.path.join(_EMU, "emu.cpp"), "-o", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("emulated build of %s failed:\n%s"
+                               % (name, proc.stdout))
+        os.replace(tmp, path)
     return path
 
 

@@ -1,30 +1,35 @@
-"""The gate a bf16 attention kernel (#1-#6 on bf16 inputs) is held to
-against its plain bf16 version, and a script that reads it.
+"""The gate a 16-bit attention kernel (#1-#6 on bf16 or float16 inputs)
+is held to against its plain version in the same dtype, and a script that
+reads it.
 
-A bf16 output keeps 8 significant bits, so its error is counted in bf16
-ulps, and ``row_ulps`` counts them against each row's own scale. A row is
-one query's out or dq, or one key's dk or dv (the last axis). Its scale is
-its largest |ref|, but at least ``ROW_FLOOR`` times the whole tensor's
-largest |ref|. The floor serves rows whose sum cancels to rounding noise:
-dq of a causal first row, where ds = p (dp - deff) is about 1e-7. Under a
-causal mask the late query rows of out and the late keys of dk and dv are
-30 to 1000 times smaller than the tensor's largest value, since a late row
-averages hundreds of values. Counted against the whole tensor's largest
-value, as ``tensor_ulps`` does, those rows could be wrong and pass.
+A 16-bit output keeps 8 (bf16) or 11 (float16) significant bits, so its
+error is counted in ulps of its dtype, and ``row_ulps`` counts them
+against each row's own scale. A row is one query's out or dq, or one
+key's dk or dv (the last axis). Its scale is its largest |ref|, but at
+least the dtype's row floor (``ROW_FLOOR``, ``F16_ROW_FLOOR``) times the
+whole tensor's largest |ref|. The floor serves rows whose sum cancels to
+rounding noise: dq of a causal first row, where ds = p (dp - deff) is
+about 1e-7. Under a causal mask the late query rows of out and the late
+keys of dk and dv are 30 to 1000 times smaller than the tensor's largest
+value, since a late row averages hundreds of values. Counted against the
+whole tensor's largest value, as ``tensor_ulps`` does, those rows could be
+wrong and pass. A float16 ulp never goes below 2^-24, float16's least
+subnormal.
 
 Reading the gate::
 
-    python -m mxnet_tpu_torch.kernels.bf16_gate [--seeds N] [--emulate]
+    python -m mxnet_tpu_torch.kernels.bf16_gate [--dtype bfloat16|float16]
+        [--seeds N] [--emulate]
 
 holds every output of the six kernels against its plain version over N
-seeds, through the C entries: the stream kernels #5, #1 and #2, and the
-split-KV ("grid") kernels #6, #3 and #4 with their combine and reduce
-passes, on the card at the shapes of ``chip_smoke.py``'s ``bf16_kernel``
-phase, or with ``--emulate`` through the host emulator (``_emulate.py``)
-at the training sequence length on fewer heads. The backward pairs get
-the plain forward's out and lse, so each kernel is read on its own. It
-prints one JSON object: for each output, the largest reading of both
-measures and the shape it came from.
+seeds, through the C entries of the dtype: the stream kernels #5, #1 and
+#2, and the split-KV ("grid") kernels #6, #3 and #4 with their combine and
+reduce passes, on the card at the shapes of ``chip_smoke.py``'s
+``bf16_kernel`` phase, or with ``--emulate`` through the host emulator
+(``_emulate.py``) at the training sequence length on fewer heads. The
+backward pairs get the plain forward's out and lse, so each kernel is read
+on its own. It prints one JSON object: for each output, the largest
+reading of both measures and the shape it came from.
 """
 from __future__ import annotations
 
@@ -32,49 +37,85 @@ import math
 
 import torch
 
-__all__ = ["BF16_ULPS", "ROW_FLOOR", "row_ulps", "tensor_ulps"]
+__all__ = ["BF16_ULPS", "ROW_FLOOR", "F16_ULPS", "F16_ROW_FLOOR", "GATES",
+           "row_ulps", "tensor_ulps"]
 
-#: the largest ``row_ulps`` a kernel output may read. Over 4 seeds at the
-#: shapes of the ``bf16_kernel`` phase the sound kernels read at most 2.0
-#: on the card (dk at (4, 8, 4096, 128)) and 1.0 in the emulator; kernels
-#: with a planted fault read 23 or more in the emulator (PERF.md, §6).
-#: Each output rounds once on both sides, the forward rounds p against
-#: each key tile's running max where the plain version takes the row's
-#: max at once, and a long sum of dS q with one rounding of dS flipped
-#: moves a row that cancels by more than one of its ulps.
+#: the largest bf16 ``row_ulps`` a kernel output may read. Over 4 seeds at
+#: the shapes of the ``bf16_kernel`` phase the sound kernels read at most
+#: 2.0 on the card (dk at (4, 8, 4096, 128)) and 1.0 in the emulator;
+#: kernels with a planted fault read 23 or more in the emulator (PERF.md,
+#: §6). Each output rounds once on both sides, the forward rounds p
+#: against each key tile's running max where the plain version takes the
+#: row's max at once, and a long sum of dS q with one rounding of dS
+#: flipped moves a row that cancels by more than one of its ulps.
 BF16_ULPS = 3.0
-#: the least scale of a row, as a fraction of the tensor's largest |ref|
+#: the least scale of a bf16 row, as a fraction of the tensor's largest
+#: |ref|
 ROW_FLOOR = 2.0 ** -12
+#: the largest float16 ``row_ulps``, set as the bf16 limit from readings
+#: of the sound kernels and of planted faults (PERF.md, §6): the sound
+#: kernels read at most 2.0 on the card (dk at (4, 8, 4096, 128)) and 1.0
+#: in the emulator over 4 seeds; planted faults read 1688 or more in the
+#: emulator
+F16_ULPS = 3.0
+#: the least scale of a float16 row. The rows the floor serves cancel to
+#: float32 rounding noise, whose size does not depend on the dtype, so the
+#: floor keeps bf16's floor ulp, 2^-19 of the tensor's largest |ref|: at
+#: bf16's 2^-12 a float16 dq's causal first row (|dq| ~1e-6 of the
+#: largest) read 4.25 ulps in the emulator, at 2^-9 1.0
+F16_ROW_FLOOR = 2.0 ** -9
+#: dtype -> (significand bits after the point, least normal exponent,
+#: limit, row floor)
+GATES = {torch.bfloat16: (7, -126, BF16_ULPS, ROW_FLOOR),
+         torch.float16: (10, -14, F16_ULPS, F16_ROW_FLOOR)}
 
 
-def _ulp(scale):
-    """One bf16 ulp at ``scale`` (a tensor of positive magnitudes)."""
-    return torch.exp2(torch.floor(torch.log2(scale)) - 7)
+def _gate_dtype(got, ref, dtype):
+    """``dtype``, else the 16-bit dtype of ``got`` or ``ref``, else bf16
+    (callers that widened both to float32 first)."""
+    if dtype is not None:
+        return dtype
+    for t in (got, ref):
+        if t.dtype in GATES:
+            return t.dtype
+    return torch.bfloat16
 
 
-def row_ulps(got, ref):
-    """Largest |got - ref| of each row (the last axis) in bf16 ulps of that
-    row's largest |ref|, floored at ``ROW_FLOOR`` of the tensor's largest
-    |ref|; the largest over the rows (inf where ``got`` holds a NaN). An
-    all-zero ``ref`` must be met exactly."""
+def _ulp(scale, dtype=torch.bfloat16):
+    """One ulp of ``dtype`` at ``scale`` (a tensor of positive
+    magnitudes); below the least normal, the subnormals' spacing."""
+    bits, e_min = GATES[dtype][:2]
+    e = torch.clamp(torch.floor(torch.log2(scale)), min=e_min)
+    return torch.exp2(e - bits)
+
+
+def row_ulps(got, ref, dtype=None):
+    """Largest |got - ref| of each row (the last axis) in ulps of ``dtype``
+    (see ``_gate_dtype``) at that row's largest |ref|, floored at the
+    dtype's row floor of the tensor's largest |ref|; the largest over the
+    rows (inf where ``got`` holds a NaN). An all-zero ``ref`` must be met
+    exactly."""
+    dtype = _gate_dtype(got, ref, dtype)
     got, ref = got.float(), ref.float()
     err = (got - ref).abs().nan_to_num(math.inf).amax(-1)   # NaN: inf
     top = ref.abs().max()
     if top.item() == 0:
         return math.inf if err.max().item() > 0 else 0.0
-    scale = torch.maximum(ref.abs().amax(-1), top * ROW_FLOOR)
-    return (err / _ulp(scale)).max().item()
+    scale = torch.maximum(ref.abs().amax(-1), top * GATES[dtype][3])
+    return (err / _ulp(scale, dtype)).max().item()
 
 
-def tensor_ulps(got, ref):
-    """Largest |got - ref| in bf16 ulps of the whole tensor's largest |ref|
-    (the measure ``row_ulps`` replaces; kept for the readings)."""
+def tensor_ulps(got, ref, dtype=None):
+    """Largest |got - ref| in ulps of ``dtype`` at the whole tensor's
+    largest |ref| (the measure ``row_ulps`` replaces; kept for the
+    readings)."""
+    dtype = _gate_dtype(got, ref, dtype)
     got, ref = got.float(), ref.float()
     err = (got - ref).abs().nan_to_num(math.inf).max()   # NaN: inf
     top = ref.abs().max()
     if top.item() == 0:
         return math.inf if err.item() > 0 else 0.0
-    return (err / _ulp(top)).item()
+    return (err / _ulp(top, dtype)).item()
 
 
 # --- readings -----------------------------------------------------------
@@ -86,8 +127,9 @@ def _outputs(call, q, k, v, offs, do, dlse, sm, causal, entry, width):
     a split on both axes) on the plain forward's out and lse. The grid
     entries run their combine and reduce passes over float32 workspaces
     when there is more than one split. ``call(name, *args)`` runs a C
-    entry."""
+    entry; the entries are those of q's dtype."""
     from . import flash_attention as fa
+    sfx = "_" + fa._DTYPES[q.dtype]
     b, h, sq, d = q.shape
     sk = k.shape[2]
     out = torch.empty_like(q)
@@ -96,7 +138,7 @@ def _outputs(call, q, k, v, offs, do, dlse, sm, causal, entry, width):
     pre = [] if entry in ("fwd", "grid") else [offs]
     if width is None:
         tail = (b * h, sq, sk, d, sm, int(causal))
-        call("mx_flash_%s_bf16" % entry, *ptr(q, k, v, *pre, out, lse),
+        call("mx_flash_%s%s" % (entry, sfx), *ptr(q, k, v, *pre, out, lse),
              *tail)
         ref = (fa.flash_fwd_plain(q, k, v, sm, causal) if entry == "fwd"
                else fa.flash_fwd_offs_plain(q, k, v, offs, sm, causal))
@@ -107,10 +149,10 @@ def _outputs(call, q, k, v, offs, do, dlse, sm, causal, entry, width):
             (m,) + tuple(like.shape), dtype=torch.float32, device=q.device)
         dst = (out, lse) if n == 1 else (work(n, q), work(n, lse))
         name = "mx_flash_fwd_%s" % entry
-        call(name + "_bf16", *ptr(q, k, v, *pre, *dst), b * h, sq, sk, d,
+        call(name + sfx, *ptr(q, k, v, *pre, *dst), b * h, sq, sk, d,
              width, n, sm, int(causal))
         if n > 1:
-            call(name + "_combine_bf16", *ptr(*pre, *dst, out, lse), b * h,
+            call(name + "_combine" + sfx, *ptr(*pre, *dst, out, lse), b * h,
                  sq, d, width, n, int(causal))
         ref = (fa.flash_fwd_grid_plain(q, k, v, sm, causal, width)
                if entry == "grid" else fa.flash_fwd_offs_grid_plain(
@@ -119,23 +161,23 @@ def _outputs(call, q, k, v, offs, do, dlse, sm, causal, entry, width):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     common = ptr(q, k, v, offs, do, ref[1], deff)
     if width is None:
-        call("mx_flash_bwd_dq_bf16", *common, dq.data_ptr(), *tail)
-        call("mx_flash_bwd_dkv_bf16", *common, *ptr(dk, dv), *tail)
+        call("mx_flash_bwd_dq" + sfx, *common, dq.data_ptr(), *tail)
+        call("mx_flash_bwd_dkv" + sfx, *common, *ptr(dk, dv), *tail)
         want = fa.flash_bwd_offs_plain(q, k, v, offs, do, dlse, ref[0],
                                        ref[1], sm, causal)
     else:
         flags = (sm, int(causal))
         dq_dst = dq if n == 1 else work(n, q)
-        call("mx_flash_bwd_dq_grid_bf16", *common, dq_dst.data_ptr(), b * h,
+        call("mx_flash_bwd_dq_grid" + sfx, *common, dq_dst.data_ptr(), b * h,
              sq, sk, d, width, n, *flags)
         if n > 1:
-            call("mx_flash_bwd_dq_grid_reduce_bf16", *ptr(offs, dq_dst, dq),
+            call("mx_flash_bwd_dq_grid_reduce" + sfx, *ptr(offs, dq_dst, dq),
                  b * h, sq, d, width, n, *flags)
         dkv_dst = (dk, dv) if nq == 1 else (work(nq, k), work(nq, v))
-        call("mx_flash_bwd_dkv_grid_bf16", *common, *ptr(*dkv_dst), b * h,
+        call("mx_flash_bwd_dkv_grid" + sfx, *common, *ptr(*dkv_dst), b * h,
              sq, sk, d, width, nq, *flags)
         if nq > 1:
-            call("mx_flash_bwd_dkv_grid_reduce_bf16",
+            call("mx_flash_bwd_dkv_grid_reduce" + sfx,
                  *ptr(offs, *dkv_dst, dk, dv), b * h, sq, sk, d, width, nq,
                  int(causal))
         want = fa.flash_bwd_offs_grid_plain(q, k, v, offs, do, dlse, ref[0],
@@ -187,10 +229,13 @@ def main(argv=None):
     import json
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seeds", type=int, default=4)
+    parser.add_argument("--dtype", choices=("bfloat16", "float16"),
+                        default="bfloat16")
     parser.add_argument("--emulate", action="store_true",
                         help="run the kernels' sources on the host CPU "
                              "through the emulator")
     args = parser.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.emulate:
         from . import _emulate
@@ -209,7 +254,7 @@ def main(argv=None):
     for seed in range(args.seeds):
         gen = torch.Generator().manual_seed(1000 + seed)
         rand = lambda *s: torch.randn(*s, generator=gen).to(   # noqa: E731
-            dev, torch.bfloat16)
+            dev, dtype)
         for entry, (b, h, sq, d), sk, offs, causal, lse_cot, width in \
                 _cases(args.emulate):
             q, k, v, do = (rand(b, h, sq, d), rand(b, h, sk, d),
@@ -229,9 +274,10 @@ def main(argv=None):
                     w["row_ulps"], w["row_at"] = r, what
                 if t >= w["tensor_ulps"]:
                     w["tensor_ulps"], w["tensor_at"] = t, what
-    print(json.dumps({"seeds": args.seeds, "emulate": args.emulate,
-                      "limit": BF16_ULPS, "row_floor": ROW_FLOOR,
-                      "worst": worst}, indent=1))
+    print(json.dumps({"dtype": args.dtype, "seeds": args.seeds,
+                      "emulate": args.emulate, "limit": GATES[dtype][2],
+                      "row_floor": GATES[dtype][3], "worst": worst},
+                     indent=1))
     return 0
 
 

@@ -1,5 +1,5 @@
-// Split flash-attention backward at dynamic global offsets, float32 and
-// bf16, for Hopper (sm_90a): the long-context training backward of
+// Split flash-attention backward at dynamic global offsets, float32, bf16
+// and float16, for Hopper (sm_90a): the long-context training backward of
 // TransformerConfig(attn_variant="grid"). Four kernels: dq over key splits,
 // dk/dv over query splits, and the two passes that sum the splits. Built by
 // mxnet_tpu_torch/kernels/_build.py into a shared library with a plain C
@@ -46,16 +46,17 @@
 // passes are bytes-bound and run on CUDA cores, 32 rows a block, eight
 // threads to a row.
 //
-// bf16 inputs take flash_bwd_bf16.cuh's kernels over the same splits
-// (Hopper's warpgroup products, the reference kernels' roundings: dS and P
-// rounded before their products), writing float32 partials: dq unscaled,
-// dk against the folded q. Their reduce passes are the bf16-output
-// instantiations: dq summed in split order, times sm_scale, then rounded
-// (the reference's L769); dk and dv summed, then rounded (L823-824). At the
-// long training shape the 103.1 and 137.5 GFLOP of products above take
-// 0.104 ms (dq) and 0.139 ms (dk/dv) at the 989 TFLOP/s dense bf16 rate.
+// bf16 and float16 inputs take flash_bwd_half.cuh's kernels over the same
+// splits, one template for both (Hopper's warpgroup products, the
+// reference kernels' roundings: dS and P rounded before their products),
+// writing float32 partials: dq unscaled, dk against the folded q. Their
+// reduce passes are the 16-bit-output instantiations: dq summed in split
+// order, times sm_scale, then rounded (the reference's L769); dk and dv
+// summed, then rounded (L823-824). At the long training shape the 103.1
+// and 137.5 GFLOP of products above take 0.104 ms (dq) and 0.139 ms
+// (dk/dv) at the 989 TFLOP/s dense 16-bit rate.
 #include "flash_bwd.cuh"
-#include "flash_bwd_bf16.cuh"   // and bf16_mma.cuh's store4
+#include "flash_bwd_half.cuh"   // and half_mma.cuh's F32, Bf16, F16, store4
 
 namespace {
 
@@ -71,15 +72,15 @@ constexpr int kReduceRows = kReduceThreads / kRowThreads;   // 32
 // sum over the splits [lo_r, hi_r) that the row can see of part[s, r, :],
 // in split order; a row that sees none gets 0. kKeys: the rows are keys
 // (dk/dv: splits [first_live_q_split, n_split) of two arrays), else queries
-// (dq: splits [0, live_kv_splits) of one). TOut: float, or bf16 (each sum
-// rounded once, after the scale).
-template <int D, bool kKeys, typename TOut>
+// (dq: splits [0, live_kv_splits) of one). TO: half_mma.cuh's F32, or
+// Bf16 or F16 (each sum rounded once, after the scale).
+template <int D, bool kKeys, typename TO>
 __global__ void __launch_bounds__(kReduceThreads)
 flash_bwd_grid_reduce_kernel(const int* __restrict__ offs,
                              const float* __restrict__ part_a,
                              const float* __restrict__ part_b,
-                             TOut* __restrict__ out_a,
-                             TOut* __restrict__ out_b,
+                             typename TO::elem* __restrict__ out_a,
+                             typename TO::elem* __restrict__ out_b,
                              int n_rows, int n_other, int w, int n_split,
                              float scale, int causal) {
   constexpr int kChunks = D / (4 * kRowThreads);
@@ -125,23 +126,24 @@ flash_bwd_grid_reduce_kernel(const int* __restrict__ offs,
   const size_t o = r * D + 4 * lane;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    mx_bf::store4(out_a + o + 4 * kRowThreads * c, acc_a[c][0] * scale,
+    mx_half::store4<TO>(out_a + o + 4 * kRowThreads * c, acc_a[c][0] * scale,
                      acc_a[c][1] * scale, acc_a[c][2] * scale,
                      acc_a[c][3] * scale);
     if (kKeys)
-      mx_bf::store4(out_b + o + 4 * kRowThreads * c, acc_b[c][0],
+      mx_half::store4<TO>(out_b + o + 4 * kRowThreads * c, acc_b[c][0],
                        acc_b[c][1], acc_b[c][2], acc_b[c][3]);
   }
 }
 
-template <int D, bool kKeys, typename TOut>
+template <int D, bool kKeys, typename TO>
 int launch_reduce(const int* offs, const float* part_a, const float* part_b,
-                  TOut* out_a, TOut* out_b, int bh, int n_rows,
+                  typename TO::elem* out_a, typename TO::elem* out_b,
+                  int bh, int n_rows,
                   int n_other, int w, int n_split, float scale, int causal,
                   cudaStream_t stream) {
   const dim3 grid((n_rows + kReduceRows - 1) / kReduceRows, bh);
-  flash_bwd_grid_reduce_kernel<D, kKeys, TOut><<<grid, kReduceThreads, 0,
-                                                 stream>>>(
+  flash_bwd_grid_reduce_kernel<D, kKeys, TO><<<grid, kReduceThreads, 0,
+                                               stream>>>(
       offs, part_a, part_b, out_a, out_b, n_rows, n_other, w, n_split, scale,
       causal);
   return static_cast<int>(cudaGetLastError());
@@ -195,10 +197,9 @@ extern "C" int mx_flash_bwd_dq_grid_reduce_f32(const int* offs,
                                                float sm_scale, int causal,
                                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_DISPATCH_D((launch_reduce<D, false, float>(offs, dq_part, nullptr, dq,
-                                                  nullptr, bh, sq, 0, wk,
-                                                  n_split, sm_scale, causal,
-                                                  s)))
+  MX_DISPATCH_D((launch_reduce<D, false, mx_half::F32>(
+      offs, dq_part, nullptr, dq, nullptr, bh, sq, 0, wk, n_split, sm_scale,
+      causal, s)))
 }
 
 // dk, dv [bh, sk, d] = the sums of dk_part, dv_part [n_split, bh, sk, d]
@@ -211,15 +212,68 @@ extern "C" int mx_flash_bwd_dkv_grid_reduce_f32(const int* offs,
                                                 int wq, int n_split,
                                                 int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_DISPATCH_D((launch_reduce<D, true, float>(offs, dk_part, dv_part, dk,
-                                                 dv, bh, sk, sq, wq, n_split,
-                                                 1.f, causal, s)))
+  MX_DISPATCH_D((launch_reduce<D, true, mx_half::F32>(
+      offs, dk_part, dv_part, dk, dv, bh, sk, sq, wq, n_split, 1.f, causal,
+      s)))
 }
 
-// As mx_flash_bwd_dq_grid_f32 in bf16: q, k, v and dout bf16 (their bits
-// as uint16_t). n_split == 1: dq is the bf16 output [bh, sq, d]; else dq is
-// the unscaled float32 workspace [n_split, bh, sq, d], to be summed by
-// mx_flash_bwd_dq_grid_reduce_bf16.
+namespace {
+
+// the 16-bit entries below: T is half_mma.cuh's Bf16 or F16
+template <typename T>
+int dq_grid_half(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                 const int* offs, const uint16_t* dout, const float* lse,
+                 const float* deff, void* dq, int bh, int sq, int sk, int d,
+                 int wk, int n_split, float sm_scale, int causal,
+                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((mx_flash_bwd_half::launch_dq_half<T, D>(
+      q, k, v, offs, dout, lse, deff, static_cast<uint16_t*>(dq),
+      static_cast<float*>(dq), bh, sq, sk, wk, n_split, sm_scale, causal,
+      s)))
+}
+
+template <typename T>
+int dkv_grid_half(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                  const int* offs, const uint16_t* dout, const float* lse,
+                  const float* deff, void* dk, void* dv, int bh, int sq,
+                  int sk, int d, int wq, int n_split, float sm_scale,
+                  int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((mx_flash_bwd_half::launch_dkv_half<T, D>(
+      q, k, v, offs, dout, lse, deff, static_cast<uint16_t*>(dk),
+      static_cast<uint16_t*>(dv), static_cast<float*>(dk),
+      static_cast<float*>(dv), bh, sq, sk, wq, n_split, sm_scale, causal,
+      s)))
+}
+
+template <typename T>
+int dq_reduce_half(const int* offs, const float* dq_part, uint16_t* dq,
+                   int bh, int sq, int d, int wk, int n_split,
+                   float sm_scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((launch_reduce<D, false, T>(
+      offs, dq_part, nullptr, dq, nullptr, bh, sq, 0, wk, n_split, sm_scale,
+      causal, s)))
+}
+
+template <typename T>
+int dkv_reduce_half(const int* offs, const float* dk_part,
+                    const float* dv_part, uint16_t* dk, uint16_t* dv, int bh,
+                    int sq, int sk, int d, int wq, int n_split, int causal,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((launch_reduce<D, true, T>(
+      offs, dk_part, dv_part, dk, dv, bh, sk, sq, wq, n_split, 1.f, causal,
+      s)))
+}
+
+}  // namespace
+
+// As mx_flash_bwd_dq_grid_f32 in bf16 (_bf16) or float16 (_f16): q, k, v
+// and dout in the 16-bit type (their bits as uint16_t). n_split == 1: dq is
+// the 16-bit output [bh, sq, d]; else dq is the unscaled float32 workspace
+// [n_split, bh, sq, d], to be summed by the reduce entry of the same type.
 extern "C" int mx_flash_bwd_dq_grid_bf16(const uint16_t* q, const uint16_t* k,
                                          const uint16_t* v, const int* offs,
                                          const uint16_t* dout,
@@ -228,16 +282,28 @@ extern "C" int mx_flash_bwd_dq_grid_bf16(const uint16_t* q, const uint16_t* k,
                                          int d, int wk, int n_split,
                                          float sm_scale, int causal,
                                          void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_DISPATCH_D((mx_flash_bwd_bf16::launch_dq_bf16<D>(
-      q, k, v, offs, dout, lse, deff, static_cast<uint16_t*>(dq),
-      static_cast<float*>(dq), bh, sq, sk, wk, n_split, sm_scale, causal,
-      s)))
+  return dq_grid_half<mx_half::Bf16>(q, k, v, offs, dout, lse, deff, dq, bh,
+                                     sq, sk, d, wk, n_split, sm_scale, causal,
+                                     stream);
 }
 
-// As mx_flash_bwd_dkv_grid_f32 in bf16. n_split == 1: dk and dv are the
-// bf16 outputs [bh, sk, d]; else the float32 workspaces [n_split, bh, sk,
-// d], to be summed by mx_flash_bwd_dkv_grid_reduce_bf16.
+extern "C" int mx_flash_bwd_dq_grid_f16(const uint16_t* q, const uint16_t* k,
+                                        const uint16_t* v, const int* offs,
+                                        const uint16_t* dout,
+                                        const float* lse, const float* deff,
+                                        void* dq, int bh, int sq, int sk,
+                                        int d, int wk, int n_split,
+                                        float sm_scale, int causal,
+                                        void* stream) {
+  return dq_grid_half<mx_half::F16>(q, k, v, offs, dout, lse, deff, dq, bh,
+                                    sq, sk, d, wk, n_split, sm_scale, causal,
+                                    stream);
+}
+
+// As mx_flash_bwd_dkv_grid_f32 in bf16 (_bf16) or float16 (_f16).
+// n_split == 1: dk and dv are the 16-bit outputs [bh, sk, d]; else the
+// float32 workspaces [n_split, bh, sk, d], to be summed by the reduce entry
+// of the same type.
 extern "C" int mx_flash_bwd_dkv_grid_bf16(const uint16_t* q,
                                           const uint16_t* k,
                                           const uint16_t* v, const int* offs,
@@ -248,30 +314,50 @@ extern "C" int mx_flash_bwd_dkv_grid_bf16(const uint16_t* q,
                                           int d, int wq, int n_split,
                                           float sm_scale, int causal,
                                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_DISPATCH_D((mx_flash_bwd_bf16::launch_dkv_bf16<D>(
-      q, k, v, offs, dout, lse, deff, static_cast<uint16_t*>(dk),
-      static_cast<uint16_t*>(dv), static_cast<float*>(dk),
-      static_cast<float*>(dv), bh, sq, sk, wq, n_split, sm_scale, causal,
-      s)))
+  return dkv_grid_half<mx_half::Bf16>(q, k, v, offs, dout, lse, deff, dk, dv,
+                                      bh, sq, sk, d, wq, n_split, sm_scale,
+                                      causal, stream);
 }
 
-// dq [bh, sq, d] bf16 = sm_scale * the float32 sum of dq_part over the key
-// splits each row sees, rounded once.
+extern "C" int mx_flash_bwd_dkv_grid_f16(const uint16_t* q,
+                                         const uint16_t* k,
+                                         const uint16_t* v, const int* offs,
+                                         const uint16_t* dout,
+                                         const float* lse,
+                                         const float* deff, void* dk,
+                                         void* dv, int bh, int sq, int sk,
+                                         int d, int wq, int n_split,
+                                         float sm_scale, int causal,
+                                         void* stream) {
+  return dkv_grid_half<mx_half::F16>(q, k, v, offs, dout, lse, deff, dk, dv,
+                                     bh, sq, sk, d, wq, n_split, sm_scale,
+                                     causal, stream);
+}
+
+// dq [bh, sq, d] in the 16-bit type = sm_scale * the float32 sum of dq_part
+// over the key splits each row sees, rounded once.
 extern "C" int mx_flash_bwd_dq_grid_reduce_bf16(const int* offs,
                                                 const float* dq_part,
                                                 uint16_t* dq, int bh, int sq,
                                                 int d, int wk, int n_split,
                                                 float sm_scale, int causal,
                                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_DISPATCH_D((launch_reduce<D, false, uint16_t>(
-      offs, dq_part, nullptr, dq, nullptr, bh, sq, 0, wk, n_split, sm_scale,
-      causal, s)))
+  return dq_reduce_half<mx_half::Bf16>(offs, dq_part, dq, bh, sq, d, wk,
+                                       n_split, sm_scale, causal, stream);
 }
 
-// dk, dv [bh, sk, d] bf16 = the float32 sums of dk_part, dv_part over the
-// query splits that see each key, each rounded once.
+extern "C" int mx_flash_bwd_dq_grid_reduce_f16(const int* offs,
+                                               const float* dq_part,
+                                               uint16_t* dq, int bh, int sq,
+                                               int d, int wk, int n_split,
+                                               float sm_scale, int causal,
+                                               void* stream) {
+  return dq_reduce_half<mx_half::F16>(offs, dq_part, dq, bh, sq, d, wk,
+                                      n_split, sm_scale, causal, stream);
+}
+
+// dk, dv [bh, sk, d] in the 16-bit type = the float32 sums of dk_part,
+// dv_part over the query splits that see each key, each rounded once.
 extern "C" int mx_flash_bwd_dkv_grid_reduce_bf16(const int* offs,
                                                  const float* dk_part,
                                                  const float* dv_part,
@@ -279,8 +365,19 @@ extern "C" int mx_flash_bwd_dkv_grid_reduce_bf16(const int* offs,
                                                  int bh, int sq, int sk,
                                                  int d, int wq, int n_split,
                                                  int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_DISPATCH_D((launch_reduce<D, true, uint16_t>(
-      offs, dk_part, dv_part, dk, dv, bh, sk, sq, wq, n_split, 1.f, causal,
-      s)))
+  return dkv_reduce_half<mx_half::Bf16>(offs, dk_part, dv_part, dk, dv, bh,
+                                        sq, sk, d, wq, n_split, causal,
+                                        stream);
+}
+
+extern "C" int mx_flash_bwd_dkv_grid_reduce_f16(const int* offs,
+                                                const float* dk_part,
+                                                const float* dv_part,
+                                                uint16_t* dk, uint16_t* dv,
+                                                int bh, int sq, int sk,
+                                                int d, int wq, int n_split,
+                                                int causal, void* stream) {
+  return dkv_reduce_half<mx_half::F16>(offs, dk_part, dv_part, dk, dv, bh,
+                                       sq, sk, d, wq, n_split, causal,
+                                       stream);
 }

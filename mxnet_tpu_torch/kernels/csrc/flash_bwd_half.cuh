@@ -1,39 +1,43 @@
-// The flash-attention backward body in bf16 on Hopper's warpgroup tensor
-// cores (sm_90a): one dq kernel and one dk/dv kernel, `template <int D>`,
-// over splits of the walked axis (blockIdx.z; w rows each), as the float32
-// body (flash_bwd.cuh). flash_bwd_offs.cu instantiates them beside the
-// float32 body with one split over the whole axis, for TPU kernels
-// _flash_bwd_dq_offs_kernel / _flash_bwd_dkv_offs_kernel (#2), writing bf16
-// dq, dk, dv; flash_bwd_grid.cu over the JAX call's splits, for
+// The flash-attention backward body in 16 bits on Hopper's warpgroup
+// tensor cores (sm_90a): one dq kernel and one dk/dv kernel, `template
+// <typename T, int D>`, T the element type (half_mma.cuh's Bf16 or F16: one
+// body for both), over splits of the walked axis (blockIdx.z; w rows each),
+// as the float32 body (flash_bwd.cuh). flash_bwd_offs.cu instantiates them
+// for both types beside the float32 body with one split over the whole
+// axis, for TPU kernels _flash_bwd_dq_offs_kernel /
+// _flash_bwd_dkv_offs_kernel (#2), writing dq, dk, dv in T;
+// flash_bwd_grid.cu over the JAX call's splits, for
 // _flash_bwd_dq_grid_kernel / _flash_bwd_dkv_grid_kernel (#4), writing
 // float32 partials (unscaled dq over key splits, dk and dv over query
 // splits) that its reduce passes sum, in split order, and round once.
 //
 // Function, with the roundings of the reference kernels
-// (mxnet_tpu/kernels/flash_attention.py:402 and :453 on bf16 inputs;
-// query row i at global position offs[0] + i, key j at offs[1] + j):
-//   qs_i  = bf16(q_i * sm_scale)                   (_fold_scale)
+// (mxnet_tpu/kernels/flash_attention.py:402 and :453 on bf16 or float16
+// inputs; query row i at global position offs[0] + i, key j at offs[1] +
+// j), T() the round to nearest even:
+//   qs_i  = T(q_i * sm_scale)                      (_fold_scale)
 //   s_ij  = qs_i . k_j                              masked to -1e30
 //   p_ij  = exp(s_ij - lse_safe_i),  lse_safe = lse > -5e29 ? lse : +1e30
 //   ds_ij = p_ij * (do_i . v_j - deff_i),  deff = rowsum(do * out) - dlse
-//   dq_i  = bf16(sm_scale * sum_j bf16(ds_ij) k_j)
-//   dk_j  = bf16(sum_i bf16(ds_ij) qs_i),  dv_j = bf16(sum_i bf16(p_ij) do_i)
-// with every score, p, ds and sum in float32 and every product of two bf16
-// exact. Rows with no visible key and keys no row sees get exactly 0.
-// deff (float32) is computed by the caller. With splits, the sums run over
-// the block's split and stay float32; sm_scale and the rounding come after
-// the split sum (the reference's flush, L767-769 and L823-824).
+//   dq_i  = T(sm_scale * sum_j T(ds_ij) k_j)
+//   dk_j  = T(sum_i T(ds_ij) qs_i),  dv_j = T(sum_i T(p_ij) do_i)
+// with every score, p, ds and sum in float32 and every product of two
+// 16-bit values exact. Rows with no visible key and keys no row sees get
+// exactly 0. deff (float32) is computed by the caller. With splits, the
+// sums run over the block's split and stay float32; sm_scale and the
+// rounding come after the split sum (the reference's flush, L767-769 and
+// L823-824).
 //
 // Bound on one H100 SXM: operations 6 * B * H * sum_rows(visible keys) * D
-// for dq and 8 * ... * D for dk/dv at the 989 TFLOP/s dense bf16 rate;
+// for dq and 8 * ... * D for dk/dv at the 989 TFLOP/s dense 16-bit rate;
 // bytes the inputs read once and the outputs written once at 3.35 TB/s.
 // At (8, 8, 512, 64) causal: dq 3.2 GFLOP (0.0033 ms) against 0.0067 ms of
 // bytes, dk/dv 4.3 GFLOP (0.0043 ms) against 0.0078 ms: bytes bound.
 //
-// What the design does (bf16_wgmma.cuh):
+// What the design does (half_wgmma.cuh):
 // - Products: wgmma.mma_async m64nNk16, one warpgroup for 64 rows. The
 //   first products read both operands from shared memory (K-major); dS and
-//   P are rounded to bf16 straight from their accumulators into the A
+//   P are rounded to T straight from their accumulators into the A
 //   fragments of the second products, whose B (K, dO, qs) is read
 //   transposed (MN-major) from shared memory. The sums of dQ, dK and dV
 //   stay in the accumulators of the second products across the tiles.
@@ -62,10 +66,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_wgmma.cuh"    // wgmma, descriptors, staging
+#include "half_wgmma.cuh"    // wgmma, descriptors, staging
 #include "flash_split.cuh"   // the split geometry, kNeg
 
-namespace mx_flash_bwd_bf16 {
+namespace mx_flash_bwd_half {
 // Internal linkage, as flash_bwd.cuh's body.
 namespace {
 
@@ -91,47 +95,47 @@ __host__ __device__ constexpr int dkv_min_blocks() {
 
 // owned q and dO, and the ring of K and V tiles
 template <int D>
-constexpr size_t dq_bf16_smem_bytes() {
-  return sizeof(bf16) * (2 * kWGRows * D + kStages * 2 * kDqTile * D);
+constexpr size_t dq_half_smem_bytes() {
+  return sizeof(h16) * (2 * kWGRows * D + kStages * 2 * kDqTile * D);
 }
 
 // owned K and V, the ring of q and dO tiles, then the ring's lse and deff
 template <int D>
-constexpr size_t dkv_bf16_smem_bytes() {
-  return sizeof(bf16) * (2 * kWGRows * D +
+constexpr size_t dkv_half_smem_bytes() {
+  return sizeof(h16) * (2 * kWGRows * D +
                          kStages * 2 * dkv_tile<D>() * D) +
          sizeof(float) * kStages * 2 * dkv_tile<D>();
 }
 
 // D += A B for the MN-major B of rows [r0, r0 + 16) of an [R][D] tile: one
 // product, or one a 64-column half at D = 128
-template <int D, int R>
+template <typename T, int D, int R>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[D / 2],
                                             const uint32_t (&a)[4],
-                                            const bf16* tile, int r0) {
+                                            const h16* tile, int r0) {
   if constexpr (D == 128) {
-    wgmma_rs<64, 1>(*reinterpret_cast<float(*)[32]>(d), a,
-                    desc_mn<D, R>(tile, r0, 0), 1);
-    wgmma_rs<64, 1>(*reinterpret_cast<float(*)[32]>(d + 32), a,
-                    desc_mn<D, R>(tile, r0, 64), 1);
+    wgmma_rs<T, 64, 1>(*reinterpret_cast<float(*)[32]>(d), a,
+                       desc_mn<D, R>(tile, r0, 0), 1);
+    wgmma_rs<T, 64, 1>(*reinterpret_cast<float(*)[32]>(d + 32), a,
+                       desc_mn<D, R>(tile, r0, 64), 1);
   } else {
-    wgmma_rs<D, 1>(d, a, desc_mn<D, R>(tile, r0, 0), 1);
+    wgmma_rs<T, D, 1>(d, a, desc_mn<D, R>(tile, r0, 0), 1);
   }
 }
 
 // dq. One block: 64 query rows of (b, h) = blockIdx.x, key split
-// blockIdx.z of width w (n_split == 1: w >= sk, the final bf16 dq; else
+// blockIdx.z of width w (n_split == 1: w >= sk, the final T dq; else
 // the split's unscaled float32 partial into dq_part).
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kWGThreads)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
+flash_bwd_dq_half_kernel(const h16* __restrict__ q,
+                         const h16* __restrict__ k,
+                         const h16* __restrict__ v,
                          const int* __restrict__ offs,
-                         const bf16* __restrict__ dout,
+                         const h16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ deff,
-                         bf16* __restrict__ dq, float* __restrict__ dq_part,
+                         h16* __restrict__ dq, float* __restrict__ dq_part,
                          int sq, int sk, int w, int n_split, float sm_scale,
                          int causal) {
   constexpr int kR = kWGRows;
@@ -142,9 +146,9 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   constexpr int kND = D / 8;
   constexpr int kKD = D / 16;
   extern __shared__ __align__(1024) unsigned char mx_smem[];
-  bf16* qs = smem_base(mx_smem);   // [kR][D]
-  bf16* dos = qs + kR * D;         // [kR][D]
-  bf16* kvs = dos + kR * D;        // [kStages][k, v][kT][D]
+  h16* qs = smem_base(mx_smem);   // [kR][D]
+  h16* dos = qs + kR * D;         // [kR][D]
+  h16* kvs = dos + kR * D;        // [kStages][k, v][kT][D]
 
   const int bh = blockIdx.x;
   const int rb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -185,11 +189,11 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   zero(acc);
 
   if (n_t > 0) {
-    const bf16* kb = k + static_cast<size_t>(bh) * sk * D;
-    const bf16* vb = v + static_cast<size_t>(bh) * sk * D;
+    const h16* kb = k + static_cast<size_t>(bh) * sk * D;
+    const h16* vb = v + static_cast<size_t>(bh) * sk * D;
     auto stage_kv = [&](int it) {
       if (it < n_t) {
-        bf16* dst = kvs + (it % kStages) * 2 * kT * D;
+        h16* dst = kvs + (it % kStages) * 2 * kT * D;
         stage_tile<D, kT, kTh>(dst, kb, k_lo + it * kT, k_end);
         stage_tile<D, kT, kTh>(dst + kT * D, vb, k_lo + it * kT, k_end);
       }
@@ -202,10 +206,10 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
 
     for (int it = 0; it < n_t; ++it) {
       const int kt0 = k_lo + it * kT;
-      const bf16* ks = kvs + (it % kStages) * 2 * kT * D;
-      const bf16* vs = ks + kT * D;
+      const h16* ks = kvs + (it % kStages) * 2 * kT * D;
+      const h16* vs = ks + kT * D;
       cp_async_wait<kStages - 2>();   // this thread's copies of tile it
-      if (it == 0) fold_own<D, kR, kTh>(qs, sm_scale);
+      if (it == 0) fold_own<T, D, kR, kTh>(qs, sm_scale);
       fence_proxy_async();
       __syncthreads();   // tile it landed; tile it - 1's products are done
       stage_kv(it + kStages - 1);
@@ -217,12 +221,12 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKD; ++kk)
-        wgmma_ss<kT, 0>(s, desc_k<D, kR>(qs, 0, kk * 16),
-                        desc_k<D, kT>(ks, 0, kk * 16), kk);
+        wgmma_ss<T, kT, 0>(s, desc_k<D, kR>(qs, 0, kk * 16),
+                           desc_k<D, kT>(ks, 0, kk * 16), kk);
 #pragma unroll
       for (int kk = 0; kk < kKD; ++kk)
-        wgmma_ss<kT, 0>(dp, desc_k<D, kR>(dos, 0, kk * 16),
-                        desc_k<D, kT>(vs, 0, kk * 16), kk);
+        wgmma_ss<T, kT, 0>(dp, desc_k<D, kR>(dos, 0, kk * 16),
+                           desc_k<D, kT>(vs, 0, kk * 16), kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -245,14 +249,14 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
           s[4 * j + e] = p * (dp[4 * j + e] - deff_r[h]);
         }
 
-      // dQ += bf16(dS) K
+      // dQ += T(dS) K
       uint32_t da[kKT][4];
 #pragma unroll
-      for (int jj = 0; jj < kKT; ++jj) pack_a(s + 8 * jj, da[jj]);
+      for (int jj = 0; jj < kKT; ++jj) pack_a<T>(s + 8 * jj, da[jj]);
       wgmma_fence();
 #pragma unroll
       for (int jj = 0; jj < kKT; ++jj)
-        wgmma_rs_mn<D, kT>(acc, da[jj], ks, jj * 16);
+        wgmma_rs_mn<T, D, kT>(acc, da[jj], ks, jj * 16);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -267,10 +271,10 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
     const int i = q0 + wr + g + 8 * h;
     if (i >= sq) continue;
     if (direct) {
-      bf16* o = dq + (qoff + i) * D + 2 * t;
+      h16* o = dq + (qoff + i) * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < kND; ++n)
-        store2(o + n * 8, acc[4 * n + 2 * h] * sm_scale,
+        store2<T>(o + n * 8, acc[4 * n + 2 * h] * sm_scale,
                acc[4 * n + 2 * h + 1] * sm_scale);
     } else {
       float* o = dq_part + (base + qoff + i) * D + 2 * t;
@@ -283,18 +287,18 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
 }
 
 // dk/dv. One block: 64 keys of (b, h) = blockIdx.x, query split
-// blockIdx.z of width w (n_split == 1: w >= sq, the final bf16 dk and dv;
+// blockIdx.z of width w (n_split == 1: w >= sq, the final T dk and dv;
 // else the split's float32 partials into dk_part and dv_part).
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kWGThreads, (dkv_min_blocks<D>()))
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
+flash_bwd_dkv_half_kernel(const h16* __restrict__ q,
+                          const h16* __restrict__ k,
+                          const h16* __restrict__ v,
                           const int* __restrict__ offs,
-                          const bf16* __restrict__ dout,
+                          const h16* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ deff,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          h16* __restrict__ dk, h16* __restrict__ dv,
                           float* __restrict__ dk_part,
                           float* __restrict__ dv_part, int sq, int sk, int w,
                           int n_split, float sm_scale, int causal) {
@@ -306,9 +310,9 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   constexpr int kND = D / 8;
   constexpr int kKD = D / 16;
   extern __shared__ __align__(1024) unsigned char mx_smem[];
-  bf16* ks = smem_base(mx_smem);   // [kR][D]
-  bf16* vs = ks + kR * D;          // [kR][D]
-  bf16* qds = vs + kR * D;         // [kStages][q, do][kT][D]
+  h16* ks = smem_base(mx_smem);   // [kR][D]
+  h16* vs = ks + kR * D;          // [kR][D]
+  h16* qds = vs + kR * D;         // [kStages][q, do][kT][D]
   float* lds = reinterpret_cast<float*>(qds + kStages * 2 * kT * D);
   // [kStages][lse, deff][kT]
 
@@ -347,12 +351,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   zero(acc_v);
 
   if (n_t > 0) {
-    const bf16* qb = q + qoff * D;
-    const bf16* dob = dout + qoff * D;
+    const h16* qb = q + qoff * D;
+    const h16* dob = dout + qoff * D;
     auto stage_qd = [&](int it) {
       if (it < n_t) {
         const int st = it % kStages, qt0 = first + it * kT;
-        bf16* dst = qds + st * 2 * kT * D;
+        h16* dst = qds + st * 2 * kT * D;
         stage_tile<D, kT, kTh>(dst, qb, qt0, q_end);
         stage_tile<D, kT, kTh>(dst + kT * D, dob, qt0, q_end);
         const int tid = threadIdx.x;
@@ -372,12 +376,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
 
     for (int it = 0; it < n_t; ++it) {
       const int qt0 = first + it * kT;
-      bf16* qs = qds + (it % kStages) * 2 * kT * D;
-      const bf16* os = qs + kT * D;
+      h16* qs = qds + (it % kStages) * 2 * kT * D;
+      const h16* os = qs + kT * D;
       const float* ls = lds + (it % kStages) * 2 * kT;
       const float* dfs = ls + kT;
       cp_async_wait<kStages - 2>();   // this thread's copies of tile it
-      fold_own<D, kT, kTh>(qs, sm_scale);
+      fold_own<T, D, kT, kTh>(qs, sm_scale);
       fence_proxy_async();
       __syncthreads();   // tile it landed and folded; it - 1's are done
       stage_qd(it + kStages - 1);
@@ -389,12 +393,12 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kKD; ++kk)
-        wgmma_ss<kT, 0>(s, desc_k<D, kR>(ks, 0, kk * 16),
-                        desc_k<D, kT>(qs, 0, kk * 16), kk);
+        wgmma_ss<T, kT, 0>(s, desc_k<D, kR>(ks, 0, kk * 16),
+                           desc_k<D, kT>(qs, 0, kk * 16), kk);
 #pragma unroll
       for (int kk = 0; kk < kKD; ++kk)
-        wgmma_ss<kT, 0>(dp, desc_k<D, kR>(vs, 0, kk * 16),
-                        desc_k<D, kT>(os, 0, kk * 16), kk);
+        wgmma_ss<T, kT, 0>(dp, desc_k<D, kR>(vs, 0, kk * 16),
+                           desc_k<D, kT>(os, 0, kk * 16), kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -427,18 +431,18 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
             dp[4 * j + e] = p * (dp[4 * j + e] - (e & 1 ? f2.y : f2.x));
           }
         }
-        pack_a(s + 8 * jj, pa[jj]);
-        pack_a(dp + 8 * jj, da[jj]);
+        pack_a<T>(s + 8 * jj, pa[jj]);
+        pack_a<T>(dp + 8 * jj, da[jj]);
       }
 
-      // dV += bf16(P^T) dO, dK += bf16(dS^T) qs
+      // dV += T(P^T) dO, dK += T(dS^T) qs
       wgmma_fence();
 #pragma unroll
       for (int jj = 0; jj < kKT; ++jj)
-        wgmma_rs_mn<D, kT>(acc_v, pa[jj], os, jj * 16);
+        wgmma_rs_mn<T, D, kT>(acc_v, pa[jj], os, jj * 16);
 #pragma unroll
       for (int jj = 0; jj < kKT; ++jj)
-        wgmma_rs_mn<D, kT>(acc_k, da[jj], qs, jj * 16);
+        wgmma_rs_mn<T, D, kT>(acc_k, da[jj], qs, jj * 16);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc_v);
@@ -461,8 +465,8 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
       const float* ck = acc_k + 4 * n + 2 * h;
       const float* cv = acc_v + 4 * n + 2 * h;
       if (direct) {
-        store2(dk + r + n * 8, ck[0], ck[1]);
-        store2(dv + r + n * 8, cv[0], cv[1]);
+        store2<T>(dk + r + n * 8, ck[0], ck[1]);
+        store2<T>(dv + r + n * 8, cv[0], cv[1]);
       } else {
         *reinterpret_cast<float2*>(dk_part + r + n * 8) =
             make_float2(ck[0], ck[1]);
@@ -479,19 +483,19 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
 // instantiation). Return the CUDA error of the launch.
 
 // dq (n_split == 1) or the float32 dq_part (n_split > 1 key splits of w)
-template <int D>
-int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
-                   const int* offs, const bf16* dout, const float* lse,
-                   const float* deff, bf16* dq, float* dq_part, int bh,
+template <typename T, int D>
+int launch_dq_half(const h16* q, const h16* k, const h16* v,
+                   const int* offs, const h16* dout, const float* lse,
+                   const float* deff, h16* dq, float* dq_part, int bh,
                    int sq, int sk, int w, int n_split, float sm_scale,
                    int causal, cudaStream_t stream) {
-  constexpr size_t smem = dq_bf16_smem_bytes<D>();
+  constexpr size_t smem = dq_half_smem_bytes<D>();
   static const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_bf16_kernel<D>,
+      flash_bwd_dq_half_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (sq + kWGRows - 1) / kWGRows, n_split);
-  flash_bwd_dq_bf16_kernel<D><<<grid, kWGThreads, smem, stream>>>(
+  flash_bwd_dq_half_kernel<T, D><<<grid, kWGThreads, smem, stream>>>(
       q, k, v, offs, dout, lse, deff, dq, dq_part, sq, sk, w, n_split,
       sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -499,24 +503,24 @@ int launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
 
 // dk, dv (n_split == 1) or the float32 dk_part, dv_part (n_split > 1 query
 // splits of w)
-template <int D>
-int launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
-                    const int* offs, const bf16* dout, const float* lse,
-                    const float* deff, bf16* dk, bf16* dv, float* dk_part,
+template <typename T, int D>
+int launch_dkv_half(const h16* q, const h16* k, const h16* v,
+                    const int* offs, const h16* dout, const float* lse,
+                    const float* deff, h16* dk, h16* dv, float* dk_part,
                     float* dv_part, int bh, int sq, int sk, int w,
                     int n_split, float sm_scale, int causal,
                     cudaStream_t stream) {
-  constexpr size_t smem = dkv_bf16_smem_bytes<D>();
+  constexpr size_t smem = dkv_half_smem_bytes<D>();
   static const cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_bf16_kernel<D>,
+      flash_bwd_dkv_half_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (sk + kWGRows - 1) / kWGRows, n_split);
-  flash_bwd_dkv_bf16_kernel<D><<<grid, kWGThreads, smem, stream>>>(
+  flash_bwd_dkv_half_kernel<T, D><<<grid, kWGThreads, smem, stream>>>(
       q, k, v, offs, dout, lse, deff, dk, dv, dk_part, dv_part, sq, sk, w,
       n_split, sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
-}  // namespace mx_flash_bwd_bf16
+}  // namespace mx_flash_bwd_half

@@ -1,5 +1,5 @@
-// Flash-attention backward at dynamic global offsets, float32 and bf16, for
-// Hopper (sm_90a): two kernels, dq and dk/dv. Built by
+// Flash-attention backward at dynamic global offsets, float32, bf16 and
+// float16, for Hopper (sm_90a): two kernels, dq and dk/dv. Built by
 // mxnet_tpu_torch/kernels/_build.py into a shared library with a plain C
 // interface and called through ctypes from
 // mxnet_tpu_torch/kernels/flash_attention.py (the backward of
@@ -25,11 +25,12 @@
 // inputs read once and the outputs written once at 3.35 TB/s. At the
 // training shape (B=8, H=8, S=512, D=64, causal) that is 0.0196 ms (dq) and
 // 0.0261 ms (dk/dv) of operations against 0.0126 and 0.015 ms of bytes:
-// operation bound. bf16 inputs take flash_bwd_bf16.cuh's body (Hopper's
-// warpgroup products, the reference kernels' roundings), bytes bound
-// at that shape: 0.0067 ms (dq) and 0.0078 ms (dk/dv).
+// operation bound. bf16 and float16 inputs take flash_bwd_half.cuh's body,
+// one template for both (Hopper's warpgroup products, the reference
+// kernels' roundings), bytes bound at that shape: 0.0067 ms (dq) and
+// 0.0078 ms (dk/dv).
 #include "flash_bwd.cuh"
-#include "flash_bwd_bf16.cuh"
+#include "flash_bwd_half.cuh"
 
 using namespace mx_flash_bwd;
 
@@ -61,18 +62,44 @@ extern "C" int mx_flash_bwd_dkv_f32(const float* q, const float* k,
                                  sq, sk, sq, 1, sm_scale, causal, s)))
 }
 
-// As the two entries above in bf16: q, k, v, dout, dq, dk and dv bf16
-// (their bits as uint16_t); lse and deff float32.
+namespace {
+
+// the 16-bit entries below: T is half_mma.cuh's Bf16 or F16
+template <typename T>
+int dq_half(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+            const int* offs, const uint16_t* dout, const float* lse,
+            const float* deff, uint16_t* dq, int bh, int sq, int sk, int d,
+            float sm_scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((mx_flash_bwd_half::launch_dq_half<T, D>(
+      q, k, v, offs, dout, lse, deff, dq, nullptr, bh, sq, sk, sk, 1,
+      sm_scale, causal, s)))
+}
+
+template <typename T>
+int dkv_half(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+             const int* offs, const uint16_t* dout, const float* lse,
+             const float* deff, uint16_t* dk, uint16_t* dv, int bh, int sq,
+             int sk, int d, float sm_scale, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  MX_DISPATCH_D((mx_flash_bwd_half::launch_dkv_half<T, D>(
+      q, k, v, offs, dout, lse, deff, dk, dv, nullptr, nullptr, bh, sq, sk,
+      sq, 1, sm_scale, causal, s)))
+}
+
+}  // namespace
+
+// As the two entries above in bf16 (_bf16) or float16 (_f16): q, k, v,
+// dout, dq, dk and dv in the 16-bit type (their bits as uint16_t); lse and
+// deff float32.
 extern "C" int mx_flash_bwd_dq_bf16(const uint16_t* q, const uint16_t* k,
                                     const uint16_t* v, const int* offs,
                                     const uint16_t* dout, const float* lse,
                                     const float* deff, uint16_t* dq, int bh,
                                     int sq, int sk, int d, float sm_scale,
                                     int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_DISPATCH_D((mx_flash_bwd_bf16::launch_dq_bf16<D>(
-      q, k, v, offs, dout, lse, deff, dq, nullptr, bh, sq, sk, sk, 1,
-      sm_scale, causal, s)))
+  return dq_half<mx_half::Bf16>(q, k, v, offs, dout, lse, deff, dq, bh, sq,
+                                sk, d, sm_scale, causal, stream);
 }
 
 extern "C" int mx_flash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k,
@@ -82,8 +109,27 @@ extern "C" int mx_flash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k,
                                      uint16_t* dv, int bh, int sq, int sk,
                                      int d, float sm_scale, int causal,
                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MX_DISPATCH_D((mx_flash_bwd_bf16::launch_dkv_bf16<D>(
-      q, k, v, offs, dout, lse, deff, dk, dv, nullptr, nullptr, bh, sq, sk,
-      sq, 1, sm_scale, causal, s)))
+  return dkv_half<mx_half::Bf16>(q, k, v, offs, dout, lse, deff, dk, dv, bh,
+                                 sq, sk, d, sm_scale, causal, stream);
+}
+
+extern "C" int mx_flash_bwd_dq_f16(const uint16_t* q, const uint16_t* k,
+                                   const uint16_t* v, const int* offs,
+                                   const uint16_t* dout, const float* lse,
+                                   const float* deff, uint16_t* dq, int bh,
+                                   int sq, int sk, int d, float sm_scale,
+                                   int causal, void* stream) {
+  return dq_half<mx_half::F16>(q, k, v, offs, dout, lse, deff, dq, bh, sq,
+                               sk, d, sm_scale, causal, stream);
+}
+
+extern "C" int mx_flash_bwd_dkv_f16(const uint16_t* q, const uint16_t* k,
+                                    const uint16_t* v, const int* offs,
+                                    const uint16_t* dout, const float* lse,
+                                    const float* deff, uint16_t* dk,
+                                    uint16_t* dv, int bh, int sq, int sk,
+                                    int d, float sm_scale, int causal,
+                                    void* stream) {
+  return dkv_half<mx_half::F16>(q, k, v, offs, dout, lse, deff, dk, dv, bh,
+                                sq, sk, d, sm_scale, causal, stream);
 }

@@ -2,9 +2,9 @@
 // (sm_90a), shared by flash_fwd_grid.cu (TPU kernel _flash_fwd_grid_kernel,
 // no offsets) and flash_fwd_offs_grid.cu (TPU kernel
 // _flash_fwd_offs_grid_kernel, global offsets read on the device). It
-// reads a float32 workspace and writes out in float32 or, for the bf16
-// bodies (flash_fwd_bf16.cuh), rounded to bf16 once (`TOut`); lse is
-// float32 in both.
+// reads a float32 workspace and writes out in float32 or, for the 16-bit
+// bodies (flash_fwd_half.cuh), rounded to bf16 or float16 once (`TO`:
+// half_mma.cuh's F32, Bf16 or F16); lse is float32 in all.
 //
 // What "grid" means here. On the TPU the grid variant makes the key axis a
 // sequential grid dimension with VMEM scratch accumulators. Hopper has no
@@ -35,7 +35,7 @@
 #pragma once
 #include <cuda_runtime.h>
 
-#include "bf16_mma.cuh"      // store4
+#include "half_mma.cuh"      // F32, Bf16, F16, store4
 #include "flash_split.cuh"
 
 namespace mx_flash {
@@ -45,12 +45,12 @@ constexpr int kRowThreads = 8;                          // threads to a row
 constexpr int kCombineThreads = 256;
 constexpr int kCombineRows = kCombineThreads / kRowThreads;   // 32
 
-template <int D, bool kOffs, typename TOut>
+template <int D, bool kOffs, typename TO>
 __global__ void __launch_bounds__(kCombineThreads)
 flash_fwd_grid_combine_kernel(const int* __restrict__ offs,
                               const float* __restrict__ out_part,
                               const float* __restrict__ lse_part,
-                              TOut* __restrict__ out,
+                              typename TO::elem* __restrict__ out,
                               float* __restrict__ lse,
                               int sq, int w, int n_split, int causal) {
   constexpr int kChunks = D / (4 * kRowThreads);
@@ -88,23 +88,24 @@ flash_fwd_grid_combine_kernel(const int* __restrict__ offs,
     }
   }
   const float denom = l == 0.f ? 1.f : l;
-  TOut* orow = out + r * D + 4 * lane;
+  typename TO::elem* orow = out + r * D + 4 * lane;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c)
-    mx_bf::store4(orow + 4 * kRowThreads * c, acc[c][0] / denom,
+    mx_half::store4<TO>(orow + 4 * kRowThreads * c, acc[c][0] / denom,
                   acc[c][1] / denom, acc[c][2] / denom, acc[c][3] / denom);
   if (lane == 0) lse[r] = l > 0.f ? m_safe + logf(denom) : kNeg;
 }
 
-// Returns cudaGetLastError() of the launch. TOut: float, or mx_bf::bf16.
-template <int D, bool kOffs, typename TOut>
+// Returns cudaGetLastError() of the launch. TO: F32, Bf16 or F16.
+template <int D, bool kOffs, typename TO>
 int launch_fwd_grid_combine(const int* offs, const float* out_part,
-                            const float* lse_part, TOut* out, float* lse,
+                            const float* lse_part,
+                            typename TO::elem* out, float* lse,
                             int bh, int sq, int w, int n_split, int causal,
                             cudaStream_t stream) {
   const dim3 grid((sq + kCombineRows - 1) / kCombineRows, bh);
-  flash_fwd_grid_combine_kernel<D, kOffs, TOut><<<grid, kCombineThreads, 0,
-                                                  stream>>>(
+  flash_fwd_grid_combine_kernel<D, kOffs, TO><<<grid, kCombineThreads, 0,
+                                                stream>>>(
       offs, out_part, lse_part, out, lse, sq, w, n_split, causal);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // The split geometry of the flash-attention kernels, shared by the forward
-// bodies (flash_fwd.cuh, flash_fwd_bf16.cuh, and the combine pass of
+// bodies (flash_fwd.cuh, flash_fwd_half.cuh, and the combine pass of
 // flash_fwd_grid.cuh) and the backward bodies (flash_bwd.cuh,
-// flash_bwd_bf16.cuh, and the reduce passes of flash_bwd_grid.cu).
+// flash_bwd_half.cuh, and the reduce passes of flash_bwd_grid.cu).
 //
 // The grid kernels cut the walked axis into splits of w rows (a multiple
 // of the 32-row split unit), one block per split, and a second pass merges

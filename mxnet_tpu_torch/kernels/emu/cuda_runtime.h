@@ -84,8 +84,9 @@ void emu_cp_async(void* dst, const void* src, bool valid, int n);
 // mma.sync.m16n8k8 f32.tf32.tf32.f32 for the calling thread's warp
 void emu_mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                   const uint32_t (&b)[2]);
-// wgmma.mma_async.m64nNk16.f32.bf16.bf16 for the calling thread's
-// warpgroup: d (n / 2 floats a thread) = A B, or += when scale_d; A from
+// wgmma.mma_async.m64nNk16.f32.bf16.bf16 (f16: .f32.f16.f16) for the
+// calling thread's warpgroup: d (n / 2 floats a thread) = A B, or += when
+// scale_d; A from
 // the registers a (4 a thread) or, when a is null, through the shared-memory
 // descriptor desc_a; B through desc_b. trans_a / trans_b: 0 K-major, 1
 // MN-major. Issued, not run: d reads NaN until the wait_group that
@@ -93,16 +94,23 @@ void emu_mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // a descriptor the warpgroup's threads disagree on; an element outside
 // the block's shared memory reads as NaN.
 void emu_wgmma(float* d, int n, const uint32_t* a, uint64_t desc_a,
-               uint64_t desc_b, int scale_d, int trans_a, int trans_b);
+               uint64_t desc_b, int scale_d, int trans_a, int trans_b,
+               int f16);
 // wgmma.commit_group: the thread's uncommitted products become a group
 void emu_wgmma_commit();
 // wgmma.wait_group n: runs the thread's committed groups but the n newest,
-// the warpgroup meeting at each product
+// the warpgroup meeting once (its last thread to arrive runs every
+// thread's products)
 void emu_wgmma_wait(int n);
 // wgmma.fence: the warpgroup meets
 void emu_warpgroup_sync();
 // cvt.rn.bf16x2.f32: (lo, hi) rounded to nearest even, lo in the low half
 uint32_t emu_pack_bf16x2(float lo, float hi);
+// cvt.rn.f16x2.f32: (lo, hi) rounded to nearest even, subnormals kept,
+// overflow to inf, lo in the low half
+uint32_t emu_pack_f16x2(float lo, float hi);
+// cvt.f32.f16: the float16 of bits h
+float emu_f16_value(uint16_t h);
 // the block's dynamic shared memory
 float* emu_smem();
 // a shared-memory address: the byte offset into the block's shared memory

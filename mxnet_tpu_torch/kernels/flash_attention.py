@@ -35,15 +35,17 @@ Counterpart of ``mxnet_tpu/kernels/flash_attention.py``. Shapes follow
   tensors they launch the kernels or raise; on CPU tensors they run the
   plain versions; any other device raises. There is no fallback from the
   card to the plain version, nor from one variant to the other.
-- Dtypes: float32 and bfloat16 in every kernel. bf16 takes the bf16
-  bodies (``csrc/flash_fwd_bf16.cuh`` and ``csrc/flash_bwd_bf16.cuh``,
-  one bf16 tensor-core product a step), the grid kernels over the same
-  splits with float32 partials and a combine or reduce pass that rounds
-  once; their plain versions round where the JAX kernels round on bf16
-  inputs: q folded and rounded, scores, softmax statistics, split
-  partials and every sum in float32, ``p`` and ``ds`` rounded to the
-  operand's dtype before their products, outputs rounded once at the
-  end, lse float32. float16 is not yet ported and raises (ROADMAP B2).
+- Dtypes: float32, bfloat16 and float16 in every kernel. The two 16-bit
+  types take the 16-bit bodies (``csrc/flash_fwd_half.cuh`` and
+  ``csrc/flash_bwd_half.cuh``, one template for both: one 16-bit
+  tensor-core product a step), the grid kernels over the same splits with
+  float32 partials and a combine or reduce pass that rounds once; their
+  plain versions round where the JAX kernels round on 16-bit inputs: q
+  folded and rounded, scores, softmax statistics, split partials and
+  every sum in float32, ``p`` and ``ds`` rounded to the operand's dtype
+  before their products (float16 keeps its subnormals), outputs rounded
+  once at the end, lse float32. q, k and v (and ``do``) share one dtype;
+  a mix, or another dtype, raises.
 - ``resolve_kernel_tier`` keeps the JAX package's tier vocabulary
   (``MXNET_SERVING_DECODE_FLASH``, ``MXNET_TPU_MESH_KERNEL_TIER``): auto |
   1/on | 0/off, where ``interpret`` has no counterpart (a CUDA kernel has
@@ -52,6 +54,7 @@ Counterpart of ``mxnet_tpu/kernels/flash_attention.py``. Shapes follow
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -64,7 +67,7 @@ __all__ = ["attention_with_lse", "merge_attention", "blockwise_attention",
            "flash_bwd_offs_grid_plain", "split_width", "fwd_grid_parts",
            "bwd_grid_parts",
            "flash_attention_with_lse", "flash_attention",
-           "resolve_kernel_tier", "kernel_status"]
+           "resolve_kernel_tier", "kernel_status", "masked_value"]
 
 _NEG_INF = -1e30
 
@@ -79,10 +82,10 @@ _NEG_INF = -1e30
 #: ``launches_bwd_dq_grid`` / ``launches_bwd_dkv_grid`` and their
 #: ``_reduce`` passes (``flash_bwd_grid.cu``). A combine or reduce pass
 #: runs only when there is more than one split. Each counter's ``_bf16``
-#: sibling (``launches_bf16``, ``launches_fwd_grid_bf16``,
-#: ``launches_bwd_dkv_grid_reduce_bf16``, ...) counts the bf16
-#: instantiation of the same kernel (the same library, entry
-#: ``mx_*_bf16``).
+#: and ``_f16`` siblings (``launches_bf16``, ``launches_fwd_grid_f16``,
+#: ``launches_bwd_dkv_grid_reduce_bf16``, ...) count the bf16 and float16
+#: instantiations of the same kernel (the same library, entries
+#: ``mx_*_bf16`` and ``mx_*_f16``).
 launches = 0
 launches_fwd = 0
 launches_bwd_dq = 0
@@ -107,11 +110,31 @@ launches_bwd_dq_grid_bf16 = 0
 launches_bwd_dq_grid_reduce_bf16 = 0
 launches_bwd_dkv_grid_bf16 = 0
 launches_bwd_dkv_grid_reduce_bf16 = 0
+launches_f16 = 0
+launches_fwd_f16 = 0
+launches_bwd_dq_f16 = 0
+launches_bwd_dkv_f16 = 0
+launches_fwd_grid_f16 = 0
+launches_fwd_grid_combine_f16 = 0
+launches_fwd_offs_grid_f16 = 0
+launches_fwd_offs_grid_combine_f16 = 0
+launches_bwd_dq_grid_f16 = 0
+launches_bwd_dq_grid_reduce_f16 = 0
+launches_bwd_dkv_grid_f16 = 0
+launches_bwd_dkv_grid_reduce_f16 = 0
 
 _HEAD_DIMS = (32, 64, 128)
 # the split unit, 32 rows (the kernels walk 64-row tiles, 32 at D = 128,
 # from a split's first row and mask past its end)
 _TILE = 32
+
+
+@functools.lru_cache(maxsize=None)
+def masked_value(dtype):
+    """The mask value -1e30 as jnp casts it to ``dtype``, a Python float:
+    float16 has no such magnitude and rounds it to -inf (an exp of 0
+    either way). On CUDA torch refuses a scalar its dtype cannot hold."""
+    return float(torch.tensor(_NEG_INF).to(dtype))
 
 
 def _fold_scale(q, sm_scale):
@@ -155,7 +178,7 @@ def attention_with_lse(q, k, v, *, causal=False, sm_scale=None,
     # lse to -1e30 so merge_attention gives such chunks no weight
     live = lse > _NEG_INF / 2
     weights = torch.where(live[..., None], weights, 0.0)
-    lse = torch.where(live, lse, _NEG_INF)
+    lse = torch.where(live, lse, masked_value(lse.dtype))
     out = torch.einsum("...qk,...kd->...qd", weights, v)
     return out, lse
 
@@ -540,12 +563,16 @@ _ENTRIES = {
     "mx_flash_bwd_dkv_bf16": ("flash_bwd_offs",
                               [_P] * 9 + [_I] * 4 + [_F, _I, _P]),
 }
-# the grid kernels' bf16 entries take the float32 entries' arguments (an
-# output is bf16 with one split, the float32 workspace with several)
+# the grid kernels' 16-bit entries take the float32 entries' arguments (an
+# output is 16-bit with one split, the float32 workspace with several)
 _ENTRIES.update({name[:-3] + "bf16": spec for name, spec in _ENTRIES.items()
                  if "_grid" in name})
+# the float16 entries take the bf16 entries' arguments
+_ENTRIES.update({name[:-4] + "f16": spec for name, spec in _ENTRIES.items()
+                 if name.endswith("_bf16")})
 #: what the kernels take, -> the suffix of their C entries
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}
 _fns = {}
 
 
@@ -573,7 +600,8 @@ def _launch(name, *args, device):
 
 
 def _count(counter, suffix):
-    """One launch more on ``counter``, or on its ``_bf16`` sibling."""
+    """One launch more on ``counter``, or on its ``_bf16`` or ``_f16``
+    sibling."""
     name = counter if suffix == "f32" else counter + "_" + suffix
     globals()[name] += 1
 
@@ -582,10 +610,6 @@ def _check(where, name, t, device, dtype, ndim):
     if t.device != device:
         raise MXNetError("%s: %s on %s, q on %s" % (where, name, t.device,
                                                     device))
-    if t.dtype == torch.float16 and dtype != torch.float16:
-        raise MXNetError("%s: %s is float16: the attention kernels' float16 "
-                         "path is not yet ported (ROADMAP B2); they take "
-                         "float32 and bfloat16" % (where, name))
     if t.dtype != dtype:
         raise MXNetError("%s: %s is %s, the kernel takes %s"
                          % (where, name, t.dtype, dtype))
@@ -638,7 +662,8 @@ def _check_bwd(where, q, k, v, offs, do, deff, lse):
 
 
 def _flash_fwd_offs_cuda(q, k, v, offs, sm_scale, causal):
-    """(out, lse) by ``flash_fwd_offs.cu`` (#1), float32 or bf16."""
+    """(out, lse) by ``flash_fwd_offs.cu`` (#1), float32, bf16 or
+    float16."""
     b, h, sq, sk, d = _check_qkv("flash_attention_with_lse", q, k, v, offs)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -654,7 +679,7 @@ def _flash_fwd_offs_cuda(q, k, v, offs, sm_scale, causal):
 
 
 def _flash_fwd_cuda(q, k, v, sm_scale, causal):
-    """(out, lse) by ``flash_fwd.cu`` (#5), float32 or bf16."""
+    """(out, lse) by ``flash_fwd.cu`` (#5), float32, bf16 or float16."""
     b, h, sq, sk, d = _check_qkv("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -669,8 +694,8 @@ def _flash_fwd_cuda(q, k, v, sm_scale, causal):
 
 
 def _flash_bwd_cuda(q, k, v, offs, do, deff, lse, sm_scale, causal):
-    """dq, dk, dv by the backward pair (#2), float32 or bf16. ``deff`` is
-    ``_deff``'s output; ``do`` is in q's dtype."""
+    """dq, dk, dv by the backward pair (#2), float32, bf16 or float16.
+    ``deff`` is ``_deff``'s output; ``do`` is in q's dtype."""
     b, h, sq, sk, d = _check_bwd("flash attention backward", q, k, v, offs,
                                  do, deff, lse)
     dq = torch.empty_like(q)
@@ -698,7 +723,7 @@ def _check_width(where, width):
 
 
 def _flash_fwd_grid_cuda(q, k, v, offs, sm_scale, causal, width):
-    """(out, lse) by the split-KV forward, float32 or bf16:
+    """(out, lse) by the split-KV forward, float32, bf16 or float16:
     ``flash_fwd_offs_grid.cu`` (#3) with ``offs``, ``flash_fwd_grid.cu``
     (#6) when ``offs`` is None. Pass 1 over ``ceil(sk / width)`` key
     splits, then, with more than one, the combine pass over a float32
@@ -751,11 +776,11 @@ def _flash_fwd_grid_cuda(q, k, v, offs, sm_scale, causal, width):
 
 def _flash_bwd_grid_cuda(q, k, v, offs, do, deff, lse, sm_scale, causal,
                          splits):
-    """dq, dk, dv by ``flash_bwd_grid.cu`` (#4), float32 or bf16: dq over
-    key splits of ``splits[1]`` keys, dk/dv over query splits of
-    ``splits[0]`` rows, each followed by its reduce pass (float32
-    workspaces; the outputs in q's dtype) when there is more than one
-    split. ``deff`` is ``_deff``'s output."""
+    """dq, dk, dv by ``flash_bwd_grid.cu`` (#4), float32, bf16 or
+    float16: dq over key splits of ``splits[1]`` keys, dk/dv over query
+    splits of ``splits[0]`` rows, each followed by its reduce pass
+    (float32 workspaces; the outputs in q's dtype) when there is more
+    than one split. ``deff`` is ``_deff``'s output."""
     where = "flash attention backward (variant='grid')"
     b, h, sq, sk, d = _check_bwd(where, q, k, v, offs, do, deff, lse)
     wq, wk = splits

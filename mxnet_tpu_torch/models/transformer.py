@@ -40,7 +40,7 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..kernels.flash_attention import (blockwise_attention, flash_attention,
                                        flash_attention_with_lse,
-                                       resolve_kernel_tier)
+                                       masked_value, resolve_kernel_tier)
 from ..parallel import mesh_kernels
 from ..serving.kvcache import NULL_BLOCK
 
@@ -48,8 +48,6 @@ __all__ = ["TransformerConfig", "init_transformer", "params_from_jax",
            "transformer_forward", "transformer_loss",
            "transformer_decode_prefill", "transformer_decode_step",
            "TransformerDecodeModel"]
-
-_NEG = -1e30
 
 
 class TransformerConfig:
@@ -131,10 +129,30 @@ def _in_dtype(tree, dtype):
     return tree.to(dtype)
 
 
+class _Rsqrt(torch.autograd.Function):
+    """``torch.rsqrt`` whose derivative, -0.5 g rsqrt(x)^3, multiplies g
+    by one factor at a time. rsqrt(x)^3 alone (torch's rule) or x^-1.5 (the
+    reference's ``lax.rsqrt`` rule, ans / x) is past float16's 65504 for x
+    below 6.2e-4, which a layer norm's variance reaches at the model's
+    init (ROADMAP C, faults of the reference); the product with g is not.
+    Other dtypes see the same derivative to rounding."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.rsqrt(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * -0.5 * y * y * y
+
+
 def _layer_norm(x, scale, bias, eps=1e-5):
     mu = x.mean(-1, keepdim=True)
     var = ((x - mu) ** 2).mean(-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+    return (x - mu) * _Rsqrt.apply(var + eps) * scale + bias
 
 
 def _mlp(x, lp):
@@ -210,8 +228,8 @@ def transformer_forward(params, tokens, cfg, mesh=None, rng=None,
 
     Computes in ``cfg.dtype``: every param is cast to it first, a no-op
     for params in it (the JAX forward's case). float32 params of a bf16
-    config, what a bf16 model's first Adam step leaves, are float32
-    masters whose gradients flow back through the cast; the JAX forward
+    or float16 config, what such a model's first Adam step leaves, are
+    float32 masters whose gradients flow back through the cast; the JAX forward
     raises on them (its layer scan's carry changes dtype, ROADMAP C)."""
     if mesh is not None:
         raise MXNetError("transformer_forward(mesh=...): distribution is "
@@ -364,7 +382,7 @@ def transformer_decode_step(params, cfg, k_pages, v_pages, token_ids,
         ks = kl[tables].reshape(B, T, H, Dh)
         vs = vl[tables].reshape(B, T, H, Dh)
         scores = torch.einsum("bhd,bthd->bht", q, ks) * sm
-        scores = torch.where(visible, scores, _NEG)
+        scores = torch.where(visible, scores, masked_value(scores.dtype))
         w = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bht,bthd->bhd", w, vs).reshape(B, cfg.d_model)
         x = x + ctx @ lp["wo"]

@@ -11,15 +11,15 @@ their association, so the in-place result equals the functional one:
 ``corr = sqrt(1-b2^t)/(1-b1^t)`` in float32 on the device (no host sync),
 then ``p - lr*corr*m/(sqrt(v)+eps)``.
 
-Leaves that are not all float32 (a bf16 model's params, slots and grads)
-take jnp's promotion, which the JAX expressions carry: Python scalars are
-weak, a float32 array is not, so Adam's ``lr * corr`` (corr a float32
-array) makes ``p`` float32, ``m`` and ``v`` take ``promote(slot, g)``,
-and SGD's ``p`` takes ``promote(p, g)``. Where the promoted dtype is the
-leaf's own the update stays in place; where it differs the leaf's dict
-entry is rebound to the new tensor (keeping ``requires_grad``), as the
-JAX step returns it. ``_jnp_cast`` gives the port's other float32-scalar
-products (the step's clip scale) the same promotion.
+Leaves that are not all float32 (a bf16 or float16 model's params, slots
+and grads) take jnp's promotion, which the JAX expressions carry: Python
+scalars are weak, a float32 array is not, so Adam's ``lr * corr`` (corr a
+float32 array) makes ``p`` float32, ``m`` and ``v`` take ``promote(slot,
+g)``, and SGD's ``p`` takes ``promote(p, g)``. Where the promoted dtype
+is the leaf's own the update stays in place; where it differs the leaf's
+dict entry is rebound to the new tensor (keeping ``requires_grad``), as
+the JAX step returns it. ``_jnp_cast`` gives the port's other
+float32-scalar products (the step's clip scale) the same promotion.
 
 The ZeRO form ``apply_update_sharded`` arrives with distribution (ROADMAP
 A7).

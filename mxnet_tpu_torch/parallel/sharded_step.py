@@ -13,8 +13,9 @@ transformer params work.
 
 Params and optimizer slots live on the device and are updated IN PLACE
 each step (the eager analog of the jitted step's buffer donation), in
-jnp's dtype promotion: a bf16 model's params and Adam slots leave the
-first Adam step as float32, as the JAX step returns them (its float32
+jnp's dtype promotion: a bf16 or float16 model's params and Adam slots
+leave the first Adam step as float32 (SGD with momentum keeps the
+model's dtype), as the JAX step returns them (its float32
 ``corr`` and clip scale promote them), and are rebound in ``params`` and
 ``opt_state`` (``optim_update.apply_update``). The port's transformer
 forward computes in its config's dtype whatever its params' (the JAX

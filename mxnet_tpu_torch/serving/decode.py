@@ -348,8 +348,8 @@ class DecodeEngine:
             kv_shape = (dim,)
         self._params = _params_to(params, self.device)
         # the pages take the params' floating dtype: float32 pages (the
-        # JAX engine's only ones) for a float32 model, bf16 pages, half
-        # the bytes of every page gathered, for a bf16 one
+        # JAX engine's only ones) for a float32 model, bf16 or float16
+        # pages, half the bytes of every page gathered, for a 16-bit one
         self._k_pages = torch.zeros(
             (self._kv.num_blocks, self._kv.block_size)
             + tuple(int(d) for d in kv_shape),

@@ -21,7 +21,8 @@ backward take another order at another thread count, on either side
 package's by 1.6e-7), so an unpinned run's gap depended on the host.
 ``OMP_NUM_THREADS=1`` pins torch; XLA's CPU client sizes its pool from
 the process's CPU affinity, so the JAX wrapper keeps one CPU of it.
-The launcher's rules are in test_torch_port_rules.py.
+The two children run at the same time (each on its one thread). The
+launcher's rules are in test_torch_port_rules.py.
 """
 import os
 import re
@@ -56,15 +57,21 @@ runpy.run_path(sys.argv[0], run_name="__main__")
 """
 
 
-def _run(cmd, cwd):
+def _start(cmd, cwd):
+    """The child ``python cmd`` in ``cwd``, started; ``_output`` waits."""
     env = dict(os.environ, MNIST_SYNTH_N="640", JAX_PLATFORMS="cpu",
                OMP_NUM_THREADS="1",
                MNIST_DIR=os.path.join(cwd, "no-data"),
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
-    proc = subprocess.run([sys.executable] + cmd, cwd=cwd, env=env,
-                          capture_output=True, text=True, timeout=600)
-    out = proc.stdout + proc.stderr
+    return subprocess.Popen([sys.executable] + cmd, cwd=cwd, env=env,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _output(proc):
+    """The child's output once it has exited 0."""
+    out, _ = proc.communicate(timeout=600)
     assert proc.returncode == 0, out[-4000:]
     return out
 
@@ -88,7 +95,7 @@ def _checkpoint(prefix):
 
 
 def test_train_mnist_runs_unchanged_against_the_port(tmp_path):
-    runs = {}
+    procs = {}
     for name in ("jax", "port"):
         d = tmp_path / name
         d.mkdir()
@@ -102,9 +109,16 @@ def test_train_mnist_runs_unchanged_against_the_port(tmp_path):
                             prefix + suffix)
             cmd = ["-m", "mxnet_tpu_torch.run_script", "--np-seed",
                    str(SEED), SCRIPT]
-        out = _run(cmd + ARGS + ["--model-prefix", prefix,
-                                 "--load-epoch", "0"], str(d))
-        runs[name] = (out, jmx.model.load_params(prefix + "-0002.params"))
+        procs[name] = (_start(cmd + ARGS + ["--model-prefix", prefix,
+                                            "--load-epoch", "0"], str(d)),
+                       prefix)
+    try:
+        runs = {name: (_output(proc), jmx.model.load_params(
+            prefix + "-0002.params")) for name, (proc, prefix) in
+            procs.items()}
+    finally:
+        for proc, _ in procs.values():
+            proc.kill()
     port_out = runs["port"][0]
     assert "run_script: jax not in sys.modules" in port_out, port_out[-3000:]
     assert "Loaded model" in port_out

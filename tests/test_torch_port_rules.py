@@ -9,10 +9,10 @@
   on a device with no kernel raises instead of falling back, for both
   kernel variants ("stream" and "grid"), and an unknown variant raises.
 - The training slice: ShardedTrainStep needs CUDA unless given a device;
-  what is not yet ported (float16 attention kernels, bf16 grid kernels, a
-  mesh) raises instead of running something else, naming its ROADMAP
-  item; bf16 reaches the stream kernels' bf16 entries; fused_optupdate
-  routes the update through kernel #7's wrapper.
+  what is not yet ported (a mesh) raises instead of running something
+  else, naming its ROADMAP item; bf16 and float16 reach the attention
+  kernels' entries of their own dtype, and a mixed dtype or float64
+  raises; fused_optupdate routes the update through kernel #7's wrapper.
 - The symbolic slice: DataParallelTrainStep, simple_bind / Executor and
   the NDArray constructors default to the card; the kernel #7 wrapper
   never falls back (an eligible CUDA leaf with no nvcc raises, a bad
@@ -234,14 +234,19 @@ def test_flash_attention_never_falls_back():
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_kernel_wrappers_refuse_half_precision(dtype, monkeypatch):
-    """The CUDA wrappers check before they build or launch anything: what
-    is not yet ported raises "not yet ported (ROADMAP B2)", never a silent
-    cast: float16 everywhere. bf16 reaches the bf16 entries of both
-    variants (a recording stand-in for the launch here; one split, so no
-    combine or reduce pass), a mixed dtype raises."""
+    """The CUDA wrappers check before they build or launch anything, and
+    never cast: bf16 and float16 reach the entries of their own dtype in
+    both variants (a recording stand-in for the launch here; one split, so
+    no combine or reduce pass), and each launch counts on the dtype's
+    counter; a mixed dtype and float64 raise."""
     launched = []
     monkeypatch.setattr(tfa, "_launch",
                         lambda name, *a, device: launched.append(name))
+    sfx = {torch.bfloat16: "bf16", torch.float16: "f16"}[dtype]
+    counters = [n for n in dir(tfa) if n.startswith("launches")
+                and n.endswith("_" + sfx)]
+    before = {n: getattr(tfa, n) for n in dir(tfa)
+              if n.startswith("launches")}
     q = torch.zeros(1, 2, 4, 64, dtype=dtype)
     offs = torch.zeros(2, dtype=torch.int32)
     lse = torch.zeros(1, 2, 4)
@@ -253,27 +258,28 @@ def test_kernel_wrappers_refuse_half_precision(dtype, monkeypatch):
              lambda: tfa._flash_fwd_grid_cuda(q, q, q, offs, 0.125, True, 32),
              lambda: tfa._flash_bwd_grid_cuda(q, q, q, offs, q, lse, lse,
                                               0.125, True, (32, 32)))
-    if dtype == torch.bfloat16:
-        for call in calls:
-            call()
-        assert launched == ["mx_flash_fwd_bf16", "mx_flash_fwd_offs_bf16",
-                            "mx_flash_bwd_dq_bf16", "mx_flash_bwd_dkv_bf16",
-                            "mx_flash_fwd_grid_bf16",
-                            "mx_flash_fwd_offs_grid_bf16",
-                            "mx_flash_bwd_dq_grid_bf16",
-                            "mx_flash_bwd_dkv_grid_bf16"]
-        for call in (lambda: tfa._flash_fwd_cuda(q, q.float(), q, 0.125,
-                                                 True),
-                     lambda: tfa._flash_fwd_grid_cuda(q, q, q.float(), None,
+    for call in calls:
+        call()
+    assert launched == [name + "_" + sfx for name in (
+        "mx_flash_fwd", "mx_flash_fwd_offs", "mx_flash_bwd_dq",
+        "mx_flash_bwd_dkv", "mx_flash_fwd_grid", "mx_flash_fwd_offs_grid",
+        "mx_flash_bwd_dq_grid", "mx_flash_bwd_dkv_grid")]
+    moved = {n for n, v in before.items() if getattr(tfa, n) != v}
+    assert moved and moved <= set(counters)
+    for name, v in before.items():
+        setattr(tfa, name, v)
+    for bad in (q.float(), q.double(), q.to(torch.bfloat16 if dtype ==
+                                            torch.float16 else
+                                            torch.float16)):
+        for call in (lambda: tfa._flash_fwd_cuda(q, bad, q, 0.125, True),
+                     lambda: tfa._flash_fwd_grid_cuda(q, q, bad, None,
                                                       0.125, True, 32)):
             with pytest.raises(MXNetError, match="the kernel takes"):
                 call()
-    else:
-        for call in calls:
-            with pytest.raises(MXNetError,
-                               match=r"not yet ported \(ROADMAP B2\)"):
-                call()
-        assert not launched
+    q64 = q.double()
+    with pytest.raises(MXNetError, match="float64, the kernel takes"):
+        tfa._flash_fwd_offs_cuda(q64, q64, q64, offs, 0.125, True)
+    assert len(launched) == 8
     assert not _build._libs
 
 
@@ -402,25 +408,24 @@ def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
         with pytest.raises(MXNetError, match=match):
             DataParallelTrainStep(sym, device="cpu", **kw)
     # compute_dtype is ported, and the attention kernels of both variants
-    # take bf16; float16 into them is not ported
+    # take bf16 and float16, each through the entries of its own dtype
+    # (the grid entries with the float32 entries' arguments)
     assert DataParallelTrainStep(sym, device="cpu",
                                  compute_dtype="bfloat16").compute_dtype \
         == torch.bfloat16
     q16 = torch.zeros(1, 2, 4, 64, dtype=torch.float16)
-    for fn in (lambda q: tfa._flash_fwd_cuda(q, q, q, 0.125, True),
-               lambda q: tfa._flash_fwd_grid_cuda(q, q, q, None, 0.125,
-                                                  True, 32)):
-        with pytest.raises(MXNetError, match=r"float16 .*ROADMAP B2"):
-            fn(q16)
-    qbf = q16.to(torch.bfloat16)
     offs = torch.zeros(2, dtype=torch.int32)
     lse = torch.zeros(1, 2, 4)
-    assert tfa._check_qkv("grid", qbf, qbf, qbf, offs) == (1, 2, 4, 4, 64)
-    assert tfa._check_bwd("grid", qbf, qbf, qbf, offs, qbf, lse, lse) \
-        == (1, 2, 4, 4, 64)
+    for q in (q16, q16.to(torch.bfloat16)):
+        assert tfa._check_qkv("grid", q, q, q, offs) == (1, 2, 4, 4, 64)
+        assert tfa._check_bwd("grid", q, q, q, offs, q, lse, lse) \
+            == (1, 2, 4, 4, 64)
     assert {tfa._ENTRIES[n][1] == tfa._ENTRIES[n[:-4] + "f32"][1]
             for n in tfa._ENTRIES if "_grid" in n and n.endswith("bf16")} \
         == {True}
+    f16 = [n for n in tfa._ENTRIES if n.endswith("_f16")]
+    assert len(f16) == 12 and all(
+        tfa._ENTRIES[n] == tfa._ENTRIES[n[:-3] + "bf16"] for n in f16)
     one = DataParallelTrainStep(sym, mesh=[torch.device("cpu")],
                                 shard_update=True)
     assert one.device.type == "cpu"
