@@ -86,9 +86,10 @@ no result line):
              1024-element param 4 bytes into its buffer (the scalar path);
              a table of 337 leaves, three launches an update; and the
              main path's table, ResNet-50's 157 leaves (clip {None,
-             0.01}, wd 1e-4, rescale 1/32), one launch an update. Bitwise
-             equal (NaN in the same places, every other value the same
-             bits). Then, for each kind, two rows of one ResNet-50 update:
+             0.01}, wd 1e-4, rescale 1/32), one launch an update, and
+             with the step's verdict true and false (the pointer beside
+             lr; false writes nothing). Bitwise equal (NaN in the same
+             places, every other value the same bits). Then, for each kind, two rows of one ResNet-50 update:
              its 71 TPU-kernel leaves, and all 157 leaves, each in one
              launch: device time (CUDA graphs, median of 7), eager
              host_ms, the plain version, the card's bound (bytes: each
@@ -384,6 +385,39 @@ no result line):
              layers against the plain versions (F16_LONG_LOSS_RTOL,
              F16_LONG_GRAD_RTOL), the controls failing it, the float32 gap
              printed.
+30. supervised_fit — module_fit's ResNet-50 (3x224x224, batch 32) through
+             Module.fit(kvstore='tpu_sync', supervisor=TrainingSupervisor())
+             under MXNET_TPU_FUSED_OPTUPDATE=1 with the device prefetch on
+             (DevicePrefetchIter: pinned buffers, a side stream), every fit
+             from one set of Xavier values, 4 seeded batches cycled.
+             Gates: (a) float32 at loss scale 1.0, 8 steps: after every
+             step each param, momentum slot and BatchNorm statistic bit
+             for bit the same fit's unsupervised and unprefetched, #7
+             launched once a step over 157 leaves (the verdict pointer
+             set), 8 verdicts observed, none bad; (b) a train.nan fault
+             at dispatch 4: the state after that step bit for bit the
+             state after step 3 (the steps before it those of (a)), the
+             next step changes it, one bad step, the scale stays 1.0,
+             everything finite; (c) 6 staged batches bit for bit the host
+             batches, on the card; (d) float16 compute
+             (MXNET_FUSED_COMPUTE_DTYPE=float16) for 20 steps from the
+             default scale 2^15 with bad_steps_limit=16: every master
+             finite, no divergence, the cross-entropy lower in the last
+             quarter than in the first (the backoff and regrow counts
+             printed). With the default limit of 3 the same fit raises
+             NumericDivergence (printed, not gated: MXNet's gradients
+             are sums over the batch, and float16 overflows them at
+             2^10 and above at this width). Reports img/s and
+             the step wall p50 with the prefetch on and off (16 steps
+             each, in turns off, on, off, on), the prefetch's hits,
+             stalls and staging ms, the batch's host-to-device copy time
+             on the compute stream and on other streams (torch.profiler's
+             trace, prefetch off and on), the supervised bare step's
+             device time and ops against the unsupervised one's
+             (profiles DIR/profile_supervised_fit_*.txt), #7's device time
+             over the 157 leaves with no, a true and a false verdict, and
+             the first float16 master update's relative L2 to the float32
+             update at scale 2^15 and 1.0 (not gated).
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
@@ -407,8 +441,8 @@ The line before last is ``{"kernels": [...]}`` with each kernel's launches
 on its path's run (serving, training, symbolic training, long-context
 serving or training, the rtc kernels' full-size run or the ResNet-50
 forwards, the bf16 and float16 serving and training runs, long ones
-included; #7's adds its launches in module_fit, example_scripts and
-symbolic_bf16, by path in ``launches_by_path``), its error (the 16-bit
+included; #7's adds its launches in module_fit, example_scripts,
+symbolic_bf16 and supervised_fit, by path in ``launches_by_path``), its error (the 16-bit
 entries in row ulps of their dtype) and times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -1355,6 +1389,16 @@ def phase_opt_kernel(torch, dev):
                 fail("opt_kernel %s ResNet-50 table of %d leaves: %d "
                      "launches in 2 updates, want 2" % (kind, len(shapes),
                                                        made))
+            launches[kind] += 2
+            leaves[kind] += 2 * len(shapes)
+            n_cases += 1
+        # the step's verdict: true updates, false writes nothing, the
+        # plain version given the same verdict agreeing bit for bit
+        for good in (True, False):
+            verdict = torch.full((), good, dtype=torch.bool, device=dev)
+            check(*_opt_battery(torch, tou, kind, resnet_table(), clip=0.01,
+                                wd=1e-4, rescale=1 / 32, verdict=verdict),
+                  kind, "ResNet-50 table, verdict %s" % good)
             launches[kind] += 2
             leaves[kind] += 2 * len(shapes)
             n_cases += 1
@@ -2794,17 +2838,19 @@ def phase_rtc_infer(torch, dev, seed, out_dir):
     return result, row
 
 
-def parent_opt_update(torch, dev, lib, result):
+def parent_opt_update(torch, dev, lib, csrc, result):
     """Kernel #7 of the parent checkout (``lib``: its ``opt_update``
-    library) against this one's multi-tensor launch on one ResNet-50
-    update of each kind. A parent with per-leaf entries
+    library, built from ``csrc``) against this one's multi-tensor launch
+    on one ResNet-50 update of each kind. A parent with per-leaf entries
     (``mx_optupdate_*_f32``) runs its kernel on the 71 leaves
     ``_kernel_eligible`` takes and the plain expression on the other 86,
     as its ``fused_update_step`` ran them; a parent with the multi-tensor
     entries runs them through this checkout's wrapper with the parent's
-    functions. Both must give the same bits; both are timed in turns
-    (parent, this, this, parent) as device time in a CUDA graph and as
-    eager wall."""
+    functions (a parent whose entries take no verdict pointer is called
+    without it). This checkout's launch runs with a null and with a true
+    verdict: all three must give the same bits; the parent's and the null
+    verdict's are timed in turns (parent, this, this, parent) as device
+    time in a CUDA graph and as eager wall."""
     import ctypes
     from mxnet_tpu_torch.kernels import opt_update as tou
     from mxnet_tpu_torch.models import resnet as tres
@@ -2819,11 +2865,20 @@ def parent_opt_update(torch, dev, lib, result):
                  [P] * 5 + [N] + [F] * 6 + [I] + [F] * 3 + [P])}
     parent_fns = None
     if hasattr(lib, tou._ENTRY["sgd"]):
+        with open(os.path.join(csrc, "opt_update.cu")) as f:
+            takes_verdict = "const bool* ok" in f.read()
         parent_fns = {}
         for name, argtypes in tou._ENTRIES.items():
-            parent_fns[name] = getattr(lib, name)
-            parent_fns[name].argtypes = argtypes
-            parent_fns[name].restype = ctypes.c_int
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            if takes_verdict:
+                fn.argtypes = argtypes
+                parent_fns[name] = fn
+                continue
+            # records, count, lr, then (no verdict) the kind's scalars
+            fn.argtypes = argtypes[:3] + argtypes[4:]
+            parent_fns[name] = (lambda recs, count, lr, ok, *rest, f=fn:
+                                f(recs, count, lr, *rest))
     _, shapes = resnet50_param_shapes(tres)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     kw = dict(rescale=1 / 32, clip=0.01, wd=1e-4)
@@ -2840,7 +2895,7 @@ def parent_opt_update(torch, dev, lib, result):
                  for n, s in shapes.items()}
         names = sorted(params0)
         trees = []
-        for _ in range(2):
+        for _ in range(3):
             params = {n: v.clone() for n, v in params0.items()}
             state = _opt_state(torch, kind, params)
             trees.append([(params[n], grads[n], tuple(
@@ -2868,19 +2923,22 @@ def parent_opt_update(torch, dev, lib, result):
                     fail("parent opt_update %s: the parent's launch "
                          "failed" % kind)
 
-        def ours(table=trees[1]):
-            tou._launch(opt, hp, lr_t, table, **kw)
+        def ours(table=trees[1], ok_t=None):
+            tou._launch(opt, hp, lr_t, table, **kw, ok_t=ok_t)
 
         theirs()
         ours()
+        ours(trees[2], torch.ones((), dtype=torch.bool, device=dev))
         torch.cuda.synchronize()
-        for (a, _, sa), (b, _, sb) in zip(*trees):
-            for x, y in zip((a,) + sa, (b,) + sb):
-                same, diff = _bit_diff(torch, y, x)
-                if not same:
-                    result["opt_bit_identical"] = False
-                    fail("parent: #7 %s differs from the parent's bits "
-                         "(max abs diff %g)" % (kind, diff))
+        for mine, what in ((trees[1], "null"), (trees[2], "true")):
+            for (a, _, sa), (b, _, sb) in zip(trees[0], mine):
+                for x, y in zip((a,) + sa, (b,) + sb):
+                    same, diff = _bit_diff(torch, y, x)
+                    if not same:
+                        result["opt_bit_identical"] = False
+                        fail("parent: #7 %s with a %s verdict differs from "
+                             "the parent's bits (max abs diff %g)"
+                             % (kind, what, diff))
         ms = [time_ms(f, iters=5) for f in (theirs, ours, ours, theirs)]
         host = [time_host_ms(f, iters=10)
                 for f in (theirs, ours, ours, theirs)]
@@ -3187,7 +3245,7 @@ def phase_parent(torch, fa, dev, parent):
     for sfx in HALF:
         parent_half(torch, fa, dev, sfx, rand, both, ours, result,
                     GATES, row_ulps)
-    parent_opt_update(torch, dev, libs["opt_update"], result)
+    parent_opt_update(torch, dev, libs["opt_update"], csrc, result)
     for v_ in result["times"].values():
         if "parent_ms" in v_:   # the float16 entries run in this tree only
             v_["speedup"] = v_["parent_ms"] / v_["ms"]
@@ -3500,6 +3558,373 @@ def phase_example_scripts(torch, dev, tmp):
             "speedometer_samples_per_s": speeds,
             "opt_update_launches": steps}
     return result, {k: tuple(v) for k, v in total.items()}
+
+
+# --- the supervised, prefetched Module.fit (phase 30) -----------------------
+
+SUP_STEPS = 8           # gates (a) and (b): one epoch of 8 steps
+SUP_NAN_STEP = 4        # the dispatch train.nan poisons in gate (b)
+SUP_F16_STEPS = 20      # gate (d)
+SUP_F16_BAD = 16        # its consecutive bad steps allowed: 2^15 to 1
+SUP_RATE_STEPS = 16     # the prefetch on/off walls, twice each
+
+
+def _fit_state(step):
+    """Every param, momentum slot and BatchNorm statistic of a fused
+    step, as device copies (in that order)."""
+    return [t.detach().clone() for t in
+            [step.params[n] for n in step.param_names]
+            + [step.opt_state["mom"][n] for n in step.param_names]
+            + [step.aux[n] for n in step.aux_names]]
+
+
+def _same_state(torch, a, b):
+    """True when two ``_fit_state`` lists hold the same bits."""
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x.view(torch.int32),
+                                           y.view(torch.int32))
+        for x, y in zip(a, b))
+
+
+def h2d_by_stream(prof, nbytes):
+    """Device ms and count of the host-to-device copies of ``nbytes`` (a
+    batch's data) in a torch.profiler trace: on the stream that ran the
+    most kernel time (the compute stream) and on every other stream."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)
+    events = events.get("traceEvents", []) if isinstance(events, dict) \
+        else events
+    kernel_us, copy_us, n_copies = {}, {}, 0
+    for e in events:
+        args = e.get("args") or {}
+        stream = args.get("stream")
+        if e.get("cat") == "kernel":
+            kernel_us[stream] = kernel_us.get(stream, 0.0) + e.get("dur", 0)
+        elif e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "") \
+                and args.get("bytes") == nbytes:
+            copy_us[stream] = copy_us.get(stream, 0.0) + e.get("dur", 0)
+            n_copies += 1
+    compute = max(kernel_us, key=kernel_us.get) if kernel_us else None
+    return {"compute_stream_ms": copy_us.get(compute, 0.0) / 1e3,
+            "other_streams_ms": sum(v for k, v in copy_us.items()
+                                    if k != compute) / 1e3,
+            "copies": n_copies}
+
+
+def phase_supervised_fit(torch, dev, seed, out_dir):
+    """Full-width ResNet-50 through Module.fit(kvstore='tpu_sync',
+    supervisor=TrainingSupervisor()) with the device prefetch (module
+    docstring, phase 30). Returns (result, per-kernel (launches, leaves)
+    of #7 on the path)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import profiler as mxprof
+    from mxnet_tpu_torch.io_device import (DevicePrefetchIter,
+                                           default_stage_fn)
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.models import resnet as tres
+    from mxnet_tpu_torch.parallel import DataParallelTrainStep
+    from mxnet_tpu_torch.resilience import (NumericDivergence,
+                                            TrainingSupervisor, faults)
+    t0 = time.perf_counter()
+    with mx.name.NameManager():
+        sym = tres.get_symbol(num_classes=1000, num_layers=50,
+                              image_shape="3,224,224")
+    n_leaves = len(sym.list_arguments()) - 2
+    rng = np.random.RandomState(seed + 30)
+    data = rng.uniform(-1, 1, (4 * SYM_BATCH, 3, 224, 224)).astype(
+        np.float32)
+    label = rng.randint(0, 1000, (4 * SYM_BATCH,)).astype(np.float32)
+
+    def batches(steps):
+        rows = np.arange(steps * SYM_BATCH) % (4 * SYM_BATCH)
+        return mx.io.NDArrayIter(data[rows], label[rows], SYM_BATCH)
+
+    # one set of initial values for every fit of the phase
+    mx.random.seed(seed)
+    first = mx.mod.Module(sym, context=dev)
+    it = batches(1)
+    first.bind(it.provide_data, it.provide_label)
+    first.init_params(initializer=mx.init.Xavier(rnd_type="gaussian",
+                                                 magnitude=2))
+    arg0, aux0 = first.get_params()
+    del first
+    result = {"phase": "supervised_fit", "model": "resnet50",
+              "batch": [SYM_BATCH, 3, 224, 224],
+              "setup_s": time.perf_counter() - t0}
+
+    def fit(steps, supervisor=False, prefetch=True, snap=False, env=None,
+            quarters=None):
+        """One epoch of ``steps``; -> (module, per-step states, batch-end
+        stamps)."""
+        mod = mx.mod.Module(sym, context=dev)
+        states, stamps = [], []
+
+        def on_batch(p):
+            if snap:
+                states.append(_fit_state(mod._fused_step))
+            if p.nbatch in (steps // 2 - 1, steps - 1):
+                torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            if quarters is not None and \
+                    p.nbatch % (steps // 4) == steps // 4 - 1:
+                quarters.append(float(p.eval_metric.get()[1]))
+                p.eval_metric.reset()
+
+        envs = {"MXNET_TPU_FUSED_OPTUPDATE": "1",
+                "MXNET_DEVICE_PREFETCH": "1" if prefetch else "0",
+                **(env or {})}
+        with mock.patch.dict(os.environ, envs):
+            mod.fit(batches(steps), eval_metric="crossentropy",
+                    kvstore="tpu_sync", optimizer="sgd",
+                    optimizer_params=FIT_OPT, arg_params=arg0,
+                    aux_params=aux0, batch_end_callback=on_batch,
+                    num_epoch=1, supervisor=supervisor)
+        torch.cuda.synchronize()
+        return mod, states, stamps
+
+    # (a) float32 at scale 1.0, supervised and prefetched, against the
+    # same fit unsupervised and unprefetched: every step's state bit for
+    # bit (cuDNN's deterministic algorithms for (a) and (b), as module_fit
+    # compares). The path's #7 launches are counted in the supervised fit.
+    prior = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, plain, _ = fit(SUP_STEPS, prefetch=False, snap=True)
+        mxprof.supervisor_counters(reset=True)
+        mxprof.pipeline_counters(reset=True)
+        _reset_opt_counts(tou)
+        sup = TrainingSupervisor()
+        mod, supervised, _ = fit(SUP_STEPS, supervisor=sup, snap=True)
+        counts = (_opt_counts(tou), _opt_leaves(tou))
+        want = ({"sgd": 0, "sgd_mom": SUP_STEPS, "adam": 0},
+                {"sgd": 0, "sgd_mom": n_leaves * SUP_STEPS, "adam": 0})
+        if counts != want:
+            fail("supervised_fit: kernel #7 (launches, leaves) %s, want "
+                 "%s" % (counts, want))
+        if not mod._fused_step.supervise:
+            fail("supervised_fit: the fused step was built unsupervised")
+        same = [_same_state(torch, a, b)
+                for a, b in zip(plain, supervised)]
+        if len(same) != SUP_STEPS or not all(same):
+            bad = [i for i, ok in enumerate(same) if not ok]
+            fail("supervised_fit (a): the supervised, prefetched fit "
+                 "differs from the plain fit at steps %s (step %d: max "
+                 "%g of a leaf's max abs)" % (bad, bad[0], max(
+                     leaf_err(x, y) for x, y in zip(supervised[bad[0]],
+                                                    plain[bad[0]]))))
+        sc = mxprof.supervisor_counters()
+        if sc["steps"] != SUP_STEPS or sc["bad_steps"] \
+                or sup.loss_scale != 1.0:
+            fail("supervised_fit (a): supervisor counters %s, scale %g"
+                 % (sc, sup.loss_scale))
+        result["a_fp32_scale1_bitwise_steps"] = sum(same)
+        result["pipeline_counters_a"] = mxprof.pipeline_counters()
+
+        # (b) train.nan at dispatch SUP_NAN_STEP: that step leaves the
+        # state of the step before, bit for bit; one bad step, scale 1,
+        # training goes on
+        mxprof.supervisor_counters(reset=True)
+        faults.configure("train.nan:step=%d:raise=FaultInjected"
+                         % SUP_NAN_STEP)
+        try:
+            sup_b = TrainingSupervisor()
+            _, nan_run, _ = fit(SUP_STEPS, supervisor=sup_b, snap=True)
+        finally:
+            faults.reset()
+        k = SUP_NAN_STEP
+        sc = mxprof.supervisor_counters()
+        checks = {
+            "prefix_is_clean": all(_same_state(torch, a, b) for a, b in
+                                   zip(nan_run[:k], supervised[:k])),
+            "bad_step_kept_state": _same_state(torch, nan_run[k],
+                                               nan_run[k - 1]),
+            "training_went_on": not _same_state(torch, nan_run[k + 1],
+                                                nan_run[k]),
+            "finite": all(bool(torch.isfinite(t).all())
+                          for t in nan_run[-1]),
+            "bad_steps": sc["bad_steps"] == 1 and sup_b.bad_steps == 1,
+            "scale": sup_b.loss_scale == 1.0}
+        if not all(checks.values()):
+            fail("supervised_fit (b): %s, counters %s"
+                 % ({c: v for c, v in checks.items() if not v}, sc))
+        result["b_nan_step"] = {"step": k, "counters": sc,
+                                "loss_scale": sup_b.loss_scale}
+    finally:
+        torch.backends.cudnn.deterministic = prior
+    del plain, supervised, nan_run
+
+    # (c) the staged batches are bit for bit the unwrapped ones, on the
+    # card
+    staged_it = DevicePrefetchIter(batches(6), stage_fn=default_stage_fn(
+        dev), depth=2)
+    n_staged = 0
+    for sb, hb in zip(staged_it, batches(6)):
+        for s_arr, h_arr in zip(sb.data + sb.label, hb.data + hb.label):
+            s_t, h_t = s_arr._data, h_arr._data.to(dev)
+            if s_t.device.type != "cuda" or not torch.equal(
+                    s_t.view(torch.int32), h_t.view(torch.int32)):
+                fail("supervised_fit (c): staged batch %d differs from "
+                     "the host batch" % n_staged)
+        n_staged += 1
+    staged_it._shutdown()
+    if n_staged != 6:
+        fail("supervised_fit (c): %d staged batches, want 6" % n_staged)
+    result["c_staged_batches_bitwise"] = n_staged
+
+    # the first float16 master update against the float32 one from the
+    # same values and batch, at each loss scale from 2^15 down to 1: the
+    # step's verdict and the update's relative L2 (printed, not gated)
+    staged = {"data": torch.from_numpy(data[:SYM_BATCH]).to(dev),
+              "softmax_label": torch.from_numpy(label[:SYM_BATCH]).to(dev)}
+
+    def update(cdt=None, scale=None):
+        step = DataParallelTrainStep(
+            sym, lr=0.05, momentum=0.9, wd=1e-4,
+            rescale_grad=1.0 / SYM_BATCH, fused_optupdate=True,
+            supervise=scale is not None, compute_dtype=cdt,
+            device=dev).init_from(arg0, aux0, RESNET_SHAPES)
+        before = [step.params[n].detach().clone() for n in step.param_names]
+        step(staged, lr=0.05, **({} if scale is None else {"scale": scale}))
+        delta = [step.params[n].detach() - b
+                 for n, b in zip(step.param_names, before)]
+        return delta, True if scale is None else bool(step.last_flag)
+
+    d32, _ = update()
+    probe = {}
+    for k2 in (15, 13, 11, 10, 9, 7, 5, 3, 0):
+        d16, good = update("float16", 2.0 ** k2)
+        probe["2^%d" % k2] = {"verdict": good, "rel_l2": _rel_l2(d16, d32)}
+    result["f16_first_update"] = probe
+    emit({"phase": "supervised_fit_f16_probe", "f16_first_update": probe})
+    del d32, d16
+
+    # the same float16 fit under the supervisor's defaults (3 bad steps in
+    # a row): MXNet's gradients are sums over the batch, and at full width
+    # float16 overflows well below 2^15 (the probe above), so it raises
+    # NumericDivergence, as the reference's does (printed, not gated)
+    mxprof.supervisor_counters(reset=True)
+    sup_0 = TrainingSupervisor()
+    try:
+        fit(SUP_F16_STEPS, supervisor=sup_0,
+            env={"MXNET_FUSED_COMPUTE_DTYPE": "float16"})
+        raised = None
+    except NumericDivergence as e:
+        raised = str(e)
+    result["d_default_limit"] = {
+        "bad_steps_limit": sup_0.bad_steps_limit, "raised": raised,
+        "loss_scale_then": sup_0.loss_scale,
+        "counters": mxprof.supervisor_counters()}
+    emit({"phase": "supervised_fit_f16_default",
+          **result["d_default_limit"]})
+
+    # (d) float16 compute from the default scale 2^15: masters finite, no
+    # divergence, the loss falls by quarter. The supervisor takes up to
+    # SUP_F16_BAD consecutive bad steps, past the backoffs from 2^15 to a
+    # scale that holds (the verdict is read 2 steps late)
+    mxprof.supervisor_counters(reset=True)
+    quarters = []
+    sup_d = TrainingSupervisor(bad_steps_limit=SUP_F16_BAD)
+    mod16, _, _ = fit(SUP_F16_STEPS, supervisor=sup_d,
+                      env={"MXNET_FUSED_COMPUTE_DTYPE": "float16"},
+                      quarters=quarters)
+    sc = mxprof.supervisor_counters()
+    step16 = mod16._fused_step
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in step16.params.values())
+    if step16.compute_dtype != torch.float16 or not finite \
+            or sc["divergences"] or len(quarters) != 4 \
+            or not all(math.isfinite(q) for q in quarters) \
+            or not quarters[-1] < quarters[0]:
+        fail("supervised_fit (d): dtype %s, masters finite %s, counters "
+             "%s, cross-entropy by quarter %s" % (step16.compute_dtype,
+                                                  finite, sc, quarters))
+    result["d_float16"] = {"steps": SUP_F16_STEPS, "counters": sc,
+                           "loss_scale_start": 2.0 ** 15,
+                           "loss_scale_end": sup_d.loss_scale,
+                           "scale_backoffs": sc["scale_backoffs"],
+                           "scale_regrows": sc["scale_regrows"],
+                           "cross_entropy_by_quarter": quarters}
+    del mod16, step16
+
+    # img/s and step wall p50 with the prefetch on and off, in turns
+    rates = {"on": [], "off": []}
+    mxprof.pipeline_counters(reset=True)
+    for key in ("off", "on", "off", "on"):
+        _, _, stamps = fit(SUP_RATE_STEPS, prefetch=key == "on")
+        half = SUP_RATE_STEPS // 2
+        walls = [b - a for a, b in zip(stamps[half:], stamps[half + 1:])]
+        rates[key].append({
+            "img_per_s_second_half": SYM_BATCH * (SUP_RATE_STEPS - half)
+            / (stamps[-1] - stamps[half - 1]),
+            "step_wall_ms_p50": statistics.median(walls) * 1e3})
+    pc = mxprof.pipeline_counters()
+    result["prefetch"] = {
+        key: {"img_per_s": [r["img_per_s_second_half"] for r in v],
+              "step_wall_ms_p50": [r["step_wall_ms_p50"] for r in v]}
+        for key, v in rates.items()}
+    result["prefetch"]["hit"] = pc["prefetch_hit"]
+    result["prefetch"]["stall"] = pc["prefetch_stall"]
+    result["prefetch"]["stall_ms"] = pc["prefetch_stall_ms"]
+    result["prefetch"]["stage_ms_per_batch"] = pc["prefetch_stage_ms"] / max(
+        1, pc["prefetch_hit"] + pc["prefetch_stall"])
+
+    # the host-to-device copy of the batch left on the compute stream
+    nbytes = SYM_BATCH * 3 * 224 * 224 * 4
+    h2d = {}
+    for key in ("off", "on"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fit(6, prefetch=key == "on")
+        h2d[key] = h2d_by_stream(prof, nbytes)
+        for v in ("compute_stream_ms", "other_streams_ms"):
+            h2d[key][v + "_per_step"] = h2d[key].pop(v) / 6
+    result["h2d_copy"] = h2d
+
+    # the supervised bare step against the unsupervised one: device time
+    # and ops per step
+    bare = {}
+    for key, supervise in (("unsupervised", False), ("supervised", True)):
+        step = DataParallelTrainStep(
+            sym, lr=0.05, momentum=0.9, wd=1e-4, rescale_grad=1.0 / SYM_BATCH,
+            fused_optupdate=True, supervise=supervise,
+            device=dev).init_from(arg0, aux0, RESNET_SHAPES)
+        bare[key] = profile_calls(torch, lambda: step(staged, lr=0.05),
+                                  "supervised_fit_" + key, out_dir, warm=2,
+                                  n=5, calls=3, classify=kind_of)
+        del step
+    bare["device_ms_ratio"] = bare["supervised"]["device_ms"] \
+        / bare["unsupervised"]["device_ms"]
+    bare["extra_ops"] = bare["supervised"]["device_ops_per_call"] \
+        - bare["unsupervised"]["device_ops_per_call"]
+    result["bare_step"] = bare
+
+    # #7 over the 157 leaves with a true, a false and no verdict
+    params = {n: p._data.detach().clone() for n, p in arg0.items()}
+    names = sorted(params)
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    grads = {n: torch.randn(params[n].shape, device=dev, generator=gen)
+             * 1e-3 for n in names}
+    moms = {n: torch.zeros_like(params[n]) for n in names}
+    table = [(params[n], grads[n], (moms[n],)) for n in names]
+    hp = _opt_hp("sgd_mom")
+    lr_t = torch.full((), hp["lr"], device=dev)
+    verdicts = {"null": None,
+                "true": torch.ones((), dtype=torch.bool, device=dev),
+                "false": torch.zeros((), dtype=torch.bool, device=dev)}
+    result["opt_update_ms"] = {
+        key: time_ms(lambda ok=ok: tou._launch(
+            "sgd", hp, lr_t, table, rescale=1 / SYM_BATCH, clip=None,
+            wd=1e-4, ok_t=ok), iters=5)
+        for key, ok in verdicts.items()}
+    del params, grads, moms, table
+
+    result["card"] = card_line()
+    return result, {k: (counts[0][k], counts[1][k]) for k in OPT_KERNELS}
 
 
 # --- 16-bit compute: bf16 (phases 19-24) and float16 (25-29) ----------------
@@ -4475,7 +4900,7 @@ PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "rtc_infer", "module_fit", "example_scripts", "serve_bf16",
           "train_bf16", "symbolic_bf16", "bf16_kernel", "serve_long_bf16",
           "train_long_bf16", "serve_f16", "train_f16", "f16_kernel",
-          "serve_long_f16", "train_long_f16")
+          "serve_long_f16", "train_long_f16", "supervised_fit")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",)}
@@ -4718,6 +5143,11 @@ def main():
             scripts, opt_paths["example_scripts"] = phase_example_scripts(
                 torch, dev, tmp)
         emit({**scripts, "card": card})
+    if "supervised_fit" in phases:
+        sup_result, opt_paths["supervised_fit"] = phase_supervised_fit(
+            torch, dev, args.seed, args.profile_dir)
+        emit(sup_result)
+        torch.cuda.empty_cache()
     # the 16-bit paths, bf16 then float16; symbolic_bf16 between them
     half_launches = {sfx: {} for sfx in HALF}
     for sfx in HALF:

@@ -25,6 +25,12 @@ iterators, with ``mx.optimizer``, ``mx.metric``, ``mx.init``,
 ``fit(kvstore='tpu_sync')`` hands each batch to
 ``DataParallelTrainStep``, and ``python -m mxnet_tpu_torch.run_script``
 runs the reference's example scripts unchanged against this package.
+Its fourteenth slice supervises and prefetches that fit:
+``fit(supervisor=resilience.TrainingSupervisor(...))`` skips a
+non-finite step from the step's device verdict (kernel #7 writes nothing
+when it is false) under dynamic loss scaling, and
+``io.DevicePrefetchIter`` stages the next batch on the card while a step
+runs.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``, and raise ``MXNetError`` when CUDA is missing.
@@ -35,7 +41,7 @@ __version__ = "1.2.0+cuda"
 
 from . import models, name, ndarray, parallel, profiler, rtc, symbol
 from . import (callback, initializer, io, kvstore, lr_scheduler, metric,
-               model, module, optimizer, random)
+               model, module, optimizer, random, resilience)
 from .base import MXNetError
 from .context import cpu, gpu, default_device
 from .executor import Executor
@@ -51,4 +57,4 @@ __all__ = ["MXNetError", "cpu", "gpu", "default_device", "profiler",
            "Executor", "models", "name", "nd", "ndarray", "rtc", "sym",
            "symbol", "mod", "module", "io", "metric", "init", "initializer",
            "optimizer", "lr_scheduler", "kvstore", "model", "callback",
-           "random", "__version__"]
+           "random", "resilience", "__version__"]

@@ -4,15 +4,18 @@ and ``NDArrayIter`` (reference: ``mxnet_tpu/io.py`` L28-292).
 The iterators live on the host, as MXNet's did: ``NDArrayIter`` keeps its
 data as numpy and builds each batch as arrays on the CPU. The executor
 group, or the fused train step, copies a batch into the arrays it bound on
-its device; all compute runs there. (The JAX package's
-``DevicePrefetchIter``, which stages the next batch on the device while a
-step runs, is not yet ported, ROADMAP A4.)
+its device; all compute runs there. ``DevicePrefetchIter``
+(``io_device.py``) stages the next batch on the device while a step runs;
+``Module.fit`` wraps the train iterator in one on the fused path.
 
 The shuffle draws from numpy's global RNG exactly as the reference's
 does (one ``np.random.shuffle`` of the index at construction and on every
 reset), and nothing else here draws from it, so a seeded run of either
-package sees the same batches. ``ResizeIter``, ``PrefetchingIter`` and the
-file iterators (``CSVIter``, ``LibSVMIter``, ``MNISTIter``,
+package sees the same batches. ``NDArrayIter`` offers the reference's
+resumable-iterator capability (``iter_checkpoint`` / ``iter_restore``:
+the cursor, the permutation and numpy's shuffle-RNG chain;
+``is_resumable``). ``ResizeIter``, ``PrefetchingIter`` and the file
+iterators (``CSVIter``, ``LibSVMIter``, ``MNISTIter``,
 ``ImageRecordIter``) are not yet ported (ROADMAP A2).
 """
 from __future__ import annotations
@@ -25,17 +28,16 @@ from .base import MXNetError
 from .context import cpu
 from .ndarray.ndarray import NDArray, array
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
+           "DevicePrefetchIter", "is_resumable"]
 
-_NOT_PORTED = ("ResizeIter", "PrefetchingIter", "DevicePrefetchIter",
-               "CSVIter", "LibSVMIter", "MNISTIter", "ImageRecordIter",
-               "ImageDetRecordIter")
+_NOT_PORTED = ("ResizeIter", "PrefetchingIter", "CSVIter", "LibSVMIter",
+               "MNISTIter", "ImageRecordIter", "ImageDetRecordIter")
 
 
 def __getattr__(name):
     if name in _NOT_PORTED:
-        raise MXNetError("mx.io.%s is not yet ported (ROADMAP %s)" % (
-            name, "A4" if name == "DevicePrefetchIter" else "A2"))
+        raise MXNetError("mx.io.%s is not yet ported (ROADMAP A2)" % name)
     raise AttributeError("module %r has no attribute %r" % (__name__, name))
 
 
@@ -100,6 +102,28 @@ class DataIter:
 
     def getpad(self):
         raise NotImplementedError
+
+
+def _encode_np_rng_state(state):
+    """numpy.random.get_state() tuple -> JSON-safe list (the MT19937 key
+    as plain ints): the shuffle-RNG chain an iterator position carries."""
+    name, keys, pos, has_gauss, cached = state
+    return [str(name), [int(k) for k in _np.asarray(keys).ravel()],
+            int(pos), int(has_gauss), float(cached)]
+
+
+def _decode_np_rng_state(enc):
+    name, keys, pos, has_gauss, cached = enc
+    return (str(name), _np.asarray(keys, dtype=_np.uint32), int(pos),
+            int(has_gauss), float(cached))
+
+
+def is_resumable(it):
+    """True when ``it`` offers the resumable-iterator capability
+    (``iter_checkpoint()`` / ``iter_restore(state)``): ``NDArrayIter``,
+    and ``DevicePrefetchIter`` over a resumable iterator."""
+    return callable(getattr(it, "iter_checkpoint", None)) and \
+        callable(getattr(it, "iter_restore", None))
 
 
 def _init_data(data, allow_empty, default_name):
@@ -219,3 +243,40 @@ class NDArrayIter(DataIter):
 
     def getindex(self):
         return self._batch_indices()
+
+    # -- the resumable-iterator capability ------------------------------
+    def iter_checkpoint(self):
+        """JSON-serializable exact position: batch cursor, the live index
+        permutation, and (shuffled iterators) numpy's global RNG state the
+        NEXT reset()'s shuffle will draw from."""
+        state = {"kind": "NDArrayIter",
+                 "cursor": int(self.cursor),
+                 "idx": [int(i) for i in self.idx],
+                 "num_data": int(self.num_data),
+                 "batch_size": int(self.batch_size),
+                 "shuffle": bool(self.shuffle)}
+        if self.shuffle:
+            state["np_rng"] = _encode_np_rng_state(_np.random.get_state())
+        return state
+
+    def iter_restore(self, state):
+        """Apply a position captured by :meth:`iter_checkpoint`, the
+        shuffle-RNG chain included, so every later epoch's shuffle matches
+        the uninterrupted run."""
+        if int(state.get("num_data", self.num_data)) != self.num_data or \
+                int(state.get("batch_size", self.batch_size)) != \
+                self.batch_size:
+            raise MXNetError(
+                "iterator position was captured over %s rows / batch %s "
+                "but this iterator has %d/%d: dataset changed under the "
+                "checkpoint" % (state.get("num_data"),
+                                state.get("batch_size"), self.num_data,
+                                self.batch_size))
+        self.cursor = int(state["cursor"])
+        self.idx = _np.asarray(state["idx"], dtype=self.idx.dtype)
+        if state.get("np_rng") is not None:
+            _np.random.set_state(_decode_np_rng_state(state["np_rng"]))
+
+
+# the device stager lives in io_device.py but belongs to mx.io
+from .io_device import DevicePrefetchIter  # noqa: E402

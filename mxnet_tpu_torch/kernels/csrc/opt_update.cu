@@ -46,6 +46,13 @@
 // calling fminf/fmaxf, so a NaN gradient stays NaN as under torch.clamp.
 // lr (or Adam's lr * corr) is read from a device scalar, so a new lr
 // changes no launch argument and needs no host sync.
+//
+// The step's verdict: every entry takes one more device pointer beside lr,
+// `ok` (a bool). Null, or a true verdict, computes the update; a false
+// verdict returns once it and lr are loaded, before any leaf is read or
+// written, so every param and slot keeps its bits. This is the reference's supervised carry
+// (jnp.where(good, new, old) over the update, mxnet_tpu/parallel/
+// tpu_step.py:411-424) in the same launch: no copy and no extra launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -177,9 +184,13 @@ __device__ __forceinline__ void chunk(T* __restrict__ p,
 template <int kKind>
 __global__ void __launch_bounds__(kThreads)
     optupdate_multi_kernel(const __grid_constant__ Table tab,
-                           const float* __restrict__ lr_ptr, const Hyper h,
+                           const float* __restrict__ lr_ptr,
+                           const bool* __restrict__ ok, const Hyper h,
                            const Prologue pro) {
+  // both scalars loaded before the branch, so their latencies overlap
+  const bool good = ok == nullptr || *ok;
   const float lr = *lr_ptr;
+  if (!good) return;  // a bad step: nothing is written
   int li = 0;
   for (int c = blockIdx.x; c < tab.chunks; c += gridDim.x) {
     // the last leaf whose first chunk is <= c
@@ -245,7 +256,8 @@ namespace {
 // chunk; nothing launches when a check fails.
 template <int kKind>
 int launch(const MxOptLeaf* records, int count, const float* lr,
-           const Hyper& h, const Prologue& pro, void* stream) {
+           const bool* ok, const Hyper& h, const Prologue& pro,
+           void* stream) {
   if (count < 1 || count > kMaxLeaves) return (int)cudaErrorInvalidValue;
   Table tab;
   int64_t chunks = 0;
@@ -268,7 +280,8 @@ int launch(const MxOptLeaf* records, int count, const float* lr,
   const int64_t most = (int64_t)(sms < 1 ? 1 : sms) * per_sm;
   const int grid = (int)(chunks < most ? chunks : most);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  optupdate_multi_kernel<kKind><<<grid, kThreads, 0, s>>>(tab, lr, h, pro);
+  optupdate_multi_kernel<kKind><<<grid, kThreads, 0, s>>>(tab, lr, ok, h,
+                                                            pro);
   return (int)cudaGetLastError();
 }
 
@@ -276,34 +289,38 @@ int launch(const MxOptLeaf* records, int count, const float* lr,
 
 // Every entry: one launch over `count` leaf records (a host array), each
 // updated in place; lr (lc = lr * corr for Adam) is a float32 device
-// scalar; the static scalars are already float32; clip != 0 clamps to
-// [lo, hi]. Launches on `stream` without synchronizing and returns
+// scalar; ok is null or a device bool, the step's verdict (false: nothing
+// is written); the static scalars are already float32; clip != 0 clamps
+// to [lo, hi]. Launches on `stream` without synchronizing and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a table the launch
 // does not take (nothing launched).
 extern "C" int mx_optupdate_multi_sgd_f32(const MxOptLeaf* leaves,
                                           int count, const float* lr,
-                                          float rescale, int clip, float lo,
-                                          float hi, float wd, void* stream) {
-  return launch<kSgd>(leaves, count, lr, Hyper{0, 0, 0, 0, 0, 0},
+                                          const bool* ok, float rescale,
+                                          int clip, float lo, float hi,
+                                          float wd, void* stream) {
+  return launch<kSgd>(leaves, count, lr, ok, Hyper{0, 0, 0, 0, 0, 0},
                       Prologue{rescale, lo, hi, wd, clip}, stream);
 }
 
 extern "C" int mx_optupdate_multi_sgd_mom_f32(const MxOptLeaf* leaves,
                                               int count, const float* lr,
-                                              float momentum, float rescale,
-                                              int clip, float lo, float hi,
-                                              float wd, void* stream) {
-  return launch<kSgdMom>(leaves, count, lr, Hyper{momentum, 0, 0, 0, 0, 0},
+                                              const bool* ok, float momentum,
+                                              float rescale, int clip,
+                                              float lo, float hi, float wd,
+                                              void* stream) {
+  return launch<kSgdMom>(leaves, count, lr, ok,
+                         Hyper{momentum, 0, 0, 0, 0, 0},
                          Prologue{rescale, lo, hi, wd, clip}, stream);
 }
 
 extern "C" int mx_optupdate_multi_adam_f32(const MxOptLeaf* leaves,
                                            int count, const float* lc,
-                                           float b1, float c1, float b2,
-                                           float c2, float eps,
-                                           float rescale, int clip,
-                                           float lo, float hi, float wd,
-                                           void* stream) {
-  return launch<kAdam>(leaves, count, lc, Hyper{0, b1, c1, b2, c2, eps},
+                                           const bool* ok, float b1,
+                                           float c1, float b2, float c2,
+                                           float eps, float rescale,
+                                           int clip, float lo, float hi,
+                                           float wd, void* stream) {
+  return launch<kAdam>(leaves, count, lc, ok, Hyper{0, b1, c1, b2, c2, eps},
                        Prologue{rescale, lo, hi, wd, clip}, stream);
 }

@@ -34,6 +34,14 @@ XLA fuses into the same step program) are one multi-tensor CUDA kernel of
   The kernel reads lr (Adam: ``lr * corr``) through a device pointer, and
   Adam's step ``t`` and ``corr`` are computed on the device in plain torch,
   so an lr schedule changes no launch argument and needs no host sync.
+- ``verdict`` (None, or a 0-d bool tensor on the params' device) is the
+  supervised step's all-finite verdict: the kernel reads it through a
+  device pointer beside lr and, when it is false, writes nothing; the
+  plain expression carries each leaf with ``torch.where``, and Adam's
+  ``t`` advances by the verdict. None (a null pointer) or a true verdict
+  computes the same bits as no verdict. This is the reference's
+  ``jnp.where(good, new, old)`` carry (``mxnet_tpu/parallel/
+  tpu_step.py:411-424``) in the one launch.
 
 The ctypes writes bypass autograd's version counter: a caller must not
 keep an autograd graph that saved a param across the update.
@@ -100,24 +108,32 @@ def _sqrt(v):
     return torch.sqrt(v.double()).to(v.dtype)
 
 
-def _plain_leaf(optimizer, hp, lr, p, g, slots, rescale, clip, wd):
-    """One leaf by the plain expression, written back in place."""
+def _put(dst, new, ok):
+    """``new`` into ``dst``, or (``ok`` a bool tensor) ``new`` where the
+    verdict holds and ``dst``'s own value where it does not."""
+    dst.copy_(new if ok is None else torch.where(ok, new, dst))
+
+
+def _plain_leaf(optimizer, hp, lr, p, g, slots, rescale, clip, wd,
+                ok=None):
+    """One leaf by the plain expression, written back in place (with a
+    verdict ``ok``, only where it holds)."""
     g = _prologue(p, g, rescale, clip, wd)
     if optimizer == "adam":
         b1, b2, eps = hp["beta1"], hp["beta2"], hp["eps"]
         m, v = slots
         m_new = b1 * m + (1 - b1) * g
         v_new = b2 * v + (1 - b2) * g * g
-        p.copy_(p - lr * m_new / (_sqrt(v_new) + eps))
-        m.copy_(m_new)
-        v.copy_(v_new)
+        _put(p, p - lr * m_new / (_sqrt(v_new) + eps), ok)
+        _put(m, m_new, ok)
+        _put(v, v_new, ok)
     elif slots:
         (mom,) = slots
         mom_new = hp.get("momentum", 0.0) * mom - lr * g
-        p.copy_(p + mom_new)
-        mom.copy_(mom_new)
+        _put(p, p + mom_new, ok)
+        _put(mom, mom_new, ok)
     else:
-        p.copy_(p - lr * g)
+        _put(p, p - lr * g, ok)
 
 
 # --- the CUDA wrappers -----------------------------------------------------
@@ -125,12 +141,14 @@ def _plain_leaf(optimizer, hp, lr, p, g, slots, rescale, clip, wd):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: rescale, clip, lo, hi, wd: the prologue's arguments of every entry
 _PRO = [_F, _I, _F, _F, _F]
-#: C entry -> argument types (records, count, lr, the kind's scalars, the
-#: prologue's, stream); every entry returns a CUDA error.
+#: C entry -> argument types (records, count, lr, the verdict or null, the
+#: kind's scalars, the prologue's, stream); every entry returns a CUDA
+#: error.
 _ENTRIES = {
-    "mx_optupdate_multi_sgd_f32": [_P, _I, _P] + _PRO + [_P],
-    "mx_optupdate_multi_sgd_mom_f32": [_P, _I, _P, _F] + _PRO + [_P],
-    "mx_optupdate_multi_adam_f32": [_P, _I, _P] + [_F] * 5 + _PRO + [_P],
+    "mx_optupdate_multi_sgd_f32": [_P, _I, _P, _P] + _PRO + [_P],
+    "mx_optupdate_multi_sgd_mom_f32": [_P, _I, _P, _P, _F] + _PRO + [_P],
+    "mx_optupdate_multi_adam_f32": [_P, _I, _P, _P] + [_F] * 5 + _PRO
+    + [_P],
 }
 #: update kind -> its C entry
 _ENTRY = {"sgd": "mx_optupdate_multi_sgd_f32",
@@ -203,12 +221,14 @@ def _records(leaves):
     return array.array("q", words)
 
 
-def _launch(optimizer, hp, lr_t, leaves, rescale, clip, wd, fns=None):
+def _launch(optimizer, hp, lr_t, leaves, rescale, clip, wd, fns=None,
+            ok_t=None):
     """Launch the kernel of ``optimizer`` over ``leaves`` ((p, g, slots)
     of one CUDA device, nonempty, whose tensors ``_check_leaf`` passed),
     in order, at most ``_MAX_LEAVES`` a launch; ``lr_t`` is the float32
-    device scalar it reads (Adam: lr * corr). ``fns``: entry name -> the
-    ctypes function to call instead of this build's (another build of
+    device scalar it reads (Adam: lr * corr) and ``ok_t`` None (a null
+    pointer) or the device bool verdict. ``fns``: entry name -> the ctypes
+    function to call instead of this build's (another build of
     ``opt_update.cu`` with the same entries)."""
     kind = _kind(optimizer, leaves[0][2])
     pro = (float(rescale), int(clip is not None),
@@ -227,13 +247,23 @@ def _launch(optimizer, hp, lr_t, leaves, rescale, clip, wd, fns=None):
         part = leaves[i:i + _MAX_LEAVES]
         records = _records(part)
         err = _call(fn, device, records.buffer_info()[0], len(part),
-                    lr_t.data_ptr(), *args)
+                    lr_t.data_ptr(),
+                    None if ok_t is None else ok_t.data_ptr(), *args)
         if err != 0:
             raise MXNetError("%s launch failed: CUDA error %d"
                              % (_ENTRY[kind], err))
         counters = globals()
         counters["launches_" + kind] += 1
         counters["leaves_" + kind] += len(part)
+
+
+def _verdict(ok, device):
+    """The verdict as a 0-d bool tensor on ``device`` (no host sync)."""
+    if ok is None:
+        return None
+    if not isinstance(ok, torch.Tensor):
+        ok = torch.tensor(bool(ok))
+    return ok.to(device=device, dtype=torch.bool).reshape(())
 
 
 def _scalar(x, device):
@@ -246,7 +276,7 @@ def _scalar(x, device):
 
 @torch.no_grad()
 def _update(optimizer, hp, params, opt_state, grads, rescale, clip, wd,
-            use_kernel):
+            use_kernel, verdict=None):
     ps, gs = _tree_leaves(params), _tree_leaves(grads)
     if optimizer == "adam":
         slots = list(zip(_tree_leaves(opt_state["m"]),
@@ -275,38 +305,41 @@ def _update(optimizer, hp, params, opt_state, grads, rescale, clip, wd,
     if optimizer == "adam":
         b1, b2 = hp["beta1"], hp["beta2"]
         t = opt_state["t"]
-        t.add_(1)
+        # a bad step keeps its step count too (the reference carries t)
+        t.add_(1 if verdict is None else _verdict(verdict, t.device).to(
+            t.dtype))
         tf = t.float()
         corr = torch.sqrt(1 - b2 ** tf) / (1 - b1 ** tf)
         lr = lr * corr   # the reference's ((lr * corr) * m) association
     for p, g, sl, k in zip(ps, gs, slots, kernel):
         if not k:
-            _plain_leaf(optimizer, hp, lr, p, g, sl, rescale, clip, wd)
+            _plain_leaf(optimizer, hp, lr, p, g, sl, rescale, clip, wd,
+                        _verdict(verdict, p.device))
     for device, leaves in tables.items():
         _launch(optimizer, hp, _scalar(lr, device), leaves, rescale, clip,
-                wd)
+                wd, ok_t=_verdict(verdict, device))
     return params, opt_state
 
 
 def fused_update_step(optimizer, hp, params, opt_state, grads, *,
-                      rescale=1.0, clip=None, wd=0.0):
+                      rescale=1.0, clip=None, wd=0.0, verdict=None):
     """(params, opt_state) updated IN PLACE from raw ``grads``; returns
     them. The gradient prologue (rescale -> clip -> + wd * weight) is fused
     into the update: one kernel launch over the float32 CUDA leaves, the
     plain expression on the others (see the module docstring). ``hp``
     carries lr and the optimizer's static scalars (momentum / beta1 /
-    beta2 / eps)."""
+    beta2 / eps); a false ``verdict`` leaves everything as it was."""
     return _update(optimizer, hp, params, opt_state, grads, rescale, clip,
-                   wd, use_kernel=True)
+                   wd, use_kernel=True, verdict=verdict)
 
 
 def fused_update_step_plain(optimizer, hp, params, opt_state, grads, *,
-                            rescale=1.0, clip=None, wd=0.0):
+                            rescale=1.0, clip=None, wd=0.0, verdict=None):
     """The plain PyTorch version of :func:`fused_update_step` on every
     leaf (the JAX package's lax tier, L194-238), in place; launches
     nothing."""
     return _update(optimizer, hp, params, opt_state, grads, rescale, clip,
-                   wd, use_kernel=False)
+                   wd, use_kernel=False, verdict=verdict)
 
 
 # --- byte accounting -------------------------------------------------------

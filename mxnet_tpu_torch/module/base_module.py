@@ -8,16 +8,20 @@ batch runs ``forward_backward`` and ``update``, takes the next batch
 while the step's device work is in flight, updates the metric and calls
 the batch-end callbacks; each epoch ends with the params brought to the
 module's arrays, the epoch-end callbacks and ``score`` on ``eval_data``.
-Training under a supervisor (``supervisor=``,
-``MXNET_TPU_TRAIN_SUPERVISE``) and a ``checkpoint_manager=`` are not yet
-ported (ROADMAP A8).
+On the fused path the train iterator is wrapped in a device prefetch
+(``Module._wrap_train_iter``), torn down when the fit ends. A supervisor
+(``supervisor=``, or ``MXNET_TPU_TRAIN_SUPERVISE=1`` when it is None;
+``False`` forces it off) runs the whole fit through
+``resilience.TrainingSupervisor.run_fit`` (reference L167-240), and a
+supervised epoch observes every step's verdict before its params are
+read. ``checkpoint_manager=`` is not yet ported (ROADMAP A8).
 """
 from __future__ import annotations
 
 import logging
 import time
 
-from ..base import MXNetError, env_flag
+from ..base import MXNetError
 from .. import metric as metric_mod
 from ..initializer import Uniform
 from ..model import BatchEndParam
@@ -59,6 +63,7 @@ class BaseModule:
         self.optimizer_initialized = False
         self._symbol = None
         self._total_exec_bytes = 0
+        self._supervisor = None
 
     # ------------------------------------------------------------------
     # high-level API
@@ -157,13 +162,31 @@ class BaseModule:
             monitor=None, sparse_row_id_fn=None, checkpoint_manager=None,
             supervisor=None):
         """Train ``num_epoch - begin_epoch`` epochs over ``train_data``
-        (reference: base_module.py fit)."""
+        (reference: base_module.py fit). ``supervisor`` (a
+        ``resilience.TrainingSupervisor``) wraps the whole fit: NaN/Inf
+        steps skipped with dynamic loss scaling, stall detection and
+        bounded restarts; None consults ``MXNET_TPU_TRAIN_SUPERVISE`` once,
+        False forces supervision off."""
         assert num_epoch is not None, "please specify number of epochs"
-        if supervisor or (supervisor is None
-                          and env_flag("MXNET_TPU_TRAIN_SUPERVISE")):
-            raise MXNetError("fit under a TrainingSupervisor "
-                             "(supervisor=, MXNET_TPU_TRAIN_SUPERVISE) is not "
-                             "yet ported (ROADMAP A8)")
+        if supervisor is None:
+            from ..resilience.supervisor import supervisor_from_env
+            supervisor = supervisor_from_env(checkpoint_manager)
+        if supervisor:
+            return supervisor.run_fit(self, dict(
+                train_data=train_data, eval_data=eval_data,
+                eval_metric=eval_metric,
+                epoch_end_callback=epoch_end_callback,
+                batch_end_callback=batch_end_callback, kvstore=kvstore,
+                optimizer=optimizer, optimizer_params=optimizer_params,
+                eval_end_callback=eval_end_callback,
+                eval_batch_end_callback=eval_batch_end_callback,
+                initializer=initializer, arg_params=arg_params,
+                aux_params=aux_params, allow_missing=allow_missing,
+                force_rebind=force_rebind, force_init=force_init,
+                begin_epoch=begin_epoch, num_epoch=num_epoch,
+                validation_metric=validation_metric, monitor=monitor,
+                sparse_row_id_fn=sparse_row_id_fn,
+                checkpoint_manager=checkpoint_manager))
         if checkpoint_manager is not None:
             raise MXNetError("fit(checkpoint_manager=...) is not yet ported "
                              "(ROADMAP A8)")
@@ -179,11 +202,32 @@ class BaseModule:
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
 
+        # stage the next batch on the device while the current step runs
+        # (the fused path; MXNET_DEVICE_PREFETCH=0 opts out)
+        user_train_data = train_data
+        train_data = self._wrap_train_iter(train_data)
+
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
+        try:
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             validation_metric, epoch_end_callback,
+                             batch_end_callback, eval_end_callback,
+                             eval_batch_end_callback, begin_epoch, num_epoch,
+                             sparse_row_id_fn)
+        finally:
+            # a wrapper this fit made stops its stager, also when the fit
+            # unwinds (a supervisor's retry makes a fresh one)
+            if train_data is not user_train_data:
+                train_data._shutdown()
 
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, epoch_end_callback,
+                    batch_end_callback, eval_end_callback,
+                    eval_batch_end_callback, begin_epoch, num_epoch,
+                    sparse_row_id_fn):
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
@@ -219,6 +263,8 @@ class BaseModule:
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
                              time.time() - tic)
 
+            # a supervised fit observes every step's verdict first
+            self._drain_inflight_flags()
             # the params into the module's arrays once an epoch, so the
             # epoch callbacks see the trained values
             arg_snapshot, aux_snapshot = self.get_params()
@@ -237,6 +283,15 @@ class BaseModule:
                                      name, val)
 
             train_data.reset()
+
+    def _wrap_train_iter(self, train_data):
+        """The iterator ``fit`` trains on (``Module`` wraps it in a device
+        prefetch on the fused path)."""
+        return train_data
+
+    def _drain_inflight_flags(self):
+        """Observe every dispatched step's verdict (``Module``, supervised
+        fits)."""
 
     # ------------------------------------------------------------------
     # symbol/params accessors

@@ -22,25 +22,43 @@ torch's TF32 matmuls and convolutions (``context.pin_float32``;
   the store's ``Updater``, and no kvstore runs the module's own
   ``Updater`` on each parameter (``optimizer.SGD``/``Adam``).
 Up to ``MXNET_ASYNC_DISPATCH_DEPTH`` (2) fused steps stay queued on the
-card; the host waits for the oldest one beyond that.
+card; the host waits for the oldest one beyond that (a CUDA event per
+step), and that wait is the one place a supervised fit reads a step's
+verdict.
 
-Unlike the reference, the fused step is not pre-compiled before the first
-batch (``MXNET_TPU_TRAIN_AOT``): the port's step runs eagerly and has no
-compile to pre-pay. The train iterator is not wrapped in a
-``DevicePrefetchIter`` (not yet ported, ROADMAP A4): the step copies each
-host batch to the card. Not yet ported, and raising: more than one
-context, ``group2ctxs`` and gradient compression (ROADMAP A7), optimizer
-state files (ROADMAP A8), monitors and row-sparse parameters (ROADMAP
-A9).
+On the fused path (reference L361-590, L811-830):
+- ``fit`` wraps the train iterator in an ``io.DevicePrefetchIter`` that
+  stages the next batch on the step's device from pinned host buffers on
+  a side stream while the current step runs (``MXNET_DEVICE_PREFETCH=0``
+  opts out, ``MXNET_DEVICE_PREFETCH_DEPTH`` sizes it, default 2); a staged
+  batch goes to the step without a second copy.
+- Under a ``resilience.TrainingSupervisor`` (``fit(supervisor=...)`` or
+  ``MXNET_TPU_TRAIN_SUPERVISE=1``) the step is built with
+  ``supervise=True``: each dispatch passes the supervisor's loss scale,
+  the step's device verdict rides the in-flight queue (on the card, copied
+  to pinned host memory behind the step's event), and the retire point
+  hands it to ``supervisor.await_ready``; every epoch ends by retiring
+  every step in flight. A module built by an unsupervised fit is rebuilt
+  (with a warning) when a supervisor arrives.
+- ``MXNET_TPU_TRAIN_AOT`` (default 1) calls the step's ``warmup`` at
+  build: the step's signature is registered before the first batch and
+  kernel #7's library is built and loaded.
+
+Not yet ported, and raising: more than one context, ``group2ctxs`` and
+gradient compression (ROADMAP A7), optimizer state files (ROADMAP A8),
+monitors and row-sparse parameters (ROADMAP A9).
 """
 from __future__ import annotations
 
 import collections
 import logging
+import time
 
+import numpy as _np
 import torch
 
-from ..base import MXNetError, get_env
+from .. import profiler as _prof
+from ..base import MXNetError, env_flag, get_env
 from ..context import pin_float32, resolve_device
 from ..initializer import Uniform, InitDesc
 from .. import optimizer as opt_mod
@@ -116,7 +134,8 @@ class Module(BaseModule):
         self._fused_outputs = None
         self._fused_active = False
         self._fused_dirty = False   # fused params newer than exec_group's
-        # bounded dispatch: an event per queued fused step
+        # bounded dispatch: (event or None, verdict or None) per queued
+        # fused step
         self._inflight = collections.deque()
         self._dispatch_depth = 2
         self._fused_step_count = 0
@@ -407,14 +426,18 @@ class Module(BaseModule):
                     "MXNET_FUSED_COMPUTE_DTYPE=%r is not a dtype; "
                     "running the fused step in fp32", compute_dtype)
                 compute_dtype = None
+        supervisor = self._supervisor
         step = DataParallelTrainStep(
             self._symbol, lr=opt.lr, wd=opt.wd,
             data_names=self._data_names, label_names=self._label_names,
             rescale_grad=opt.rescale_grad, optimizer=fused_name, opt_hp=hp,
             fixed_param_names=self._fixed_param_names,
             clip_gradient=opt.clip_gradient, compute_dtype=compute_dtype,
-            device=self._context[0])
+            supervise=supervisor is not None, device=self._context[0])
         step.init_from(self._arg_params, self._aux_params, batch_shapes)
+        if supervisor is not None:
+            # the default loss scale follows the step's compute dtype
+            supervisor.attach_step(step)
         self._fused_step = step
         self._fused_dirty = False
         self._dispatch_depth = max(0, get_env("MXNET_ASYNC_DISPATCH_DEPTH",
@@ -423,6 +446,14 @@ class Module(BaseModule):
         self.logger.info("kvstore=%s: fused train step active (fwd+bwd+%s "
                          "in one step on %s)", kvstore_type, fused_name,
                          step.device)
+        if get_env("MXNET_TPU_TRAIN_AOT", 1, int):
+            # a host batch's float64 becomes float32 on the way to the
+            # device (the NDArray convention), as the step will see it
+            dtypes = {d.name: (_np.float32 if _np.dtype(d.dtype)
+                               == _np.float64 else d.dtype)
+                      for d in list(self._data_shapes)
+                      + list(self._label_shapes or [])}
+            step.warmup(dtypes)
 
     def _fused_lr(self):
         """This step's lr from the optimizer's scheduler (num_update
@@ -443,17 +474,77 @@ class Module(BaseModule):
             batch[desc.name] = arr._data if isinstance(arr, NDArray) else arr
         _faults.fault_point("train.step", step=self._fused_step_count)
         self._fused_step_count += 1
-        outs = fused(batch, lr=self._fused_lr())
+        sup = self._supervisor
+        t0 = time.perf_counter()
+        if sup is not None and fused.supervise:
+            # the loss scale rides as an argument, the verdict comes back
+            # on the device
+            outs = fused(batch, lr=self._fused_lr(), scale=sup.step_scale())
+            flag = fused.last_flag
+        else:
+            outs = fused(batch, lr=self._fused_lr())
+            flag = None
+        event = None
+        if fused.device.type == "cuda":
+            if flag is not None:
+                # the verdict to pinned host memory behind the step: read
+                # at retire, after the event, with no sync of its own
+                host = torch.empty((), dtype=torch.bool, pin_memory=True)
+                host.copy_(flag, non_blocking=True)
+                flag = host
+            event = torch.cuda.Event()
+            event.record()
+        _prof.record_pipeline_event(
+            steps=1, dispatch_ms=(time.perf_counter() - t0) * 1e3)
         self._fused_outputs = [NDArray(o) for o in outs]
         self._fused_active = True
         self._fused_dirty = True
         self._params_dirty = True
-        if fused.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-            self._inflight.append(event)
-            while len(self._inflight) > self._dispatch_depth:
-                self._inflight.popleft().synchronize()
+        # bounded dispatch: wait on step i - depth before going further
+        self._inflight.append((event, flag))
+        while len(self._inflight) > self._dispatch_depth:
+            self._retire_oldest_inflight()
+
+    def _retire_oldest_inflight(self):
+        """Wait on (and, supervised, judge) the oldest step in flight: the
+        one place that reads a step's verdict."""
+        event, flag = self._inflight.popleft()
+        t1 = time.perf_counter()
+        sup = self._supervisor
+        if sup is not None and flag is not None:
+            sup.await_ready(event, flag)
+        elif event is not None:
+            event.synchronize()
+        _prof.record_pipeline_event(
+            readback_stall_ms=(time.perf_counter() - t1) * 1e3)
+
+    def _drain_inflight_flags(self):
+        """Epoch boundary of a supervised fit: every dispatched step's
+        verdict is observed before the params are read."""
+        if self._supervisor is None:
+            return
+        while self._inflight:
+            self._retire_oldest_inflight()
+        self._supervisor.idle()
+
+    def _wrap_train_iter(self, train_data):
+        """The train iterator wrapped in a DevicePrefetchIter staging the
+        next batch on the fused step's device (fused path only;
+        ``MXNET_DEVICE_PREFETCH=0`` opts out, ``MXNET_DEVICE_PREFETCH_DEPTH``
+        sizes it)."""
+        if self._fused_step is None or \
+                not env_flag("MXNET_DEVICE_PREFETCH", True):
+            return train_data
+        from ..io_device import DevicePrefetchIter, default_stage_fn
+        if isinstance(train_data, DevicePrefetchIter):
+            return train_data
+        if not (hasattr(train_data, "next") and hasattr(train_data, "reset")):
+            return train_data
+        depth = max(1, get_env("MXNET_DEVICE_PREFETCH_DEPTH", 2, int))
+        return DevicePrefetchIter(
+            train_data, stage_fn=default_stage_fn(self._fused_step.device,
+                                                  depth=depth),
+            depth=depth)
 
     def _copy_fused_params(self):
         """The fused step's params and aux states into ``_arg_params`` /

@@ -110,13 +110,26 @@ def _jnp_cast(x, scalar):
 
 
 @torch.no_grad()
-def apply_update(optimizer, hp, params, opt_state, grads):
+def apply_update(optimizer, hp, params, opt_state, grads, verdict=None):
     """(params, opt_state) updated IN PLACE from ``grads``; returns them.
     A leaf whose dtype jnp's promotion changes is rebound instead (see
     the module docstring).
 
     hp: dict with lr and, per optimizer, momentum / beta1 / beta2 / eps.
-    Weight decay and clipping are the caller's concern."""
+    Weight decay and clipping are the caller's concern. ``verdict`` (a
+    0-d bool tensor) keeps the update only where it holds: every leaf of
+    params and opt_state, Adam's ``t`` included, is as it was after a
+    false one (the reference's ``jnp.where`` carry, leaf by leaf)."""
+    if verdict is None:
+        return _apply_update(optimizer, hp, params, opt_state, grads)
+    old = [x.clone() for x in tree_leaves(params) + tree_leaves(opt_state)]
+    _apply_update(optimizer, hp, params, opt_state, grads)
+    for new, prev in zip(tree_leaves(params) + tree_leaves(opt_state), old):
+        new.copy_(torch.where(verdict, new, prev.to(new.dtype)))
+    return params, opt_state
+
+
+def _apply_update(optimizer, hp, params, opt_state, grads):
     lr = hp["lr"]
     f32 = torch.float32
     ps, gs = _slots(params), tree_leaves(grads)

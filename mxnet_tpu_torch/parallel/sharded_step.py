@@ -59,7 +59,10 @@ class ShardedTrainStep:
     skip_nonfinite : bool
         A step whose loss or global grad norm is not finite leaves params
         and slots as they were; ``last_good`` holds the device bool of the
-        last step's verdict (no host sync).
+        last step's verdict (no host sync). With ``fused_optupdate`` the
+        verdict goes to kernel #7, which then writes nothing (no copy of
+        the state); the unfused update carries each leaf with
+        ``torch.where`` from a copy taken before it.
     fused_optupdate : bool, default ``MXNET_TPU_FUSED_OPTUPDATE``
         The update through kernel #7 (bitwise equal on the card).
     device : torch.device or str, default ``cuda:0``
@@ -115,10 +118,10 @@ class ShardedTrainStep:
                                          materialize_grads=True))
         loss = loss.detach()
         with torch.no_grad():
+            good = None
             if self.skip_nonfinite:
                 gsq = sum((g.float() ** 2).sum() for g in grads)
                 good = torch.isfinite(loss) & torch.isfinite(gsq)
-                old = [x.clone() for x in leaves + tree_leaves(opt_state)]
             if hp["grad_clip"]:
                 gnorm = torch.sqrt(sum((g.float() ** 2).sum()
                                        for g in grads))
@@ -131,12 +134,8 @@ class ShardedTrainStep:
             update = fused_update_step if self.fused_optupdate \
                 else apply_update
             update(self.optimizer, hp, params, opt_state,
-                   tree_map(lambda _: next(it), params))
+                   tree_map(lambda _: next(it), params), verdict=good)
             if self.skip_nonfinite:
-                # carry the pre-step state through a bad update
-                for new, prev in zip(tree_leaves(params)
-                                     + tree_leaves(opt_state), old):
-                    new.copy_(torch.where(good, new, prev.to(new.dtype)))
                 return loss, good
         return loss
 

@@ -15,7 +15,8 @@ the update.
   leaf, bitwise equal to the unfused path.
 - Params, optimizer slots and BatchNorm aux states live on the device and
   are updated IN PLACE each step (the analog of buffer donation); no
-  autograd graph outlives the backward.
+  autograd graph outlives the backward. The aux states are views of one
+  flat buffer per dtype, written with one ``cat`` and one copy a step.
 - ``lr`` lives in a float32 0-d device tensor, refilled each call without
   a host sync; the kernels read it through a pointer, so a new lr changes
   no launch argument and no signature.
@@ -33,10 +34,28 @@ the update.
   prologue and the update (#7's one launch over every float32 leaf) run
   as without it; the outputs and the activations are in the compute
   dtype; BatchNorm's updated running statistics go back to float32.
+- ``supervise=True`` (L41-50, L296-443): the step takes a loss scale, a
+  float32 0-d device tensor refilled each call as ``lr`` is (``scale=``,
+  default 1.0; a NaN scale is just another value). The backward's seeds
+  are the scale in each output's dtype, the gradients are unscaled by
+  ``1 / scale`` (multi-tensor), and the step's verdict, a 0-d bool tensor
+  on the device (``last_flag``), is every floating output finite and the
+  float32 sum of squares of the unscaled gradients finite (the reference's
+  reduction: each leaf's sum, then their sum). A bad step leaves params,
+  slots and BatchNorm statistics with their bits: the fused update hands
+  the verdict to kernel #7, which then writes nothing; the unfused update
+  carries each leaf with ``torch.where`` (``apply_update(verdict=)``); the
+  flat running statistics take one ``torch.where`` in place of the copy.
+  At scale 1.0 every bit is the unsupervised step's, and
+  ``supervise=False`` computes exactly the unsupervised step.
+- ``warmup(batch_dtypes)`` / ``abstract_step_args`` (L503-547): the
+  step's argument signature as ``device="meta"`` tensors, registered with
+  the ``ProgramBuilder`` ahead of time (the first batch then counts no
+  on-demand program), and kernel #7's library built and loaded when the
+  update is fused on the card. It runs no step and changes no state.
 
-Not yet ported, and raising: a mesh of more than one device and ``zero``
-(distribution, ROADMAP A7), ``supervise`` (ROADMAP A4), ``warmup`` /
-``abstract_step_args`` / ``comm_plan`` (ROADMAP A4), the lint hooks of
+Not yet ported, and raising: a mesh of more than one device, ``zero``
+and ``comm_plan`` (distribution, ROADMAP A7), the lint hooks of
 ``MXNET_TPU_LINT`` (ROADMAP A9, analysis/), and graphs with stochastic
 ops (ROADMAP A6). ``shard_update`` on one device is the no-op it is in
 the JAX package, and ``sharding_config`` has nothing to shard: both are
@@ -53,9 +72,11 @@ from ..base import MXNetError, env_flag
 from ..compile.builder import ProgramBuilder
 from ..context import resolve_device
 from ..executor import GraphPlan, run_graph
+from ..kernels import opt_update as _opt_update
 from ..kernels.opt_update import fused_update_step
 from ..ops.elemwise import torch_dtype
-from .optim_update import apply_update, grad_prologue, init_opt_state
+from .optim_update import (apply_update, grad_prologue, init_opt_state,
+                           tree_map)
 
 __all__ = ["DataParallelTrainStep"]
 
@@ -104,9 +125,6 @@ class DataParallelTrainStep:
         if zero:
             raise MXNetError("DataParallelTrainStep(zero=True): ZeRO is not "
                              "yet ported (distribution, ROADMAP A7)")
-        if supervise:
-            raise MXNetError("DataParallelTrainStep(supervise=True) is not "
-                             "yet ported (ROADMAP A4)")
         if env_flag("MXNET_TPU_LINT"):
             raise MXNetError("MXNET_TPU_LINT: the train step's lint hooks are "
                              "not yet ported (ROADMAP A9, analysis/)")
@@ -142,8 +160,14 @@ class DataParallelTrainStep:
         self.param_names = [n for n in self.arg_names
                             if n not in self.data_names + self.label_names]
         self._rescale = rescale_grad
+        # supervised numeric containment: a loss-scale argument, the
+        # scaled seeds, the unscale, and a device verdict that carries
+        # params, slots and BatchNorm statistics through a bad step
+        self.supervise = bool(supervise)
+        self.last_flag = None
         self._step = None
         self._lr_t = None
+        self._scale_t = None
 
     # ------------------------------------------------------------------
     def init(self, batch_shapes, dtype=_np.float32, seed=0):
@@ -202,11 +226,51 @@ class DataParallelTrainStep:
         batch_size = list(batch_shapes.values())[0][0]
         self._rescale_value = (self._rescale if self._rescale is not None
                                else 1.0 / batch_size)
+        self._batch_shapes = {k: tuple(v) for k, v in batch_shapes.items()}
         self._lr_t = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._aux_flat = []
+        self._flatten_aux()
+        if self.supervise:
+            self._scale_t = torch.ones((), dtype=torch.float32,
+                                       device=self.device)
         self._step = ProgramBuilder(self._body, site="train.fused_step",
                                     donate_argnums=(0, 1))
 
-    def _body(self, params, opt_state, aux, batch, lr):
+    @torch.no_grad()
+    def _flatten_aux(self):
+        """The aux states as views of one flat buffer per dtype, so a
+        step writes them all with one ``cat`` and one copy (supervised,
+        one ``torch.where``)."""
+        groups = {}
+        for n in self.aux_names:
+            groups.setdefault(self.aux[n].dtype, []).append(n)
+        for dtype, names in groups.items():
+            flat = torch.empty(sum(self.aux[n].numel() for n in names),
+                               dtype=dtype, device=self.device)
+            off = 0
+            for n in names:
+                t = self.aux[n]
+                view = flat[off:off + t.numel()].view(t.shape)
+                view.copy_(t)
+                self.aux[n] = view
+                off += t.numel()
+            self._aux_flat.append((flat, names))
+
+    def _verdict(self, outs, grads):
+        """Every floating output finite and the float32 sum of squares of
+        the gradients finite, as a 0-d bool on the device: each leaf's
+        squared norm (one multi-tensor launch), then their sum."""
+        good = torch.ones((), dtype=torch.bool, device=self.device)
+        for o in outs:
+            if o.is_floating_point():
+                good &= torch.isfinite(o).all()
+        gs = [g if g.dtype == torch.float32 else g.float() for g in grads]
+        if gs:
+            gsq = torch.stack(torch._foreach_norm(gs)).square().sum()
+            good &= torch.isfinite(gsq)
+        return good
+
+    def _body(self, params, opt_state, aux, batch, lr, scale=None):
         leaves = [params[n] for n in self.param_names]
         cdt = self.compute_dtype
         if cdt is None:
@@ -218,11 +282,24 @@ class DataParallelTrainStep:
                     for n, v in batch.items()}
             args.update((n, p.to(cdt)) for n, p in params.items())
         outs, aux_upd = run_graph(self._plan, args, aux, True)
-        grads = torch.autograd.grad(
-            [o for o in outs if o.requires_grad], leaves,
-            [torch.ones_like(o) for o in outs if o.requires_grad],
-            allow_unused=True, materialize_grads=True)
+        live = [o for o in outs if o.requires_grad]
+        if scale is None:
+            seeds = [torch.ones_like(o) for o in live]
+        else:
+            # the loss-scaled backward: the seed IS the scale (a power of
+            # two: scale 1.0 is the unscaled seed bit for bit); the loss
+            # heads take it multiplicatively (ops/nn.py _LossOp)
+            seeds = [torch.empty_like(o).copy_(scale.to(o.dtype))
+                     for o in live]
+        grads = torch.autograd.grad(live, leaves, seeds, allow_unused=True,
+                                    materialize_grads=True)
         with torch.no_grad():
+            good = None
+            if scale is not None:
+                # g * (1 / scale) in g's dtype, as the reference's
+                # g * inv.astype(g.dtype): one multi-tensor launch
+                grads = torch._foreach_mul(list(grads), 1.0 / scale)
+                good = self._verdict(outs, grads)
             grads = dict(zip(self.param_names, grads))
             # a fixed param updates its slots, never itself
             target = {n: (p.detach().clone() if n in self.fixed_param_names
@@ -231,34 +308,86 @@ class DataParallelTrainStep:
             kw = dict(rescale=self._rescale_value, clip=self.clip_gradient,
                       wd=self.wd)
             if self.fused_optupdate:
+                # kernel #7 reads the verdict: a bad step writes nothing
                 fused_update_step(self.optimizer, hp, target, opt_state,
-                                  grads, **kw)
+                                  grads, verdict=good, **kw)
             else:
                 apply_update(self.optimizer, hp, target, opt_state,
-                             grad_prologue(target, grads, **kw))
-            # copy_ casts: running statistics stay float32
-            for name, val in aux_upd.items():
-                if val is not aux[name]:
-                    aux[name].copy_(val)
-        return tuple(o.detach() for o in outs)
+                             grad_prologue(target, grads, **kw),
+                             verdict=good)
+            # the running statistics stay in their dtype (float32 under
+            # a 16-bit compute dtype)
+            for flat, names in self._aux_flat:
+                new = torch.cat([aux_upd.get(n, aux[n]).reshape(-1)
+                                 .to(flat.dtype) for n in names])
+                if good is None:
+                    flat.copy_(new)
+                else:
+                    torch.where(good, new, flat, out=flat)
+        outs = tuple(o.detach() for o in outs)
+        return outs if good is None else (outs, good)
 
-    def __call__(self, batch, rng=None, lr=None):
-        """One step on a batch (dict name -> numpy array or tensor);
-        returns the outputs. ``rng`` is accepted for API parity (no ported
-        op draws randomness)."""
+    def __call__(self, batch, rng=None, lr=None, scale=None):
+        """One step on a batch (dict name -> numpy array or tensor; a
+        tensor already on the device goes in without a copy); returns the
+        outputs. ``rng`` is accepted for API parity (no ported op draws
+        randomness). Supervised, ``scale`` (default 1.0) is the loss scale
+        and ``last_flag`` holds the step's device verdict."""
         if self._step is None:
             raise MXNetError("call init() first")
         batch = {n: torch.as_tensor(x).to(self.device, non_blocking=True)
                  for n, x in batch.items() if n in self.arg_names}
         self._lr_t.fill_(self.lr if lr is None else lr)
-        return self._step(self.params, self.opt_state, self.aux, batch,
-                          self._lr_t)
+        if not self.supervise:
+            return self._step(self.params, self.opt_state, self.aux, batch,
+                              self._lr_t)
+        self._scale_t.fill_(1.0 if scale is None else scale)
+        outs, self.last_flag = self._step(self.params, self.opt_state,
+                                          self.aux, batch, self._lr_t,
+                                          self._scale_t)
+        return outs
 
     def program_count(self):
         """Distinct shape signatures the step has run (1 for a fixed batch
         shape)."""
         return 0 if self._step is None else self._step.program_count()
 
-    warmup = _not_ported("warmup", "A4")
-    abstract_step_args = _not_ported("abstract_step_args", "A4")
-    comm_plan = _not_ported("comm_plan", "A4")
+    def abstract_step_args(self, batch_dtypes=None):
+        """The step's argument signature as ``device="meta"`` tensors:
+        params, optimizer state and aux states as they are, the batch at
+        its build shapes in ``batch_dtypes`` (name -> dtype; default
+        float32, the ``NDArrayIter`` contract), lr, and the loss scale when
+        supervised: what :meth:`warmup` registers."""
+        if self._step is None:
+            raise MXNetError("call init() first")
+        dts = {k: torch_dtype(v) for k, v in (batch_dtypes or {}).items()}
+
+        def meta(x):
+            return None if x is None else torch.empty(
+                tuple(x.shape), dtype=x.dtype, device="meta")
+
+        batch = {n: torch.empty(s, dtype=dts.get(n, torch.float32),
+                                device="meta")
+                 for n, s in self._batch_shapes.items()
+                 if n in self.arg_names}
+        args = (tree_map(meta, self.params), tree_map(meta, self.opt_state),
+                tree_map(meta, self.aux), batch, meta(self._lr_t))
+        if self.supervise:
+            args = args + (meta(self._scale_t),)
+        return args
+
+    def warmup(self, batch_dtypes=None):
+        """Register the step's signature ahead of the first batch (the
+        builder's ``aot`` count; that batch then adds no on-demand
+        program) and, when the update is fused on the card, build and
+        load kernel #7's library. Runs no step and changes no state.
+        Returns self."""
+        args = self.abstract_step_args(batch_dtypes)
+        if self.fused_optupdate and self.device.type == "cuda":
+            kind = _opt_update._kind(self.optimizer,
+                                     self.opt_state.get("mom"))
+            _opt_update._entry(_opt_update._ENTRY[kind])
+        self._step.aot_info(*args, mode="aot")
+        return self
+
+    comm_plan = _not_ported("comm_plan", "A7")

@@ -1,12 +1,16 @@
-"""Always-on counters of the serving path.
+"""Always-on counters of the serving and training paths.
 
 Counterpart of the counter families of ``mxnet_tpu/profiler.py`` that
-decode serving feeds: latency histograms (``record_latency`` /
+the port's paths feed: latency histograms (``record_latency`` /
 ``latency_histogram``), the stateful-decode
 counters (``record_decode_event`` / ``decode_counters``), the per-site
 program-build counters that ``compile.builder.ProgramBuilder`` records
-(``compile_counters``), and the fault-injection and watchdog counts the
-resilience modules record. Plain adds under one lock, no profiler session.
+(``compile_counters``), the training pipeline's overlap counters
+(``record_pipeline_event`` / ``pipeline_counters``: the device prefetch
+and the fused step's dispatch and readback), the training supervisor's
+(``record_supervisor_event`` / ``supervisor_counters``), and the retry,
+fault-injection and watchdog counts the resilience modules record. The
+keys are the reference's. Plain adds under one lock, no profiler session.
 """
 from __future__ import annotations
 
@@ -16,6 +20,9 @@ import threading
 __all__ = ["record_latency", "latency_histogram",
            "record_decode_event", "decode_counters",
            "record_compile", "record_compile_hit", "compile_counters",
+           "record_pipeline_event", "pipeline_counters",
+           "record_supervisor_event", "supervisor_counters",
+           "record_retry", "retry_counters",
            "record_fault_injection", "fault_counters",
            "record_watchdog_event", "watchdog_counters"]
 
@@ -138,13 +145,98 @@ def compile_counters(reset=False):
 
 
 # ----------------------------------------------------------------------
-# resilience counters: injected faults (resilience.faults) and watchdog
-# stalls/deaths (resilience.watchdog)
+# training-pipeline overlap counters (Module's fused path and
+# io_device.DevicePrefetchIter): was the next batch already staged
+# (prefetch_hit / prefetch_stall[_ms]), the worker's staging time
+# (prefetch_stage_ms), the host time to enqueue a fused step
+# (dispatch_ms), and the wait on step i - depth (readback_stall_ms)
 # ----------------------------------------------------------------------
+_PIPELINE_ZERO = {"steps": 0, "prefetch_hit": 0, "prefetch_stall": 0,
+                  "prefetch_stall_ms": 0.0, "prefetch_stage_ms": 0.0,
+                  "dispatch_ms": 0.0, "readback_stall_ms": 0.0}
+_pipeline = dict(_PIPELINE_ZERO)
+
+
+def record_pipeline_event(**deltas):
+    """Accumulate step-time breakdown counters (free-form deltas)."""
+    with _lock:
+        for k, v in deltas.items():
+            _pipeline[k] = _pipeline.get(k, 0) + v
+
+
+def pipeline_counters(reset=False):
+    """Snapshot (optionally reset) the pipeline overlap counters."""
+    with _lock:
+        out = dict(_pipeline)
+        if reset:
+            _pipeline.clear()
+            _pipeline.update(_PIPELINE_ZERO)
+    return out
+
+
+# ----------------------------------------------------------------------
+# training-supervisor counters (resilience/supervisor.py): steps
+# (verdicts observed), bad_steps (skipped), divergences, restarts,
+# stalls, scale_backoffs, scale_regrows, resumes
+# ----------------------------------------------------------------------
+_SUPERVISOR_ZERO = {"steps": 0, "bad_steps": 0, "divergences": 0,
+                    "restarts": 0, "stalls": 0, "scale_backoffs": 0,
+                    "scale_regrows": 0, "resumes": 0}
+_supervisor = dict(_SUPERVISOR_ZERO)
+
+
+def record_supervisor_event(**deltas):
+    """Accumulate training-supervisor counters (free-form int deltas)."""
+    with _lock:
+        for k, v in deltas.items():
+            _supervisor[k] = _supervisor.get(k, 0) + v
+
+
+def supervisor_counters(reset=False):
+    """Snapshot (optionally reset) the training-supervisor counters."""
+    with _lock:
+        out = dict(_supervisor)
+        if reset:
+            _supervisor.clear()
+            _supervisor.update(_SUPERVISOR_ZERO)
+    return out
+
+
+# ----------------------------------------------------------------------
+# resilience counters: the retry policy (resilience.retry), injected
+# faults (resilience.faults) and watchdog stalls/deaths
+# (resilience.watchdog)
+# ----------------------------------------------------------------------
+_RETRY_ZERO = {"retries": 0, "recoveries": 0, "giveups": 0}
+_retry = dict(_RETRY_ZERO)
 _WATCHDOG_ZERO = {"stalls": 0, "deaths": 0, "restarts": 0,
                   "stall_recoveries": 0}
 _watchdog = dict(_WATCHDOG_ZERO)
 _faults = {"injected": 0}
+
+
+def record_retry(site, outcome):
+    """Count one retry-policy event for ``site``: "retry" (a failed
+    attempt that will be retried), "recovery" (success after a retry),
+    "giveup" (the error surfaced)."""
+    total_key = {"retry": "retries", "recovery": "recoveries",
+                 "giveup": "giveups"}.get(outcome)
+    with _lock:
+        if total_key is not None:
+            _retry[total_key] += 1
+        key = "%s.%s" % (site, outcome)
+        _retry[key] = _retry.get(key, 0) + 1
+
+
+def retry_counters(reset=False):
+    """Snapshot (optionally reset) the retry counters: totals plus
+    per-site ``<site>.retry`` / ``.recovery`` / ``.giveup`` keys."""
+    with _lock:
+        out = dict(_retry)
+        if reset:
+            _retry.clear()
+            _retry.update(_RETRY_ZERO)
+    return out
 
 
 def record_fault_injection(site):

@@ -2,8 +2,10 @@
 resilience layer (docs/faq/resilience.md).
 
 A copy of ``mxnet_tpu/resilience/faults.py`` (the port imports nothing of
-the JAX package). In the port's serving slice the decode engine's
-``decode.step`` site is the hook that fires.
+the JAX package). The port's hooks: the decode engine's ``decode.step``,
+the fused train step's ``train.step``, the training supervisor's
+``train.nan``, ``train.stall`` and ``train.restore``, and the device
+prefetch's ``prefetch.stage``.
 
 A recovery path only counts when a fault can be produced on demand. This
 module gives each one a deterministic trigger: lightweight ``fault_point``
@@ -47,7 +49,8 @@ import time
 
 from ..base import MXNetError, get_env
 
-__all__ = ["fault_point", "configure", "parse_spec", "FaultInjected",
+__all__ = ["fault_point", "configure", "reset", "enabled", "stats",
+           "parse_spec", "register_exception", "FaultInjected",
            "TransientError"]
 
 
@@ -83,6 +86,17 @@ for _name in ("OSError", "IOError", "RuntimeError", "ValueError",
     _EXC_WHITELIST[_name] = getattr(_builtins, _name)
 
 _SITE_RE = re.compile(r"^[A-Za-z_][A-Za-z0-9_.\-]*$")
+
+
+def register_exception(name, exc_cls):
+    """Add a framework-typed exception to the ``raise=`` whitelist so
+    specs can exercise a subsystem's own typed failure path (e.g.
+    ``train.stall:raise=TrainingStalled``). Never an arbitrary attribute
+    lookup: callers register explicit classes at import time."""
+    if not (isinstance(exc_cls, type) and issubclass(exc_cls, BaseException)):
+        raise MXNetError("register_exception needs an exception class, "
+                         "got %r" % (exc_cls,))
+    _EXC_WHITELIST[name] = exc_cls
 
 
 class _FaultSpec:
@@ -186,11 +200,12 @@ class _FaultSpec:
 
 
 # ---------------------------------------------------------------------
-# registry (module-level; configure() swaps it atomically)
+# registry (module-level; configure()/reset() swap it atomically)
 # ---------------------------------------------------------------------
 _ENABLED = False            # THE cached zero-overhead guard
 _lock = threading.Lock()
 _specs = []                 # list of _FaultSpec
+_injected = {}              # site -> fired count (stats())
 
 
 def parse_spec(text):
@@ -211,7 +226,27 @@ def configure(spec_text):
     with _lock:
         _specs = specs
         _ENABLED = bool(specs)
+        _injected.clear()
     return len(specs)
+
+
+def reset():
+    """Disable injection and clear all spec state/stats."""
+    configure(None)
+
+
+def enabled():
+    return _ENABLED
+
+
+def stats():
+    """{site: fired count} of injected faults plus per-spec hit/fired
+    detail under "specs"."""
+    with _lock:
+        out = dict(_injected)
+        out["specs"] = [{"spec": s.text, "hits": s.hits, "fired": s.fired}
+                        for s in _specs]
+    return out
 
 
 def fault_point(site, **ctx):
@@ -235,6 +270,7 @@ def _fire(site, ctx):
             if not spec.should_fire():
                 continue
             spec.fired += 1
+            _injected[site] = _injected.get(site, 0) + 1
             actions.append(spec)
     for spec in actions:
         from .. import profiler as _prof

@@ -48,6 +48,7 @@ import torch
 
 from mxnet_tpu_torch.kernels import flash_attention as tfa
 from mxnet_tpu_torch.kernels.bf16_gate import BF16_ULPS, GATES, row_ulps
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("mxnet_tpu.kernels.flash_attention")
 

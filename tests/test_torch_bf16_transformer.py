@@ -57,6 +57,7 @@ from mxnet_tpu.serving import DecodeEngine as JaxDecodeEngine
 from mxnet_tpu_torch.models import transformer as tt
 from mxnet_tpu_torch.parallel import ShardedTrainStep
 from mxnet_tpu_torch.serving import DecodeEngine
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 jt = importlib.import_module("mxnet_tpu.models.transformer")
 

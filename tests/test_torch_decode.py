@@ -25,6 +25,7 @@ from mxnet_tpu.serving import tiny_lm_params as jax_tiny_lm_params
 from mxnet_tpu_torch.models import transformer as tt
 from mxnet_tpu_torch.serving import DecodeEngine, tiny_lm_params
 from mxnet_tpu_torch.serving import decode as tdecode
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 jt = importlib.import_module("mxnet_tpu.models.transformer")
 jdecode = importlib.import_module("mxnet_tpu.serving.decode")

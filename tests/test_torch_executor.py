@@ -16,6 +16,7 @@ import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -34,6 +34,7 @@ import numpy as np
 
 import mxnet_tpu as jmx
 from mxnet_tpu.models import lenet as jlenet
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "example", "image-classification",

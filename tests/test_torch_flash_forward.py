@@ -37,6 +37,7 @@ import jax.numpy as jnp
 jfa = importlib.import_module("mxnet_tpu.kernels.flash_attention")
 
 from mxnet_tpu_torch.kernels import flash_attention as tfa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # float32 stays float32 (matters on a card, where cuBLAS may use TF32)
 torch.backends.cuda.matmul.allow_tf32 = False

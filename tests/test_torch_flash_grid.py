@@ -43,6 +43,7 @@ jfa = importlib.import_module("mxnet_tpu.kernels.flash_attention")
 
 from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.kernels import flash_attention as tfa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

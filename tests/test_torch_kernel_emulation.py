@@ -42,6 +42,7 @@ import torch
 from mxnet_tpu_torch.kernels import _emulate
 from mxnet_tpu_torch.kernels import flash_attention as tfa
 from mxnet_tpu_torch.kernels.bf16_gate import GATES, row_ulps
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -53,6 +53,7 @@ import mxnet_tpu.models  # noqa: F401  (jmx.models)
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import MXNetError
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

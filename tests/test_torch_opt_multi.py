@@ -16,6 +16,11 @@ through ``fused_update_step`` with the CUDA routing pointed at it.
 - The same table with a launch capacity of 3 leaves (three launches a
   step), still bitwise.
 - The C entries refuse a table they cannot take, before writing anything.
+- The step's verdict (the entries' pointer beside lr): null, true and
+  false, for each kind on the mixed table, bitwise against the plain
+  version given the same verdict; a false verdict leaves every param and
+  slot (and Adam's step count) with its bits, and a true or null one
+  gives the bits of no verdict at all.
 Skipped where the host has no ``g++``.
 """
 import ctypes
@@ -27,6 +32,7 @@ import torch
 
 from mxnet_tpu_torch.kernels import _emulate
 from mxnet_tpu_torch.kernels import opt_update as tou
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -86,7 +92,7 @@ def _param(key, values):
     return view
 
 
-def _run(kind, clip, wd, fn):
+def _run(kind, clip, wd, fn, **kw):
     params, grads = _inputs()
     p = {k: _param(k, v) for k, v in params.items()}
     if kind == "adam":
@@ -99,10 +105,11 @@ def _run(kind, clip, wd, fn):
     for g in grads:
         fn("adam" if kind == "adam" else "sgd", _hp(kind), p, st,
            {k: torch.tensor(v) for k, v in g.items()}, rescale=1 / 32,
-           clip=clip, wd=wd)
+           clip=clip, wd=wd, **kw)
     slots = [st[s][k] for s in ("m", "v", "mom") if st.get(s)
              for k in SIZES]
-    return [p[k] for k in SIZES] + slots
+    return [p[k] for k in SIZES] + slots + (
+        [st["t"].float()] if kind == "adam" else [])
 
 
 def _assert_bitwise(got, want, what):
@@ -142,6 +149,37 @@ def test_table_longer_than_a_launch(routed, monkeypatch, kind):
         _assert_bitwise(a, b, "%s tensor %d" % (kind, i))
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_verdict_true_false_and_null(routed, kind):
+    """The kernel and its plain version given the same verdict agree bit
+    for bit; false keeps every input's bits, true and null are the
+    update without a verdict."""
+    none = _run(kind, 0.01, 1e-4, tou.fused_update_step_plain)
+    start = [t.clone() for t in _run(kind, 0.01, 1e-4,
+                                     tou.fused_update_step_plain,
+                                     verdict=torch.tensor(False))]
+    params, _ = _inputs()
+    for i, k in enumerate(SIZES):
+        _assert_bitwise(start[i], torch.tensor(params[k]), "false keeps %s"
+                        % k)
+    for verdict in (None, torch.tensor(True), torch.tensor(False)):
+        want = _run(kind, 0.01, 1e-4, tou.fused_update_step_plain,
+                    verdict=verdict)
+        launches, _ = _counts(kind)
+        got = _run(kind, 0.01, 1e-4, tou.fused_update_step,
+                   verdict=verdict)
+        # a false verdict still launches: the kernel reads it on the device
+        assert _counts(kind)[0] == launches + STEPS
+        for i, (a, b) in enumerate(zip(got, want)):
+            _assert_bitwise(a, b, "%s verdict %s tensor %d"
+                            % (kind, verdict, i))
+        ref = start if verdict is not None and not verdict else none
+        for i, (a, b) in enumerate(zip(got, ref)):
+            _assert_bitwise(a, b, "%s verdict %s against %s tensor %d" % (
+                kind, verdict, "the inputs" if ref is start
+                else "no verdict", i))
+
+
 def _records(rows):
     words = [w for row in rows for w in row]
     return (ctypes.c_int64 * len(words))(*words)
@@ -154,11 +192,12 @@ def test_entries_refuse_what_they_cannot_take(emu):
     row = [p.data_ptr(), g.data_ptr(), m.data_ptr(), 0, 1024, 1]
     sgd_mom = emu.entry("mx_optupdate_multi_sgd_mom_f32")
 
-    def call(rows, count=None):
+    def call(rows, count=None, ok=None):
         rec = _records(rows)
         return sgd_mom(ctypes.addressof(rec), len(rows) if count is None
-                       else count, lr.data_ptr(), 0.9, 1.0, 0, 0.0, 0.0,
-                       0.0, None)
+                       else count, lr.data_ptr(),
+                       None if ok is None else ok.data_ptr(), 0.9, 1.0, 0,
+                       0.0, 0.0, 0.0, None)
 
     bad = {
         "too many leaves": [row] * (tou._MAX_LEAVES + 1),
@@ -179,5 +218,9 @@ def test_entries_refuse_what_they_cannot_take(emu):
                   4, 1] for t in small]) == 0
     for t in small:
         assert not torch.equal(t[:4], torch.ones(4))
-    assert call([row]) == 0
+    # a false verdict launches and writes nothing; a true one updates
+    assert call([row], ok=torch.tensor(False)) == 0
+    assert torch.equal(p, torch.ones(1024))
+    assert torch.equal(m, torch.zeros(1024))
+    assert call([row], ok=torch.tensor(True)) == 0
     assert not torch.equal(p, torch.ones(1024))

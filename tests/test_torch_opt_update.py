@@ -45,6 +45,7 @@ from mxnet_tpu.kernels import opt_update as jou
 
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels import opt_update as tou
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SHAPES = {"a": (1024,), "b": (128 * 513,), "c": (1000,), "d": (3, 5)}
 STEPS = 3
@@ -231,7 +232,8 @@ def test_wrapper_launches_one_table_per_chunk(monkeypatch):
     calls = []
 
     def stub(name):
-        def fn(addr, count, lr_ptr, *scalars):
+        def fn(addr, count, lr_ptr, ok_ptr, *scalars):
+            assert ok_ptr is None, "no verdict: a null pointer"
             words = (ctypes.c_int64 * (6 * count)).from_address(addr)
             calls.append((name, [tuple(words[6 * i:6 * i + 6])
                                  for i in range(count)], scalars))

@@ -26,10 +26,10 @@
   raise with guidance; importing the port loads neither libcuda, NVRTC
   nor triton.
 - The Module slice: ``Module`` defaults to the card; what is not yet
-  ported (a supervisor, a checkpoint manager, optimizer-state files,
-  background checkpoints, distributed stores, more than one context,
-  other optimizers, monitors, ``BucketingModule``, ``DevicePrefetchIter``,
-  ``FeedForward``) raises naming its ROADMAP item; ``fit(kvstore=
+  ported (a checkpoint manager, also under a supervisor, optimizer-state
+  files, background checkpoints, distributed stores, more than one
+  context, other optimizers, monitors, ``BucketingModule``,
+  ``Executor.warmup``, ``FeedForward``) raises naming its ROADMAP item; ``fit(kvstore=
   'tpu_sync')`` under ``MXNET_TPU_FUSED_OPTUPDATE=1`` updates through
   kernel #7's wrapper once a batch; the launcher ``run_script`` refuses a
   process that has imported jax, and in a fresh one resolves
@@ -60,6 +60,7 @@ from mxnet_tpu_torch.parallel import (DataParallelTrainStep,
                                       ShardedTrainStep, mesh_kernels,
                                       sharded_step)
 from mxnet_tpu_torch.serving import DecodeEngine, tiny_lm_params
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -174,7 +175,8 @@ def test_train_step_defaults_to_the_card(monkeypatch):
 def test_train_step_raises_on_what_is_not_ported(monkeypatch):
     """... and fused_optupdate (the argument or the env knob) routes the
     update through kernel #7's wrapper with the JAX step's single-device
-    arguments: rescale 1, no clip, wd 0 (the step added wd already)."""
+    arguments: rescale 1, no clip, wd 0 (the step added wd already), and
+    no verdict without ``skip_nonfinite``."""
     loss = lambda p, b: (p["w"] * b["x"]).sum()
     calls = []
 
@@ -194,7 +196,8 @@ def test_train_step_raises_on_what_is_not_ported(monkeypatch):
         step.init({"w": torch.ones(4)})
         step({"x": torch.arange(4.0)})
         finals.append(step.params["w"].detach())
-    assert calls == [{}, {}], "fused steps must call the kernel wrapper"
+    assert calls == [{"verdict": None}] * 2, \
+        "fused steps must call the kernel wrapper"
     assert torch.equal(finals[0], finals[2]) and \
         torch.equal(finals[1], finals[2])
     for flag in ("shard_update", "zero"):
@@ -403,10 +406,11 @@ def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
     monkeypatch.delenv("MXNET_TPU_LINT")
     for kw, match in ((dict(mesh=["cpu", "cpu"]), "ROADMAP A7"),
                       (dict(mesh=object()), "ROADMAP A7"),
-                      (dict(zero=True), "ROADMAP A7"),
-                      (dict(supervise=True), "ROADMAP A4")):
+                      (dict(zero=True), "ROADMAP A7")):
         with pytest.raises(MXNetError, match=match):
             DataParallelTrainStep(sym, device="cpu", **kw)
+    # supervise is ported (tests/test_torch_supervisor.py)
+    assert DataParallelTrainStep(sym, device="cpu", supervise=True).supervise
     # compute_dtype is ported, and the attention kernels of both variants
     # take bf16 and float16, each through the entries of its own dtype
     # (the grid entries with the float32 entries' arguments)
@@ -429,9 +433,10 @@ def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
     one = DataParallelTrainStep(sym, mesh=[torch.device("cpu")],
                                 shard_update=True)
     assert one.device.type == "cpu"
-    with pytest.raises(MXNetError, match="not yet ported"):
+    # warmup is ported; it needs the built step
+    with pytest.raises(MXNetError, match="call init"):
         one.warmup()
-    with pytest.raises(MXNetError, match="not yet ported"):
+    with pytest.raises(MXNetError, match="not yet ported \\(ROADMAP A7"):
         one.comm_plan()
     # infer_type is ported: float32 throughout, as the reference infers
     assert sym.infer_type() == jmx_tiny_sym().infer_type()
@@ -495,13 +500,17 @@ def _bound_module(**fit_kw):
     ("background_checkpoint", "A8"), ("dist_kvstore", "A7"),
     ("async_kvstore", "A7"), ("two_contexts", "A7"),
     ("optimizer", "A2"), ("monitor", "A9"), ("bucketing", "A3"),
-    ("prefetch_iter", "A4"), ("feedforward", "A3")])
+    ("executor_warmup", "A4"), ("feedforward", "A3")])
 def test_module_slice_raises_on_what_is_not_ported(what, item, monkeypatch):
     mod, it = _bound_module()
     fit = dict(num_epoch=1, optimizer_params={"learning_rate": 0.1})
     calls = {
-        "supervisor": lambda: mod.fit(it, supervisor=object(), **fit),
-        "supervise_env": lambda: mod.fit(it, **fit),
+        # the supervisor is ported; its checkpoint manager is not
+        "supervisor": lambda: mod.fit(
+            it, supervisor=tmx.resilience.TrainingSupervisor(),
+            checkpoint_manager=object(), **fit),
+        "supervise_env": lambda: mod.fit(it, checkpoint_manager=object(),
+                                         **fit),
         "checkpoint_manager": lambda: mod.fit(it, checkpoint_manager=object(),
                                               **fit),
         "save_optimizer_states": lambda: (
@@ -515,7 +524,8 @@ def test_module_slice_raises_on_what_is_not_ported(what, item, monkeypatch):
         "optimizer": lambda: mod.fit(it, optimizer="nag", **fit),
         "monitor": lambda: mod.fit(it, monitor=object(), **fit),
         "bucketing": lambda: tmx.mod.BucketingModule,
-        "prefetch_iter": lambda: tmx.io.DevicePrefetchIter,
+        "executor_warmup": lambda: _tiny_sym().simple_bind(
+            tmx.cpu(), data=(2, 4)).warmup(),
         "feedforward": lambda: tmx.model.FeedForward,
     }
     if what == "supervise_env":

@@ -42,6 +42,7 @@ from mxnet_tpu_torch import MXNetError, rtc
 from mxnet_tpu_torch.kernels import _rtc_driver
 from mxnet_tpu_torch.models import resnet as tres
 from mxnet_tpu_torch.ops import find_op
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -40,6 +40,7 @@ from mxnet_tpu.parallel.tpu_step import DataParallelTrainStep as JaxStep
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.models import resnet as tres
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -39,6 +39,7 @@ from mxnet_tpu.parallel.sharded_step import ShardedTrainStep as JaxStep
 from mxnet_tpu_torch.kernels import flash_attention as tfa
 from mxnet_tpu_torch.models import transformer as ttr
 from mxnet_tpu_torch.parallel import ShardedTrainStep, grad_prologue
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # float32 stays float32 (matters on a card, where cuBLAS may use TF32)
 torch.backends.cuda.matmul.allow_tf32 = False
