@@ -418,6 +418,56 @@ no result line):
              over the 157 leaves with no, a true and a false verdict, and
              the first float16 master update's relative L2 to the float32
              update at scale 2^15 and 1.0 (not gated).
+31. serve_engine — ResNet-50 v2 (3x224x224, rtc_infer's seeded weights)
+             served through serving.InferenceEngine with buckets (1, 4,
+             8, 16, 32), max_batch 32, max_delay_ms 5 and the batcher's
+             worker thread: warmup captures one CUDA graph a bucket (5),
+             then a trace of the sizes [1, 2, 4, 8, 16, 32] permuted 20
+             times by RandomState(7) (120 requests, 1260 images) goes
+             through predict_async at once. Gates: (a) every request's
+             rows bit for bit the eager forward of its padded bucket
+             (the group the batcher formed, recorded); (b) within rtol
+             1e-5 / atol 1e-6 of an executor bound at exactly n; (c) 5
+             programs, 0 misses, 5 captures after the trace; (d) a
+             result held from the first request unchanged after it.
+             cuDNN deterministic throughout. Also Executor.warmup at
+             batch 32: its replayed forwards bit for bit its eager one.
+             Reports the capture seconds and the graph pool's bytes,
+             served img/s against a plain pre-staged batch-32 eager
+             executor loop over the same images (in turns: plain,
+             served, served, plain), request p50/p99
+             (profiler.latency_counters), per bucket a replay's event ms
+             and host enqueue ms against the eager forward's, the
+             device's idle share over one permutation (DIR/profile_
+             serve_engine.txt), and program_cost() of the batch-32
+             training executor.
+32. serve_engine_rtc — rtc_infer's graph (#8 user_relu in all 50 relu
+             nodes) and the built-in graph each through an engine with
+             buckets (1, 32): outputs bit for bit at 32 and 1; #8's count
+             from 0 before the user engine's warmup and first requests,
+             200 after (a warm run and a capture a bucket); replays move
+             it no further; torch.profiler's trace of one replay holds
+             50 user_relu kernels. Reports a replay's wall against the
+             eager forward's at 32.
+33. model_server — serving.ModelServer with the SLA model (FC 1024, relu,
+             FC 1024, relu, FC 10, softmax; input 128, bucket 8,
+             max_delay_ms 1, slack_factor 3, shed_margin 2.5) on 2
+             replicas colocated on the card, and the serve phase's
+             transformer on 2 DecodeEngine replicas (register_decode).
+             Gates: 8 prompts through submit_decode(pin=...) give streams
+             equal to the same prompts through a DecodeEngine alone, each
+             on the replica crc32(pin) picks, #1 launched (>= 12 a
+             prefill call) on the kernel tier; traffic of 8-row requests
+             while a version 3 is registered (captured during traffic)
+             and a rollover swaps the default's weights: every answer
+             bit for bit the old weights' or the new ones' (both seen),
+             no capture added; version 3 answers right; under
+             resilience.configure("serving.dispatch:replica=0:raise=
+             OSError") replica 0's breaker opens and every request is
+             served right on replica 1; 16 requests with a 0.01 ms
+             deadline shed as DeadlineExceeded and are counted;
+             submitted == served + shed + failed, none failed. Reports
+             breakers, counters, request p50/p95/p99.
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
@@ -442,7 +492,9 @@ on its path's run (serving, training, symbolic training, long-context
 serving or training, the rtc kernels' full-size run or the ResNet-50
 forwards, the bf16 and float16 serving and training runs, long ones
 included; #7's adds its launches in module_fit, example_scripts,
-symbolic_bf16 and supervised_fit, by path in ``launches_by_path``), its error (the 16-bit
+symbolic_bf16 and supervised_fit, by path in ``launches_by_path``;
+#1's and #8's ``launches_by_path`` add model_server's and
+serve_engine_rtc's counts, taken on the host at capture), its error (the 16-bit
 entries in row ulps of their dtype) and times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -2835,7 +2887,8 @@ def phase_rtc_infer(torch, dev, seed, out_dir):
               "max_prob_mean": probs.max(1).values.mean().item(),
               "user_relu_50": row, "host_per_node": op_host,
               "profile": prof}
-    return result, row
+    return result, row, {"kernel": relu_k, "user_sym": user_sym,
+                         "builtin_sym": sym, "args": args, "aux": aux}
 
 
 def parent_opt_update(torch, dev, lib, csrc, result):
@@ -4894,16 +4947,601 @@ def half_grid_rows(torch, fa, dev, rand, leaves, check, check_lse, same,
     return t
 
 
+# --- the serving tier: captured bucket programs (phases 31-33) --------------
+
+SERVE_BUCKETS = (1, 4, 8, 16, 32)
+SERVE_SIZES = (1, 2, 4, 8, 16, 32)
+SERVE_PERMS = 20        # the trace: SERVE_SIZES permuted 20 times
+SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-6
+SLA_BUCKET, SLA_IN, SLA_HIDDEN = 8, 128, 1024
+SLA_REQUESTS = 400      # the rollover trace's requests, at most
+WAIT_S = 600.0
+
+
+def _deterministic_cudnn(torch):
+    """cuDNN on fixed algorithms (the bit-for-bit gates); returns the
+    prior flags for ``_restore_cudnn``."""
+    prior = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return prior
+
+
+def _restore_cudnn(torch, prior):
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = prior
+
+
+def _host_ms(torch, fn, n=20):
+    """Median host time to enqueue one call of ``fn`` (the card synced
+    between calls, so the enqueue never waits on a full queue)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _synced_ms(torch, fn, n=10):
+    """Median wall of one call of ``fn`` to the card's completion."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _request(torch, x):
+    """An engine request of rows ``x`` (a tensor on the card) with its
+    label input zeroed, as the engine fills a label it is not given."""
+    return {"data": x, "softmax_label": torch.zeros(x.shape[0],
+                                                    device=x.device)}
+
+
+def _bind_at(torch, sym, dev, n, params, aux, grad_req="null"):
+    exe = sym.simple_bind(dev, grad_req=grad_req, data=(n, 3, 224, 224),
+                          softmax_label=(n,))
+    for k, v in params.items():
+        exe.arg_dict[k][:] = v
+    for k, v in aux.items():
+        exe.aux_dict[k][:] = v
+    return exe
+
+
+def phase_serve_engine(torch, dev, seed, out_dir):
+    """ResNet-50 served through InferenceEngine's captured bucket programs
+    (module docstring, phase 31)."""
+    import numpy as np
+    from mxnet_tpu_torch import profiler as tprof
+    from mxnet_tpu_torch.models import resnet as tres
+    from mxnet_tpu_torch.serving import InferenceEngine, pad_to_bucket
+    from mxnet_tpu_torch.serving import bucket_for
+    t0 = time.perf_counter()
+    sym = tres.get_symbol(num_classes=1000, num_layers=50,
+                          image_shape="3,224,224")
+    args, aux = resnet_values(torch, sym, dev, seed)
+    params = {k: v for k, v in args.items() if k not in RESNET_SHAPES}
+    trng = np.random.RandomState(7)
+    trace = [int(s) for _ in range(SERVE_PERMS)
+             for s in trng.permutation(SERVE_SIZES)]
+    n_img = sum(trace)
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    dev_images = torch.rand((n_img, 3, 224, 224), device=dev,
+                            generator=gen) * 2 - 1
+    images = dev_images.cpu().numpy()
+    starts = np.cumsum([0] + trace[:-1])
+    reqs = [images[s:s + n] for s, n in zip(starts, trace)]
+    prior = _deterministic_cudnn(torch)
+    eng = None
+    try:
+        eng = InferenceEngine(sym, params, aux, ctx=dev,
+                              buckets=SERVE_BUCKETS, max_batch=32,
+                              max_delay_ms=5.0, name="resnet50")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        built = eng.warmup({"data": RESNET_SHAPES["data"]})
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t1
+        if built != len(SERVE_BUCKETS) or eng.captures != built:
+            fail("serve_engine: warmup built %d programs (%d captures), "
+                 "want %d" % (built, eng.captures, len(SERVE_BUCKETS)))
+        pool_bytes = eng._cache.builder.pool_bytes()
+
+        groups = []
+        run_group = eng._batcher._run_group
+
+        def recording(group, total):
+            groups.append(list(group))
+            return run_group(group, total)
+
+        def serve_trace(record):
+            eng._batcher._run_group = recording if record else run_group
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            futs = [eng.predict_async({"data": r}) for r in reqs]
+            first = futs[0].result_wait(WAIT_S)[0]
+            held = first.clone()
+            outs = [f.result_wait(WAIT_S)[0] for f in futs]
+            torch.cuda.synchronize()
+            eng._batcher._run_group = run_group
+            return time.perf_counter() - ts, futs, outs, first, held
+
+        tprof.latency_counters(reset=True, prefix="serving.resnet50.")
+        wall, futs, outs, first, held = serve_trace(True)
+        lat = tprof.latency_counters(prefix="serving.resnet50.")
+        stats = eng.stats()
+        # (c) the five captured programs serve the whole trace
+        if eng.compiles != len(SERVE_BUCKETS) or eng.misses != 0 or \
+                eng.captures != len(SERVE_BUCKETS):
+            fail("serve_engine: %d programs, %d misses, %d captures after "
+                 "the trace" % (eng.compiles, eng.misses, eng.captures))
+        # (d) a result held from the first request keeps its values
+        if not torch.equal(first, held):
+            fail("serve_engine: the first request's result changed")
+        # (a) every request's rows bit for bit the eager forward of the
+        # same padded bucket
+        body = eng._cache.builder._fn
+        checked = 0
+        with torch.no_grad():
+            for group in groups:
+                stacked = np.concatenate([r.arrays["data"] for r in group])
+                total = stacked.shape[0]
+                padded = pad_to_bucket({"data": stacked}, total,
+                                       bucket_for(total, SERVE_BUCKETS))
+                eager = body(_request(torch, torch.from_numpy(
+                    padded["data"]).to(dev)), eng._params, eng._aux)[0]
+                row = 0
+                for r in group:
+                    if not torch.equal(r.result[0], eager[row:row + r.n]):
+                        fail("serve_engine: a request's rows differ from "
+                             "the eager forward of its padded bucket %d "
+                             "(max abs %g)" % (eager.shape[0], (
+                                 r.result[0] - eager[row:row + r.n])
+                                 .abs().max().item()))
+                    row += r.n
+                    checked += 1
+        if checked != len(trace):
+            fail("serve_engine: %d of %d requests checked"
+                 % (checked, len(trace)))
+        # (b) within rtol 1e-5 of an executor bound at exactly n
+        exes = {n: _bind_at(torch, sym, dev, n, params, aux)
+                for n in SERVE_SIZES}
+        worst_abs = 0.0
+        for r, out, n in zip(reqs, outs, trace):
+            exe = exes[n]
+            exe.arg_dict["data"][:] = torch.from_numpy(r).to(dev)
+            ref = exe.forward(is_train=False)[0]._data
+            if not torch.allclose(out, ref, rtol=SERVE_RTOL,
+                                  atol=SERVE_ATOL):
+                fail("serve_engine: a batch-%d request is %g off the "
+                     "exact-n executor" % (n, (out - ref).abs().max()
+                                           .item()))
+            worst_abs = max(worst_abs, (out - ref).abs().max().item())
+        probs = torch.cat(outs)
+        if tuple(probs.shape) != (n_img, 1000) or \
+                not torch.isfinite(probs).all():
+            fail("serve_engine: outputs of shape %s" % (tuple(probs.shape),))
+
+        # Executor.warmup: the captured forward bit for bit the eager one,
+        # and the two timed in turns against an unwarmed executor
+        exe32 = exes[32]
+        exe32.arg_dict["data"][:] = dev_images[:32]
+        eager32 = exe32.forward(is_train=False)[0]._data.clone()
+        exe32.warmup()
+        if not exe32.has_compiled_forward():
+            fail("serve_engine: Executor.warmup built no forward")
+        for _ in range(3):
+            if not torch.equal(exe32.forward(is_train=False)[0]._data,
+                               eager32):
+                fail("serve_engine: the warmed executor's forward differs "
+                     "from its eager forward")
+        plain = _bind_at(torch, sym, dev, 32, params, aux)
+        plain.arg_dict["data"][:] = dev_images[:32]
+        exe_ms = {"eager": [], "replay": []}
+        for key in ("eager", "replay", "replay", "eager"):
+            exe = plain if key == "eager" else exe32
+            exe_ms[key].append(_synced_ms(
+                torch, lambda exe=exe: exe.forward(is_train=False)))
+        del exes
+
+        # the yardstick: a plain pre-staged batch-32 eager executor loop
+        # over the same images, in turns with the served trace
+        n_iter = n_img // 32
+
+        def plain_loop():
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            for i in range(n_iter):
+                plain.arg_dict["data"][:] = dev_images[32 * i:32 * i + 32]
+                plain.forward(is_train=False)
+            torch.cuda.synchronize()
+            return n_iter * 32 / (time.perf_counter() - ts)
+
+        rates = {"plain": [plain_loop()], "served": [n_img / wall]}
+        rates["served"].append(n_img / serve_trace(False)[0])
+        rates["plain"].append(plain_loop())
+        del plain
+
+        # per bucket: a replay against the eager forward of the same batch
+        per_bucket = {}
+        with torch.no_grad():
+            for b in SERVE_BUCKETS:
+                batch = _request(torch, dev_images[:b].contiguous())
+                prog = eng.program(b)
+                prog(batch, eng._params, eng._aux)
+
+                def eager(batch=batch):
+                    body(batch, eng._params, eng._aux)
+                per_bucket[str(b)] = {
+                    "replay_event_ms": _event_ms(prog.replay, 7),
+                    "replay_host_ms": _host_ms(torch, prog.replay),
+                    "eager_event_ms": _event_ms(eager, 7),
+                    "eager_host_ms": _host_ms(torch, eager, n=10)}
+
+        # the device's idle share over one permutation of the trace
+        def burst():
+            fs = [eng.predict_async({"data": r}) for r in reqs[:6]]
+            for f in fs:
+                f.result_wait(WAIT_S)
+        prof = profile_calls(torch, burst, "serve_engine", out_dir, warm=1,
+                             n=3, calls=2, classify=kind_of)
+
+        # the training executor's cost at the same width
+        t2 = time.perf_counter()
+        train_exe = _bind_at(torch, sym, dev, 32, params, aux,
+                             grad_req="write")
+        cost = train_exe.program_cost()
+        cost_s = time.perf_counter() - t2
+        del train_exe
+    finally:
+        if eng is not None:
+            eng.stop()
+        _restore_cudnn(torch, prior)
+    macs = graph_macs(torch, sym, RESNET_SHAPES)
+    total = lat.get("serving.resnet50.total", {})
+    return {"phase": "serve_engine", "model": "resnet50",
+            "buckets": list(SERVE_BUCKETS), "requests": len(trace),
+            "images": n_img, "setup_s": setup_s, "capture_s": capture_s,
+            "captures": eng.captures, "graph_pool_bytes": pool_bytes,
+            "wall_s": wall, "served_img_per_s": rates["served"],
+            "plain_b32_img_per_s": rates["plain"],
+            "served_vs_plain": statistics.median(rates["served"])
+            / statistics.median(rates["plain"]),
+            "request_p50_ms": total.get("p50_ms"),
+            "request_p99_ms": total.get("p99_ms"), "latency": lat,
+            "batches": stats["batches_run"],
+            "padded_rows": stats["padded_rows"],
+            "step_time_ms": stats["step_time_ms"],
+            "compiles": eng.compiles, "misses": eng.misses,
+            "hits": eng.hits, "bitwise_vs_eager_bucket": True,
+            "exact_n_max_abs_err": worst_abs, "exact_n_rtol": SERVE_RTOL,
+            "held_result_unchanged": True, "per_bucket": per_bucket,
+            "executor_warmup": {"bitwise": True,
+                                "wall_ms_in_turns": exe_ms},
+            "idle_share": prof["idle_share"], "profile": prof,
+            "program_cost_train_b32": cost, "program_cost_s": cost_s,
+            "macs_forward_b32": macs}
+
+
+def phase_serve_engine_rtc(torch, dev, rtc):
+    """rtc_infer's graph (#8 in every relu) served through an engine's
+    captured programs (module docstring, phase 32). Returns (result, #8's
+    launches on this path)."""
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.serving import InferenceEngine
+    relu_k = rtc["kernel"]
+    params = {k: v for k, v in rtc["args"].items() if k not in RESNET_SHAPES}
+    x32 = rtc["args"]["data"]
+    prior = _deterministic_cudnn(torch)
+    engines = {}
+    try:
+        torch.cuda.synchronize()
+        relu_k.launches = 0
+        t0 = time.perf_counter()
+        for key in ("user", "builtin"):
+            eng = engines[key] = InferenceEngine(
+                rtc[key + "_sym"], params, rtc["aux"], ctx=dev,
+                buckets=(1, 32), async_worker=False,
+                name="resnet50_%s_relu" % key)
+            eng.warmup({"data": RESNET_SHAPES["data"]})
+            if key == "user":
+                outs = {key: [eng.predict({"data": x})[0]._data
+                              for x in (x32, x32[:1])]}
+                launches = relu_k.launches
+            else:
+                outs[key] = [eng.predict({"data": x})[0]._data
+                             for x in (x32, x32[:1])]
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        if launches != 2 * 2 * 50:
+            fail("serve_engine_rtc: user_relu launched %d times building "
+                 "and serving 2 buckets, want 200 (a warm run and a "
+                 "capture each)" % launches)
+        for a, b in zip(outs["user"], outs["builtin"]):
+            if not _bit_diff(torch, a, b)[0]:
+                fail("serve_engine_rtc: the user-op engine differs from "
+                     "the built-in relu engine (max abs %g)"
+                     % (a - b).abs().max().item())
+        user = engines["user"]
+        prog = user.program(32)
+        before = relu_k.launches
+        for _ in range(5):
+            user.predict({"data": x32})
+        torch.cuda.synchronize()
+        if relu_k.launches != before:
+            fail("serve_engine_rtc: replays moved #8's host count from %d "
+                 "to %d" % (before, relu_k.launches))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as tr:
+            prog.replay()
+            torch.cuda.synchronize()
+        names = [e.name for e in tr.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        n_user = sum(1 for n in names if "user_relu" in n)
+        if n_user != 50:
+            fail("serve_engine_rtc: the trace of one replay shows %d "
+                 "user_relu kernels, want 50 (%d device events)"
+                 % (n_user, len(names)))
+        body = user._cache.builder._fn
+        batch = _request(torch, x32)
+        walls = {"eager": [], "replay": []}
+        with torch.no_grad():
+            for key in ("eager", "replay", "replay", "eager"):
+                walls[key].append(_synced_ms(torch, (
+                    prog.replay if key == "replay" else
+                    lambda: body(batch, user._params, user._aux))))
+        replay_event_ms = _event_ms(prog.replay, 7)
+    finally:
+        for eng in engines.values():
+            eng.stop()
+        _restore_cudnn(torch, prior)
+    return {"phase": "serve_engine_rtc", "model": "resnet50 (50 user_relu)",
+            "buckets": [1, 32], "capture_s": capture_s,
+            "captures": user.captures, "launches_building": launches,
+            "bitwise_vs_builtin": True, "user_relu_kernels_per_replay": n_user,
+            "device_kernels_per_replay": len(names),
+            "wall_ms_b32_in_turns": walls,
+            "replay_event_ms_b32": replay_event_ms}, launches
+
+
+def _sla_symbol():
+    from mxnet_tpu_torch import sym as S
+    net = S.Variable("data")
+    for i in range(2):
+        net = S.FullyConnected(net, num_hidden=SLA_HIDDEN,
+                               name="sla_fc%d" % i)
+        net = S.Activation(net, act_type="relu")
+    net = S.FullyConnected(net, num_hidden=10, name="sla_fc2")
+    return S.SoftmaxOutput(net, name="softmax")
+
+
+def phase_model_server(torch, fa, dev, seed, model):
+    """ModelServer: the SLA model on two colocated replicas, the serve
+    phase's transformer on two decode replicas (module docstring, phase
+    33). Returns (result, #1's launches on this path)."""
+    import threading
+    import zlib
+    import numpy as np
+    from mxnet_tpu_torch import profiler as tprof
+    from mxnet_tpu_torch import resilience
+    from mxnet_tpu_torch.serving import (DeadlineExceeded, DecodeEngine,
+                                         ModelServer)
+    sym = _sla_symbol()
+    rng = np.random.RandomState(seed)
+    shapes, _, _ = sym.infer_shape(data=(SLA_BUCKET, SLA_IN))
+    weights = [{n: rng.normal(0, 0.05, s).astype(np.float32)
+                for n, s in zip(sym.list_arguments(), shapes)
+                if n not in ("data", "softmax_label")} for _ in range(3)]
+    xs = rng.uniform(-1, 1, (8, SLA_BUCKET, SLA_IN)).astype(np.float32)
+    knobs = dict(ctx=dev, buckets=(SLA_BUCKET,), max_delay_ms=1.0,
+                 slack_factor=3.0, shed_margin=2.5,
+                 warmup_shapes={"data": (SLA_BUCKET, SLA_IN)})
+    tprof.latency_counters(reset=True, prefix="serving.sla_model.")
+    srv = ModelServer(hedge_ms=False)
+    decs = []
+    try:
+        t0 = time.perf_counter()
+        srv.register("sla_model", sym, weights[0], replicas=2, **knobs)
+        reps = [srv.engine("sla_model", replica=r) for r in (0, 1)]
+        if [e.captures for e in reps] != [1, 1] or \
+                {e.device for e in reps} != {dev}:
+            fail("model_server: replicas captured %s on %s, want one "
+                 "each on %s"
+                 % ([e.captures for e in reps], [e.device for e in reps],
+                    dev))
+        decs = [DecodeEngine(block_size=16, num_blocks=257, batch_size=8,
+                             max_seq_len=512, prefill_buckets=(64, 256),
+                             prefill_chunk=256, name="lm%d" % i,
+                             **model.engine_kwargs()) for i in range(2)]
+        for d in decs:
+            srv.register_decode("lm", d)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        # expected answers of each weight set: the eager body of a
+        # replica on each request's own 8 rows
+        body = reps[0]._cache.builder._fn
+
+        def answers(w):
+            p = {k: torch.from_numpy(v).to(dev) for k, v in w.items()}
+            with torch.no_grad():
+                return [body(_request(torch, torch.from_numpy(x).to(dev)),
+                             p, {})[0] for x in xs]
+        want = [answers(w) for w in weights]
+
+        # decode through the server, pinned by crc32, against the engines
+        # alone; #1 counted from 0 just before
+        if not model.use_kernel:
+            fail("model_server: the decode model is not on the kernel tier")
+        prng = torch.Generator().manual_seed(SEED + 1)
+        lengths = [5, 37, 64, 100, 200, 257, 380, 480]
+        prompts = [torch.randint(0, model.cfg.vocab_size, (n,),
+                                 generator=prng).tolist() for n in lengths]
+        pins = ["seq-%d" % i for i in range(len(prompts))]
+        torch.cuda.synchronize()
+        fa.launches = 0
+        streams = [srv.submit_decode("lm", p, pin=pin, max_new_tokens=32)
+                   for p, pin in zip(prompts, pins)]
+        got = [s.result_wait(WAIT_S) for s in streams]
+        launches = fa.launches
+        calls = sum(-(-n // 256) for n in lengths)
+        if launches < model.cfg.num_layers * calls:
+            fail("model_server: #1 launched %d times, want >= %d"
+                 % (launches, model.cfg.num_layers * calls))
+        picked = [zlib.crc32(p.encode("utf-8")) % 2 for p in pins]
+        # an engine counts a stream just after resolving it
+        deadline = time.monotonic() + 60.0
+        while sum(d.stats()["served"] for d in decs) < len(prompts) and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        served = [d.stats()["served"] for d in decs]
+        if served != [picked.count(0), picked.count(1)]:
+            fail("model_server: decode replicas served %s, the pins pick %s"
+                 % (served, picked))
+        alone = [decs[0].generate(p, max_new_tokens=32, timeout=WAIT_S)
+                 for p in prompts]
+        if got != alone:
+            fail("model_server: streams through the server differ from the "
+                 "engine alone for prompts %s"
+                 % [i for i, (a, b) in enumerate(zip(got, alone)) if a != b])
+
+        # the tier unloaded: one request at a time
+        for k in range(64):
+            srv.predict_async("sla_model", {"data": xs[k % 8]}).result_wait(
+                WAIT_S)
+        unloaded = tprof.latency_counters(
+            reset=True, prefix="serving.sla_model.").get(
+                "serving.sla_model.total", {})
+
+        # traffic; a new version captured and a rollover while it flows
+        results, stop = [], threading.Event()
+
+        def traffic():
+            i = 0
+            while not stop.is_set() and i < SLA_REQUESTS:
+                results.append((i % 8, srv.predict_async(
+                    "sla_model", {"data": xs[i % 8]})))
+                i += 1
+                time.sleep(5e-4)
+
+        thread = threading.Thread(target=traffic, daemon=True)
+        thread.start()
+        time.sleep(0.05)
+        srv.register("sla_model", sym, weights[2], version=3, replicas=1,
+                     **knobs)
+        captures = sum(e.captures for e in reps)
+        time.sleep(0.05)
+        t1 = time.perf_counter()
+        if srv.rollover("sla_model", weights[1], version=2) != 2:
+            fail("model_server: rollover did not relabel the version")
+        rollover_ms = (time.perf_counter() - t1) * 1e3
+        time.sleep(0.05)
+        stop.set()
+        thread.join(WAIT_S)
+        n_old = n_new = 0
+        for k, f in results:
+            out = f.result_wait(WAIT_S)[0]
+            old, new = torch.equal(out, want[0][k]), torch.equal(
+                out, want[1][k])
+            if not (old or new):
+                fail("model_server: an answer during the rollover is "
+                     "neither the old weights' nor the new ones' (max abs "
+                     "%g / %g)" % ((out - want[0][k]).abs().max().item(),
+                                   (out - want[1][k]).abs().max().item()))
+            n_old += old
+            n_new += new and not old
+        if not (n_old and n_new):
+            fail("model_server: the rollover did not land inside the "
+                 "traffic (%d old, %d new answers)" % (n_old, n_new))
+        if sum(e.captures for e in reps) != captures or \
+                [e.compiles for e in reps] != [1, 1]:
+            fail("model_server: the rollover captured %d programs"
+                 % (sum(e.captures for e in reps) - captures))
+        v3 = srv.predict("sla_model", {"data": xs[0]}, version=3)[0]._data
+        if not torch.equal(v3, want[2][0]):
+            fail("model_server: version 3 (captured during traffic) "
+                 "answers wrong")
+        lat = tprof.latency_counters(prefix="serving.sla_model.")
+
+        # a faulted replica: its breaker opens, replica 1 serves everything
+        resilience.configure("serving.dispatch:replica=0:raise=OSError")
+        try:
+            futs = [srv.predict_async("sla_model", {"data": xs[k % 8]})
+                    for k in range(40)]
+            for k, f in enumerate(futs):
+                if not torch.equal(f.result_wait(WAIT_S)[0],
+                                   want[1][k % 8]):
+                    fail("model_server: a rerouted answer is wrong")
+        finally:
+            resilience.configure(None)
+        st = srv.stats()["sla_model"]
+        breakers = [r["breaker"] for r in st["versions"]["2"]]
+        if breakers[0]["state"] != "open" or \
+                breakers[1]["state"] != "closed" or \
+                st["counters"]["failed"] != 0:
+            fail("model_server: breakers %s, counters %s"
+                 % (breakers, st["counters"]))
+
+        # impossible deadlines shed, typed and counted
+        shed0 = st["counters"]["shed"]
+        sheds = [srv.predict_async("sla_model", {"data": xs[0]},
+                                   deadline_ms=0.01) for _ in range(16)]
+        n_shed = 0
+        for f in sheds:
+            try:
+                f.result_wait(WAIT_S)
+            except DeadlineExceeded:
+                n_shed += 1
+        counters = srv.stats()["sla_model"]["counters"]
+        if n_shed != 16 or counters["shed"] - shed0 != 16:
+            fail("model_server: %d of 16 impossible deadlines shed (%d "
+                 "counted)" % (n_shed, counters["shed"] - shed0))
+        if counters["submitted"] != counters["served"] + counters["shed"] \
+                + counters["failed"] or counters["failed"]:
+            fail("model_server: accounting %s" % counters)
+        dstats = srv.decode_stats()["lm"]
+    finally:
+        srv.stop()
+    total = lat.get("serving.sla_model.total", {})
+    return {"phase": "model_server", "setup_s": setup_s,
+            "replicas": 2, "decode_replicas": 2,
+            "decode_streams_equal_engine": True, "decode_pins": picked,
+            "decode_served": served, "flash_launches": launches,
+            "rollover_answers": {"old": n_old, "new": n_new},
+            "rollover_ms": rollover_ms, "rollover_captures": 0,
+            "captured_during_traffic": 1,
+            "breakers": breakers, "counters": counters,
+            "request_p50_ms": total.get("p50_ms"),
+            "request_p95_ms": total.get("p95_ms"),
+            "request_p99_ms": total.get("p99_ms"), "latency": lat,
+            "traffic_requests": len(results),
+            "unloaded_p50_ms": unloaded.get("p50_ms"),
+            "unloaded_p99_ms": unloaded.get("p99_ms"),
+            "decode_stats": [{k: d[k] for k in ("served", "tokens",
+                                                "steps")} for d in dstats]
+            }, launches
+
+
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
           "grid_kernel", "serve_long", "train_long", "rtc_kernel",
           "rtc_infer", "module_fit", "example_scripts", "serve_bf16",
           "train_bf16", "symbolic_bf16", "bf16_kernel", "serve_long_bf16",
           "train_long_bf16", "serve_f16", "train_f16", "f16_kernel",
-          "serve_long_f16", "train_long_f16", "supervised_fit")
+          "serve_long_f16", "train_long_f16", "supervised_fit",
+          "serve_engine", "serve_engine_rtc", "model_server")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
-         "symbolic_profile": ("symbolic_train",)}
+         "symbolic_profile": ("symbolic_train",),
+         "serve_engine_rtc": ("rtc_infer",), "model_server": ("serve",)}
 
 
 def main():
@@ -4971,6 +5609,9 @@ def main():
         if "profile" in phases:
             emit({**phase_profile(torch, model, dev, args.profile_dir),
                   "card": card})
+        # the model_server phase serves the same model on its decode
+        # replicas
+        serve_model = model if "model_server" in phases else None
         del model
         if "kernel" in phases:
             path_row = next(r for r in rows if r["C"] == 256
@@ -5119,8 +5760,15 @@ def main():
                          % (rtc_result["n"], "RTC_AXPY_SOURCE via NVRTC"
                             if route == "cuda" else "triton_double_kernel")})
     if "rtc_infer" in phases:
-        infer, row = phase_rtc_infer(torch, dev, args.seed, args.profile_dir)
+        infer, row, rtc_state = phase_rtc_infer(torch, dev, args.seed,
+                                                args.profile_dir)
         emit({**infer, "card": card})
+        launches_by_path = {"rtc_infer": row["launches"]}
+        if "serve_engine_rtc" in phases:
+            res, launches_by_path["serve_engine_rtc"] = \
+                phase_serve_engine_rtc(torch, dev, rtc_state)
+            emit({**res, "card": card})
+        del rtc_state
         torch.cuda.empty_cache()
         entries.append({
             "name": "rtc_user_relu_f32", "route": "cuda",
@@ -5129,6 +5777,7 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "launches_by_path": launches_by_path,
             "shape": "the 50 relu inputs of one ResNet-50 forward at batch "
                      "32 (%d f32 elements), USER_RELU_SOURCE via NVRTC"
                      % row["elements"]})
@@ -5148,6 +5797,21 @@ def main():
             torch, dev, args.seed, args.profile_dir)
         emit(sup_result)
         torch.cuda.empty_cache()
+    if "serve_engine" in phases:
+        emit({**phase_serve_engine(torch, dev, args.seed, args.profile_dir),
+              "card": card})
+        torch.cuda.empty_cache()
+    if "model_server" in phases:
+        res, server_launches = phase_model_server(torch, fa, dev, args.seed,
+                                                  serve_model)
+        emit({**res, "card": card})
+        del serve_model
+        torch.cuda.empty_cache()
+        for entry in entries:
+            if entry["name"] == "flash_fwd_offs_f32":
+                entry["launches_by_path"] = {
+                    "serve": entry["launches"],
+                    "model_server": server_launches}
     # the 16-bit paths, bf16 then float16; symbolic_bf16 between them
     half_launches = {sfx: {} for sfx in HALF}
     for sfx in HALF:

@@ -31,6 +31,12 @@ non-finite step from the step's device verdict (kernel #7 writes nothing
 when it is false) under dynamic loss scaling, and
 ``io.DevicePrefetchIter`` stages the next batch on the card while a step
 runs.
+Its fifteenth slice serves symbolic graphs: ``serving.InferenceEngine``
+captures one CUDA graph per batch bucket and replays it under a dynamic
+micro-batcher, ``serving.ModelServer`` routes named models and versions
+over replicas (with decode replicas beside them), and
+``Executor.warmup``/``program_cost``, ``monitor.Monitor`` and
+``Module.predict`` through the engine complete the executor.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``, and raise ``MXNetError`` when CUDA is missing.
@@ -40,8 +46,9 @@ from __future__ import annotations
 __version__ = "1.2.0+cuda"
 
 from . import models, name, ndarray, parallel, profiler, rtc, symbol
-from . import (callback, initializer, io, kvstore, lr_scheduler, metric,
-               model, module, optimizer, random, resilience)
+from . import (callback, engine, initializer, io, kvstore, lr_scheduler,
+               metric, model, module, monitor, optimizer, random,
+               resilience, serving)
 from .base import MXNetError
 from .context import cpu, gpu, default_device
 from .executor import Executor
@@ -57,4 +64,5 @@ __all__ = ["MXNetError", "cpu", "gpu", "default_device", "profiler",
            "Executor", "models", "name", "nd", "ndarray", "rtc", "sym",
            "symbol", "mod", "module", "io", "metric", "init", "initializer",
            "optimizer", "lr_scheduler", "kvstore", "model", "callback",
-           "random", "resilience", "__version__"]
+           "random", "resilience", "engine", "monitor", "serving",
+           "__version__"]

@@ -18,14 +18,26 @@ outputs: an output held across forwards reads the latest one.
 ``arg_arrays``/``grad_arrays``/``aux_arrays``, ``output_dict``,
 ``copy_params_from`` and ``reshape`` are the reference's (L563-631):
 ``reshape`` binds a new executor that shares every array whose shape
-stays. Monitor callbacks, ``warmup`` and ``program_cost`` are not yet
-ported (ROADMAP A4).
+stays.
+
+``warmup()`` (reference L323) captures the inference forward at the
+bound shapes as a CUDA graph (``compile.builder.ProgramBuilder`` with
+``capture=True``, site ``executor.forward``), which reads the bound
+arrays where they lie; from then on ``forward(is_train=False)`` replays
+it. On the CPU it registers the signature and the forward stays eager.
+``program_cost()`` (L376) counts the fused forward and backward: flops
+from ``torch.utils.flop_counter`` on ``meta`` tensors, bytes from the
+allocator on the card. ``set_monitor_callback`` / ``monitor_activate`` /
+``monitor_flush`` (L472-520) hand each interior node's output of a
+forward to a callback (``monitor.Monitor``), collected by ``run_graph``
+in the same pass.
 """
 from __future__ import annotations
 
 import torch
 
 from .base import MXNetError
+from .compile.builder import CapturedProgram, ProgramBuilder
 from .context import resolve_device
 from .ndarray.ndarray import NDArray, zeros
 
@@ -33,8 +45,9 @@ __all__ = ["Executor", "GraphPlan", "run_graph"]
 
 
 class GraphPlan:
-    """A symbol's graph prepared for ``run_graph``: the variables, and the
-    op nodes in topological order with their params parsed once."""
+    """A symbol's graph prepared for ``run_graph``: the variables, the op
+    nodes in topological order with their params parsed once, and after
+    each node the op outputs no later node reads (``release``)."""
 
     def __init__(self, symbol):
         self.symbol = symbol
@@ -55,19 +68,39 @@ class GraphPlan:
                 [node.inputs[n_in + j][0].name for j in range(n_aux)]))
         self.outputs = [(id(n), 0 if n.is_variable else oi)
                         for n, oi in symbol._outputs]
+        last = {}
+        for i, (node, _, in_keys, n_vis, _) in enumerate(self.nodes):
+            for k in in_keys:
+                last[k] = i
+            for j in range(n_vis):
+                last.setdefault((id(node), j), i)
+        keep = set(self.outputs)
+        ops = {(id(node), j) for node, _, _, n_vis, _ in self.nodes
+               for j in range(n_vis)}
+        self.release = [[] for _ in self.nodes]
+        for k, i in last.items():
+            if k in ops and k not in keep:
+                self.release[i].append(k)
 
 
-def run_graph(plan, arg_vals, aux_vals, is_train):
+def run_graph(plan, arg_vals, aux_vals, is_train, collect_interior=False):
     """Interpret ``plan`` on tensors: ``arg_vals`` / ``aux_vals`` map
     variable names to tensors. Returns (outputs tuple, {aux name: updated
-    value})."""
+    value}); with ``collect_interior`` also the list of (name, value) of
+    every op node's outputs in topological order, named
+    ``<node>_output`` (one output) or ``<node>_output<i>`` (the
+    reference's ``_run_graph``, L187-240). Without it, an op output is
+    dropped after the last node that reads it, so memory holds the live
+    set, not every activation (autograd keeps what its backward needs)."""
     vals = {}
     for nid, name, is_aux in plan.variables:
         src = aux_vals if is_aux else arg_vals
         if name in src:
             vals[(nid, 0)] = src[name]
     aux_updates = {}
-    for node, params, in_keys, n_vis, aux_names in plan.nodes:
+    release = () if collect_interior else plan.release
+    for idx, (node, params, in_keys, n_vis, aux_names) in \
+            enumerate(plan.nodes):
         try:
             ins = [vals[k] for k in in_keys]
         except KeyError:
@@ -78,14 +111,23 @@ def run_graph(plan, arg_vals, aux_vals, is_train):
             vals[(id(node), i)] = outs[i]
         for name, upd in zip(aux_names, outs[n_vis:]):
             aux_updates[name] = upd
-    return tuple(vals[k] for k in plan.outputs), aux_updates
+        del ins, outs
+        if release:
+            for k in release[idx]:
+                del vals[k]
+    outputs = tuple(vals[k] for k in plan.outputs)
+    if collect_interior:
+        interior = []
+        for node, _, _, n_vis, _ in plan.nodes:
+            for i in range(n_vis):
+                suffix = "_output" if n_vis == 1 else "_output%d" % i
+                interior.append((node.name + suffix, vals[(id(node), i)]))
+        return outputs, aux_updates, interior
+    return outputs, aux_updates
 
 
-def _not_ported(name):
-    def method(self, *args, **kwargs):
-        raise MXNetError("Executor.%s is not yet ported (ROADMAP A4)" % name)
-    method.__name__ = name
-    return method
+def _meta(t):
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
 
 class Executor:
@@ -122,6 +164,12 @@ class Executor:
                                           ctx=self._device)
         self._plan = GraphPlan(symbol)
         self._pending = None    # (outputs, grad leaves) of a train forward
+        self._fwd_builder = None
+        self._fwd_prog = None    # the warmed inference forward's program
+        self._modes_run = set()  # is_train values a forward ran with
+        self._monitor_cb = None
+        self._monitor_active = False
+        self._pending_monitor = []
         try:
             _, out_shapes, _ = symbol.infer_shape(
                 **{n: a.shape for n, a in self.arg_dict.items()})
@@ -147,21 +195,62 @@ class Executor:
                                                             ctx=self._device)
                 for n, a in out.items()}
 
-    def _run(self, is_train, record):
+    def _values(self):
+        return ({n: a._data for n, a in self.arg_dict.items()},
+                {n: a._data for n, a in self.aux_dict.items()})
+
+    def _run(self, is_train, record, collect=False):
         """One pass of the graph; with ``record``, under autograd with the
         gradient arguments as fresh leaves -> (outputs, aux updates,
-        leaves)."""
-        arg_vals = {n: a._data for n, a in self.arg_dict.items()}
-        aux_vals = {n: a._data for n, a in self.aux_dict.items()}
+        leaves); with ``collect`` the interior outputs go to the monitor's
+        pending list."""
+        arg_vals, aux_vals = self._values()
         leaves = {}
         if record:
             leaves = {n: arg_vals[n].detach().requires_grad_(True)
                       for n in self._grad_names}
             arg_vals.update(leaves)
         with torch.set_grad_enabled(record):
-            outs, aux_upd = run_graph(self._plan, arg_vals, aux_vals,
-                                      is_train)
+            res = run_graph(self._plan, arg_vals, aux_vals, is_train,
+                            collect_interior=collect)
+        if collect:
+            outs, aux_upd, interior = res
+            self._pending_monitor.extend(
+                (name, NDArray(v.detach())) for name, v in interior)
+        else:
+            outs, aux_upd = res
         return outs, aux_upd, leaves
+
+    def _forward_body(self):
+        plan = self._plan
+
+        def fwd(arg_vals, aux_vals):
+            return run_graph(plan, arg_vals, aux_vals, False)[0]
+        return fwd
+
+    def warmup(self, is_train=False):
+        """Build the inference forward's program at the bound shapes
+        ahead of time: on the card, capture it as a CUDA graph that reads
+        the bound arrays in place, so every later ``forward(
+        is_train=False)`` replays it (bit for bit the eager forward); on
+        the CPU register its signature (the forward stays eager). A train
+        forward, whose aux updates and autograd record run eagerly, has no
+        program to build. Returns self."""
+        if is_train:
+            return self
+        if self._fwd_builder is None:
+            self._fwd_builder = ProgramBuilder(
+                self._forward_body(), site="executor.forward", capture=True,
+                static_argnums=(0, 1))
+        self._fwd_prog = self._fwd_builder.aot_info(*self._values(),
+                                                    mode="aot")[0]
+        return self
+
+    def has_compiled_forward(self, is_train=False):
+        """Whether a forward of this mode already ran or was built ahead
+        of time (the Module's serving router reads it)."""
+        return bool(is_train) in self._modes_run or (
+            not is_train and self._fwd_prog is not None)
 
     def forward(self, is_train=False, **kwargs):
         for k, v in kwargs.items():
@@ -169,7 +258,17 @@ class Executor:
                 raise MXNetError("unknown forward argument %r" % k)
             self.arg_dict[k][:] = v
         record = bool(is_train and self._grad_names)
-        outs, aux_upd, leaves = self._run(is_train, record)
+        collect = self._monitor_cb is not None and self._monitor_active
+        # the warmed program was built at the bound shapes, which an
+        # executor keeps (a call copies in any array rebound since, and
+        # raises on another shape)
+        prog = None if (is_train or collect) else self._fwd_prog
+        if isinstance(prog, CapturedProgram):
+            outs, aux_upd, leaves = prog(*self._values()), {}, {}
+        else:
+            outs, aux_upd, leaves = self._run(is_train, record, collect)
+        if not (is_train and self._grad_names):
+            self._modes_run.add(bool(is_train))
         self._pending = (outs, leaves) if record else None
         with torch.no_grad():
             for name, val in aux_upd.items():
@@ -279,6 +378,100 @@ class Executor:
         return Executor(self._symbol, self._device, new_args, grads,
                         self._grad_req, new_aux)
 
-    warmup = _not_ported("warmup")
-    program_cost = _not_ported("program_cost")
-    set_monitor_callback = _not_ported("set_monitor_callback")
+    # ------------------------------------------------------------------
+    # monitor hooks (reference L472-520)
+    # ------------------------------------------------------------------
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Call ``callback(name, NDArray)`` with each interior node's
+        output of every forward while active (``monitor_flush``)."""
+        self._monitor_cb = callback
+        self._monitor_active = True
+        self._pending_monitor = []
+
+    def monitor_activate(self, active):
+        """Gate the interior capture (``Monitor.tic``/``toc`` toggle it,
+        so batches off the interval pay nothing)."""
+        self._monitor_active = bool(active)
+        if not active:
+            self._pending_monitor = []
+
+    def monitor_flush(self):
+        """Hand the collected interior outputs to the callback."""
+        cb = self._monitor_cb
+        pending, self._pending_monitor = self._pending_monitor, []
+        if cb is None:
+            return
+        for name, arr in pending:
+            cb(name, arr)
+
+    # ------------------------------------------------------------------
+    # cost (reference L376)
+    # ------------------------------------------------------------------
+    def program_cost(self):
+        """Accounting of the fused forward and backward (the train-mode
+        forward when nothing takes a gradient) at the bound shapes:
+        ``{"flops", "peak_bytes", "temp_bytes"}``.
+
+        - ``flops``: the products of the graph and its backward as
+          ``torch.utils.flop_counter.FlopCounterMode`` counts them, on
+          ``meta`` tensors (no data, no device): 2 per multiply-add of
+          every convolution and matmul, forward and backward. XLA's cost
+          analysis, which the reference returns, also counts each
+          elementwise operation (BatchNorm, activations, the loss), so it
+          is a few percent higher on a convolution network.
+        - On the card, ``temp_bytes`` is the allocator's peak over one
+          real forward and backward less what was allocated before it
+          (activations, gradients, workspaces), and ``peak_bytes`` adds
+          the bound arguments and aux states. The step's gradients and
+          aux updates are discarded: no state changes.
+        - On the CPU the bytes are this executor's own accounting on the
+          ``meta`` pass: ``temp_bytes`` sums every op output of the
+          forward (all held for the backward) and the gradients;
+          ``peak_bytes`` adds the arguments and aux states.
+
+        XLA reports its buffer assignment's peak instead, which reuses
+        dead buffers, so the reference's bytes are lower for the same
+        graph; compare bytes only within one package."""
+        from torch.utils.flop_counter import FlopCounterMode
+        arg_vals, aux_vals = self._values()
+        in_bytes = sum(t.numel() * t.element_size()
+                       for d in (arg_vals, aux_vals) for t in d.values())
+        margs = {n: _meta(t) for n, t in arg_vals.items()}
+        maux = {n: _meta(t) for n, t in aux_vals.items()}
+        with FlopCounterMode(display=False) as counter:
+            interior, grads = self._fwd_bwd(margs, maux, collect=True)
+        flops = float(counter.get_total_flops())
+        if self._device.type == "cuda":
+            dev = self._device
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            res = self._fwd_bwd(arg_vals, aux_vals)
+            torch.cuda.synchronize(dev)
+            temp = torch.cuda.max_memory_allocated(dev) - base
+            del res
+        else:
+            temp = sum(v.numel() * v.element_size() for _, v in interior)
+            temp += sum(g.numel() * g.element_size() for g in grads)
+        return {"flops": flops, "peak_bytes": float(in_bytes + temp),
+                "temp_bytes": float(temp)}
+
+    def _fwd_bwd(self, arg_vals, aux_vals, collect=False):
+        """A train-mode forward and, with gradients, the backward of its
+        outputs seeded with ones: (interior outputs, gradients)."""
+        arg_vals = dict(arg_vals)
+        leaves = {n: arg_vals[n].detach().requires_grad_(True)
+                  for n in self._grad_names}
+        arg_vals.update(leaves)
+        with torch.set_grad_enabled(bool(leaves)):
+            res = run_graph(self._plan, arg_vals, aux_vals, True,
+                            collect_interior=collect)
+            outs = res[0]
+            pairs = [o for o in outs if o.requires_grad]
+            grads = []
+            if leaves and pairs:
+                grads = torch.autograd.grad(
+                    pairs, list(leaves.values()),
+                    [torch.ones_like(o) for o in pairs],
+                    allow_unused=True, materialize_grads=True)
+        return (res[2] if collect else []), list(grads)

@@ -14,7 +14,10 @@ On the fused path the train iterator is wrapped in a device prefetch
 ``False`` forces it off) runs the whole fit through
 ``resilience.TrainingSupervisor.run_fit`` (reference L167-240), and a
 supervised epoch observes every step's verdict before its params are
-read. ``checkpoint_manager=`` is not yet ported (ROADMAP A8).
+read. ``monitor=`` installs a ``monitor.Monitor`` on the executors
+(``install_monitor``), ticked before each batch and printed after its
+metric update, as the reference's loop does (L211, L313-327).
+``checkpoint_manager=`` is not yet ported (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -216,7 +219,7 @@ class BaseModule:
                              validation_metric, epoch_end_callback,
                              batch_end_callback, eval_end_callback,
                              eval_batch_end_callback, begin_epoch, num_epoch,
-                             sparse_row_id_fn)
+                             monitor, sparse_row_id_fn)
         finally:
             # a wrapper this fit made stops its stager, also when the fit
             # unwinds (a supervisor's retry makes a fresh one)
@@ -227,7 +230,7 @@ class BaseModule:
                     validation_metric, epoch_end_callback,
                     batch_end_callback, eval_end_callback,
                     eval_batch_end_callback, begin_epoch, num_epoch,
-                    sparse_row_id_fn):
+                    monitor, sparse_row_id_fn):
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
@@ -235,6 +238,8 @@ class BaseModule:
             batch = next(source)
             nbatch, last, epoch_values = 0, False, []
             while not last:
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(batch)
                 self.update()
                 # take the next batch while this step's device work is in
@@ -245,6 +250,8 @@ class BaseModule:
                 except StopIteration:
                     upcoming, last = None, True
                 self.update_metric(eval_metric, batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if last:
                     # before the batch callbacks: Speedometer resets the
                     # metric, and the epoch line reports the whole epoch
@@ -323,6 +330,9 @@ class BaseModule:
         from ..model import load_params as _load
         arg_params, aux_params = _load(fname)
         self.set_params(arg_params, aux_params)
+
+    def install_monitor(self, mon):
+        raise NotImplementedError
 
     def prepare(self, data_batch, sparse_row_id_fn=None):
         if sparse_row_id_fn is not None:

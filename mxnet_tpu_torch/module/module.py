@@ -44,9 +44,20 @@ On the fused path (reference L361-590, L811-830):
   build: the step's signature is registered before the first batch and
   kernel #7's library is built and loaded.
 
+``predict`` routes through a ``serving.InferenceEngine`` (reference
+L682-745): the bound batch size is its one bucket, so on the card an
+inference batch replays one captured CUDA graph and a final partial batch
+is padded into it. The route is taken on the reference's conditions (one
+context, no state names, no monitor, no input gradients, a batch-major
+layout, ``MXNET_SERVING_PREDICT`` not 0, and no inference forward already
+run on the executors); otherwise ``predict`` runs the executors. Unlike
+the reference, an error of the engine (a capture or a launch) raises; it
+never falls back. ``install_monitor`` (L877) hooks a ``monitor.Monitor``
+on the executors and turns the fused step off, as the reference does.
+
 Not yet ported, and raising: more than one context, ``group2ctxs`` and
 gradient compression (ROADMAP A7), optimizer state files (ROADMAP A8),
-monitors and row-sparse parameters (ROADMAP A9).
+and row-sparse parameters (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -139,6 +150,8 @@ class Module(BaseModule):
         self._inflight = collections.deque()
         self._dispatch_depth = 2
         self._fused_step_count = 0
+        self._monitor = None
+        self._serving_engine = None
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
@@ -316,6 +329,7 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+        self._serving_engine = None
         self._inflight.clear()
 
     def reshape(self, data_shapes, label_shapes=None):
@@ -395,7 +409,7 @@ class Module(BaseModule):
             return
         if not self.for_training or self._grad_req != "write":
             return
-        if self.inputs_need_grad or self._state_names:
+        if self.inputs_need_grad or self._state_names or self._monitor:
             return
         if self._label_shapes is None:
             return
@@ -567,7 +581,8 @@ class Module(BaseModule):
     # ------------------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
-        if (self._fused_step is not None and (is_train is None or is_train)
+        if (self._fused_step is not None and self._monitor is None
+                and (is_train is None or is_train)
                 and getattr(data_batch, "label", None)):
             self._fused_forward(data_batch)
             return
@@ -655,7 +670,83 @@ class Module(BaseModule):
         _not_ported("Module.load_optimizer_states", "A8")
 
     def install_monitor(self, mon):
-        _not_ported("Module.install_monitor", "A9")
+        """Hook ``mon`` on the executors; interior capture needs them, so
+        the fused step is turned off (its params first brought back)."""
+        assert self.binded
+        self._monitor = mon
+        if self._fused_step is not None:
+            self._sync_fused_to_execs()
+            self._fused_step = None
+        for exec_ in self._exec_group.execs:
+            mon.install(exec_)
+
+    # ------------------------------------------------------------------
+    # predict through the serving engine (reference L682-745)
+    # ------------------------------------------------------------------
+    def _predict_serving_engine(self):
+        """The module's InferenceEngine, built on first use and refreshed
+        with the executors' current params; None when the module does not
+        serve (then predict runs the executors)."""
+        if not env_flag("MXNET_SERVING_PREDICT", True):
+            return None
+        if not (self.binded and self.params_initialized):
+            return None
+        if (len(self._context) != 1 or self._state_names
+                or self._monitor is not None or self.inputs_need_grad):
+            return None
+        for desc in self._data_shapes:
+            layout = getattr(desc, "layout", None)
+            if layout and "N" in layout and layout.find("N") != 0:
+                return None  # the engine pads and splits axis 0 only
+        exe0 = self._exec_group.execs[0]
+        if self._serving_engine is None and exe0.has_compiled_forward():
+            # score/eval already ran this module's inference forward on
+            # the executor path: it keeps that path
+            return None
+        self._sync_fused_to_execs()
+        arg_params = {n: exe0.arg_dict[n] for n in self._param_names
+                      if n in exe0.arg_dict}
+        aux_params = dict(exe0.aux_dict)
+        if self._serving_engine is None:
+            from ..serving import InferenceEngine
+            self._serving_engine = InferenceEngine(
+                self._symbol, arg_params, aux_params, ctx=self._context[0],
+                buckets=(self._data_shapes[0].shape[0],),
+                name=getattr(self._symbol, "name", None) or "module")
+        else:
+            self._serving_engine.update_params(arg_params, aux_params)
+        return self._serving_engine
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False, sparse_row_id_fn=None):
+        """The reference's predict, through the serving engine when the
+        module serves (``_predict_serving_engine``)."""
+        eng = (self._predict_serving_engine()
+               if sparse_row_id_fn is None else None)
+        if eng is None:
+            return super().predict(
+                eval_data, num_batch=num_batch, merge_batches=merge_batches,
+                reset=reset, always_output_list=always_output_list,
+                sparse_row_id_fn=sparse_row_id_fn)
+        if reset:
+            eval_data.reset()
+        per_batch = []
+        for i, batch in enumerate(eval_data):
+            if i == num_batch:
+                break
+            n_pad = getattr(batch, "pad", 0) or 0
+            request = {}
+            # labels too when the batch carries them: a graph whose
+            # inference output reads the label sees what the executor
+            # path would
+            for desc, arr in list(zip(self._data_shapes, batch.data)) + \
+                    list(zip(self._label_shapes or [],
+                             getattr(batch, "label", None) or [])):
+                request[desc.name] = arr[:arr.shape[0] - n_pad] \
+                    if n_pad else arr
+            per_batch.append(eng.predict(request))
+        return self._merge_predict_outputs(per_batch, merge_batches,
+                                           always_output_list)
 
 
 def _parse_data_desc(data_names, label_names, data_shapes, label_shapes):

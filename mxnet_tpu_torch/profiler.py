@@ -2,7 +2,9 @@
 
 Counterpart of the counter families of ``mxnet_tpu/profiler.py`` that
 the port's paths feed: latency histograms (``record_latency`` /
-``latency_histogram``), the stateful-decode
+``latency_histogram`` / ``latency_counters`` /
+``percentile_from_counts``), the per-kernel roofline records
+(``record_kernel_roofline`` / ``kernel_counters``), the stateful-decode
 counters (``record_decode_event`` / ``decode_counters``), the per-site
 program-build counters that ``compile.builder.ProgramBuilder`` records
 (``compile_counters``), the training pipeline's overlap counters
@@ -17,7 +19,9 @@ from __future__ import annotations
 import math
 import threading
 
-__all__ = ["record_latency", "latency_histogram",
+__all__ = ["record_latency", "latency_histogram", "latency_counters",
+           "percentile_from_counts",
+           "record_kernel_roofline", "kernel_counters",
            "record_decode_event", "decode_counters",
            "record_compile", "record_compile_hit", "compile_counters",
            "record_pipeline_event", "pipeline_counters",
@@ -77,6 +81,89 @@ def latency_histogram(key):
         return list(h["counts"]) if h else None
 
 
+def _lat_percentile_ns(h, q):
+    """Upper edge (ns) of the bucket where the cumulative count crosses
+    ``q``: a percentile that never underestimates."""
+    target = q * h["count"]
+    cum = 0
+    for i, c in enumerate(h["counts"]):
+        cum += c
+        if cum >= target and c:
+            return _LAT_EDGES_NS[i]
+    return h["max_ns"]
+
+
+def percentile_from_counts(counts, q):
+    """Upper-bucket-edge percentile in milliseconds from a bucket-count
+    list (typically the difference of two :func:`latency_histogram`
+    snapshots); None when it holds no samples."""
+    total = sum(counts)
+    if total <= 0:
+        return None
+    target = q * total
+    cum = 0
+    for i, c in enumerate(counts):
+        cum += c
+        if cum >= target and c:
+            return _LAT_EDGES_NS[i] / 1e6
+    return _LAT_EDGES_NS[-1] / 1e6
+
+
+def latency_counters(reset=False, prefix=None):
+    """Snapshot (optionally reset) the latency histograms as key ->
+    ``{count, p50_ms, p95_ms, p99_ms, mean_ms, max_ms}``. ``prefix``
+    filters the keys; a reset with a prefix clears only those."""
+    out = {}
+    with _lock:
+        for key, h in _latency.items():
+            if prefix is not None and not key.startswith(prefix):
+                continue
+            if not h["count"]:
+                continue
+            out[key] = {
+                "count": h["count"],
+                "p50_ms": round(_lat_percentile_ns(h, 0.50) / 1e6, 3),
+                "p95_ms": round(_lat_percentile_ns(h, 0.95) / 1e6, 3),
+                "p99_ms": round(_lat_percentile_ns(h, 0.99) / 1e6, 3),
+                "mean_ms": round(h["sum_ns"] / h["count"] / 1e6, 3),
+                "max_ms": round(h["max_ns"] / 1e6, 3)}
+        if reset:
+            if prefix is None:
+                _latency.clear()
+            else:
+                for key in [k for k in _latency if k.startswith(prefix)]:
+                    del _latency[key]
+    return out
+
+
+# ----------------------------------------------------------------------
+# per-kernel roofline records: a kernel's measured figure beside its
+# ideal one (achieved against peak rate, or bytes against must-move
+# bytes), recorded by whoever measured it
+# ----------------------------------------------------------------------
+_kernels = {}
+
+
+def record_kernel_roofline(kernel, measured, ideal, unit=""):
+    """Record one kernel's measured-vs-ideal pair; the ratio is derived,
+    so a later record with a better measurement stays consistent."""
+    with _lock:
+        _kernels[kernel] = {
+            "measured": float(measured), "ideal": float(ideal),
+            "unit": unit,
+            "measured_vs_ideal": (round(float(measured) / float(ideal), 4)
+                                  if ideal else None)}
+
+
+def kernel_counters(reset=False):
+    """Snapshot (optionally reset) the per-kernel roofline records."""
+    with _lock:
+        out = {k: dict(v) for k, v in _kernels.items()}
+        if reset:
+            _kernels.clear()
+    return out
+
+
 # ----------------------------------------------------------------------
 # stateful-decode counters (serving/decode.py): tokens, steps, occupancy
 # (slot_steps / slot_capacity), typed cache-overflow sheds.
@@ -105,10 +192,11 @@ def decode_counters(reset=False):
 
 
 # ----------------------------------------------------------------------
-# program-build counters, per ProgramBuilder site. The port runs program
-# bodies eagerly, so a "compile" is the first sight of a distinct
-# shape/dtype signature: ahead of time (warmup) or on demand (first
-# dispatch), and a cache hit is a warmup re-request of a known one.
+# program-build counters, per ProgramBuilder site. A "compile" is the
+# first sight of a distinct shape/dtype signature, ahead of time (warmup)
+# or on demand (first dispatch): for a capturing builder on the card, the
+# signature's CUDA-graph capture. A cache hit is a request served by a
+# known one (a replay, for a captured program).
 # ----------------------------------------------------------------------
 _COMPILE_ZERO = {"compiles": 0, "aot": 0, "ondemand": 0, "cache_hits": 0}
 _compile_total = dict(_COMPILE_ZERO)

@@ -312,8 +312,11 @@ class Symbol:
                 raise MXNetError("infer_shape: cannot infer %s for node %s"
                                  % (missing, node.name))
             try:
+                # shapes need no training semantics (and torch's train-mode
+                # BatchNorm refuses one value per channel, a batch of 1)
                 out = node.op.infer(params, [in_shapes[nm]
-                                             for nm in in_names])
+                                             for nm in in_names],
+                                    is_train=False)
             except Exception as e:  # shape error inside the op
                 raise MXNetError("infer_shape failed at node %s(%s): %s"
                                  % (node.op.name, node.name, e))

@@ -28,14 +28,21 @@
 - The Module slice: ``Module`` defaults to the card; what is not yet
   ported (a checkpoint manager, also under a supervisor, optimizer-state
   files, background checkpoints, distributed stores, more than one
-  context, other optimizers, monitors, ``BucketingModule``,
-  ``Executor.warmup``, ``FeedForward``) raises naming its ROADMAP item; ``fit(kvstore=
+  context, other optimizers, ``BucketingModule``, ``FeedForward``, the
+  serving engine's ``reload_from``, ``from_block`` and quantized graphs,
+  ``ModelServer.reload_from``) raises naming its ROADMAP item; ``fit(kvstore=
   'tpu_sync')`` under ``MXNET_TPU_FUSED_OPTUPDATE=1`` updates through
   kernel #7's wrapper once a batch; the launcher ``run_script`` refuses a
   process that has imported jax, and in a fresh one resolves
   ``mxnet_tpu.*`` to the port's own module objects.
+- The serving slice: ``InferenceEngine``, ``ModelServer`` and
+  ``BucketedProgramCache`` default to the card; a capture that fails on
+  the card raises out of the builder, the engine and ``Executor.warmup``,
+  the body having run only on the capture's side stream (no eager
+  fallback).
 """
 import ast
+import contextlib
 import json
 import os
 import subprocess
@@ -499,8 +506,9 @@ def _bound_module(**fit_kw):
     ("checkpoint_manager", "A8"), ("save_optimizer_states", "A8"),
     ("background_checkpoint", "A8"), ("dist_kvstore", "A7"),
     ("async_kvstore", "A7"), ("two_contexts", "A7"),
-    ("optimizer", "A2"), ("monitor", "A9"), ("bucketing", "A3"),
-    ("executor_warmup", "A4"), ("feedforward", "A3")])
+    ("optimizer", "A2"), ("bucketing", "A3"), ("feedforward", "A3"),
+    ("engine_reload_from", "A8"), ("engine_from_block", "A9"),
+    ("engine_quantized_graph", "A9"), ("server_reload_from", "A8")])
 def test_module_slice_raises_on_what_is_not_ported(what, item, monkeypatch):
     mod, it = _bound_module()
     fit = dict(num_epoch=1, optimizer_params={"learning_rate": 0.1})
@@ -522,17 +530,124 @@ def test_module_slice_raises_on_what_is_not_ported(what, item, monkeypatch):
         "two_contexts": lambda: tmx.mod.Module(
             _tiny_sym(), context=[tmx.cpu(), tmx.cpu()]),
         "optimizer": lambda: mod.fit(it, optimizer="nag", **fit),
-        "monitor": lambda: mod.fit(it, monitor=object(), **fit),
         "bucketing": lambda: tmx.mod.BucketingModule,
-        "executor_warmup": lambda: _tiny_sym().simple_bind(
-            tmx.cpu(), data=(2, 4)).warmup(),
         "feedforward": lambda: tmx.model.FeedForward,
+        "engine_reload_from": lambda: _tiny_engine().reload_from("x"),
+        "engine_from_block": lambda: tmx.serving.InferenceEngine.from_block(
+            object(), ctx=tmx.cpu()),
+        "engine_quantized_graph": lambda: tmx.serving.InferenceEngine(
+            tmx.sym.FullyConnected(
+                tmx.sym.Variable("data"), num_hidden=3, no_bias=True,
+                weight=tmx.sym.Variable("fc_weight_quantize"), name="fc"),
+            {"fc_weight_quantize": np.zeros((3, 4), np.int8)},
+            ctx=tmx.cpu()),
+        "server_reload_from": lambda: tmx.serving.ModelServer().reload_from(
+            "m", "x"),
     }
     if what == "supervise_env":
         monkeypatch.setenv("MXNET_TPU_TRAIN_SUPERVISE", "1")
     with pytest.raises(MXNetError, match="not yet ported \\(ROADMAP %s"
                        % item):
         calls[what]()
+
+
+def _tiny_engine():
+    sym = _tiny_sym()
+    shapes, _, _ = sym.infer_shape(data=(2, 4))
+    args = {n: np.zeros(s, np.float32)
+            for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+    return tmx.serving.InferenceEngine(sym, args, ctx=tmx.cpu(),
+                                       async_worker=False)
+
+
+def test_serving_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sym = _tiny_sym()
+    args = {"fc_weight": np.zeros((3, 4), np.float32),
+            "fc_bias": np.zeros(3, np.float32)}
+    with pytest.raises(MXNetError, match="CUDA"):
+        tmx.serving.InferenceEngine(sym, args)
+    with pytest.raises(MXNetError, match="CUDA"):
+        tmx.serving.ModelServer().register("m", sym, args)
+    with pytest.raises(MXNetError, match="CUDA"):
+        tmx.serving.BucketedProgramCache(lambda *a: a)
+    assert tmx.serving.InferenceEngine(
+        sym, args, ctx=tmx.cpu()).device.type == "cpu"
+
+
+class _FakeStream:
+    def wait_stream(self, other):
+        pass
+
+    def synchronize(self):
+        pass
+
+
+def test_failed_capture_raises_and_never_runs_the_body_eagerly(monkeypatch):
+    """A capture that fails on the card raises out of the builder, the
+    engine and ``Executor.warmup``: the body ran only on the capture's side
+    stream (its warm run and the capture), never on the caller's, and
+    nothing was built."""
+    from mxnet_tpu_torch.compile import builder as bmod
+    state = {"side": False, "runs": []}
+
+    @contextlib.contextmanager
+    def on_side(stream):
+        state["side"] = True
+        try:
+            yield
+        finally:
+            state["side"] = False
+
+    @contextlib.contextmanager
+    def failing_capture(graph, **kw):
+        state["side"] = True
+        try:
+            yield
+            raise RuntimeError("CUDA error: operation not permitted when "
+                               "stream is capturing")
+        finally:
+            state["side"] = False
+
+    monkeypatch.setattr(bmod.ProgramBuilder, "_capture_device",
+                        lambda self, args: torch.device("cuda", 0)
+                        if self.capture else None)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a, **k: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "stream", on_side)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", failing_capture)
+
+    def body(x):
+        state["runs"].append(state["side"])
+        return x * 2
+
+    b = bmod.ProgramBuilder(body, site="t", capture=True)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="stream is capturing"):
+            b(torch.ones(3))
+    assert state["runs"] == [True] * 4 and b.program_count() == 0
+    eng = _tiny_engine()
+    serve = eng._cache._builder._fn
+
+    def watched(*args):
+        state["runs"].append(state["side"])
+        return serve(*args)
+
+    eng._cache._builder._fn = watched
+    eng._cache._builder.capture = True
+    state["runs"].clear()
+    with pytest.raises(RuntimeError, match="stream is capturing"):
+        eng.predict(np.zeros((1, 4), np.float32))
+    assert state["runs"] == [True, True]
+    assert eng.compiles == 0 and eng.stats()["programs"] == 0
+    exe = _tiny_sym().simple_bind(tmx.cpu(), data=(2, 4))
+    with pytest.raises(RuntimeError, match="stream is capturing"):
+        exe.warmup()
+    assert not exe.has_compiled_forward()
 
 
 def test_module_tpu_sync_routes_through_kernel_7_wrapper(monkeypatch):
