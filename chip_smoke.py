@@ -468,6 +468,48 @@ no result line):
              deadline shed as DeadlineExceeded and are counted;
              submitted == served + shed + failed, none failed. Reports
              breakers, counters, request p50/p95/p99.
+34. frontdoor — the network tier: serving.ServingFrontDoor on
+             127.0.0.1 (port 0, frames sealed with MXNET_SERVING_AUTH_KEY)
+             over a ModelServer holding the SLA model on 2 captured
+             replicas, the serve phase's transformer on 2 decode replicas
+             ("lm") and the long-context configuration on one decode engine
+             ("lm_long": serve_long's engine geometry). A ServingClient in
+             another OS process (this script with --frontdoor-client)
+             streams the serve phase's 8 prompts and one 3800-token prompt,
+             32 new tokens each (the prompt of index 5 through a client of
+             its own whose transport it breaks after token 10), then sends
+             256 SLA predicts of 8 rows. Gates: every stream bit for bit
+             DecodeEngine.generate of its prompt in the gateway process;
+             the broken stream resumed once and delivered seq_nos 1..32; #1
+             launched at least 12 times per prefill call of the 8 prompts
+             and #3 and its combine exactly 12 times per prefill call of the
+             long one (counts from 0 just before the client starts); every
+             predict bit for bit the in-process predict; a tampered frame
+             refused before decode and counted (auth_rejected); on the
+             gateway submitted == served + shed + failed with none failed
+             and none pending; no KV block live. Reports the predicts'
+             wire/queue/device/total ms (p50, p99), TTFT and inter-token
+             over TCP against the same prompts submitted in-process, and
+             the launch counts.
+35. fleet — a gateway ModelServer with the SLA model on one captured
+             local replica and a serving.FleetPool (heartbeat 0.5 s);
+             LocalProcessLauncher starts one worker process on the same
+             card (python -m mxnet_tpu_torch.serving.worker --builder
+             chip_smoke:build_fleet_worker: the same weights from the same
+             seed, its bucket captured before it joins). Gates: the worker
+             joins through the half-open probe and its answers are bit for
+             bit the local replica's; a burst of 240 requests submitted
+             at once with the worker SIGKILLed before the 81st: every one
+             served or shed typed,
+             none failed, right answers, submitted == served + shed +
+             failed; the pool marks the worker SUSPECT, then DEAD, and
+             detaches it; Autoscaler(min_workers=1) launches a replacement,
+             which is admitted and answers bit for bit; a rollover under
+             traffic reaches both replicas (every answer from the old
+             weights or the new, the worker's answers the new ones after
+             it). Reports the join seconds (process start and capture
+             included), the failover's counts and latency p50/p99, the
+             seconds to SUSPECT and DEAD after the kill, the rollover ms.
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
@@ -494,7 +536,8 @@ forwards, the bf16 and float16 serving and training runs, long ones
 included; #7's adds its launches in module_fit, example_scripts,
 symbolic_bf16 and supervised_fit, by path in ``launches_by_path``;
 #1's and #8's ``launches_by_path`` add model_server's and
-serve_engine_rtc's counts, taken on the host at capture), its error (the 16-bit
+serve_engine_rtc's counts, taken on the host at capture; #1's and #3's (and
+its combine's) add frontdoor's), its error (the 16-bit
 entries in row ulps of their dtype) and times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -5235,7 +5278,7 @@ def phase_serve_engine_rtc(torch, dev, rtc):
     """rtc_infer's graph (#8 in every relu) served through an engine's
     captured programs (module docstring, phase 32). Returns (result, #8's
     launches on this path)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from mxnet_tpu_torch.serving import InferenceEngine
     relu_k = rtc["kernel"]
     params = {k: v for k, v in rtc["args"].items() if k not in RESNET_SHAPES}
@@ -5279,10 +5322,17 @@ def phase_serve_engine_rtc(torch, dev, rtc):
         if relu_k.launches != before:
             fail("serve_engine_rtc: replays moved #8's host count from %d "
                  "to %d" % (before, relu_k.launches))
+        # one replay traced after a warm-up step of the profiler: a
+        # trace's first kernels can go unrecorded while its device
+        # tracing starts (one run saw 184 of a replay's 189 events)
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as tr:
-            prog.replay()
-            torch.cuda.synchronize()
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as tr:
+            for _ in range(2):
+                prog.replay()
+                torch.cuda.synchronize()
+                tr.step()
         names = [e.name for e in tr.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         n_user = sum(1 for n in names if "user_relu" in n)
@@ -5530,6 +5580,483 @@ def phase_model_server(torch, fa, dev, seed, model):
             }, launches
 
 
+# ----------------------------------------------------------------------
+# the network tier: the front door over TCP and the fleet (phases 34, 35)
+# ----------------------------------------------------------------------
+FD_NEW = 32             # new tokens a stream
+FD_PREDICTS = 256       # SLA predicts through the wire
+FD_BREAK_AT = 10        # the broken stream loses its transport after this
+FD_BREAK_PROMPT = 5     # ... and is the serve phase's prompt of this index
+FLEET_HEARTBEAT_S = 0.5
+FLEET_TRAFFIC = 240     # requests of the failover trace
+FLEET_KILL_AT = 80      # the worker is SIGKILLed before this request
+FLEET_WAIT_S = 120.0    # a worker's start, import and capture included
+SEED_ENV = "MXNET_CHIP_SMOKE_SEED"
+DEVICE_ENV = "MXNET_CHIP_SMOKE_DEVICE"
+
+
+def _pct(values, q):
+    """The q-quantile (0..1) of ``values`` by nearest rank, or None."""
+    if not values:
+        return None
+    s = sorted(values)
+    return s[min(len(s) - 1, max(0, int(math.ceil(q * len(s))) - 1))]
+
+
+def _p50_p99(values):
+    return {"p50": _pct(values, 0.50), "p99": _pct(values, 0.99),
+            "n": len(values)}
+
+
+def sla_weights(seed, n=1):
+    """The SLA model's weight sets from ``seed``, as the model_server
+    phase draws them (numpy float32)."""
+    import numpy as np
+    sym = _sla_symbol()
+    rng = np.random.RandomState(seed)
+    shapes, _, _ = sym.infer_shape(data=(SLA_BUCKET, SLA_IN))
+    return sym, [{k: rng.normal(0, 0.05, s).astype(np.float32)
+                  for k, s in zip(sym.list_arguments(), shapes)
+                  if k not in ("data", "softmax_label")} for _ in range(n)]
+
+
+def build_fleet_worker():
+    """The fleet worker's builder (``python -m
+    mxnet_tpu_torch.serving.worker --builder chip_smoke:build_fleet_worker``):
+    the SLA model on one replica on the gateway's device
+    (``MXNET_CHIP_SMOKE_DEVICE``, else the card), with the gateway's
+    weights (``MXNET_CHIP_SMOKE_SEED``, else SEED), its bucket captured
+    before it returns, float32 kept float32."""
+    import torch
+    from mxnet_tpu_torch.serving import ModelServer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sym, (weights,) = sla_weights(int(os.environ.get(SEED_ENV, SEED)))
+    srv = ModelServer(hedge_ms=False)
+    srv.register("sla_model", sym, weights, ctx=os.environ.get(DEVICE_ENV),
+                 buckets=(SLA_BUCKET,), max_delay_ms=1.0, slack_factor=3.0,
+                 shed_margin=2.5,
+                 warmup_shapes={"data": (SLA_BUCKET, SLA_IN)})
+    eng = srv.engine("sla_model")
+    if eng.device.type == "cuda" and eng.captures != 1:
+        fail("build_fleet_worker: the bucket was not captured")
+    return srv
+
+
+def frontdoor_client(spec_path):
+    """The front door phase's client, in its own OS process (``python3
+    chip_smoke.py --frontdoor-client SPEC``): the streams and the SLA
+    predicts of SPEC through ``ServingClient`` over TCP; writes what it
+    got to SPEC's ``out`` (JSON) and ``outs`` (npz)."""
+    import numpy as np
+    sys.path.insert(0, ROOT)
+    from mxnet_tpu_torch.serving import ServingClient
+    with open(spec_path) as f:
+        spec = json.load(f)
+    host, port = "127.0.0.1", spec["port"]
+    main = ServingClient(host, port, pool_size=2, connect_deadline_s=60.0)
+    breaker = ServingClient(host, port, pool_size=1, connect_deadline_s=60.0)
+    stamps, seqs = {}, {}
+
+    def on_token(stream, seq_no, token):
+        stamps.setdefault(stream.trace, []).append(time.monotonic())
+        seqs.setdefault(stream.trace, []).append(seq_no)
+        if stream.trace == "broken" and seq_no == FD_BREAK_AT:
+            breaker._pool[0].break_transport()
+
+    t0 = time.monotonic()
+    streams = []
+    for i, (model, prompt) in enumerate(spec["streams"]):
+        client = breaker if i == spec["broken"] else main
+        trace = "broken" if i == spec["broken"] else "s%d" % i
+        streams.append(client.decode_async(
+            prompt, model=model, max_new_tokens=FD_NEW, trace_id=trace,
+            on_token=on_token))
+    tokens = [s.result_wait(WAIT_S) for s in streams]
+    stream_s = time.monotonic() - t0
+    ttft = {s.trace: (stamps[s.trace][0] - s.t_submit) * 1e3
+            for s in streams}
+    gaps = {s.trace: [(b - a) * 1e3 for a, b in zip(stamps[s.trace],
+                                                     stamps[s.trace][1:])]
+            for s in streams}
+    xs = np.load(spec["xs"])
+    t0 = time.monotonic()
+    futs = [main.predict_async({"data": xs[k % len(xs)]}, model="sla_model")
+            for k in range(spec["predicts"])]
+    outs = [f.result_wait(WAIT_S)[0] for f in futs]
+    predict_s = time.monotonic() - t0
+    np.savez(spec["outs"], *outs)
+    health = main.health()
+    result = {"tokens": tokens, "seq_nos": [seqs[s.trace] for s in streams],
+              "ttft_ms": [ttft[s.trace] for s in streams],
+              "gaps_ms": [gaps[s.trace] for s in streams],
+              "timings": [f.timings for f in futs],
+              "stream_s": stream_s, "predict_s": predict_s,
+              "client_stats": {"main": main.stats, "breaker": breaker.stats},
+              "health_models": sorted(health["models"])}
+    main.close()
+    breaker.close()
+    with open(spec["out"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def phase_frontdoor(torch, fa, dev, seed, model):
+    """A ServingFrontDoor over a ModelServer on the card, its client in
+    another OS process (module docstring, phase 34). Returns (result,
+    {counter: launches on this path})."""
+    import socket
+    import numpy as np
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerDecodeModel)
+    from mxnet_tpu_torch.serving import (DecodeEngine, ModelServer,
+                                         ServingFrontDoor, wire)
+    sym, weights = sla_weights(seed)
+    rng = np.random.RandomState(seed + 1)
+    xs = rng.uniform(-1, 1, (8, SLA_BUCKET, SLA_IN)).astype(np.float32)
+    key = os.environ["MXNET_SERVING_AUTH_KEY"]
+    long_cfg = long_config(TransformerConfig)
+    srv = ModelServer(hedge_ms=False)
+    fd = None
+    try:
+        t0 = time.perf_counter()
+        srv.register("sla_model", sym, weights[0], ctx=dev, replicas=2,
+                     buckets=(SLA_BUCKET,), max_delay_ms=1.0,
+                     slack_factor=3.0, shed_margin=2.5,
+                     warmup_shapes={"data": (SLA_BUCKET, SLA_IN)})
+        decs = [DecodeEngine(block_size=16, num_blocks=257, batch_size=8,
+                             max_seq_len=512, prefill_buckets=(64, 256),
+                             prefill_chunk=256, name="fd_lm%d" % i,
+                             **model.engine_kwargs()) for i in range(2)]
+        for d in decs:
+            srv.register_decode("lm", d)
+        long_model = TransformerDecodeModel(long_cfg, seed=seed, device=dev)
+        if not (model.use_kernel and long_model.use_kernel):
+            fail("frontdoor: a decode model is not on the kernel tier")
+        long_eng = DecodeEngine(block_size=16, num_blocks=1025,
+                                batch_size=4, max_seq_len=LONG_S,
+                                prefill_buckets=(256, 1024),
+                                prefill_chunk=1024, name="fd_long",
+                                **long_model.engine_kwargs())
+        srv.register_decode("lm_long", long_eng)
+        fd = ServingFrontDoor(srv, host="127.0.0.1", port=0).start()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        want = [srv.predict("sla_model", {"data": x})[0]._data for x in xs]
+
+        prng = torch.Generator().manual_seed(SEED + 1)
+        lengths = [5, 37, 64, 100, 200, 257, 380, 480]
+        prompts = [torch.randint(0, model.cfg.vocab_size, (n,),
+                                 generator=prng).tolist() for n in lengths]
+        long_prompt = np.random.RandomState(seed).randint(
+            0, long_cfg.vocab_size, LONG_PROMPTS[-1]).tolist()
+        streams = [("lm", p) for p in prompts] + [("lm_long", long_prompt)]
+        grid = [GRID_KERNELS[k][1] for k in ("offs", "offs_combine")]
+        with tempfile.TemporaryDirectory() as tmp:
+            spec = {"port": fd.port, "streams": streams,
+                    "broken": FD_BREAK_PROMPT, "predicts": FD_PREDICTS,
+                    "xs": os.path.join(tmp, "xs.npy"),
+                    "outs": os.path.join(tmp, "outs.npz"),
+                    "out": os.path.join(tmp, "out.json")}
+            np.save(spec["xs"], xs)
+            with open(os.path.join(tmp, "spec.json"), "w") as f:
+                json.dump(spec, f)
+            torch.cuda.synchronize()
+            for name in ("launches",) + tuple(grid):
+                setattr(fa, name, 0)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--frontdoor-client", os.path.join(tmp, "spec.json")],
+                capture_output=True, text=True, timeout=WAIT_S)
+            client_s = time.perf_counter() - t0
+            counts = {name: getattr(fa, name)
+                      for name in ("launches",) + tuple(grid)}
+            if proc.returncode != 0:
+                fail("frontdoor: the client process exited %d: %s"
+                     % (proc.returncode, proc.stderr[-3000:]))
+            with open(spec["out"]) as f:
+                got = json.load(f)
+            with np.load(spec["outs"]) as z:
+                outs = [z["arr_%d" % k] for k in range(FD_PREDICTS)]
+
+        # the streams, bit for bit the engines' own decode in this process
+        solo = [decs[0].generate(p, max_new_tokens=FD_NEW, timeout=WAIT_S)
+                for p in prompts]
+        solo.append(long_eng.generate(long_prompt, max_new_tokens=FD_NEW,
+                                      timeout=WAIT_S))
+        if got["tokens"] != solo:
+            fail("frontdoor: streams over TCP differ from generate() for "
+                 "prompts %s" % [i for i, (a, b) in enumerate(
+                     zip(got["tokens"], solo)) if a != b])
+        if got["seq_nos"][FD_BREAK_PROMPT] != list(range(1, FD_NEW + 1)):
+            fail("frontdoor: the resumed stream delivered seq_nos %s"
+                 % got["seq_nos"][FD_BREAK_PROMPT])
+        bstats = got["client_stats"]["breaker"]
+        if bstats["stream_resumes"] != 1 or bstats["failovers"] != 1:
+            fail("frontdoor: the broken stream did not resume once: %s"
+                 % bstats)
+        calls = sum(-(-n // 256) for n in lengths)
+        long_calls = -(-len(long_prompt) // 1024)
+        if counts["launches"] < model.cfg.num_layers * calls:
+            fail("frontdoor: #1 launched %d times, want >= %d"
+                 % (counts["launches"], model.cfg.num_layers * calls))
+        for name in grid:
+            if counts[name] != long_cfg.num_layers * long_calls:
+                fail("frontdoor: %s = %d, want %d" % (
+                    name, counts[name], long_cfg.num_layers * long_calls))
+        for k, out in enumerate(outs):
+            if not torch.equal(torch.from_numpy(out),
+                               want[k % len(xs)].cpu()):
+                fail("frontdoor: predict %d over the wire differs from "
+                     "the in-process answer" % k)
+
+        # a tampered frame: refused before decode, and counted
+        rejected = fd.stats()["auth_rejected"]
+        sock = socket.create_connection(("127.0.0.1", fd.port), timeout=10)
+        try:
+            sock.settimeout(10.0)
+            wire.recv_msg(sock, auth_key=key.encode())
+            sealed = wire._seal(wire.encode_payload(
+                ("ping", "x"), wire.CODEC_SAFE), key.encode())
+            tampered = bytes([sealed[0] ^ 0xFF]) + sealed[1:]
+            sock.sendall(len(tampered).to_bytes(8, "little") + tampered)
+            deadline = time.monotonic() + 10.0
+            while fd.stats()["auth_rejected"] == rejected and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+        finally:
+            sock.close()
+        st = fd.stats()
+        if st["auth_rejected"] != rejected + 1:
+            fail("frontdoor: the tampered frame was not refused and "
+                 "counted: %s" % st)
+        if st["submitted"] != st["served"] + st["shed"] + st["failed"] \
+                or st["failed"] or st["submitted"] != len(streams) \
+                + FD_PREDICTS or st["pending"]:
+            fail("frontdoor: gateway accounting %s" % st)
+        live = [d.stats()["kv"]["blocks_live"] for d in decs + [long_eng]]
+        if any(live):
+            fail("frontdoor: KV blocks still live %s" % live)
+
+        # the same prompts in this process, all at once, for TTFT and
+        # inter-token against the wire's
+        stamps = {}
+
+        def on_token(stream, seq_no, token):
+            stamps.setdefault(stream.rid, []).append(time.monotonic())
+        local = [srv.submit_decode("lm", p, pin="local-%d" % i,
+                                   max_new_tokens=FD_NEW, on_token=on_token)
+                 for i, p in enumerate(prompts)]
+        local.append(srv.submit_decode("lm_long", long_prompt,
+                                       max_new_tokens=FD_NEW,
+                                       on_token=on_token))
+        for s in local:
+            s.result_wait(WAIT_S)
+        local_ttft = [(stamps[s.rid][0] - s.submitted_t) * 1e3
+                      for s in local]
+        local_gaps = [(b - a) * 1e3 for s in local
+                      for a, b in zip(stamps[s.rid], stamps[s.rid][1:])]
+    finally:
+        if fd is not None:
+            fd.drain(timeout=30.0)
+        srv.stop()
+    keep = [i for i in range(len(streams)) if i != FD_BREAK_PROMPT]
+    tcp_gaps = [g for i in keep for g in got["gaps_ms"][i]]
+    timings = {k: _p50_p99([t[k] for t in got["timings"]])
+               for k in ("wire_ms", "queue_ms", "device_ms", "total_ms")}
+    return {"phase": "frontdoor", "setup_s": setup_s,
+            "client_process_s": client_s, "stream_s": got["stream_s"],
+            "predict_s": got["predict_s"],
+            "streams": len(streams), "new_tokens": FD_NEW,
+            "prompt_tokens": lengths + [len(long_prompt)],
+            "streams_equal_generate": True,
+            "resumed_seq_nos": [1, FD_NEW], "predicts": FD_PREDICTS,
+            "predicts_bitwise": True, "predict_timings_ms": timings,
+            "ttft_ms_tcp": _p50_p99([got["ttft_ms"][i] for i in keep]),
+            "ttft_ms_in_process": _p50_p99(local_ttft),
+            "intertoken_ms_tcp": _p50_p99(tcp_gaps),
+            "intertoken_ms_in_process": _p50_p99(local_gaps),
+            "broken_stream_ttft_ms": got["ttft_ms"][FD_BREAK_PROMPT],
+            "launches": counts, "prefill_calls": calls,
+            "long_prefill_calls": long_calls,
+            "gateway": st, "client_stats": got["client_stats"]}, counts
+
+
+def phase_fleet(torch, dev, seed):
+    """A gateway with one local SLA replica and a FleetPool, one worker
+    process on the same card (module docstring, phase 35)."""
+    import signal
+    import threading
+    from mxnet_tpu_torch.serving import (Autoscaler, DeadlineExceeded,
+                                         FleetPool, LocalProcessLauncher,
+                                         ModelServer)
+    from mxnet_tpu_torch.serving.pool import RemoteReplica
+    import numpy as np
+    sym, weights = sla_weights(seed, n=2)
+    rng = np.random.RandomState(seed + 2)
+    xs = rng.uniform(-1, 1, (8, SLA_BUCKET, SLA_IN)).astype(np.float32)
+    srv = ModelServer(hedge_ms=False, dispatch_retries=3)
+    pool = launcher = None
+    try:
+        srv.register("sla_model", sym, weights[0], ctx=dev,
+                     buckets=(SLA_BUCKET,), max_delay_ms=1.0,
+                     slack_factor=3.0, shed_margin=2.5,
+                     warmup_shapes={"data": (SLA_BUCKET, SLA_IN)})
+        local = srv.engine("sla_model")
+        pool = FleetPool(srv, host="127.0.0.1", port=0,
+                         heartbeat_s=FLEET_HEARTBEAT_S,
+                         connect_deadline_s=1.0).start()
+        launcher = LocalProcessLauncher(
+            "127.0.0.1:%d" % pool.port, "chip_smoke:build_fleet_worker",
+            env={"PYTHONPATH": ROOT, SEED_ENV: str(seed),
+                 DEVICE_ENV: str(dev)},
+            extra_args=["--heartbeat-s", str(FLEET_HEARTBEAT_S)])
+
+        def remote():
+            return [r for r in srv._models["sla_model"].versions[1]
+                    if isinstance(r.engine, RemoteReplica)]
+
+        def wait_for(cond, what, timeout=FLEET_WAIT_S):
+            deadline = time.monotonic() + timeout
+            while not cond():
+                if time.monotonic() > deadline:
+                    fail("fleet: timed out waiting for %s (%s)"
+                         % (what, pool.stats()))
+                time.sleep(0.01)
+
+        def answers(engine):
+            return [engine.predict({"data": x})[0]._data for x in xs]
+
+        def remote_answers(rep):
+            return [torch.from_numpy(rep.engine.predict_async(
+                {"data": x}).result_wait(WAIT_S)[0]) for x in xs]
+
+        def same(a, b):
+            return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+        want0 = answers(local)
+        t0 = time.perf_counter()
+        proc = launcher.launch()
+        wait_for(lambda: len(remote()) == 1 and pool.stats()[
+            "workers_alive"] == 1, "the worker's join")
+        join_s = time.perf_counter() - t0
+        wid = next(iter(pool.workers()))
+        if not same(remote_answers(remote()[0]), want0):
+            fail("fleet: the worker's answers differ from the local ones")
+
+        # SIGKILL inside an open-loop burst (every request submitted at
+        # once, so both replicas hold a queue): nothing lost, the pool
+        # sees it go
+        base = srv.stats()["sla_model"]["counters"]
+        futs, lat = [], []
+        for i in range(FLEET_TRAFFIC):
+            if i == FLEET_KILL_AT:
+                proc.send_signal(signal.SIGKILL)
+                t_kill = time.monotonic()
+            t_sub = time.monotonic()
+            f = srv.predict_async("sla_model", {"data": xs[i % 8]},
+                                  deadline_ms=8000.0)
+            f.add_done_callback(
+                lambda f, t=t_sub: lat.append((time.monotonic() - t) * 1e3))
+            futs.append((i % 8, f))
+        served = shed = retried = 0
+        for k, f in futs:
+            try:
+                out = f.result_wait(WAIT_S)[0]
+            except DeadlineExceeded:
+                shed += 1
+                continue
+            except Exception as e:
+                fail("fleet: a request failed across the SIGKILL: %s: %s"
+                     % (type(e).__name__, e))
+            if not torch.equal(torch.as_tensor(out).cpu(), want0[k].cpu()):
+                fail("fleet: an answer across the SIGKILL is wrong")
+            served += 1
+            retried += f.attempts > 1
+        counters = srv.stats()["sla_model"]["counters"]
+        if served + shed != FLEET_TRAFFIC or counters["failed"] or \
+                counters["submitted"] - base["submitted"] != FLEET_TRAFFIC \
+                or counters["submitted"] != counters["served"] \
+                + counters["shed"] + counters["failed"]:
+            fail("fleet: accounting across the SIGKILL: %d served, %d "
+                 "shed; %s" % (served, shed, counters))
+        handle = pool._workers[wid]
+        wait_for(lambda: handle.state != "alive", "SUSPECT", 30.0)
+        t_suspect = time.monotonic() - t_kill
+        seen = handle.state
+        wait_for(lambda: handle.state == "dead", "DEAD", 30.0)
+        t_dead = time.monotonic() - t_kill
+        if pool.stats()["suspects"] != 1 or remote():
+            fail("fleet: the dead worker is not SUSPECT then DEAD and "
+                 "detached: %s" % pool.stats())
+
+        # the floor of one worker: the autoscaler launches a replacement
+        asc = Autoscaler(pool.health, launcher, min_workers=1,
+                         max_workers=1, cooldown_s=0.0)
+        t0 = time.perf_counter()
+        if asc.tick() != "up":
+            fail("fleet: the autoscaler did not replace the dead worker")
+        wait_for(lambda: len(remote()) == 1 and pool.stats()[
+            "workers_alive"] == 1, "the replacement's join")
+        rejoin_s = time.perf_counter() - t0
+        if not same(remote_answers(remote()[0]), want0):
+            fail("fleet: the replacement's answers differ from the local")
+
+        # a rollover under traffic reaches both replicas
+        results, stop = [], threading.Event()
+
+        def traffic():
+            i = 0
+            while not stop.is_set() and i < SLA_REQUESTS:
+                results.append((i % 8, srv.predict_async(
+                    "sla_model", {"data": xs[i % 8]})))
+                i += 1
+                time.sleep(5e-4)
+
+        thread = threading.Thread(target=traffic, daemon=True)
+        thread.start()
+        time.sleep(0.05)
+        t1 = time.perf_counter()
+        srv.rollover("sla_model", weights[1])
+        rollover_ms = (time.perf_counter() - t1) * 1e3
+        time.sleep(0.05)
+        stop.set()
+        thread.join(WAIT_S)
+        want1 = answers(local)
+        if not same(remote_answers(remote()[0]), want1):
+            fail("fleet: the worker serves the old weights after rollover")
+        n_old = n_new = 0
+        for k, f in results:
+            out = torch.as_tensor(f.result_wait(WAIT_S)[0]).cpu()
+            old, new = torch.equal(out, want0[k].cpu()), torch.equal(
+                out, want1[k].cpu())
+            if not (old or new):
+                fail("fleet: an answer during the rollover is neither "
+                     "weight set's")
+            n_old += old
+            n_new += new and not old
+        pstats = pool.stats()
+    finally:
+        if pool is not None:
+            pool.stop()
+        if launcher is not None:
+            launcher.stop_all(timeout=30.0)
+        srv.stop()
+    return {"phase": "fleet", "join_s": join_s, "rejoin_s": rejoin_s,
+            "failover": {"requests": FLEET_TRAFFIC, "served": served,
+                         "shed": shed, "failed": 0, "rerouted": retried,
+                         "p50_ms": _pct(lat, 0.50), "p99_ms": _pct(lat, 0.99),
+                         "suspect_after_kill_s": t_suspect,
+                         "first_state": seen, "dead_after_kill_s": t_dead},
+            "rollover_ms": rollover_ms,
+            "rollover_answers": {"old": n_old, "new": n_new},
+            "pool": {k: pstats[k] for k in ("joins", "rejoins", "rejects",
+                                            "suspects", "deads",
+                                            "recoveries", "heartbeats")},
+            "launches": launcher.launches, "gateway_counters": counters}
+
+
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
           "grid_kernel", "serve_long", "train_long", "rtc_kernel",
@@ -5537,11 +6064,13 @@ PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_bf16", "symbolic_bf16", "bf16_kernel", "serve_long_bf16",
           "train_long_bf16", "serve_f16", "train_f16", "f16_kernel",
           "serve_long_f16", "train_long_f16", "supervised_fit",
-          "serve_engine", "serve_engine_rtc", "model_server")
+          "serve_engine", "serve_engine_rtc", "model_server", "frontdoor",
+          "fleet")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",),
-         "serve_engine_rtc": ("rtc_infer",), "model_server": ("serve",)}
+         "serve_engine_rtc": ("rtc_infer",), "model_server": ("serve",),
+         "frontdoor": ("serve",)}
 
 
 def main():
@@ -5559,7 +6088,12 @@ def main():
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of %s (default: all)"
                         % ",".join(PHASES))
+    parser.add_argument("--frontdoor-client", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.frontdoor_client:
+        # the frontdoor phase's client process (it needs no card)
+        return frontdoor_client(args.frontdoor_client)
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
         parser.error("unknown phases %s" % sorted(phases - set(PHASES)))
@@ -5609,9 +6143,10 @@ def main():
         if "profile" in phases:
             emit({**phase_profile(torch, model, dev, args.profile_dir),
                   "card": card})
-        # the model_server phase serves the same model on its decode
-        # replicas
-        serve_model = model if "model_server" in phases else None
+        # the model_server and frontdoor phases serve the same model on
+        # their decode replicas
+        serve_model = model if phases & {"model_server", "frontdoor"} \
+            else None
         del model
         if "kernel" in phases:
             path_row = next(r for r in rows if r["C"] == 256
@@ -5805,13 +6340,36 @@ def main():
         res, server_launches = phase_model_server(torch, fa, dev, args.seed,
                                                   serve_model)
         emit({**res, "card": card})
-        del serve_model
         torch.cuda.empty_cache()
         for entry in entries:
             if entry["name"] == "flash_fwd_offs_f32":
                 entry["launches_by_path"] = {
                     "serve": entry["launches"],
                     "model_server": server_launches}
+    if phases & {"frontdoor", "fleet"}:
+        # the network tier's frames are sealed with a key of this run
+        os.environ["MXNET_SERVING_AUTH_KEY"] = "chip-smoke-%s" % os.urandom(
+            8).hex()
+    if "frontdoor" in phases:
+        res, fd_counts = phase_frontdoor(torch, fa, dev, args.seed,
+                                         serve_model)
+        emit({**res, "card": card})
+        torch.cuda.empty_cache()
+        # #1's and #3's launches on this path join their entries
+        by_name = {"flash_fwd_offs_f32": "launches",
+                   GRID_KERNELS["offs"][0][3:]: GRID_KERNELS["offs"][1],
+                   GRID_KERNELS["offs_combine"][0][3:]:
+                       GRID_KERNELS["offs_combine"][1]}
+        for entry in entries:
+            counter = by_name.get(entry["name"])
+            if counter is not None:
+                entry.setdefault("launches_by_path", {
+                    "serve_long" if counter != "launches" else "serve":
+                        entry["launches"]})["frontdoor"] = fd_counts[counter]
+    serve_model = None
+    if "fleet" in phases:
+        emit({**phase_fleet(torch, dev, args.seed), "card": card})
+        torch.cuda.empty_cache()
     # the 16-bit paths, bf16 then float16; symbolic_bf16 between them
     half_launches = {sfx: {} for sfx in HALF}
     for sfx in HALF:

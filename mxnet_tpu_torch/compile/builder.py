@@ -26,6 +26,7 @@ after a failed capture.
 from __future__ import annotations
 
 import threading
+import time
 from collections import namedtuple
 
 import numpy as _np
@@ -302,6 +303,7 @@ class ProgramBuilder:
                 entry = entry.program
             _prof.record_compile_hit(self.site)
             return entry, False
+        tic = time.perf_counter()
         try:
             prog = self._build(args)
         except BaseException as e:
@@ -314,7 +316,8 @@ class ProgramBuilder:
         with self._lock:
             self._programs[key] = prog
         entry.ready.set()
-        _prof.record_compile(self.site, aot=(mode == "aot"))
+        _prof.record_compile(self.site, aot=(mode == "aot"),
+                             compile_ms=(time.perf_counter() - tic) * 1e3)
         return prog, True
 
     def lookup(self, *args):

@@ -10,9 +10,11 @@ program-build counters that ``compile.builder.ProgramBuilder`` records
 (``compile_counters``), the training pipeline's overlap counters
 (``record_pipeline_event`` / ``pipeline_counters``: the device prefetch
 and the fused step's dispatch and readback), the training supervisor's
-(``record_supervisor_event`` / ``supervisor_counters``), and the retry,
-fault-injection and watchdog counts the resilience modules record. The
-keys are the reference's. Plain adds under one lock, no profiler session.
+(``record_supervisor_event`` / ``supervisor_counters``), the serving
+fleet's membership and autoscaler events (``record_fleet_event`` /
+``fleet_counters``), and the retry, fault-injection and watchdog counts
+the resilience modules record. The keys are the reference's. Plain adds
+under one lock, no profiler session.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ __all__ = ["record_latency", "latency_histogram", "latency_counters",
            "record_compile", "record_compile_hit", "compile_counters",
            "record_pipeline_event", "pipeline_counters",
            "record_supervisor_event", "supervisor_counters",
+           "record_fleet_event", "fleet_counters",
            "record_retry", "retry_counters",
            "record_fault_injection", "fault_counters",
            "record_watchdog_event", "watchdog_counters"]
@@ -196,19 +199,24 @@ def decode_counters(reset=False):
 # first sight of a distinct shape/dtype signature, ahead of time (warmup)
 # or on demand (first dispatch): for a capturing builder on the card, the
 # signature's CUDA-graph capture. A cache hit is a request served by a
-# known one (a replay, for a captured program).
+# known one (a replay, for a captured program). compile_ms is the wall
+# the builds took (a capture's warm run and capture on the card), which
+# ModelServer.health() windows between polls.
 # ----------------------------------------------------------------------
-_COMPILE_ZERO = {"compiles": 0, "aot": 0, "ondemand": 0, "cache_hits": 0}
+_COMPILE_ZERO = {"compiles": 0, "compile_ms": 0.0, "aot": 0, "ondemand": 0,
+                 "cache_hits": 0}
 _compile_total = dict(_COMPILE_ZERO)
 _compile_sites = {}
 
 
-def record_compile(site, aot=True):
-    """Record one new program signature at ``site``."""
+def record_compile(site, aot=True, compile_ms=0.0):
+    """Record one new program signature at ``site``, built in
+    ``compile_ms`` of wall time."""
     with _lock:
         for d in (_compile_total,
                   _compile_sites.setdefault(site, dict(_COMPILE_ZERO))):
             d["compiles"] += 1
+            d["compile_ms"] += float(compile_ms)
             d["aot" if aot else "ondemand"] += 1
 
 
@@ -287,6 +295,39 @@ def supervisor_counters(reset=False):
         if reset:
             _supervisor.clear()
             _supervisor.update(_SUPERVISOR_ZERO)
+    return out
+
+
+# ----------------------------------------------------------------------
+# serving-fleet counters (serving/pool.py, serving/autoscaler.py): worker
+# membership transitions and autoscaler actions
+# ----------------------------------------------------------------------
+_FLEET_ZERO = {"joins": 0, "rejoins": 0, "suspects": 0, "deads": 0,
+               "recoveries": 0, "scale_ups": 0, "scale_downs": 0}
+_fleet = dict(_FLEET_ZERO)
+
+
+def record_fleet_event(event):
+    """Count one fleet membership/autoscaler event: "join", "rejoin",
+    "suspect", "dead", "recovery", "scale_up", "scale_down"."""
+    total_key = {"join": "joins", "rejoin": "rejoins",
+                 "suspect": "suspects", "dead": "deads",
+                 "recovery": "recoveries", "scale_up": "scale_ups",
+                 "scale_down": "scale_downs"}.get(event)
+    with _lock:
+        if total_key is not None:
+            _fleet[total_key] += 1
+        else:
+            _fleet[event] = _fleet.get(event, 0) + 1
+
+
+def fleet_counters(reset=False):
+    """Snapshot (optionally reset) the serving-fleet counters."""
+    with _lock:
+        out = dict(_fleet)
+        if reset:
+            _fleet.clear()
+            _fleet.update(_FLEET_ZERO)
     return out
 
 

@@ -21,9 +21,14 @@ Counterpart of ``mxnet_tpu/serving/server.py``:
   second replica; the first answer wins.
 * **stateful decode** — :meth:`register_decode` / :meth:`submit_decode`
   pin a sequence to one `DecodeEngine` replica by ``crc32`` of its pin.
+* **fleet attach points** — :meth:`add_replicas` / :meth:`remove_replicas`
+  put a fleet worker's ``RemoteReplica`` adapters (``pool.py``) into the
+  same dispatch table as local engines; a replica's ``available`` flag is
+  the fleet's health gate, routed around like an open breaker.
 * **observability** — per-model latency histograms
   (``profiler.latency_counters(prefix="serving.<model>.")``) plus
-  per-replica engine stats.
+  per-replica engine stats; :meth:`health` is the small, stable
+  autoscaling signal the front door answers as a control verb.
 
     server = ModelServer()
     server.register("resnet", sym, args, aux, replicas=2,
@@ -34,8 +39,8 @@ Counterpart of ``mxnet_tpu/serving/server.py``:
     server.stats()
 
 Not yet ported, and raising: ``reload_from`` (checkpoints, ROADMAP A8).
-The fleet layer (remote replicas, ``health()`` for an autoscaler) comes
-with the front door (ROADMAP A5).
+The network tier over it (front door, client, fleet pool, worker,
+autoscaler) lives beside this module in ``serving/``.
 
 Lock discipline: the registry lock guards the model/version tables and the
 in-flight counters ONLY — engine construction, warmup, predict dispatch
@@ -137,20 +142,25 @@ class _Breaker:
 
 
 class _Replica:
-    __slots__ = ("engine", "inflight", "breaker")
+    __slots__ = ("engine", "inflight", "breaker", "available")
 
     def __init__(self, engine, breaker):
         self.engine = engine
         self.inflight = 0
         self.breaker = breaker
+        # fleet health gate (pool.py): a SUSPECT/DEAD worker's replicas
+        # flip this False and dispatch routes around them. A plain
+        # attribute: the in-process path pays one boolean read
+        self.available = True
 
 
 class _ModelEntry:
-    __slots__ = ("versions", "default_version", "counters")
+    __slots__ = ("versions", "default_version", "counters", "replica_seq")
 
     def __init__(self):
         self.versions = {}        # label -> list of _Replica
         self.default_version = None
+        self.replica_seq = 0      # monotonic id source for add_replicas
         # request accounting (the chaos contract: submitted must equal
         # served + shed + failed, with failed == 0 while any healthy
         # replica remains). Hedges are INTERNAL duplicates: they count
@@ -587,6 +597,7 @@ class ModelServer:
         self._models = {}
         self._decode = {}     # decode model name -> [DecodeEngine]
         self._stopped = False
+        self._health_prev_counts = {}   # key -> snapshot at last health()
         # tail-latency hedging: OFF unless configured. The env is read
         # once here, the hedger (and its timer thread) only exists when
         # hedging is on, and the unhedged dispatch path pays one
@@ -691,6 +702,79 @@ class ModelServer:
             if default or entry.default_version is None:
                 entry.default_version = version
         return version
+
+    def add_replicas(self, name, engines, version=None):
+        """Attach additional replica(s) to an ALREADY-registered version
+        (default version when ``version`` is None) — the fleet layer's
+        attach point: a joining worker's `RemoteReplica` adapters land
+        in the same least-loaded/breaker/resubmit dispatch table as
+        local engines (serving/pool.py). Accepts anything with the
+        replica dispatch surface (``predict_async``/``predict``/
+        ``update_params``/``stats``/``stop``). Returns the new
+        `_Replica` wrappers (the handle :meth:`remove_replicas`
+        takes)."""
+        if not isinstance(engines, (list, tuple)):
+            engines = [engines]
+        if not engines:
+            return []
+        reps_new = [_Replica(e, _Breaker(self._breaker_threshold,
+                                         self._breaker_cooldown_s))
+                    for e in engines]
+        with self._lock:
+            if self._stopped:
+                raise MXNetError("ModelServer is stopped")
+            _, reps = self._resolve_locked(name, version)
+            entry = self._models[name]
+            if entry.replica_seq == 0:
+                # seed past every id register_engines handed out
+                existing = [r.engine.replica
+                            for rl in entry.versions.values() for r in rl
+                            if isinstance(getattr(r.engine, "replica",
+                                                  None), int)]
+                entry.replica_seq = max(existing) + 1 if existing else 0
+            for rep in reps_new:
+                rep.engine.replica = entry.replica_seq
+                entry.replica_seq += 1
+            reps.extend(reps_new)
+        return reps_new
+
+    def remove_replicas(self, name, replicas, version=None):
+        """Detach replica wrappers previously returned by
+        :meth:`add_replicas` (the fleet layer's DEAD-host path). With
+        ``version=None`` EVERY version's replica list is searched — the
+        default alias may have moved since the wrappers attached, and a
+        dead worker's wrappers must detach from wherever they live, not
+        from wherever the alias points today. The engines are NOT
+        stopped — their owner (the pool) controls their lifecycle;
+        in-flight dispatches on them resolve through the normal
+        completion path. Removing the last replica of a version is
+        refused: routing must never point at an empty replica list."""
+        if not isinstance(replicas, (list, tuple, set)):
+            replicas = [replicas]
+        wanted = set(replicas)
+        removed = 0
+        with self._lock:
+            entry = self._models.get(name)
+            if entry is None:
+                raise MXNetError("unknown model %r" % name)
+            if version is not None:
+                _, rep_lists = self._resolve_locked(name, version)
+                rep_lists = [rep_lists]
+            else:
+                rep_lists = list(entry.versions.values())
+            for reps in rep_lists:
+                doomed = [r for r in reps if r in wanted]
+                if not doomed:
+                    continue
+                if len(doomed) >= len(reps):
+                    raise MXNetError(
+                        "remove_replicas would leave model %r with no "
+                        "replicas — keep a local floor replica (the "
+                        "autoscaler's hard-floor rule)" % name)
+                for r in doomed:
+                    reps.remove(r)
+                    removed += 1
+        return removed
 
     def unregister(self, name, version=None):
         """Remove one version (or, with ``version=None``, the whole
@@ -859,10 +943,18 @@ class ModelServer:
         now = time.monotonic()
         with self._lock:
             _, reps = self._resolve_locked(name, version)
+            # `r.available` is the fleet health gate (a SUSPECT/DEAD
+            # worker's replicas are routed around exactly like an open
+            # breaker); the forced-probe fallback still ignores it last
+            # — degraded capacity must never become a self-inflicted
+            # full outage
             avail = [r for r in reps
-                     if r not in exclude and r.breaker.available(now)]
+                     if r not in exclude and r.available
+                     and r.breaker.available(now)]
             if not avail:
-                avail = [r for r in reps if r.breaker.available(now)] \
+                avail = [r for r in reps
+                         if r.available and r.breaker.available(now)] \
+                    or [r for r in reps if r.breaker.available(now)] \
                     or list(reps)
             rep = min(avail, key=lambda r: r.inflight)
             rep.breaker.note_dispatch(now)
@@ -1040,6 +1132,87 @@ class ModelServer:
             self._hedger.stop()
         for eng in engines:
             eng.stop()
+
+    def health(self):
+        """Machine-readable serving health — the AUTOSCALING signal
+        (queue-wait p95 as the scale-out trigger). Unlike :meth:`stats`
+        (a human-debugging deep dive) this is a small, stable dict a
+        controller can poll cheaply, with the reference's keys, and the
+        front door answers it as a zero-deadline control verb
+        (`serving/frontdoor.py` ``("health", rid)``).
+
+        Per model: ``queue_wait_p95_ms`` / ``queue_wait_p50_ms`` — the
+        scale-out signal, WINDOWED over the requests served since the
+        PREVIOUS ``health()`` call (a cumulative percentile would echo
+        an overload long after it ended; None when the window saw no
+        traffic) — ``wire_p95_ms`` when the front door serves it,
+        ``shed_rate`` / request counters (the scale-up-NOW signal), live
+        ``inflight``, per-replica breaker states, and the program builds
+        (on the card: CUDA-graph captures) charged to the model since the
+        previous poll with their wall ms (``compiles_in_window`` /
+        ``compile_ms_in_window``), so a controller can tell "slow because
+        capturing" from "slow because overloaded". One poller owns the
+        window semantics: concurrent health() callers split the samples
+        between their windows."""
+        from .. import profiler as _prof
+        with self._lock:
+            snapshot = {
+                name: ({label: list(reps)
+                        for label, reps in entry.versions.items()},
+                       entry.default_version, dict(entry.counters))
+                for name, entry in self._models.items()}
+        models = {}
+        for name, (versions, default, counters) in snapshot.items():
+            lat = _prof.latency_counters(prefix="serving.%s." % name)
+            wire = lat.get("serving.%s.wire" % name, {})
+            device = lat.get("serving.%s.device" % name, {})
+            # queue wait: WINDOWED since the previous health() poll
+            qkey = "serving.%s.queue" % name
+            qp50 = qp95 = None
+            counts = _prof.latency_histogram(qkey)
+            if counts is not None:
+                prev = self._health_prev_counts.get(qkey)
+                delta = counts if prev is None else \
+                    [c - p for c, p in zip(counts, prev)]
+                self._health_prev_counts[qkey] = counts
+                qp50 = _prof.percentile_from_counts(delta, 0.50)
+                qp95 = _prof.percentile_from_counts(delta, 0.95)
+            submitted = counters.get("submitted", 0)
+            reps = [rep for rep_list in versions.values()
+                    for rep in rep_list]
+            breakers = [rep.breaker.snapshot() for rep in reps]
+            site = _prof.compile_counters()["sites"].get(
+                "serving.%s" % name, {})
+            ckey = "compile:%s" % name
+            cur = (site.get("compiles", 0), site.get("compile_ms", 0.0))
+            prev = self._health_prev_counts.get(ckey, (0, 0.0))
+            self._health_prev_counts[ckey] = cur
+            models[name] = {
+                "default_version": str(default),
+                "versions": sorted(str(v) for v in versions),
+                "replicas": len(reps),
+                "replicas_available": sum(
+                    1 for rep, b in zip(reps, breakers)
+                    if rep.available and b["state"] != "open"),
+                "breaker_states": [b["state"] for b in breakers],
+                "inflight": sum(rep.inflight for rep in reps),
+                "queue_wait_p50_ms": qp50,
+                "queue_wait_p95_ms": qp95,
+                "wire_p95_ms": wire.get("p95_ms"),
+                "device_p95_ms": device.get("p95_ms"),
+                "submitted": submitted,
+                "served": counters.get("served", 0),
+                "shed": counters.get("shed", 0),
+                "failed": counters.get("failed", 0),
+                "hedges": counters.get("hedges", 0),
+                "hedge_wins": counters.get("hedge_wins", 0),
+                "shed_rate": (round(counters.get("shed", 0)
+                                    / float(submitted), 4)
+                              if submitted else 0.0),
+                "compiles_in_window": cur[0] - prev[0],
+                "compile_ms_in_window": round(cur[1] - prev[1], 3),
+            }
+        return {"ok": True, "models": models, "time": time.time()}
 
     def stats(self):
         """Per-model serving surface: default version, per-version

@@ -40,6 +40,11 @@
   the card raises out of the builder, the engine and ``Executor.warmup``,
   the body having run only on the capture's side stream (no eager
   fallback).
+- The network tier: ``pickle.loads`` appears in ``serving/`` only inside
+  ``wire.decode_payload``, and nothing there imports ``ml_dtypes``;
+  ``LocalProcessLauncher`` spawns ``mxnet_tpu_torch.serving.worker``; a
+  ``ReplicaWorker`` over a builder's defaults serves from ``cuda:0`` and
+  raises without CUDA unless the builder asked for the CPU.
 """
 import ast
 import contextlib
@@ -99,6 +104,63 @@ def test_port_imports_no_jax_and_no_jax_package():
                     and _forbidden(node.module or ""):
                 bad.append((path, node.module))
     assert not bad, bad
+
+
+def test_pickle_loads_only_in_the_wire_seam():
+    """``pickle.loads`` appears in the port's ``serving/`` only inside
+    ``wire.decode_payload`` (behind its endpoint policy), and nothing
+    there imports ``ml_dtypes``."""
+    found, imports = [], []
+    base = os.path.join(ROOT, "mxnet_tpu_torch", "serving")
+    for name in sorted(os.listdir(base)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(base, name)) as f:
+            tree = ast.parse(f.read(), name)
+        for func in ast.walk(tree):
+            if not isinstance(func, (ast.FunctionDef, ast.Module)):
+                continue
+            body = func.body if isinstance(func, ast.FunctionDef) else [
+                n for n in func.body if not isinstance(n, ast.FunctionDef)]
+            for node in (n for b in body for n in ast.walk(b)):
+                if isinstance(node, ast.Attribute) and \
+                        node.attr in ("loads", "load", "Unpickler") and \
+                        isinstance(node.value, ast.Name) and \
+                        node.value.id in ("pickle", "_pickle", "cPickle"):
+                    found.append((name, getattr(func, "name", "<module>"),
+                                  node.attr))
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                mods = [a.name for a in node.names] \
+                    if isinstance(node, ast.Import) else [node.module or ""]
+                imports += [m for m in mods if m.startswith("ml_dtypes")]
+    assert found == [("wire.py", "decode_payload", "loads")], found
+    assert not imports
+
+
+def test_local_launcher_spawns_the_port_worker(monkeypatch):
+    from mxnet_tpu_torch.serving import autoscaler
+    calls = []
+
+    class _Proc:
+        pid = 1
+
+        def poll(self):
+            return None
+
+    def popen(cmd, env=None, **kw):
+        calls.append((cmd, env))
+        return _Proc()
+
+    monkeypatch.setattr(autoscaler.subprocess, "Popen", popen)
+    launcher = autoscaler.LocalProcessLauncher(
+        "127.0.0.1:9612", "mod:fn", env={"X_FLEET": "1"})
+    launcher.launch()
+    (cmd, env), = calls
+    assert cmd[1:3] == ["-m", "mxnet_tpu_torch.serving.worker"]
+    assert cmd[3:] == ["--gateway", "127.0.0.1:9612", "--builder", "mod:fn",
+                       "--port", "0"]
+    assert env["X_FLEET"] == "1" and launcher.alive_count() == 1
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -574,6 +636,41 @@ def test_serving_entry_points_default_to_the_card(monkeypatch):
         tmx.serving.BucketedProgramCache(lambda *a: a)
     assert tmx.serving.InferenceEngine(
         sym, args, ctx=tmx.cpu()).device.type == "cpu"
+
+    # the network tier's engines: a ReplicaWorker over its builder's
+    # defaults serves from the card (and raises without CUDA); asked for
+    # the CPU, it serves there
+    def build(ctx=None):
+        srv = tmx.serving.ModelServer()
+        srv.register("m", sym, args, ctx=ctx, buckets=(1, 2),
+                     warmup_shapes={"data": (2, 4)})
+        return srv
+
+    with pytest.raises(MXNetError, match="CUDA"):
+        tmx.serving.ReplicaWorker("127.0.0.1:1", build())
+    worker = tmx.serving.ReplicaWorker("127.0.0.1:1", build(tmx.cpu()))
+    assert worker.warmed()
+    assert worker._server.engine("m").device == torch.device("cpu")
+    worker._server.stop()
+    from mxnet_tpu_torch.serving import server as server_mod
+    made = []
+
+    class _Engine:
+        def __init__(self, symbol, arg_params, aux_params=None, ctx=None,
+                     **kw):
+            made.append(ctx)
+            self._templates = {"data": ((2, 4), np.float32)}
+
+        def warmup(self, shapes):
+            pass
+
+        def stop(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(server_mod, "InferenceEngine", _Engine)
+    worker = tmx.serving.ReplicaWorker("127.0.0.1:1", build())
+    assert made == [torch.device("cuda", 0)] and worker.warmed()
 
 
 class _FakeStream:
