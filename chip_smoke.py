@@ -510,6 +510,42 @@ no result line):
              it). Reports the join seconds (process start and capture
              included), the failover's counts and latency p50/p99, the
              seconds to SUSPECT and DEAD after the kill, the rollover ms.
+36. imperative — the imperative runtime at full width: ResNet-50 v2
+             (batch 32, 3x224x224, rtc_infer's seeded weights) walked
+             node by node as getattr(mx.nd, op)(...) under
+             mx.autograd.record(), with cudnn.deterministic (pulls in
+             rtc_infer). Gates: (a) the loss output and all 157
+             gradients bit for bit the Executor's forward(is_train=True)
+             / backward(); (b) attach_grad on the data and
+             mx.autograd.grad give the input gradient bit for bit the
+             executor's (grad_req write on data); (c) one
+             mx.nd.sgd_mom_update(..., out=w) a leaf bit for bit one
+             fused_update_step (#7: 1 launch of 157 leaves); (d) under
+             predict_mode the forward with its 50 relus through
+             mx.nd.user_relu (#8, USER_RELU_SOURCE) bit for bit the
+             built-in forward, 50 launches; (e) a second backward without
+             retain_graph raises. Reports the imperative forward +
+             backward wall against the executor's, host us a mx.nd call.
+37. stochastic_fit — ResNet-50 with Dropout(p=0.5) before fc1 (built
+             from get_internals()["flatten0_output"]) through
+             Module.fit(kvstore='tpu_sync') under
+             MXNET_TPU_FUSED_OPTUPDATE=1, 4 steps from one params dict.
+             Gates: #7 one launch of 157 leaves a step; one numpy seed
+             twice gives the same params, optimizer slots and BatchNorm
+             statistics bit for bit, another seed other ones; p=0 bit for
+             bit the graph without Dropout; each step's keep fraction
+             within 0.5 +- 5 binomial sigma, kept values scaled by
+             exactly 2; predict mode the identity (the executor's
+             forward bit for bit the plain graph's). Then the reference
+             example's Python softmax (custom_softmax, a CustomOp) as
+             the head: its own gradient within CUSTOM_HEAD_TOL of
+             SoftmaxOutput's, the network's within CUSTOM_GRAD_TOL
+             (relative L2 a leaf), and 2 fused steps with #7 launching
+             once a step.
+             example_scripts (phase 18) also runs
+             example/numpy-ops/custom_softmax.py and
+             example/cnn_text_classification/text_cnn.py unchanged:
+             "final accuracy" above 0.9 (the reference test's threshold).
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
@@ -534,9 +570,10 @@ on its path's run (serving, training, symbolic training, long-context
 serving or training, the rtc kernels' full-size run or the ResNet-50
 forwards, the bf16 and float16 serving and training runs, long ones
 included; #7's adds its launches in module_fit, example_scripts,
-symbolic_bf16 and supervised_fit, by path in ``launches_by_path``;
-#1's and #8's ``launches_by_path`` add model_server's and
-serve_engine_rtc's counts, taken on the host at capture; #1's and #3's (and
+symbolic_bf16, supervised_fit, imperative and stochastic_fit, by path in
+``launches_by_path``; #1's and #8's ``launches_by_path`` add
+model_server's and serve_engine_rtc's counts, taken on the host at
+capture, #8's imperative's; #1's and #3's (and
 its combine's) add frontdoor's), its error (the 16-bit
 entries in row ulps of their dtype) and times; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3366,6 +3403,9 @@ FIT_OPT = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
 #: lenet --num-epochs 3 (MNIST_SYNTH_N 6000) on the CPU, both --kv-store
 #: local and tpu_sync (PERF.md, the Module slice)
 JAX_CPU_LENET_ACC = 1.0
+#: custom_softmax.py's and text_cnn.py's final accuracy must pass it (the
+#: reference's tests/python/unittest/test_examples.py:246-253, 377-385)
+EXAMPLE_ACC = 0.9
 #: runs the launcher in the child and prints kernel #7's counts at its end
 SCRIPT_BOOT = (
     "import json, sys\n"
@@ -3577,7 +3617,7 @@ def _run_script(torch, script, args, env_extra, tmp):
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT_BOOT, os.path.join(
-            ROOT, "example", "image-classification", script)] + args,
+            ROOT, "example", script)] + args,
         cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
     seconds = time.perf_counter() - t0
     out = proc.stdout + proc.stderr
@@ -3604,20 +3644,29 @@ def phase_example_scripts(torch, dev, tmp):
     result = {"phase": "example_scripts", "runs": {}}
     total = {k: [0, 0] for k in OPT_KERNELS}
     fused = {"MXNET_TPU_FUSED_OPTUPDATE": "1"}
-    runs = (("mnist_lenet_local", "train_mnist.py",
+    ic = "image-classification/"
+    runs = (("mnist_lenet_local", ic + "train_mnist.py",
              ["--kv-store", "local"], {}, 3, 8),
-            ("mnist_lenet_tpu_sync", "train_mnist.py",
+            ("mnist_lenet_tpu_sync", ic + "train_mnist.py",
              ["--kv-store", "tpu_sync"], fused, 3, 8),
-            ("imagenet_resnet50_tpu_sync", "train_imagenet.py",
+            ("imagenet_resnet50_tpu_sync", ic + "train_imagenet.py",
              ["--benchmark", "1", "--kv-store", "tpu_sync",
-              "--num-examples", "768"], fused, 1, 157))
+              "--num-examples", "768"], fused, 1, 157),
+            # the imperative slice's: a Python CustomOp loss layer, and
+            # Embedding, Reshape, Concat and Dropout (both run kvstore
+            # 'local', so #7 never launches)
+            ("numpy_ops_custom_softmax", "numpy-ops/custom_softmax.py",
+             ["--epochs", "15"], {}, 15, 0),
+            ("text_cnn", "cnn_text_classification/text_cnn.py",
+             ["--epochs", "8"], {}, 8, 0))
     for name, script, args, env, epochs, leaves in runs:
-        if script == "train_mnist.py":
+        if script.endswith("train_mnist.py"):
             args = ["--network", "lenet", "--num-epochs", "3"] + args
-        else:
+        elif script.endswith("train_imagenet.py"):
             args = args + ["--num-epochs", "1"]
-        out, counts, seconds = _run_script(
-            torch, script, ["--gpus", "0"] + args, env, tmp)
+        if script.startswith(ic):
+            args = ["--gpus", "0"] + args
+        out, counts, seconds = _run_script(torch, script, args, env, tmp)
         acc = [float(v) for v in re.findall(
             r"Epoch\[\d+\] Train-accuracy=([0-9.]+)", out)]
         speeds = [float(v) for v in re.findall(
@@ -3637,7 +3686,13 @@ def phase_example_scripts(torch, dev, tmp):
                 (not tpu_sync and steps) or \
                 counts["sgd"][0] or counts["adam"][0]:
             fail("example_scripts %s: kernel #7 counts %s" % (name, counts))
-        if script == "train_mnist.py":
+        final = [float(v) for v in re.findall(
+            r"final accuracy: ([0-9.]+)", out)]
+        if not script.startswith(ic) and not (final and final[-1]
+                                              > EXAMPLE_ACC):
+            fail("example_scripts %s: final accuracy %s, want > %g (the "
+                 "reference test's threshold)" % (name, final, EXAMPLE_ACC))
+        if script.endswith("train_mnist.py"):
             # the epoch line holds the batches after the Speedometer's last
             # reset; its first window is the earliest accuracy
             if not (acc[-1] > windows[0]
@@ -3650,6 +3705,7 @@ def phase_example_scripts(torch, dev, tmp):
             total[k][1] += counts[k][1]
         result["runs"][name] = {
             "seconds": seconds, "train_accuracy": acc,
+            "final_accuracy": final[-1] if final else None,
             "first_window_accuracy": windows[:1],
             "speedometer_samples_per_s": speeds,
             "opt_update_launches": steps}
@@ -6057,6 +6113,465 @@ def phase_fleet(torch, dev, seed):
             "launches": launcher.launches, "gateway_counters": counters}
 
 
+# --- the imperative runtime (phases 36 and 37) ------------------------------
+
+#: ResNet-50's Flatten output, where stochastic_fit inserts its Dropout
+FLATTEN_OUTPUT = "flatten0_output"
+STOCH_STEPS = 4         # stochastic_fit's Module.fit steps a run
+STOCH_P = 0.5
+CUSTOM_STEPS = 2        # the Custom softmax head's fit
+#: the Custom softmax head against SoftmaxOutput: its own gradient (max
+#: abs; probabilities in [0, 1]), and the network's (each leaf's relative
+#: L2 distance)
+CUSTOM_HEAD_TOL = 1e-6
+CUSTOM_GRAD_TOL = 1e-2
+
+
+def imperative_forward(mx, sym, arrays, relu=None):
+    """``sym``'s outputs computed op by op as a user does in ``mx.nd``:
+    each node is ``getattr(mx.nd, op)(*inputs, **attrs)`` on the NDArrays
+    of its inputs (``arrays``: variable name -> NDArray; BatchNorm's aux
+    arrays are updated in place). ``relu`` (NDArray -> NDArray) replaces
+    every relu ``Activation``. Returns (outputs, mx.nd calls made)."""
+    vals, calls = {}, 0
+    for node in sym._topo():
+        if node.is_variable:
+            vals[(id(node), 0)] = arrays[node.name]
+            continue
+        ins = [vals[(id(i), oi)] for i, oi in node.inputs]
+        if relu is not None and node.op.name == "Activation" and \
+                node.attrs.get("act_type") == "relu":
+            out = relu(ins[0])
+        else:
+            out = getattr(mx.nd, node.op.name)(*ins, **node.attrs)
+        calls += 1
+        for i, o in enumerate(out if isinstance(out, list) else [out]):
+            vals[(id(node), i)] = o
+    return [vals[(id(n), oi)] for n, oi in sym._outputs], calls
+
+
+def phase_imperative(torch, dev, seed, rtc_state):
+    """Full-width ResNet-50 trained imperatively (module docstring, phase
+    36). Returns (result, #7's (launches, leaves) by kind, #8's
+    launches)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.kernels.opt_update import fused_update_step
+    from mxnet_tpu_torch.models import resnet as tres
+    t0 = time.perf_counter()
+    with mx.name.NameManager():
+        sym = tres.get_symbol(num_classes=1000, num_layers=50,
+                              image_shape="3,224,224")
+    args, aux = resnet_values(torch, sym, dev, seed)
+    leaves = [n for n in sym.list_arguments()
+              if n not in ("data", "softmax_label")]
+    if len(leaves) != 157:
+        fail("imperative: %d parameters, want 157" % len(leaves))
+    exe = sym.simple_bind(dev, grad_req="write", **RESNET_SHAPES)
+    for k, v in args.items():
+        exe.arg_dict[k][:] = v
+    for k, v in aux.items():
+        exe.aux_dict[k][:] = v
+    arrays = {k: mx.nd.NDArray(v.clone()) for k, v in {**args,
+                                                        **aux}.items()}
+    for k in leaves + ["data"]:
+        arrays[k].attach_grad()
+    setup_s = time.perf_counter() - t0
+    prior = _deterministic_cudnn(torch)
+    result = {"phase": "imperative", "model": "resnet50",
+              "batch": list(RESNET_SHAPES["data"]), "setup_s": setup_s}
+    try:
+        # (a), (b): one training forward and backward each way
+        exe_out = exe.forward(is_train=True)[0]._data.clone()
+        exe.backward()
+        with mx.autograd.record():
+            (out,), calls = imperative_forward(mx, sym, arrays)
+        # the input gradient asked for beside the parameters': a pass for
+        # the input alone runs other backward kernels (no weight
+        # gradients), whose bits need not be the full pass's
+        g_all = mx.autograd.grad(out, [arrays[k] for k in ["data"] + leaves],
+                                 retain_graph=True)
+        g_data = g_all[0]
+        out.backward()
+        torch.cuda.synchronize()
+        same, diff = _bit_diff(torch, out._data, exe_out)
+        if not same:
+            fail("imperative: the loss output differs from the executor's "
+                 "(max abs diff %g)" % diff)
+        bad = [k for k in leaves if not _bit_diff(
+            torch, arrays[k].grad._data, exe.grad_dict[k]._data)[0]]
+        if bad:
+            fail("imperative: %d of 157 gradients differ from the "
+                 "executor's, e.g. %s" % (len(bad), bad[:3]))
+        if not _bit_diff(torch, g_data._data, exe.grad_dict["data"]._data)[0]:
+            fail("imperative: autograd.grad's input gradient differs from "
+                 "the executor's")
+        if not all(_bit_diff(torch, g._data, exe.grad_dict[k]._data)[0]
+                   for g, k in zip(g_all[1:], leaves)):
+            fail("imperative: autograd.grad's parameter gradients differ "
+                 "from the executor's")
+        if not _bit_diff(torch, arrays["data"].grad._data,
+                         exe.grad_dict["data"]._data)[0]:
+            fail("imperative: the data's attached gradient differs")
+        # (e): the first backward freed the graph
+        try:
+            out.backward()
+            fail("imperative: a second backward without retain_graph ran")
+        except mx.MXNetError as e:
+            if "cannot differentiate" not in str(e):
+                fail("imperative: a second backward raised %r" % e)
+        # the step's walls, the forward's host time a call
+        walls = {"imperative": [], "executor": []}
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            with mx.autograd.record():
+                (o,), _ = imperative_forward(mx, sym, arrays)
+            host.append(time.perf_counter() - ts)
+            o.backward()
+            torch.cuda.synchronize()
+            walls["imperative"].append((time.perf_counter() - ts) * 1e3)
+            ts = time.perf_counter()
+            exe.forward(is_train=True)
+            exe.backward()
+            torch.cuda.synchronize()
+            walls["executor"].append((time.perf_counter() - ts) * 1e3)
+            del o
+        result.update({
+            "bitwise": True, "nd_calls_per_forward": calls,
+            "step_wall_ms": walls,
+            "step_wall_ms_p50": {k: statistics.median(v)
+                                 for k, v in walls.items()},
+            "forward_host_us_per_nd_call": statistics.median(host) * 1e6
+            / calls,
+            "nd_add_host_us": host_us(
+                torch, lambda: mx.nd.elemwise_add(arrays["fc1_bias"],
+                                                  arrays["fc1_bias"]))})
+
+        # (c): one mx.nd.sgd_mom_update a leaf against one #7 launch
+        gen = torch.Generator(device=dev).manual_seed(seed + 36)
+        moms = {k: 0.01 * torch.randn(exe.arg_dict[k].shape, device=dev,
+                                      generator=gen) for k in leaves}
+        grads = {k: exe.grad_dict[k]._data for k in leaves}
+        hp = dict(lr=0.05, wd=1e-4, rescale_grad=1.0 / SYM_BATCH,
+                  clip_gradient=5.0)
+        fused_p = {k: exe.arg_dict[k]._data.clone() for k in leaves}
+        fused_m = {k: v.clone() for k, v in moms.items()}
+        torch.cuda.synchronize()
+        _reset_opt_counts(tou)
+        fused_update_step("sgd", {"lr": hp["lr"], "momentum": 0.9},
+                          fused_p, {"mom": fused_m}, grads,
+                          rescale=hp["rescale_grad"],
+                          clip=hp["clip_gradient"], wd=hp["wd"])
+        torch.cuda.synchronize()
+        opt = {k: (getattr(tou, "launches_" + k), getattr(tou, "leaves_" + k))
+               for k in OPT_KERNELS}
+        if opt["sgd_mom"] != (1, 157) or opt["sgd"][0] or opt["adam"][0]:
+            fail("imperative: #7 (launches, leaves) %s, want one launch "
+                 "of 157 leaves" % opt)
+        nd_w = {k: mx.nd.NDArray(exe.arg_dict[k]._data.clone())
+                for k in leaves}
+        nd_m = {k: mx.nd.NDArray(v.clone()) for k, v in moms.items()}
+        ts = time.perf_counter()
+        for k in leaves:
+            mx.nd.sgd_mom_update(nd_w[k], mx.nd.NDArray(grads[k]), nd_m[k],
+                                 out=nd_w[k], momentum=0.9, **hp)
+        torch.cuda.synchronize()
+        loop_ms = (time.perf_counter() - ts) * 1e3
+        bad = [k for k in leaves
+               if not (_bit_diff(torch, nd_w[k]._data, fused_p[k])[0]
+                       and _bit_diff(torch, nd_m[k]._data, fused_m[k])[0])]
+        if bad:
+            fail("imperative: sgd_mom_update differs from #7 at %d leaves, "
+                 "e.g. %s" % (len(bad), bad[:3]))
+        result["sgd_mom_update_vs_7"] = {"leaves": 157, "bitwise": True,
+                                         "nd_loop_ms": loop_ms}
+
+        # (d): predict mode, the 50 relus through mx.nd.user_relu (#8)
+        user_relu = getattr(mx.nd, "user_relu")
+        relu_k = rtc_state["kernel"]
+        with mx.autograd.predict_mode():
+            (builtin,), _ = imperative_forward(mx, sym, arrays)
+            builtin = builtin._data.clone()
+            torch.cuda.synchronize()
+            relu_k.launches = 0
+            (user,), _ = imperative_forward(mx, sym, arrays, relu=user_relu)
+            torch.cuda.synchronize()
+            relu_launches = relu_k.launches
+        if relu_launches != 50:
+            fail("imperative: mx.nd.user_relu launched #8 %d times in a "
+                 "forward, want 50" % relu_launches)
+        same, diff = _bit_diff(torch, user._data, builtin)
+        if not same or not torch.isfinite(builtin).all():
+            fail("imperative: the user_relu forward differs from the "
+                 "built-in one (max abs diff %g)" % diff)
+        result["user_relu_forward"] = {"launches": relu_launches,
+                                       "bitwise": True}
+    finally:
+        _restore_cudnn(torch, prior)
+    del exe, arrays
+    return result, opt, relu_launches
+
+
+def _stochastic_symbols(mx, tres, p):
+    """ResNet-50, and ResNet-50 with Dropout(p) between the flatten and
+    fc1 (None: the plain graph), built from the internals' Flatten
+    output."""
+    with mx.name.NameManager():
+        sym = tres.get_symbol(num_classes=1000, num_layers=50,
+                              image_shape="3,224,224")
+    if p is None:
+        return sym
+    flat = sym.get_internals()[FLATTEN_OUTPUT]
+    fc1 = mx.sym.FullyConnected(mx.sym.Dropout(flat, p=p), num_hidden=1000,
+                                name="fc1")
+    return mx.sym.SoftmaxOutput(fc1, name="softmax")
+
+
+def _custom_softmax(mx):
+    """The reference example's Python softmax loss layer
+    (example/numpy-ops/custom_softmax.py:22-53), registered once."""
+    import numpy as np
+    if "custom_softmax" in mx.operator.get_all_registered_operators():
+        return
+
+    class Softmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            y = np.exp(x - x.max(axis=1, keepdims=True))
+            y /= y.sum(axis=1, keepdims=True)
+            self.assign(out_data[0], req[0], mx.nd.array(y))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            label = in_data[1].asnumpy().ravel().astype(np.int64)
+            y = out_data[0].asnumpy()
+            y[np.arange(label.shape[0]), label] -= 1.0
+            self.assign(in_grad[0], req[0], mx.nd.array(y))
+
+    @mx.operator.register("custom_softmax")
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+
+def phase_stochastic_fit(torch, dev, seed):
+    """Full-width ResNet-50 with Dropout through Module.fit(kvstore=
+    'tpu_sync'), and with a Python softmax head (module docstring, phase
+    37). Returns (result, #7's (launches, leaves) by kind on the path)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.models import resnet as tres
+    from mxnet_tpu_torch.ops import find_op
+    t0 = time.perf_counter()
+    plain = _stochastic_symbols(mx, tres, None)
+    args, aux = resnet_values(torch, plain, dev, seed)
+    arg0 = {k: mx.nd.NDArray(v) for k, v in args.items()
+            if k not in ("data", "softmax_label")}
+    aux0 = {k: mx.nd.NDArray(v) for k, v in aux.items()}
+    rng = np.random.RandomState(seed + 37)
+    data = rng.uniform(-1, 1, (STOCH_STEPS * SYM_BATCH, 3, 224, 224)) \
+        .astype(np.float32)
+    label = rng.randint(0, 1000, STOCH_STEPS * SYM_BATCH).astype(np.float32)
+    setup_s = time.perf_counter() - t0
+    dropout = find_op("Dropout")
+    drop_fn, seen = dropout.fn, []
+
+    def watching_dropout(params, x, is_train=False, rng=None):
+        out = drop_fn(params, x, is_train=is_train, rng=rng)
+        if is_train and x.device.type == "cuda":
+            seen.append((x.detach(), out.detach()))
+        return out
+
+    totals = {k: [0, 0] for k in OPT_KERNELS}
+
+    def fit(sym, np_seed, steps=STOCH_STEPS):
+        """``steps`` steps of Module.fit(kvstore='tpu_sync') from the same
+        params -> (every param and aux state, #7's counts, the synced
+        walls of the steps after the first)."""
+        it = mx.io.NDArrayIter(data[:steps * SYM_BATCH],
+                               label[:steps * SYM_BATCH], SYM_BATCH)
+        mod = mx.mod.Module(sym, context=dev)
+        np.random.seed(np_seed)
+        torch.cuda.synchronize()
+        _reset_opt_counts(tou)
+        stamps = []
+
+        def on_batch(p):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+            mod.fit(it, kvstore="tpu_sync", optimizer="sgd",
+                    optimizer_params=FIT_OPT, arg_params=arg0,
+                    aux_params=aux0, num_epoch=1,
+                    batch_end_callback=on_batch)
+        torch.cuda.synchronize()
+        # the steps after the first (which builds the step), synced
+        seconds = [b - a for a, b in zip(stamps, stamps[1:])]
+        counts = {k: (getattr(tou, "launches_" + k),
+                      getattr(tou, "leaves_" + k)) for k in OPT_KERNELS}
+        for k, (n, leaves) in counts.items():
+            totals[k][0] += n
+            totals[k][1] += leaves
+        if mod._fused_step is None or counts["sgd_mom"] != (steps,
+                                                            157 * steps):
+            fail("stochastic_fit: #7 (launches, leaves) %s in %d steps, "
+                 "want one launch of 157 leaves a step" % (counts, steps))
+        return _fit_state(mod._fused_step), counts, seconds
+
+    prior = _deterministic_cudnn(torch)
+    result = {"phase": "stochastic_fit", "model": "resnet50+dropout",
+              "batch": list(RESNET_SHAPES["data"]), "steps": STOCH_STEPS,
+              "p": STOCH_P, "setup_s": setup_s}
+    try:
+        drop = _stochastic_symbols(mx, tres, STOCH_P)
+        walls = {}
+        dropout.fn = watching_dropout
+        try:
+            a, counts, walls["dropout_watched"] = fit(drop, seed + 1)
+        finally:
+            dropout.fn = drop_fn
+        masks = seen[:]
+        seen.clear()
+        b, _, walls["dropout"] = fit(drop, seed + 1)
+        c, _, _ = fit(drop, seed + 2)
+        zero, _, walls["dropout_p0"] = fit(_stochastic_symbols(mx, tres,
+                                                              0.0), seed + 3)
+        ref, _, walls["plain"] = fit(plain, seed + 3)
+        if not _same_state(torch, a, b):
+            fail("stochastic_fit: one numpy seed gave other params")
+        if _same_state(torch, a, c):
+            fail("stochastic_fit: two numpy seeds gave the same params")
+        if not _same_state(torch, zero, ref):
+            fail("stochastic_fit: Dropout(p=0) differs from the graph "
+                 "without it")
+        if len(masks) != STOCH_STEPS:
+            fail("stochastic_fit: Dropout drew %d times in %d steps"
+                 % (len(masks), STOCH_STEPS))
+        keep = []
+        for x, y in masks:
+            live = x != 0
+            kept = (y != 0) & live
+            n = int(live.sum())
+            frac = kept.sum().item() / n
+            sigma = math.sqrt(STOCH_P * (1 - STOCH_P) / n)
+            if abs(frac - (1 - STOCH_P)) > 5 * sigma:
+                fail("stochastic_fit: keep fraction %g of %d, want %g +- 5 "
+                     "sigma (%g)" % (frac, n, 1 - STOCH_P, 5 * sigma))
+            if not torch.equal(y[kept], x[kept] * 2) or \
+                    (y[live & ~kept] != 0).any():
+                fail("stochastic_fit: kept values not scaled by exactly 2")
+            keep.append(frac)
+        # predict mode: the Dropout graph's forward is the plain graph's
+        outs = []
+        for s in (drop, plain):
+            exe = s.simple_bind(dev, grad_req="null", **RESNET_SHAPES)
+            for k, v in args.items():
+                exe.arg_dict[k][:] = v
+            for k, v in aux.items():
+                exe.aux_dict[k][:] = v
+            outs.append(exe.forward(is_train=False)[0]._data.clone())
+            del exe
+        if not _bit_diff(torch, outs[0], outs[1])[0]:
+            fail("stochastic_fit: predict mode is not the identity")
+
+        # the Python softmax head: gradients against SoftmaxOutput's, then
+        # a fit through the fused step (host callbacks on the card)
+        _custom_softmax(mx)
+        with mx.name.NameManager():
+            body = tres.get_symbol(num_classes=1000, num_layers=50,
+                                   image_shape="3,224,224")
+        fc1 = body.get_internals()["fc1_output"]
+        custom = mx.sym.Custom(fc1, mx.sym.Variable("softmax_label"),
+                               op_type="custom_softmax", name="softmax")
+        grads = []
+        for s in (custom, plain):
+            exe = s.simple_bind(dev, grad_req="write", **RESNET_SHAPES)
+            for k, v in args.items():
+                exe.arg_dict[k][:] = v
+            for k, v in aux.items():
+                exe.aux_dict[k][:] = v
+            exe.forward(is_train=True)
+            exe.backward()
+            grads.append({k: exe.grad_dict[k]._data.clone() for k in arg0})
+            del exe
+        # the op's own gradient (at its input: softmax - one-hot) against
+        # SoftmaxOutput's, imperatively on the same logits: numpy's
+        # float32 softmax against torch's on the card
+        gen = torch.Generator(device=dev).manual_seed(seed + 37)
+        logits = 2 * torch.randn(SYM_BATCH, 1000, device=dev, generator=gen)
+        lab = mx.nd.NDArray(torch.randint(0, 1000, (SYM_BATCH,), device=dev,
+                                          generator=gen).float())
+        head = []
+        for op in ("custom", "softmax"):
+            x = mx.nd.NDArray(logits.clone())
+            x.attach_grad()
+            with mx.autograd.record():
+                y = (mx.nd.Custom(x, lab, op_type="custom_softmax")
+                     if op == "custom" else mx.nd.SoftmaxOutput(x, lab))
+            y.backward()
+            head.append(x.grad._data.clone())
+        head_err = (head[0] - head[1]).abs().max().item()
+        if not head_err <= CUSTOM_HEAD_TOL:
+            fail("stochastic_fit: the Custom softmax's gradient differs from "
+                 "SoftmaxOutput's by %g (tol %g)" % (head_err,
+                                                     CUSTOM_HEAD_TOL))
+        # through the network, each leaf's relative L2 distance (BatchNorm's
+        # backward magnifies the heads' float32 difference)
+        rel = {k: (torch.linalg.vector_norm(grads[0][k] - grads[1][k])
+                   / torch.linalg.vector_norm(grads[1][k]).clamp_min(
+                       1e-30)).item() for k in arg0}
+        worst_leaf = max(rel, key=rel.get)
+        worst = rel[worst_leaf]
+        if not worst <= CUSTOM_GRAD_TOL:
+            fail("stochastic_fit: the Custom head's network gradients are "
+                 "%g (relative L2, %s) from SoftmaxOutput's (tol %g)"
+                 % (worst, worst_leaf, CUSTOM_GRAD_TOL))
+        cstate, ccounts, walls["custom_head"] = fit(custom, seed + 4,
+                                                    CUSTOM_STEPS)
+        if not all(torch.isfinite(t).all() for t in cstate):
+            fail("stochastic_fit: the Custom head's fit is not finite")
+    finally:
+        dropout.fn = drop_fn
+        _restore_cudnn(torch, prior)
+    result.update({
+        # synced after every step (no dispatch overlap), the first step
+        # (which builds it) left out; the plain graph in the same call
+        "step_wall_ms": {k: [1e3 * x for x in v] for k, v in walls.items()},
+        "step_wall_ms_p50": {k: 1e3 * statistics.median(v)
+                             for k, v in walls.items()},
+        "launches_per_step": counts["sgd_mom"][0] / STOCH_STEPS,
+        "leaves_per_step": counts["sgd_mom"][1] / STOCH_STEPS,
+        "keep_fraction": keep, "scaled_by_2": True,
+        "same_seed_bitwise": True, "other_seed_differs": True,
+        "p0_bitwise_plain": True, "predict_identity": True,
+        "custom_softmax": {"head_grad_max_abs_err": head_err,
+                           "head_tol": CUSTOM_HEAD_TOL,
+                           "grad_rel_l2_worst": worst,
+                           "grad_rel_l2_worst_leaf": worst_leaf,
+                           "grad_rel_l2_median": statistics.median(
+                               rel.values()),
+                           "tol": CUSTOM_GRAD_TOL, "steps": CUSTOM_STEPS,
+                           "launches_per_step": ccounts["sgd_mom"][0]
+                           / CUSTOM_STEPS}})
+    return result, {k: tuple(v) for k, v in totals.items()}
+
+
+
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
           "grid_kernel", "serve_long", "train_long", "rtc_kernel",
@@ -6065,11 +6580,12 @@ PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_long_bf16", "serve_f16", "train_f16", "f16_kernel",
           "serve_long_f16", "train_long_f16", "supervised_fit",
           "serve_engine", "serve_engine_rtc", "model_server", "frontdoor",
-          "fleet")
+          "fleet", "imperative", "stochastic_fit")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",),
          "serve_engine_rtc": ("rtc_infer",), "model_server": ("serve",),
+         "imperative": ("rtc_infer",),
          "frontdoor": ("serve",)}
 
 
@@ -6303,6 +6819,11 @@ def main():
             res, launches_by_path["serve_engine_rtc"] = \
                 phase_serve_engine_rtc(torch, dev, rtc_state)
             emit({**res, "card": card})
+        if "imperative" in phases:
+            res, opt_paths["imperative"], launches_by_path["imperative"] = \
+                phase_imperative(torch, dev, args.seed, rtc_state)
+            emit({**res, "card": card})
+            torch.cuda.empty_cache()
         del rtc_state
         torch.cuda.empty_cache()
         entries.append({
@@ -6331,6 +6852,11 @@ def main():
         sup_result, opt_paths["supervised_fit"] = phase_supervised_fit(
             torch, dev, args.seed, args.profile_dir)
         emit(sup_result)
+        torch.cuda.empty_cache()
+    if "stochastic_fit" in phases:
+        res, opt_paths["stochastic_fit"] = phase_stochastic_fit(
+            torch, dev, args.seed)
+        emit({**res, "card": card})
         torch.cuda.empty_cache()
     if "serve_engine" in phases:
         emit({**phase_serve_engine(torch, dev, args.seed, args.profile_dir),

@@ -37,6 +37,12 @@ micro-batcher, ``serving.ModelServer`` routes named models and versions
 over replicas (with decode replicas beside them), and
 ``Executor.warmup``/``program_cost``, ``monitor.Monitor`` and
 ``Module.predict`` through the engine complete the executor.
+Its seventeenth slice is the imperative runtime: one ``mx.nd.<op>``
+function per registered op (the reference's elementwise, tensor, nn,
+random and optimizer families), ``mx.autograd`` on torch's autograd
+graph, Python ``mx.operator.CustomOp``s, and stochastic graphs (Dropout
+and the sampling ops draw from a ``torch.Generator``; a train step seeds
+one from numpy's global RNG each step).
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``, and raise ``MXNetError`` when CUDA is missing.
@@ -46,11 +52,11 @@ from __future__ import annotations
 __version__ = "1.2.0+cuda"
 
 from . import models, name, ndarray, parallel, profiler, rtc, symbol
-from . import (callback, engine, initializer, io, kvstore, lr_scheduler,
-               metric, model, module, monitor, optimizer, random,
-               resilience, serving)
+from . import (autograd, callback, engine, imperative, initializer, io,
+               kvstore, lr_scheduler, metric, model, module, monitor,
+               operator, optimizer, random, resilience, serving)
 from .base import MXNetError
-from .context import cpu, gpu, default_device
+from .context import cpu, gpu, tpu, default_device
 from .executor import Executor
 from .parallel import DataParallelTrainStep, ShardedTrainStep
 
@@ -59,7 +65,8 @@ nd = ndarray
 mod = module
 init = initializer
 
-__all__ = ["MXNetError", "cpu", "gpu", "default_device", "profiler",
+__all__ = ["MXNetError", "cpu", "gpu", "tpu", "default_device", "profiler",
+           "autograd", "operator", "imperative",
            "parallel", "ShardedTrainStep", "DataParallelTrainStep",
            "Executor", "models", "name", "nd", "ndarray", "rtc", "sym",
            "symbol", "mod", "module", "io", "metric", "init", "initializer",

@@ -4,14 +4,26 @@ The reference MXNet had ``kGPU`` natively; in the port a context is simply
 a ``torch.device``. There is no silent CPU default: an entry point given
 no device runs on the card, and raises when CUDA is missing, so a run
 meant for the GPU can never quietly measure the CPU.
+
+``tpu(i)`` is the reference's accelerator context, so scripts written for
+it run unchanged: on the port it names the card, as ``gpu(i)`` does.
+``host_scope()`` makes the CPU the default device of the calling thread
+for its extent: a Python ``CustomOp``'s callbacks run under it, so the
+arrays they make stay on the host their inputs were copied to.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
 from .base import MXNetError, env_flag
 
-__all__ = ["cpu", "gpu", "default_device", "resolve_device", "pin_float32"]
+__all__ = ["cpu", "gpu", "tpu", "default_device", "resolve_device",
+           "pin_float32", "host_scope"]
+
+_local = threading.local()
 
 
 def cpu():
@@ -22,8 +34,26 @@ def gpu(device_id=0):
     return torch.device("cuda", int(device_id))
 
 
+tpu = gpu
+
+
+@contextlib.contextmanager
+def host_scope():
+    """The CPU as this thread's default device while the scope lasts."""
+    prior = getattr(_local, "device", None)
+    _local.device = cpu()
+    try:
+        yield
+    finally:
+        _local.device = prior
+
+
 def default_device():
-    """``cuda:0``; raises :class:`MXNetError` when CUDA is missing."""
+    """``cuda:0`` (the CPU inside :func:`host_scope`); raises
+    :class:`MXNetError` when CUDA is missing."""
+    scoped = getattr(_local, "device", None)
+    if scoped is not None:
+        return scoped
     if not torch.cuda.is_available():
         raise MXNetError("CUDA is not available: pass device='cpu' to run "
                          "on the CPU")

@@ -20,6 +20,11 @@ outputs: an output held across forwards reads the latest one.
 ``reshape`` binds a new executor that shares every array whose shape
 stays.
 
+A node that draws random numbers (Dropout and rrelu in a training
+forward, the sampling ops always) draws from ``mx.random.generator`` of
+the executor's device, which ``mx.random.seed`` resets; the reference
+draws a key from its global chain a forward.
+
 ``warmup()`` (reference L323) captures the inference forward at the
 bound shapes as a CUDA graph (``compile.builder.ProgramBuilder`` with
 ``capture=True``, site ``executor.forward``), which reads the bound
@@ -36,10 +41,12 @@ from __future__ import annotations
 
 import torch
 
+from . import random as _random
 from .base import MXNetError
 from .compile.builder import CapturedProgram, ProgramBuilder
 from .context import resolve_device
 from .ndarray.ndarray import NDArray, zeros
+from .ops.registry import draws
 
 __all__ = ["Executor", "GraphPlan", "run_graph"]
 
@@ -83,7 +90,8 @@ class GraphPlan:
                 self.release[i].append(k)
 
 
-def run_graph(plan, arg_vals, aux_vals, is_train, collect_interior=False):
+def run_graph(plan, arg_vals, aux_vals, is_train, collect_interior=False,
+              rng=None, device=None):
     """Interpret ``plan`` on tensors: ``arg_vals`` / ``aux_vals`` map
     variable names to tensors. Returns (outputs tuple, {aux name: updated
     value}); with ``collect_interior`` also the list of (name, value) of
@@ -91,12 +99,24 @@ def run_graph(plan, arg_vals, aux_vals, is_train, collect_interior=False):
     ``<node>_output`` (one output) or ``<node>_output<i>`` (the
     reference's ``_run_graph``, L187-240). Without it, an op output is
     dropped after the last node that reads it, so memory holds the live
-    set, not every activation (autograd keeps what its backward needs)."""
+    set, not every activation (autograd keeps what its backward needs).
+
+    Each node that draws random numbers in this mode (``ops.draws``:
+    Dropout and rrelu in training, the sampling ops always) draws from
+    the ``torch.Generator`` ``rng``, in topological order (the
+    reference splits its key in the same order); without one, from
+    ``random.generator`` of the graph's device. Such a node never runs
+    inside a CUDA-graph capture: a replay would draw the same numbers
+    every time, so it raises. ``device`` is the graph's device (default:
+    the first argument's); a node without tensor inputs makes its output
+    there."""
     vals = {}
     for nid, name, is_aux in plan.variables:
         src = aux_vals if is_aux else arg_vals
         if name in src:
             vals[(nid, 0)] = src[name]
+    if device is None and vals:
+        device = next(iter(vals.values())).device
     aux_updates = {}
     release = () if collect_interior else plan.release
     for idx, (node, params, in_keys, n_vis, aux_names) in \
@@ -106,7 +126,19 @@ def run_graph(plan, arg_vals, aux_vals, is_train, collect_interior=False):
         except KeyError:
             raise MXNetError("executor: missing input for node %s"
                              % node.name) from None
-        outs = node.op.apply(params, ins, is_train=is_train)
+        node_rng = None
+        if draws(node.op, params, is_train):
+            if device is not None and device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise MXNetError(
+                    "executor: node %s (%s) draws random numbers and cannot "
+                    "run inside a CUDA-graph capture (a replay would draw "
+                    "the same numbers)" % (node.name, node.op.name))
+            if rng is None:
+                rng = _random.generator(device)
+            node_rng = rng
+        outs = node.op.apply(params, ins, is_train=is_train, rng=node_rng,
+                             device=device)
         for i in range(n_vis):
             vals[(id(node), i)] = outs[i]
         for name, upd in zip(aux_names, outs[n_vis:]):
@@ -212,7 +244,7 @@ class Executor:
             arg_vals.update(leaves)
         with torch.set_grad_enabled(record):
             res = run_graph(self._plan, arg_vals, aux_vals, is_train,
-                            collect_interior=collect)
+                            collect_interior=collect, device=self._device)
         if collect:
             outs, aux_upd, interior = res
             self._pending_monitor.extend(
@@ -222,10 +254,11 @@ class Executor:
         return outs, aux_upd, leaves
 
     def _forward_body(self):
-        plan = self._plan
+        plan, device = self._plan, self._device
 
         def fwd(arg_vals, aux_vals):
-            return run_graph(plan, arg_vals, aux_vals, False)[0]
+            return run_graph(plan, arg_vals, aux_vals, False,
+                             device=device)[0]
         return fwd
 
     def warmup(self, is_train=False):

@@ -3,7 +3,7 @@
 The symbol module consults ``current()`` for every unnamed node, so
 unnamed nodes get the reference's names ("pooling0", "flatten0", ...);
 ``with NameManager():`` starts a fresh count. (``Prefix`` is not yet
-ported, ROADMAP A4.)"""
+ported, ROADMAP A6 part 2.)"""
 from __future__ import annotations
 
 import threading

@@ -14,7 +14,7 @@ and each NDArray-V2 as
   uint32 0xF993fac9 | int32 stype (0: dense) | TShape(uint32 ndim +
   int64*ndim) | int32 dev_type, int32 dev_id | int32 type_flag | raw data
 
-Sparse storage types are not yet ported (ROADMAP A12) and raise.
+Sparse storage types are not yet ported (ROADMAP A6 part 2) and raise.
 ``load`` returns arrays on the CPU (a file holds host bytes, and the
 reference's load also returns cpu arrays); ``copyto`` or
 ``DataParallelTrainStep.init_from`` moves them to the card.
@@ -65,7 +65,7 @@ def _save_one(out, arr):
     """Serialize one dense array as NDArray-V2."""
     if getattr(arr, "stype", "default") != "default":
         raise MXNetError("saving storage type %r is not yet ported "
-                         "(ROADMAP A12)" % arr.stype)
+                         "(ROADMAP A6 part 2)" % arr.stype)
     data = _host(arr)
     if data.ndim == 0:
         # ndim 0 means "None placeholder" in the reference format
@@ -92,7 +92,7 @@ def _load_one(buf, pos):
         pos += 4
         if stype != 0:
             raise MXNetError("loading storage type %d is not yet ported "
-                             "(ROADMAP A12)" % stype)
+                             "(ROADMAP A6 part 2)" % stype)
         shape, pos = _r_shape(buf, pos)
     elif magic == _V1_MAGIC:
         shape, pos = _r_shape(buf, pos)

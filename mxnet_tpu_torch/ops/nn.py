@@ -1,11 +1,15 @@
 """Neural-network ops of the port, plain PyTorch on NCHW tensors.
 
-Counterpart of the main-path subset of ``mxnet_tpu/ops/nn.py``:
-FullyConnected (L70), Convolution (L112), Pooling (L187), Activation
-(L242), BatchNorm (L339) and SoftmaxOutput (L589) with ``_loss_op``
-(L519). Convolution, matmul and BatchNorm go to torch's own calls
-(cuDNN/cuBLAS on the card), as the JAX package leaves them to XLA; the
-conventions are the reference's, not torch's:
+Counterpart of ``mxnet_tpu/ops/nn.py`` but for ``RNN`` (ROADMAP A6 part
+2): FullyConnected (L70), Convolution (L112) and Deconvolution (L145),
+Pooling (L187), Activation and LeakyReLU (L242-283), the softmax family
+(L296-320), BatchNorm (L339), LayerNorm, InstanceNorm, L2Normalization
+and LRN (L375-442), Dropout (L456), Embedding (L480), UpSampling (L498),
+and the loss layers SoftmaxOutput, the regression outputs, SVMOutput and
+MakeLoss (L519-675), with ``loss_grad_scale_scope`` (L26-51).
+Convolution, matmul and BatchNorm go to torch's own calls (cuDNN/cuBLAS
+on the card), as the JAX package leaves them to XLA; the conventions are
+the reference's, not torch's:
 
 - Pooling: average pooling divides by the whole kernel, padding included;
   ``pooling_convention="full"`` pads only on the right (not torch's
@@ -17,10 +21,17 @@ conventions are the reference's, not torch's:
   gradient; it computes in float32.
 - SoftmaxOutput's gradient is the reference's ``(softmax - onehot) *
   grad_scale`` times the head gradient, not autograd of softmax; labels
-  get a zero gradient.
+  get a zero gradient. The other loss layers likewise emit the
+  reference's gradient.
+- Dropout and rrelu draw from the ``torch.Generator`` their caller hands
+  them (``rng``); at ``p=0``, in predict mode and outside training they
+  return their input itself.
+- LeakyReLU's ``gelu`` is jax's default tanh approximation.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import numpy as _np
@@ -28,7 +39,33 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError, Params, param_field
+from .random_ops import uniform01
 from .registry import register_op
+from .tensor import index_of, one_hot
+
+# ---------------------------------------------------------------------------
+# The supervised step's loss scale for IMPLICIT loss sites (reference
+# L26-51): a loss head gets the scale through its seed (``_LossOp``), but
+# an op that injects a gradient mid-chain has no seed to carry it. The
+# supervised step sets the scale (a 0-d tensor) around its forward and
+# backward; such an op reads it in its forward and multiplies its injected
+# gradient by it. None everywhere else.
+# ---------------------------------------------------------------------------
+_loss_grad_scale = contextvars.ContextVar("mx_loss_grad_scale", default=None)
+
+
+def current_loss_grad_scale():
+    """The loss scale of a supervised step in progress, or None."""
+    return _loss_grad_scale.get()
+
+
+@contextlib.contextmanager
+def loss_grad_scale_scope(scale):
+    token = _loss_grad_scale.set(scale)
+    try:
+        yield
+    finally:
+        _loss_grad_scale.reset(token)
 
 # ---------------------------------------------------------------------------
 # FullyConnected (nn/fully_connected.cc)
@@ -88,14 +125,36 @@ _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 @register_op("Convolution", param_cls=ConvParam, input_names=_conv_inputs)
 def _convolution(params, x, weight, bias=None):
     nd = len(params.kernel)
-    if nd not in _CONV or params.layout not in (None, "NCW", "NCHW",
-                                                 "NCDHW"):
-        raise MXNetError("Convolution: %d-D kernels / layout %s are not yet "
-                         "ported (ROADMAP A3)" % (nd, params.layout))
+    if nd not in _CONV:
+        # the reference reads every layout as NC* (its `layout` attr is
+        # accepted and ignored) and convolves 1-D to 3-D kernels
+        raise MXNetError("Convolution: %d-D kernels are not supported, as "
+                         "in the reference (1-D to 3-D)" % nd)
     return _CONV[nd](x, weight, bias, stride=params.stride or (1,) * nd,
                      padding=params.pad or (0,) * nd,
                      dilation=params.dilate or (1,) * nd,
                      groups=params.num_group)
+
+
+class DeconvParam(ConvParam):
+    adj = param_field(tuple, default=())
+    target_shape = param_field(tuple, default=())
+
+
+@register_op("Deconvolution", param_cls=DeconvParam, input_names=_conv_inputs)
+def _deconvolution(params, x, weight, bias=None):
+    """The transposed convolution, weight (C_in, F / num_group, kh, kw) as
+    the reference's (and torch's); ``adj`` is the output padding."""
+    nd = len(params.kernel)
+    if nd != 2:
+        raise MXNetError("Deconvolution only supports 2D kernels, as in "
+                         "the reference")
+    return F.conv_transpose2d(x, weight, bias,
+                              stride=params.stride or (1, 1),
+                              padding=params.pad or (0, 0),
+                              output_padding=params.adj or (0, 0),
+                              groups=params.num_group,
+                              dilation=params.dilate or (1, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +195,8 @@ def _pooling(params, x):
             pooling_convention=params.pooling_convention),
             x[:, :, None])[:, :, 0]
     if spatial not in _MAX_POOL:
-        raise MXNetError("Pooling: %d-D input is not yet ported (ROADMAP A3)"
-                         % spatial)
+        raise MXNetError("Pooling: %d-D input is not yet ported (ROADMAP A6 "
+                         "part 2; 1-D to 3-D are)" % spatial)
     kernel = tuple(params.kernel)
     stride = tuple(params.stride or (1,) * spatial)
     pad = tuple(params.pad or (0,) * spatial)
@@ -193,6 +252,82 @@ def _activation(params, x):
     return _ACTS[params.act_type](x)
 
 
+class LeakyReLUParam(Params):
+    act_type = param_field(str, default="leaky",
+                           enum=("leaky", "prelu", "elu", "selu", "rrelu",
+                                 "gelu"))
+    slope = param_field(float, default=0.25)
+    lower_bound = param_field(float, default=0.125)
+    upper_bound = param_field(float, default=0.334)
+
+
+def _lrelu_inputs(p):
+    if p is not None and p.act_type == "prelu":
+        return ("data", "gamma")
+    return ("data",)
+
+
+@register_op("LeakyReLU", param_cls=LeakyReLUParam,
+             input_names=_lrelu_inputs, need_rng=True, need_train=True)
+def _leaky_relu(params, x, gamma=None, is_train=False, rng=None):
+    t = params.act_type
+    if t == "leaky":
+        return torch.where(x > 0, x, params.slope * x)
+    if t == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (x.dim() - 2)) \
+            if gamma.dim() == 1 else gamma
+        return torch.where(x > 0, x, g * x)
+    if t == "elu":
+        return torch.where(x > 0, x, params.slope * (torch.exp(x) - 1.0))
+    if t == "selu":
+        return 1.0507009873554805 * torch.where(
+            x > 0, x, 1.6732632423543772 * (torch.exp(x) - 1.0))
+    if t == "gelu":
+        return F.gelu(x, approximate="tanh")
+    # rrelu: a random slope a lane in training, the mean slope otherwise
+    if is_train:
+        lo, hi = params.lower_bound, params.upper_bound
+        slope = uniform01(x.shape, rng, x.device, x.dtype) * (hi - lo) + lo
+    else:
+        slope = (params.lower_bound + params.upper_bound) / 2.0
+    return torch.where(x > 0, x, slope * x)
+
+
+# ---------------------------------------------------------------------------
+# softmax family (nn/softmax.cc)
+# ---------------------------------------------------------------------------
+
+
+class SoftmaxParam(Params):
+    axis = param_field(int, default=-1)
+    temperature = param_field(float, default=None)
+
+
+@register_op("softmax", param_cls=SoftmaxParam)
+def _softmax(params, x):
+    if params.temperature:
+        x = x / params.temperature
+    return F.softmax(x, dim=params.axis)
+
+
+@register_op("log_softmax", param_cls=SoftmaxParam)
+def _log_softmax(params, x):
+    if params.temperature:
+        x = x / params.temperature
+    return F.log_softmax(x, dim=params.axis)
+
+
+class SoftmaxActivationParam(Params):
+    mode = param_field(str, default="instance", enum=("instance", "channel"))
+
+
+@register_op("SoftmaxActivation", param_cls=SoftmaxActivationParam)
+def _softmax_activation(params, x):
+    if params.mode == "instance" and x.dim() > 2:
+        return F.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+    return F.softmax(x, dim=1 if params.mode == "channel" else -1)
+
+
 # ---------------------------------------------------------------------------
 # BatchNorm (nn/batch_norm.cc)
 # ---------------------------------------------------------------------------
@@ -215,9 +350,6 @@ class BatchNormParam(Params):
              need_train=True)
 def _batch_norm(params, x, gamma, beta, moving_mean, moving_var,
                 is_train=False):
-    if params.output_mean_var:
-        raise MXNetError("BatchNorm(output_mean_var=True) is not yet ported "
-                         "(ROADMAP A3)")
     ax = params.axis % x.dim()
     xf = x.float()
     if ax != 1:
@@ -241,7 +373,159 @@ def _batch_norm(params, x, gamma, beta, moving_mean, moving_var,
         new_mean, new_var = moving_mean, moving_var
     if ax != 1:
         out = out.movedim(1, ax)
+    if params.output_mean_var:
+        # the statistics the output was normalized with, and the inverse
+        # standard deviation (differentiable, as the reference's are)
+        if is_train and not params.use_global_stats:
+            red = [d for d in range(xf.dim()) if d != 1]
+            var, mean = torch.var_mean(xf, dim=red, correction=0)
+        else:
+            mean, var = moving_mean, moving_var
+        inv = torch.rsqrt(var + params.eps)
+        return out.to(x.dtype), mean, inv, new_mean, new_var
     return out.to(x.dtype), new_mean, new_var
+
+
+class LayerNormParam(Params):
+    axis = param_field(int, default=-1)
+    eps = param_field(float, default=1e-5)
+    output_mean_var = param_field(bool, default=False)
+
+
+@register_op("LayerNorm", param_cls=LayerNormParam,
+             input_names=("data", "gamma", "beta"),
+             num_outputs=lambda p: 3 if (p and p.output_mean_var) else 1)
+def _layer_norm(params, x, gamma, beta):
+    ax = params.axis % x.dim()
+    xf = x.float()
+    var, mean = torch.var_mean(xf, dim=ax, keepdim=True, correction=0)
+    inv = torch.rsqrt(var + params.eps)
+    bshape = tuple(x.shape[ax] if i == ax else 1 for i in range(x.dim()))
+    out = ((xf - mean) * inv * gamma.reshape(bshape)
+           + beta.reshape(bshape)).to(x.dtype)
+    if params.output_mean_var:
+        return out, mean.squeeze(ax), inv.squeeze(ax)
+    return out
+
+
+class InstanceNormParam(Params):
+    eps = param_field(float, default=1e-3)
+
+
+@register_op("InstanceNorm", param_cls=InstanceNormParam,
+             input_names=("data", "gamma", "beta"))
+def _instance_norm(params, x, gamma, beta):
+    red = tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x, dim=red, keepdim=True, correction=0)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    return ((x - mean) * torch.rsqrt(var + params.eps)
+            * gamma.reshape(bshape) + beta.reshape(bshape))
+
+
+class L2NormParam(Params):
+    eps = param_field(float, default=1e-10)
+    mode = param_field(str, default="instance",
+                       enum=("instance", "channel", "spatial"))
+
+
+@register_op("L2Normalization", param_cls=L2NormParam)
+def _l2_normalization(params, x):
+    red = {"instance": tuple(range(1, x.dim())), "channel": (1,),
+           "spatial": tuple(range(2, x.dim()))}[params.mode]
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=red, keepdim=True)
+                      + params.eps)
+    return x / norm
+
+
+class LRNParam(Params):
+    alpha = param_field(float, default=1e-4)
+    beta = param_field(float, default=0.75)
+    knorm = param_field(float, default=2.0)
+    nsize = param_field(int, required=True)
+
+
+@register_op("LRN", param_cls=LRNParam)
+def _lrn(params, x):
+    half = params.nsize // 2
+    sq = F.pad(torch.square(x).movedim(1, -1), (half, half)).movedim(-1, 1)
+    acc = torch.zeros_like(x)
+    for i in range(params.nsize):
+        acc = acc + sq.narrow(1, i, x.shape[1])
+    scale = torch.pow(params.knorm + params.alpha * acc / params.nsize,
+                      -params.beta)
+    return x * scale
+
+
+# ---------------------------------------------------------------------------
+# Dropout (nn/dropout.cc)
+# ---------------------------------------------------------------------------
+
+
+class DropoutParam(Params):
+    p = param_field(float, default=0.5)
+    mode = param_field(str, default="training", enum=("training", "always"))
+    axes = param_field(tuple, default=())
+
+
+@register_op("Dropout", param_cls=DropoutParam, need_rng=True,
+             need_train=True)
+def _dropout(params, x, is_train=False, rng=None):
+    """Keep each lane with probability ``1 - p`` and scale it by
+    ``1 / (1 - p)``; ``axes`` share one draw along those dims. The input
+    itself at ``p=0`` and outside training (unless ``mode="always"``)."""
+    if params.p <= 0 or (not is_train and params.mode != "always"):
+        return x
+    keep = 1.0 - params.p
+    shape = tuple(1 if i in params.axes else s for i, s in enumerate(x.shape))
+    mask = uniform01(shape, rng, x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# Embedding (tensor/indexing_op.cc Embedding)
+# ---------------------------------------------------------------------------
+
+
+class EmbeddingParam(Params):
+    input_dim = param_field(int, required=True)
+    output_dim = param_field(int, required=True)
+    dtype = param_field(str, default="float32")
+    sparse_grad = param_field(bool, default=False)
+
+
+@register_op("Embedding", param_cls=EmbeddingParam,
+             input_names=("data", "weight"))
+def _embedding(params, data, weight):
+    return F.embedding(index_of(data), weight)
+
+
+# ---------------------------------------------------------------------------
+# UpSampling (upsampling.cc)
+# ---------------------------------------------------------------------------
+
+
+class UpSamplingParam(Params):
+    scale = param_field(int, required=True)
+    sample_type = param_field(str, default="nearest",
+                              enum=("nearest", "bilinear"))
+    num_args = param_field(int, default=1)
+    num_filter = param_field(int, default=0)
+    multi_input_mode = param_field(str, default="concat")
+
+
+@register_op("UpSampling", param_cls=UpSamplingParam,
+             key_var_num_args="num_args",
+             input_names=lambda p: tuple(
+                 "arg%d" % i for i in range(p.num_args if p else 1)))
+def _upsampling(params, *args):
+    """The first input scaled (the reference reads only ``args[0]``)."""
+    x, s = args[0], params.scale
+    if params.sample_type == "nearest":
+        return x.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+    # jax.image.resize's bilinear: half-pixel centres
+    return F.interpolate(x, scale_factor=s, mode="bilinear",
+                         align_corners=False)
 
 
 # ---------------------------------------------------------------------------
@@ -321,3 +605,84 @@ def _softmax_output_impl(params):
              param_cls=SoftmaxOutputParam, input_names=("data", "label"))
 def _softmax_output(params, data, label):
     return _loss_op(*_softmax_output_impl(params))(data, label)
+
+
+class RegOutputParam(Params):
+    grad_scale = param_field(float, default=1.0)
+
+
+def _regression_output(name, forward, residual):
+    @register_op(name, param_cls=RegOutputParam,
+                 input_names=("data", "label"))
+    def op(params, data, label):
+        def backward_grad(d, lab):
+            return residual(d, lab.reshape(d.shape)) * params.grad_scale \
+                / d.shape[0]
+        return _loss_op(lambda d, lab: forward(d), backward_grad)(data, label)
+    return op
+
+
+_regression_output("LinearRegressionOutput", lambda d: d,
+                   lambda d, lab: d - lab)
+_regression_output("MAERegressionOutput", lambda d: d,
+                   lambda d, lab: torch.sign(d - lab))
+_regression_output("LogisticRegressionOutput", torch.sigmoid,
+                   lambda d, lab: torch.sigmoid(d) - lab)
+
+
+class SVMOutputParam(Params):
+    margin = param_field(float, default=1.0)
+    regularization_coefficient = param_field(float, default=1.0)
+    use_linear = param_field(bool, default=False)
+
+
+@register_op("SVMOutput", param_cls=SVMOutputParam,
+             input_names=("data", "label"))
+def _svm_output(params, data, label):
+    def backward_grad(d, lab):
+        sign = one_hot(lab, d.shape[-1], d.dtype) * 2 - 1
+        gap = params.margin - sign * d
+        if params.use_linear:
+            g = torch.where(gap > 0, -sign, torch.zeros_like(d))
+        else:
+            g = torch.where(gap > 0, -2 * gap * sign, torch.zeros_like(d))
+        return g * params.regularization_coefficient
+
+    return _loss_op(lambda d, lab: d, backward_grad)(data, label)
+
+
+class MakeLossParam(Params):
+    grad_scale = param_field(float, default=1.0)
+    valid_thresh = param_field(float, default=0.0)
+    normalization = param_field(str, default="null",
+                                enum=("null", "batch", "valid"))
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Forward identity; the backward seeds ``grad_scale`` (make_loss.cc),
+    times the head gradient (ones but under a loss scale)."""
+
+    @staticmethod
+    def forward(ctx, d, params):
+        ctx.params = params
+        ctx.save_for_backward(d)
+        return d.view_as(d)
+
+    @staticmethod
+    def backward(ctx, g):
+        (d,) = ctx.saved_tensors
+        p = ctx.params
+        full = torch.full(d.shape, p.grad_scale, dtype=d.dtype,
+                          device=d.device)
+        if p.normalization == "batch":
+            full = torch.full(d.shape, p.grad_scale / d.shape[0],
+                              dtype=d.dtype, device=d.device)
+        elif p.normalization == "valid":
+            valid = torch.clamp((d > p.valid_thresh).float().sum(), min=1.0)
+            full = full / valid
+        return full * g, None
+
+
+@register_op("MakeLoss", param_cls=MakeLossParam)
+def _make_loss_op(params, data):
+    return _MakeLoss.apply(data, params)

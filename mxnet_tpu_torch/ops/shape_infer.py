@@ -1,6 +1,8 @@
 """Learnable-parameter shape inference hooks.
 
-Counterpart of ``mxnet_tpu/ops/shape_infer.py`` for the port's ops: each
+Counterpart of ``mxnet_tpu/ops/shape_infer.py`` for the port's ops
+(RNN, LSoftmax, the quantized and the sparse-regularization hooks wait
+for their ops, ROADMAP A6 part 2): each
 op's output shapes come from running it on ``meta`` tensors
 (``OpDef.infer``); these hooks supply the *input* shapes that running the
 op cannot derive (weights, aux states, labels).
@@ -76,6 +78,16 @@ def _conv(params, shapes):
     return out
 
 
+@hook("Deconvolution")
+def _deconv(params, shapes):
+    c = shapes["data"][1]
+    out = {"weight": (c, params.num_filter // params.num_group)
+           + tuple(params.kernel)}
+    if not params.no_bias:
+        out["bias"] = (params.num_filter,)
+    return out
+
+
 @hook("BatchNorm")
 def _bn(params, shapes):
     c = shapes["data"][params.axis % len(shapes["data"])]
@@ -93,3 +105,43 @@ def _softmax_output(params, shapes):
     if params.preserve_shape or len(data) > 2:
         return {"label": tuple(data[:-1])}
     return {"label": (data[0],)}
+
+
+@hook("LayerNorm")
+def _ln(params, shapes):
+    c = shapes["data"][params.axis % len(shapes["data"])]
+    return {"gamma": (c,), "beta": (c,)}
+
+
+@hook("InstanceNorm")
+def _in(params, shapes):
+    c = shapes["data"][1]
+    return {"gamma": (c,), "beta": (c,)}
+
+
+@hook("Embedding")
+def _emb(params, shapes):
+    return {"weight": (params.input_dim, params.output_dim)}
+
+
+@hook("LeakyReLU")
+def _prelu(params, shapes):
+    if params.act_type == "prelu":
+        return {"gamma": (shapes["data"][1],)}
+    return {}
+
+
+@hook("SVMOutput")
+def _svm_output(params, shapes):
+    data = shapes.get("data")
+    return {"label": (data[0],)} if data else {}
+
+
+def _same_label(params, shapes):
+    data = shapes.get("data")
+    return {"label": tuple(data)} if data else {}
+
+
+for _name in ("LinearRegressionOutput", "MAERegressionOutput",
+              "LogisticRegressionOutput"):
+    hook(_name)(_same_label)

@@ -54,12 +54,19 @@ the update.
   on-demand program), and kernel #7's library built and loaded when the
   update is fused on the card. It runs no step and changes no state.
 
+- A graph with stochastic ops (Dropout, rrelu, the sampling ops) draws
+  from one ``torch.Generator`` on the device, seeded each call with
+  ``random.step_seed()``: ``numpy.random.randint(0, 2**31)``, as the
+  reference draws its step key (L605-610), also for a supervised step
+  that turns out bad. A fit from one ``numpy.random.seed`` draws the same
+  masks bit for bit. ``rng`` (an int) seeds the step's generator instead.
+  A graph without them draws nothing from numpy.
+
 Not yet ported, and raising: a mesh of more than one device, ``zero``
-and ``comm_plan`` (distribution, ROADMAP A7), the lint hooks of
-``MXNET_TPU_LINT`` (ROADMAP A9, analysis/), and graphs with stochastic
-ops (ROADMAP A6). ``shard_update`` on one device is the no-op it is in
-the JAX package, and ``sharding_config`` has nothing to shard: both are
-accepted and ignored.
+and ``comm_plan`` (distribution, ROADMAP A7) and the lint hooks of
+``MXNET_TPU_LINT`` (ROADMAP A9, analysis/). ``shard_update`` on one
+device is the no-op it is in the JAX package, and ``sharding_config``
+has nothing to shard: both are accepted and ignored.
 """
 from __future__ import annotations
 
@@ -75,6 +82,8 @@ from ..executor import GraphPlan, run_graph
 from ..kernels import opt_update as _opt_update
 from ..kernels.opt_update import fused_update_step
 from ..ops.elemwise import torch_dtype
+from ..ops.nn import loss_grad_scale_scope
+from ..random import step_seed
 from .optim_update import (apply_update, grad_prologue, init_opt_state,
                            tree_map)
 
@@ -128,9 +137,6 @@ class DataParallelTrainStep:
         if env_flag("MXNET_TPU_LINT"):
             raise MXNetError("MXNET_TPU_LINT: the train step's lint hooks are "
                              "not yet ported (ROADMAP A9, analysis/)")
-        if symbol._needs_rng():
-            raise MXNetError("DataParallelTrainStep: graphs with stochastic "
-                             "ops are not yet ported (ROADMAP A6)")
         if optimizer not in ("sgd", "adam"):
             raise MXNetError("unknown optimizer %r" % optimizer)
         self.device = resolve_device(device)
@@ -168,6 +174,8 @@ class DataParallelTrainStep:
         self._step = None
         self._lr_t = None
         self._scale_t = None
+        self._needs_rng = symbol._needs_rng()
+        self._gen = None
 
     # ------------------------------------------------------------------
     def init(self, batch_shapes, dtype=_np.float32, seed=0):
@@ -233,6 +241,8 @@ class DataParallelTrainStep:
         if self.supervise:
             self._scale_t = torch.ones((), dtype=torch.float32,
                                        device=self.device)
+        if self._needs_rng:
+            self._gen = torch.Generator(self.device)
         self._step = ProgramBuilder(self._body, site="train.fused_step",
                                     donate_argnums=(0, 1))
 
@@ -281,18 +291,22 @@ class DataParallelTrainStep:
                         and v.is_floating_point() else v)
                     for n, v in batch.items()}
             args.update((n, p.to(cdt)) for n, p in params.items())
-        outs, aux_upd = run_graph(self._plan, args, aux, True)
-        live = [o for o in outs if o.requires_grad]
-        if scale is None:
-            seeds = [torch.ones_like(o) for o in live]
-        else:
-            # the loss-scaled backward: the seed IS the scale (a power of
-            # two: scale 1.0 is the unscaled seed bit for bit); the loss
-            # heads take it multiplicatively (ops/nn.py _LossOp)
-            seeds = [torch.empty_like(o).copy_(scale.to(o.dtype))
-                     for o in live]
-        grads = torch.autograd.grad(live, leaves, seeds, allow_unused=True,
-                                    materialize_grads=True)
+        with loss_grad_scale_scope(scale):
+            outs, aux_upd = run_graph(self._plan, args, aux, True,
+                                      rng=self._gen)
+            live = [o for o in outs if o.requires_grad]
+            if scale is None:
+                seeds = [torch.ones_like(o) for o in live]
+            else:
+                # the loss-scaled backward: the seed IS the scale (a power
+                # of two: scale 1.0 is the unscaled seed bit for bit); the
+                # loss heads take it multiplicatively (ops/nn.py _LossOp),
+                # an implicit loss site through loss_grad_scale_scope
+                seeds = [torch.empty_like(o).copy_(scale.to(o.dtype))
+                         for o in live]
+            grads = torch.autograd.grad(live, leaves, seeds,
+                                        allow_unused=True,
+                                        materialize_grads=True)
         with torch.no_grad():
             good = None
             if scale is not None:
@@ -330,11 +344,16 @@ class DataParallelTrainStep:
     def __call__(self, batch, rng=None, lr=None, scale=None):
         """One step on a batch (dict name -> numpy array or tensor; a
         tensor already on the device goes in without a copy); returns the
-        outputs. ``rng`` is accepted for API parity (no ported op draws
-        randomness). Supervised, ``scale`` (default 1.0) is the loss scale
-        and ``last_flag`` holds the step's device verdict."""
+        outputs. A graph with stochastic ops seeds its generator with
+        ``rng`` (an int) or, by default, ``random.step_seed()``.
+        Supervised, ``scale`` (default 1.0) is the loss scale and
+        ``last_flag`` holds the step's device verdict."""
         if self._step is None:
             raise MXNetError("call init() first")
+        if self._gen is not None:
+            # drawn before the step, as the reference's key: a step the
+            # supervisor skips has drawn it too
+            self._gen.manual_seed(step_seed() if rng is None else int(rng))
         batch = {n: torch.as_tensor(x).to(self.device, non_blocking=True)
                  for n, x in batch.items() if n in self.arg_names}
         self._lr_t.fill_(self.lr if lr is None else lr)

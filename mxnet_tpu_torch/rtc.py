@@ -360,13 +360,25 @@ def _user_op(name, n_out, out_shape_fn, run_cuda, plain_fn):
     return op_fn
 
 
+#: name -> the ``mx.nd`` function of each registered user op
+_ND_FUNCTIONS = {}
+
+
+def nd_function(name):
+    """``mx.nd.<name>`` of a user op registered here, or None."""
+    return _ND_FUNCTIONS.get(name)
+
+
 def _nd_function(op_fn):
     def nd_fn(*arrays):
+        # not recorded, as in the reference: a user kernel has no
+        # gradient (an input that requires grad raises)
         out = op_fn(None, *map(_on_device, arrays))
         if isinstance(out, tuple):
             return [NDArray(o) for o in out]
         return NDArray(out)
     nd_fn.__name__ = op_fn.__name__
+    _ND_FUNCTIONS[op_fn.__name__] = nd_fn
     return nd_fn
 
 

@@ -8,6 +8,7 @@ manager's ``<op>N``.
 """
 from __future__ import annotations
 
+import builtins
 import sys
 
 from ..base import MXNetError
@@ -22,6 +23,8 @@ _this = sys.modules[__name__]
 def _invoke_symbol(opdef, sym_inputs, attrs, name=None):
     """Create a graph node applying opdef to symbol inputs."""
     attrs = {k: v for k, v in attrs.items() if v is not None}
+    if opdef.key_var_num_args and opdef.key_var_num_args not in attrs:
+        attrs[opdef.key_var_num_args] = len(sym_inputs)
     params = opdef.make_params(dict(attrs))
     in_names = opdef.list_inputs(params) + opdef.list_aux(params)
     if name is None:
@@ -54,17 +57,23 @@ def _make_sym_function(opdef):
             fields = [f for f in opdef.param_cls._fields if f not in attrs]
             for a, f in zip(pos_attrs, fields):
                 attrs[f] = a
-        probe = opdef.make_params({k: v for k, v in attrs.items()
-                                   if v is not None})
-        in_names = opdef.list_inputs(probe) + opdef.list_aux(probe)
-        inputs = [None] * len(in_names)
-        for i, a in enumerate(sym_args[:len(inputs)]):
-            inputs[i] = a
-        for k, v in named_inputs.items():
-            if k not in in_names:
-                raise MXNetError("%s: unknown input %r (expects %s)"
-                                 % (opdef.name, k, in_names))
-            inputs[in_names.index(k)] = v
+        if opdef.key_var_num_args:
+            # a variadic op (Concat, add_n) counts its inputs
+            attrs.setdefault(opdef.key_var_num_args, builtins.max(
+                len(sym_args), 1))
+            inputs = sym_args
+        else:
+            probe = opdef.make_params({k: v for k, v in attrs.items()
+                                       if v is not None})
+            in_names = opdef.list_inputs(probe) + opdef.list_aux(probe)
+            inputs = [None] * len(in_names)
+            for i, a in enumerate(sym_args[:len(inputs)]):
+                inputs[i] = a
+            for k, v in named_inputs.items():
+                if k not in in_names:
+                    raise MXNetError("%s: unknown input %r (expects %s)"
+                                     % (opdef.name, k, in_names))
+                inputs[in_names.index(k)] = v
         out = _invoke_symbol(opdef, inputs, attrs, name=name)
         if attr:
             out._set_attr(**attr)
@@ -86,9 +95,47 @@ for _al, _target in _OP_ALIASES.items():
 
 def __getattr__(name):
     # mx.sym.<op> for an op of the reference the port has not registered
-    raise AttributeError("mx.sym.%s: operator not yet ported (ROADMAP A3)"
-                         % name)
+    raise AttributeError("mx.sym.%s: operator not yet ported (ROADMAP A6 "
+                         "part 2)" % name)
 
+
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def zeros(shape, dtype="float32", **kwargs):
+    return _GENERATED["_zeros"](shape=_shape(shape), dtype=str(dtype),
+                                **kwargs)
+
+
+def ones(shape, dtype="float32", **kwargs):
+    return _GENERATED["_ones"](shape=_shape(shape), dtype=str(dtype),
+                               **kwargs)
+
+
+def full(shape, val, dtype="float32", **kwargs):
+    return _GENERATED["_full"](shape=_shape(shape), value=float(val),
+                               dtype=str(dtype), **kwargs)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype="float32", **kwargs):
+    return _GENERATED["_arange"](start=start, stop=stop, step=step,
+                                 repeat=repeat, dtype=str(dtype), **kwargs)
+
+
+def pow(base, exp):
+    """Symbol/scalar power (reference: symbol.py ``pow``)."""
+    if isinstance(base, Symbol) and isinstance(exp, Symbol):
+        return _GENERATED["power"](base, exp)
+    if isinstance(base, Symbol):
+        return base.__pow__(exp)
+    if isinstance(exp, Symbol):
+        return exp._apply_op("_rpower_scalar", scalar=float(base))
+    return base ** exp
+
+
+from . import random  # noqa: E402  (mx.sym.random)
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
-           "fromjson"] + list(_GENERATED)
+           "fromjson", "zeros", "ones", "full", "arange", "pow",
+           "random"] + list(_GENERATED)

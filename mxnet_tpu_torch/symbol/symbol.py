@@ -13,9 +13,16 @@ Ported: ``Variable``/``var``, ``Group``, ``list_arguments`` /
 ``infer_type`` (the reference's dtype unification), ``attr_dict``, ``+``
 (``elemwise_add`` / ``_plus_scalar``), composition by call,
 ``get_internals`` and indexing by position, slice or output name,
-``tojson``/``save``/``load``/``load_json`` and ``simple_bind``. The rest
-of the reference's Symbol surface (``bind``, ``eval``, the other
-operators) raises "not yet ported" (ROADMAP A6).
+``tojson``/``save``/``load``/``load_json``, ``simple_bind``, ``bind`` and
+``eval``, and the reference's operators: ``+ - * / ** %`` with symbols
+(``elemwise_*``, ``power``, ``mod``) and scalars (``_plus_scalar``, ...,
+the reversed ``_rminus_scalar``, ``_rdiv_scalar``, ``_rpower_scalar``,
+``_rmod_scalar``), unary minus, the comparisons (``equal``, ...,
+``_lesser_equal_scalar``), and the shape and math mirrors (``reshape``,
+``transpose``, ``flatten``, ``astype``, ``sum``, ``mean``,
+``slice_axis``, ``expand_dims``, ``softmax``). ``infer_shape_partial``,
+``attr``-scopes and ``get_children`` raise "not yet ported" (ROADMAP A6
+part 2).
 """
 from __future__ import annotations
 
@@ -233,7 +240,7 @@ class Symbol:
                 out[node.name] = {k: str(v) for k, v in d.items()}
         return out
 
-    # -- composition operators ---------------------------------------------
+    # -- composition operators (reference symbol.py L263-399) -------------
     def _apply_op(self, opname, other=None, **attrs):
         from . import _invoke_symbol
         if other is None:
@@ -242,13 +249,95 @@ class Symbol:
             return _invoke_symbol(get_op(opname), [self, other], attrs)
         raise TypeError("unsupported operand type %s" % type(other))
 
-    def __add__(self, other):
+    def _arith(self, other, op, scalar_op):
         if isinstance(other, Symbol):
-            return self._apply_op("elemwise_add", other)
-        return self._apply_op("_plus_scalar", scalar=float(other))
+            return self._apply_op(op, other)
+        return self._apply_op(scalar_op, scalar=float(other))
+
+    def __add__(self, other):
+        return self._arith(other, "elemwise_add", "_plus_scalar")
 
     def __radd__(self, other):
         return self.__add__(other)
+
+    def __sub__(self, other):
+        return self._arith(other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._apply_op("_rminus_scalar", scalar=float(other))
+
+    def __mul__(self, other):
+        return self._arith(other, "elemwise_mul", "_mul_scalar")
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    def __truediv__(self, other):
+        return self._arith(other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._apply_op("_rdiv_scalar", scalar=float(other))
+
+    __div__, __rdiv__ = __truediv__, __rtruediv__
+
+    def __pow__(self, other):
+        return self._arith(other, "power", "_power_scalar")
+
+    def __neg__(self):
+        return self._apply_op("_mul_scalar", scalar=-1.0)
+
+    def __eq__(self, other):
+        return self._arith(other, "equal", "_equal_scalar")
+
+    def __ne__(self, other):
+        return self._arith(other, "not_equal", "_not_equal_scalar")
+
+    def __gt__(self, other):
+        return self._arith(other, "greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._arith(other, "greater_equal", "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._arith(other, "lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._arith(other, "lesser_equal", "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
+
+    def reshape(self, shape=None, **kwargs):
+        from . import _invoke_symbol
+        if shape is None:
+            shape = kwargs.pop("shape", None)
+        return _invoke_symbol(get_op("Reshape"), [self], {
+            "shape": tuple(shape),
+            "reverse": bool(kwargs.pop("reverse", False))})
+
+    def transpose(self, axes=()):
+        return self._apply_op("transpose", axes=tuple(axes))
+
+    def flatten(self):
+        return self._apply_op("Flatten")
+
+    def sum(self, axis=None, keepdims=False):
+        return self._apply_op("sum", axis=axis, keepdims=keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return self._apply_op("mean", axis=axis, keepdims=keepdims)
+
+    def astype(self, dtype):
+        return self._apply_op("Cast", dtype=str(_np.dtype(dtype)))
+
+    def slice_axis(self, axis, begin, end):
+        return self._apply_op("slice_axis", axis=axis, begin=begin, end=end)
+
+    def expand_dims(self, axis):
+        return self._apply_op("expand_dims", axis=axis)
+
+    def softmax(self, axis=-1):
+        return self._apply_op("softmax", axis=axis)
 
     def __repr__(self):
         name = self.name
@@ -460,19 +549,30 @@ class Symbol:
                       zip(self.list_auxiliary_states(), aux_shapes)}
         return Executor(self, ctx, args, args_grad, grad_req, aux_states)
 
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """An Executor over the given arrays (lists in ``list_arguments``
+        order, or dicts); ``ctx`` None is the card."""
+        from ..context import resolve_device
+        from ..executor import Executor
+        return Executor(self, resolve_device(ctx), args, args_grad,
+                        grad_req, aux_states)
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind ``kwargs`` (name -> NDArray) and run one inference
+        forward; returns the outputs."""
+        return self.bind(ctx, kwargs, grad_req="null").forward()
+
 
 def _not_ported(name):
     def method(self, *args, **kwargs):
-        raise MXNetError("Symbol.%s is not yet ported (ROADMAP A6)" % name)
+        raise MXNetError("Symbol.%s is not yet ported (ROADMAP A6 part 2)"
+                         % name)
     method.__name__ = name
     return method
 
 
-for _name in ("get_children", "attr", "infer_shape_partial", "__sub__",
-              "__rsub__", "__mul__", "__rmul__", "__truediv__",
-              "__rtruediv__", "__pow__", "__neg__", "reshape", "transpose",
-              "flatten", "astype", "sum", "mean", "slice_axis",
-              "expand_dims", "softmax", "bind", "eval", "grad"):
+for _name in ("get_children", "attr", "infer_shape_partial", "grad"):
     setattr(Symbol, _name, _not_ported(_name))
 
 
@@ -528,7 +628,7 @@ def load_json(json_str):
             opdef = find_op(meta["op"])
             if opdef is None:
                 raise MXNetError("load_json: op %r is not yet ported "
-                                 "(ROADMAP A3)" % meta["op"])
+                                 "(ROADMAP A6)" % meta["op"])
             extra = {k: v for k, v in attrs.items() if k.startswith("__")}
             # drop unknown legacy params silently (forward compat)
             valid = set(opdef.param_cls._fields)

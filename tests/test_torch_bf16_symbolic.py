@@ -184,10 +184,10 @@ def test_bf16_step_never_casts_labels(monkeypatch):
     seen = {}
     real = tpu_step.run_graph
 
-    def spy(plan, args, aux, is_train):
+    def spy(plan, args, aux, is_train, **kw):
         seen.update({n: (v.dtype, v.clone()) for n, v in args.items()
                      if n in ("data", "softmax_label")})
-        return real(plan, args, aux, is_train)
+        return real(plan, args, aux, is_train, **kw)
 
     monkeypatch.setattr(tpu_step, "run_graph", spy)
     x = tmx.sym.Variable("data")

@@ -5,8 +5,8 @@ Every input is made from a numpy seed and goes through both packages;
 both graphs are built in fresh ``NameManager`` scopes.
 
 - ``InferenceEngine`` on an MLP with BatchNorm and on a two-convolution
-  network (the reference fixtures' nets; no Dropout, which the port has
-  not yet: ROADMAP A6): ``predict`` at N = bucket and bucket +- 1, from 1
+  network (the reference fixtures' nets, without their Dropout):
+  ``predict`` at N = bucket and bucket +- 1, from 1
   to above the largest bucket, within rtol 1e-5 / atol 1e-6 of the
   reference engine's (the reference's own contract,
   ``tests/python/unittest/test_serving.py``; float32 sums in another
