@@ -546,6 +546,56 @@ no result line):
              example/numpy-ops/custom_softmax.py and
              example/cnn_text_classification/text_cnn.py unchanged:
              "final accuracy" above 0.9 (the reference test's threshold).
+38. rnn_seq — sequence models at the medium PTB LSTM's width (Zaremba
+             et al. 2014: bptt 35, batch 20, 650 wide, 2 layers, vocab
+             10000), float32 under cudnn.deterministic. Gates: (a) the RNN
+             op's cuDNN route (torch._VF over views into the reference's
+             packed parameters) against its plain per-step loop in every
+             mode (lstm, gru, rnn_tanh, rnn_relu), one and two
+             directions: the outputs, h_T/c_T and the gradients into
+             data, parameters and both states within RNN_TOL of max
+             |a - b| / max |b|; the control, the loop with the LSTM's i
+             and f gates swapped in the unpacking, must fail that limit
+             (read in every run); (b) dropout 0.5 between the layers: one
+             numpy seed gives the same bits, another seed others, and at
+             inference p changes nothing; (c) a FusedRNNCell LM
+             (Embedding 10000 x 650, the fused 2 x 650 LSTM,
+             FullyConnected to 10000, SoftmaxOutput) takes LM_STEPS steps
+             of Module.fit(kvstore='tpu_sync', optimizer='adam') under
+             MXNET_TPU_FUSED_OPTUPDATE=1: its loss falls every step, #7
+             launches once a step over its 4 leaves, every RNN call runs
+             cuDNN;
+             its first step's loss and gradients match the network
+             FusedRNNCell.unfuse() builds on the unpacked weights (loss
+             LM_LOSS_TOL relative, each gradient LM_GRAD_TOL relative
+             L2); the same fit with dropout 0.5 twice from one numpy seed
+             gives the same params bit for bit; (d) CTCLoss at a speech
+             shape (T 100, B 32, A 29, labels up to 20, with lengths) on
+             the card against the same recursion on the CPU, loss and
+             gradient within CTC_TOL. Reports each mode's forward +
+             backward wall for the op, the plain loop and torch.nn's
+             module on its own contiguous weights (the difference is the
+             weight copy cuDNN makes of the views), the cuDNN kernels the
+             profile names, the LM's losses and step walls, and CTC's
+             times beside torch's ctc_loss.
+39. bucketing_fit — the reference's example/rnn/lstm_bucketing.py,
+             unchanged, through the launcher (python -m
+             mxnet_tpu_torch.run_script) with --num-hidden 200
+             --num-embed 200 --num-layers 2 --batch-size 32 --num-epochs 2
+             (upstream MXNet's width) on CORPUS=, a file of 4000
+             synthetic sentences over a 10000-token vocabulary with
+             lengths spread over the buckets 10-40. Gates:
+             Train-perplexity falls from epoch 1 to 2 (the reference's
+             tests/python/unittest/test_examples.py:179-182), the fused
+             step is active and #7 launches; the default bucket (40)
+             updates through the fused step and every other bucket
+             through the shared per-parameter updater (ROADMAP §C); a
+             6-batch BucketingModule fit over 3 buckets on the card ends
+             within BUCKET_TOL (each leaf's relative L2) of the same fit
+             on the CPU, and the control, that fit with one batch left
+             out, must fail it. Reports each bucket's step wall p50, its
+             device ms (one traced step) and update path, and #7's
+             launches.
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
@@ -570,8 +620,8 @@ on its path's run (serving, training, symbolic training, long-context
 serving or training, the rtc kernels' full-size run or the ResNet-50
 forwards, the bf16 and float16 serving and training runs, long ones
 included; #7's adds its launches in module_fit, example_scripts,
-symbolic_bf16, supervised_fit, imperative and stochastic_fit, by path in
-``launches_by_path``; #1's and #8's ``launches_by_path`` add
+symbolic_bf16, supervised_fit, imperative, stochastic_fit, rnn_seq and
+bucketing_fit, by path in ``launches_by_path``; #1's and #8's ``launches_by_path`` add
 model_server's and serve_engine_rtc's counts, taken on the host at
 capture, #8's imperative's; #1's and #3's (and
 its combine's) add frontdoor's), its error (the 16-bit
@@ -6571,6 +6621,635 @@ def phase_stochastic_fit(torch, dev, seed):
     return result, {k: tuple(v) for k, v in totals.items()}
 
 
+# --- sequence models: the RNN op, mx.rnn, BucketingModule (phases 38-39) ---
+#: the medium PTB LSTM (Zaremba et al. 2014): bptt 35, batch 20, 650 wide,
+#: 2 layers, vocabulary 10000, init uniform +-0.05
+RNN_T, RNN_N, RNN_H, RNN_L = 35, 20, 650, 2
+RNN_MODES = ("lstm", "gru", "rnn_tanh", "rnn_relu")
+#: cuDNN against the plain loop: max|a - b| / max|b| over every output and
+#: every gradient (float32, 35 steps and 2 layers summed in another order)
+RNN_TOL = 1e-4
+RNN_DROP_P = 0.5
+LM_VOCAB = 10000
+LM_INIT = 0.05
+LM_STEPS = 4
+LM_LR = 0.003
+#: the fused LM's first step against its unfused twin: the loss's relative
+#: error, and each gradient's relative L2
+LM_LOSS_TOL = 1e-5
+LM_GRAD_TOL = 1e-4
+#: CTC at a speech shape (DeepSpeech-style: 100 frames, 29 characters)
+CTC_T, CTC_B, CTC_A, CTC_L = 100, 32, 29, 20
+CTC_TOL = 1e-4
+#: the reference's example/rnn/lstm_bucketing.py at upstream MXNet's width
+BUCKET_LIST = (10, 20, 30, 40)
+BUCKET_SENTENCES = 4000
+BUCKET_ARGS = ["--num-hidden", "200", "--num-embed", "200", "--num-layers",
+               "2", "--batch-size", "32", "--num-epochs", "2"]
+BUCKET_TIMED_BATCHES = 24
+#: the 6-batch bucketed fit on the card against the CPU: each leaf's
+#: relative L2 (Adam amplifies float32 noise where gradients are tiny)
+BUCKET_GATE_BUCKETS = (10, 20, 30)
+BUCKET_TOL = 1e-4
+
+
+def _rel_max(torch, got, want):
+    """max |got - want| / max |want| over pairs of tensors."""
+    return max(((g.double() - w.double()).abs().max()
+                / w.double().abs().max().clamp_min(1e-30)).item()
+               for g, w in zip(got, want))
+
+
+def _rnn_inputs(torch, tnn, mode, bi, dev, seed, p=0.0):
+    d = 2 if bi else 1
+    n = tnn.rnn_param_size(mode, RNN_H, RNN_H, RNN_L, bi)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k = 1.0 / math.sqrt(RNN_H)
+    inputs = [torch.randn(RNN_T, RNN_N, RNN_H, device=dev, generator=gen),
+              (torch.rand(n, device=dev, generator=gen) * 2 - 1) * k]
+    for _ in range(2 if mode == "lstm" else 1):
+        inputs.append(torch.randn(RNN_L * d, RNN_N, RNN_H, device=dev,
+                                  generator=gen))
+    params = tnn.RNNParam(state_size=RNN_H, num_layers=RNN_L,
+                          bidirectional=bi, mode=mode, state_outputs=True,
+                          p=p)
+    shapes = [(RNN_T, RNN_N, d * RNN_H)] + [(RNN_L * d, RNN_N, RNN_H)] * (
+        len(inputs) - 2)
+    cots = [torch.randn(s, device=dev, generator=gen) for s in shapes]
+    return params, inputs, cots
+
+
+def _rnn_fwd_bwd(torch, tnn, params, inputs, cots, route):
+    xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+    outs = tnn.rnn_forward(params, *xs, route=route)
+    grads = torch.autograd.grad(outs, xs, cots)
+    return [o.detach() for o in outs] + list(grads)
+
+
+def _swap_input_forget(tnn, params, blob):
+    """The packed blob with every LSTM weight's and bias's i and f gate
+    rows swapped: the control of the parity gate."""
+    out = blob.clone()
+    for dirs in tnn.unpack_rnn_params(out, params.mode, RNN_H, RNN_H,
+                                      RNN_L, params.bidirectional):
+        for w in (w for ws in dirs for w in ws):
+            i_rows = w[:RNN_H].clone()
+            w[:RNN_H] = w[RNN_H:2 * RNN_H]
+            w[RNN_H:2 * RNN_H] = i_rows
+    return out
+
+
+def _torch_rnn_module(torch, tnn, params, blob):
+    """torch.nn's RNN module of the same mode on the same weights, in its
+    own contiguous cuDNN layout: the library call beside the op."""
+    nn = torch.nn
+    kind = {"lstm": nn.LSTM, "gru": nn.GRU}.get(params.mode, nn.RNN)
+    kw = {} if params.mode in ("lstm", "gru") else {
+        "nonlinearity": params.mode[4:]}
+    mod = kind(RNN_H, RNN_H, RNN_L, bidirectional=params.bidirectional,
+               **kw).to(blob.device)
+    layers = tnn.unpack_rnn_params(blob, params.mode, RNN_H, RNN_H, RNN_L,
+                                   params.bidirectional)
+    with torch.no_grad():
+        for li, dirs in enumerate(layers):
+            for di, (wi, wh, bi, bh) in enumerate(dirs):
+                sfx = "_l%d%s" % (li, "_reverse" if di else "")
+                for name, w in (("weight_ih", wi), ("weight_hh", wh),
+                                ("bias_ih", bi), ("bias_hh", bh)):
+                    getattr(mod, name + sfx).copy_(w)
+    mod.flatten_parameters()
+    return mod
+
+
+def _lm_symbol(mx, fused, p=0.0):
+    """The medium PTB LM: Embedding, the fused 2 x 650 LSTM (or the
+    network unfuse() builds from it), FullyConnected to the vocabulary,
+    SoftmaxOutput. Returns (symbol, the fused cell)."""
+    cell = mx.rnn.FusedRNNCell(RNN_H, num_layers=RNN_L, mode="lstm",
+                               dropout=p, prefix="lstm_")
+    embed = mx.sym.Embedding(mx.sym.Variable("data"), input_dim=LM_VOCAB,
+                             output_dim=RNN_H, name="embed")
+    body = cell if fused else cell.unfuse()
+    out, _ = body.unroll(RNN_T, embed, layout="NTC", merge_outputs=True)
+    pred = mx.sym.FullyConnected(mx.sym.Reshape(out, shape=(-1, RNN_H)),
+                                 num_hidden=LM_VOCAB, name="pred")
+    label = mx.sym.Reshape(mx.sym.Variable("softmax_label"), shape=(-1,))
+    return mx.sym.SoftmaxOutput(pred, label, name="softmax"), cell
+
+
+def _lm_values(np, seed):
+    rng = np.random.RandomState(seed)
+    n = RNN_L * 4 * RNN_H * (RNN_H + RNN_H) + RNN_L * 8 * RNN_H
+    u = lambda *s: rng.uniform(-LM_INIT, LM_INIT, s).astype(np.float32)
+    args = {"embed_weight": u(LM_VOCAB, RNN_H), "lstm_parameters": u(n),
+            "pred_weight": u(LM_VOCAB, RNN_H), "pred_bias": u(LM_VOCAB)}
+    # rows of arithmetic sequences: the next token follows from the last two
+    start = rng.randint(1, LM_VOCAB, (RNN_N, 1))
+    step = rng.randint(1, 4, (RNN_N, 1))
+    toks = (start + step * np.arange(RNN_T + 1)) % (LM_VOCAB - 1) + 1
+    return args, toks[:, :-1].astype(np.float32), \
+        toks[:, 1:].astype(np.float32)
+
+
+def phase_rnn_seq(torch, dev, seed, out_dir):
+    """The RNN op on cuDNN against its plain loop, RNN dropout, a fused
+    LSTM LM through Module.fit(kvstore='tpu_sync', adam) and CTCLoss at a
+    speech shape (module docstring, phase 38). Returns (result, #7's
+    (launches, leaves) by kind on the path)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.ops import find_op
+    from mxnet_tpu_torch.ops import nn as tnn
+    result = {"phase": "rnn_seq", "shape": {"T": RNN_T, "N": RNN_N,
+                                            "input": RNN_H, "hidden": RNN_H,
+                                            "layers": RNN_L},
+              "tol": RNN_TOL}
+    prior = _deterministic_cudnn(torch)
+    try:
+        # (a) parity: cuDNN against the plain loop, every mode, both
+        # directions, outputs and the gradients into every input
+        modes = {}
+        for mode in RNN_MODES:
+            for bi in (False, True):
+                params, inputs, cots = _rnn_inputs(torch, tnn, mode, bi, dev,
+                                                   seed)
+                tnn.RNN_COUNTS.update(cudnn=0, plain=0)
+                got = _rnn_fwd_bwd(torch, tnn, params, inputs, cots, "cudnn")
+                want = _rnn_fwd_bwd(torch, tnn, params, inputs, cots,
+                                    "plain")
+                if tnn.RNN_COUNTS != {"cudnn": 1, "plain": 1}:
+                    fail("rnn_seq: routes ran %s" % tnn.RNN_COUNTS)
+                err = _rel_max(torch, got, want)
+                if not err <= RNN_TOL:
+                    fail("rnn_seq %s bi=%s: cuDNN is %g from the plain loop "
+                         "(tol %g)" % (mode, bi, err, RNN_TOL))
+                lib = _torch_rnn_module(torch, tnn, params, inputs[1])
+                hx = tuple(inputs[2:]) if mode == "lstm" else inputs[2]
+                lib_out = lib(inputs[0], hx)[0]
+                lib_err = _rel_max(torch, [lib_out.detach()], got[:1])
+                row = {"rel_max_err": err, "torch_nn_rel_max_err": lib_err}
+                if mode == "lstm":
+                    swapped = _swap_input_forget(tnn, params, inputs[1])
+                    ctrl = _rnn_fwd_bwd(torch, tnn, params, [inputs[0],
+                                        swapped] + inputs[2:], cots,
+                                        "plain")
+                    row["control_rel_max_err"] = _rel_max(torch, ctrl, got)
+                    if not row["control_rel_max_err"] > RNN_TOL:
+                        fail("rnn_seq: the i/f-swapped control passes the "
+                             "gate (%g)" % row["control_rel_max_err"])
+                # forward + backward walls, synced: the op on views into the
+                # packed blob (cuDNN copies the weights each call), the plain
+                # loop, and torch.nn's module on its own flat weights
+                xs = [x.detach().clone().requires_grad_(True)
+                      for x in inputs]
+                lib_x = inputs[0].detach().clone().requires_grad_(True)
+
+                def op_call(route):
+                    return lambda: torch.autograd.grad(
+                        tnn.rnn_forward(params, *xs, route=route), xs, cots)
+
+                def lib_call():
+                    out, hn = lib(lib_x, hx)
+                    hn = list(hn) if isinstance(hn, tuple) else [hn]
+                    torch.autograd.grad([out] + hn, [lib_x] + list(
+                        lib.parameters()), cots)
+                row.update(ms=_synced_ms(torch, op_call("cudnn")),
+                           plain_ms=_synced_ms(torch, op_call("plain"), n=3),
+                           library_ms=_synced_ms(torch, lib_call))
+                row["weight_copy_ms"] = row["ms"] - row["library_ms"]
+                modes["%s_%s" % (mode, "bi" if bi else "uni")] = row
+                del lib
+        result["parity"] = modes
+        result["control"] = "lstm i/f gates swapped in the unpacking"
+
+        # the cuDNN kernels one forward + backward runs
+        from torch.profiler import ProfilerActivity, profile
+        params, inputs, cots = _rnn_inputs(torch, tnn, "lstm", False, dev,
+                                           seed)
+        with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+            _rnn_fwd_bwd(torch, tnn, params, inputs, cots, "cudnn")
+            torch.cuda.synchronize()
+        kernels = {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                k = kernels.setdefault(evt.name[:80], [0, 0.0])
+                k[0] += 1
+                k[1] += evt.time_range.elapsed_us() / 1e3
+        rnn_kernels = {k: v for k, v in kernels.items()
+                       if "rnn" in k.lower() or "lstm" in k.lower()}
+        if not rnn_kernels:
+            fail("rnn_seq: the profile shows no cuDNN RNN kernel: %s"
+                 % sorted(kernels))
+        result["profile_lstm_uni"] = {
+            "rnn_kernels": rnn_kernels,
+            "device_ms": sum(v[1] for v in kernels.values()),
+            "top": sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]}
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "profile_rnn_lstm.txt"),
+                      "w") as f:
+                f.write(prof.key_averages().table(
+                    sort_by="self_device_time_total", row_limit=30))
+
+        # (b) dropout between layers: one numpy seed, the same bits; at
+        # inference p changes nothing
+        params, inputs, _ = _rnn_inputs(torch, tnn, "lstm", False, dev, seed,
+                                        p=RNN_DROP_P)
+        plain_p = tnn.RNNParam(**dict(vars(params), p=0.0))
+
+        def dropped(np_seed, p=params, is_train=True):
+            np.random.seed(np_seed)
+            gen = torch.Generator(device=dev).manual_seed(
+                int(np.random.randint(0, 2 ** 31)))
+            with torch.no_grad():
+                return tnn.rnn_forward(p, *inputs, is_train=is_train,
+                                       rng=gen)
+        a, b, c = dropped(seed), dropped(seed), dropped(seed + 1)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail("rnn_seq: RNN dropout from one numpy seed differs")
+        if torch.equal(a[0], c[0]):
+            fail("rnn_seq: two numpy seeds gave the same RNN dropout")
+        if not all(torch.equal(x, y) for x, y in zip(
+                dropped(seed, is_train=False),
+                dropped(seed, plain_p, is_train=False))):
+            fail("rnn_seq: RNN dropout changed an inference forward")
+        result["dropout"] = {"p": RNN_DROP_P, "same_seed_bitwise": True,
+                             "other_seed_differs": True,
+                             "inference_unchanged": True}
+
+        # (c) the fused LM through Module.fit: loss falls; its first step
+        # against the unfused twin; #7's Adam launches
+        args, data, label = _lm_values(np, seed + 38)
+        fused_sym, cell = _lm_symbol(mx, True)
+        twin_sym, _ = _lm_symbol(mx, False)
+        first = {}
+        unfused = {k: (v.asnumpy() if hasattr(v, "asnumpy") else v)
+                   for k, v in cell.unpack_weights(args).items()}
+        for name, sym, vals in (("fused", fused_sym, args),
+                                ("unfused", twin_sym, unfused)):
+            exe = sym.simple_bind(dev, data=data.shape,
+                                  softmax_label=label.shape)
+            for k, v in vals.items():
+                exe.arg_dict[k][:] = v
+            exe.arg_dict["data"][:] = data
+            exe.arg_dict["softmax_label"][:] = label
+            prob = exe.forward(is_train=True)[0]._data
+            exe.backward()
+            grads = {k: exe.grad_dict[k].asnumpy() for k in vals}
+            if name == "unfused":
+                grads = {k: (v.asnumpy() if hasattr(v, "asnumpy") else v)
+                         for k, v in cell.pack_weights(grads).items()}
+            first[name] = (_cross_entropy(torch, prob, exe.arg_dict[
+                "softmax_label"]._data.reshape(-1)).item(), grads)
+            del exe
+        loss_err = abs(first["fused"][0] - first["unfused"][0]) \
+            / abs(first["unfused"][0])
+        grad_err = {k: _rel_l2([torch.from_numpy(first["fused"][1][k])],
+                               [torch.from_numpy(first["unfused"][1][k])])
+                    for k in args}
+        if not (loss_err <= LM_LOSS_TOL
+                and max(grad_err.values()) <= LM_GRAD_TOL):
+            fail("rnn_seq: the fused LM's first step is %g (loss) and %s "
+                 "(gradients) from its unfused twin (tol %g, %g)"
+                 % (loss_err, grad_err, LM_LOSS_TOL, LM_GRAD_TOL))
+
+        def lm_fit(p, np_seed, steps):
+            sym, _ = _lm_symbol(mx, True, p)
+            it = mx.io.NDArrayIter(np.tile(data, (steps, 1)),
+                                   np.tile(label, (steps, 1)), RNN_N)
+            mod = mx.mod.Module(sym, context=dev)
+            losses, stamps = [], []
+            metric = mx.metric.CrossEntropy()
+
+            def on_batch(cb):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                losses.append(float(cb.eval_metric.get()[1]))
+                cb.eval_metric.reset()
+            np.random.seed(np_seed)
+            with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+                mod.fit(it, eval_metric=metric, kvstore="tpu_sync",
+                        optimizer="adam",
+                        optimizer_params={"learning_rate": LM_LR},
+                        arg_params={k: mx.nd.array(v, ctx=dev)
+                                    for k, v in args.items()},
+                        num_epoch=1, batch_end_callback=on_batch)
+            torch.cuda.synchronize()
+            if mod._fused_step is None:
+                fail("rnn_seq: the LM's fit built no fused step")
+            state = [mod._fused_step.params[n].detach().clone()
+                     for n in mod._fused_step.param_names]
+            return losses, state, [b - a for a, b in zip(stamps,
+                                                          stamps[1:])]
+        tnn.RNN_COUNTS.update(cudnn=0, plain=0)
+        _reset_opt_counts(tou)
+        losses, _, walls = lm_fit(0.0, seed, LM_STEPS)
+        counts = {k: (getattr(tou, "launches_" + k),
+                      getattr(tou, "leaves_" + k)) for k in OPT_KERNELS}
+        routes = dict(tnn.RNN_COUNTS)
+        if counts["adam"] != (LM_STEPS, 4 * LM_STEPS) or \
+                counts["sgd"][0] or counts["sgd_mom"][0]:
+            fail("rnn_seq: #7 counts %s in %d Adam steps, want one launch "
+                 "of 4 leaves a step" % (counts, LM_STEPS))
+        if routes["plain"] or routes["cudnn"] < LM_STEPS:
+            fail("rnn_seq: the LM's RNN ran %s" % routes)
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            fail("rnn_seq: the LM's loss did not fall step by step: %s"
+                 % losses)
+        # the same fit with dropout 0.5, twice from one numpy seed
+        _, s1, _ = lm_fit(RNN_DROP_P, seed + 5, 2)
+        _, s2, _ = lm_fit(RNN_DROP_P, seed + 5, 2)
+        if not all(torch.equal(x, y) for x, y in zip(s1, s2)):
+            fail("rnn_seq: the dropout LM's fit is not reproducible from "
+                 "one numpy seed")
+        drop_counts = {k: (getattr(tou, "launches_" + k) - counts[k][0],
+                           getattr(tou, "leaves_" + k) - counts[k][1])
+                       for k in OPT_KERNELS}
+        result["lm"] = {
+            "vocab": LM_VOCAB, "embed": RNN_H, "hidden": RNN_H,
+            "layers": RNN_L, "bptt": RNN_T, "batch": RNN_N, "lr": LM_LR,
+            "steps": LM_STEPS, "losses": losses,
+            "step_wall_ms": [1e3 * w for w in walls],
+            "first_step_loss_rel_err": loss_err,
+            "first_step_grad_rel_l2": grad_err,
+            "loss_tol": LM_LOSS_TOL, "grad_tol": LM_GRAD_TOL,
+            "rnn_routes": routes, "adam_launches": counts["adam"][0],
+            "dropout_fit_bitwise": True}
+        totals = {k: (counts[k][0] + drop_counts[k][0],
+                      counts[k][1] + drop_counts[k][1]) for k in OPT_KERNELS}
+
+        # (d) CTC at a speech shape: the card against the CPU, loss and
+        # gradient; torch's ctc_loss timed beside it
+        gen = torch.Generator().manual_seed(seed + 39)
+        acts = 2 * torch.randn(CTC_T, CTC_B, CTC_A, generator=gen)
+        lab_len = torch.randint(5, CTC_L + 1, (CTC_B,), generator=gen)
+        labels = torch.randint(1, CTC_A, (CTC_B, CTC_L), generator=gen)
+        labels[torch.arange(CTC_L)[None, :] >= lab_len[:, None]] = 0
+        data_len = torch.randint(CTC_T * 3 // 5, CTC_T + 1, (CTC_B,),
+                                 generator=gen)
+        cot = torch.randn(CTC_B, generator=gen)
+        ctc = find_op("CTCLoss")
+        cp = ctc.make_params({"use_data_lengths": True,
+                              "use_label_lengths": True})
+
+        def ctc_run(where):
+            x = acts.to(where).requires_grad_(True)
+            ins = [x] + [t.float().to(where) for t in (labels, data_len,
+                                                       lab_len)]
+            loss = ctc.apply(cp, ins)[0]
+            return loss.detach(), torch.autograd.grad(loss, x,
+                                                      cot.to(where))[0]
+        card = ctc_run(dev)
+        t0 = time.perf_counter()
+        host = ctc_run("cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        ctc_err = _rel_max(torch, [t.cpu() for t in card], list(host))
+        if not ctc_err <= CTC_TOL:
+            fail("rnn_seq: CTC on the card is %g from the CPU (tol %g)"
+                 % (ctc_err, CTC_TOL))
+        x_lib = acts.to(dev).requires_grad_(True)
+
+        def lib_ctc():
+            loss = torch.nn.functional.ctc_loss(
+                torch.log_softmax(x_lib, -1), labels.to(dev),
+                data_len.to(dev), lab_len.to(dev), blank=0,
+                reduction="none")
+            return loss, torch.autograd.grad(loss, x_lib, cot.to(dev))[0]
+        lib_loss = lib_ctc()[0].detach().cpu()
+        result["ctc"] = {
+            "shape": {"T": CTC_T, "B": CTC_B, "A": CTC_A,
+                      "max_label": CTC_L},
+            "rel_max_err_card_vs_cpu": ctc_err, "tol": CTC_TOL,
+            "ms": _synced_ms(torch, lambda: ctc_run(dev), n=5),
+            "cpu_ms": cpu_ms, "library_ms": _synced_ms(torch, lib_ctc),
+            # torch's ctc_loss on these (all feasible) sequences
+            "library_loss_rel_max_err": _rel_max(torch, [lib_loss],
+                                                 [host[0]])}
+    finally:
+        _restore_cudnn(torch, prior)
+    return result, totals
+
+
+def _bucket_sym_gen(mx, vocab_size, num_hidden, num_embed, num_layers):
+    """lstm_bucketing.py's lm_sym_gen, line for line."""
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=vocab_size,
+                                 output_dim=num_embed, name="embed")
+        stack = mx.rnn.SequentialRNNCell()
+        for i in range(num_layers):
+            stack.add(mx.rnn.LSTMCell(num_hidden=num_hidden,
+                                      prefix="lstm_l%d_" % i))
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, num_hidden))
+        pred = mx.sym.FullyConnected(pred, num_hidden=vocab_size,
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(pred, label, name="softmax",
+                                    use_ignore=True, ignore_label=0)
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def bucket_corpus(np, seed, n=BUCKET_SENTENCES):
+    """Sentences over a 10000-token vocabulary, lengths spread over the
+    buckets: rows of arithmetic token sequences, as the example's own
+    synthetic corpus makes them."""
+    rng = np.random.RandomState(seed)
+    lines = []
+    for _ in range(n):
+        length = int(rng.choice(BUCKET_LIST)) - rng.randint(0, 10)
+        start = rng.randint(1, LM_VOCAB)
+        step = rng.randint(1, 4)
+        lines.append(" ".join("w%d" % ((start + step * k) % (LM_VOCAB - 1))
+                              for k in range(max(2, length))))
+    return lines
+
+
+def phase_bucketing_fit(torch, dev, seed, tmp):
+    """The reference's example/rnn/lstm_bucketing.py unchanged through the
+    launcher, per-bucket step times, and a bucketed fit on the card
+    against the CPU (module docstring, phase 39). Returns (result, #7's
+    (launches, leaves) by kind on the path)."""
+    import re
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.ops import nn as tnn
+    result = {"phase": "bucketing_fit"}
+    lines = bucket_corpus(np, seed + 39)
+    corpus = os.path.join(tmp, "bucket_corpus.txt")
+    with open(corpus, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    # (a) the example, unchanged
+    out, counts, seconds = _run_script(
+        torch, "rnn/lstm_bucketing.py", BUCKET_ARGS,
+        {"CORPUS": corpus, "MXNET_TPU_FUSED_OPTUPDATE": "1"}, tmp)
+    ppl = [float(v) for v in re.findall(
+        r"Epoch\[\d+\] Train-perplexity=([0-9.]+)", out)]
+    val = [float(v) for v in re.findall(
+        r"Epoch\[\d+\] Validation-perplexity=([0-9.]+)", out)]
+    if len(ppl) != 2 or not ppl[1] < ppl[0]:
+        fail("bucketing_fit: Train-perplexity %s, want 2 epochs falling "
+             "(tests/python/unittest/test_examples.py:179-182)" % ppl)
+    if "fused train step active" not in out or counts["adam"][0] < 1:
+        fail("bucketing_fit: no fused step or no #7 Adam launch: %s"
+             % counts)
+    totals = {k: list(counts[k]) for k in OPT_KERNELS}
+    result["script"] = {"args": BUCKET_ARGS, "sentences": len(lines),
+                        "seconds": seconds, "train_perplexity": ppl,
+                        "validation_perplexity": val,
+                        "adam_launches": counts["adam"][0],
+                        "adam_leaves": counts["adam"][1]}
+
+    sents, vocab = mx.rnn.encode_sentences([s.split() for s in lines],
+                                           start_label=1, invalid_label=0)
+    vocab_size = max(vocab.values()) + 1
+    sym_gen = _bucket_sym_gen(mx, vocab_size, 200, 200, 2)
+
+    def bucketed(ctx, it, limit=None, skip=None, timed=False, args=None):
+        mod = mx.mod.BucketingModule(sym_gen,
+                                     default_bucket_key=it.default_bucket_key,
+                                     context=ctx)
+        mod.bind(it.provide_data, it.provide_label)
+        if args is None:
+            mod.init_params(mx.init.Xavier())
+        else:
+            mod.init_params(arg_params={k: mx.nd.array(v, ctx=ctx)
+                                        for k, v in args.items()},
+                            aux_params={})
+        mod.init_optimizer(kvstore="tpu_sync", optimizer="adam",
+                           optimizer_params={"learning_rate": 0.01})
+        walls, device, keys = {}, {}, []
+        for i, batch in enumerate(it):
+            if i == limit:
+                break
+            if i == skip:
+                continue
+            keys.append(batch.bucket_key)
+            if timed:
+                torch.cuda.synchronize()
+                start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+                t0 = time.perf_counter()
+                start.record()
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+            if timed:
+                end.record()
+                torch.cuda.synchronize()
+                walls.setdefault(batch.bucket_key, []).append(
+                    1e3 * (time.perf_counter() - t0))
+                device.setdefault(batch.bucket_key, []).append(
+                    start.elapsed_time(end))
+        return mod, keys, walls, device
+
+    # (b) per-bucket step times at the script's width, and each bucket's
+    # update path
+    with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+        _reset_opt_counts(tou)
+        it = mx.rnn.BucketSentenceIter(sents, 32, buckets=list(BUCKET_LIST),
+                                       invalid_label=0, shuffle_seed=1)
+        mod, keys, walls, events = bucketed(dev, it, BUCKET_TIMED_BATCHES,
+                                            timed=True)
+        timed_counts = _opt_counts(tou)
+        # device time a step by bucket: the kernels one more step of each
+        # bucket runs, traced
+        from torch.profiler import ProfilerActivity, profile
+        it.reset()
+        seen, device_ms = set(), {}
+        for batch in it:
+            if batch.bucket_key in seen:
+                continue
+            seen.add(batch.bucket_key)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                mod.forward(batch, is_train=True)
+                mod.backward()
+                mod.update()
+                torch.cuda.synchronize()
+            device_ms[str(batch.bucket_key)] = sum(
+                e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        step_counts = _opt_counts(tou)
+        paths = {str(k): ("fused step (#7)" if m._fused_step is not None
+                          else "per-parameter updater")
+                 for k, m in sorted(mod._buckets.items())}
+        for k in OPT_KERNELS:
+            totals[k][0] += getattr(tou, "launches_" + k)
+            totals[k][1] += getattr(tou, "leaves_" + k)
+    del mod
+    result["per_bucket"] = {
+        "batches": keys,
+        "step_wall_ms_p50": {str(k): statistics.median(v[1:] or v)
+                             for k, v in walls.items()},
+        "step_event_ms_p50": {str(k): statistics.median(v[1:] or v)
+                              for k, v in events.items()},
+        "step_device_ms": device_ms, "update_path": paths,
+        "adam_launches": step_counts["adam"],
+        "adam_launches_timed_run": timed_counts["adam"]}
+    # the default bucket's module (whose init_optimizer ran) builds the
+    # fused step; the others update through the shared updater (the
+    # reference's split, ROADMAP §C)
+    if paths != {
+            k: ("fused step (#7)" if k == str(max(BUCKET_LIST))
+                else "per-parameter updater") for k in paths} or \
+            len(paths) != len(BUCKET_LIST):
+        fail("bucketing_fit: update paths %s" % paths)
+
+    # (c) a 6-batch fit over 3 buckets: the card against the CPU; the
+    # control leaves one batch out
+    rng = np.random.RandomState(seed + 40)
+    gate_sents = [list(rng.randint(1, vocab_size, n - rng.randint(0, 5)))
+                  for n in BUCKET_GATE_BUCKETS for _ in range(64)]
+    shapes = sym_gen(max(BUCKET_GATE_BUCKETS))[0].infer_shape(
+        data=(32, max(BUCKET_GATE_BUCKETS)),
+        softmax_label=(32, max(BUCKET_GATE_BUCKETS)))[0]
+    names = sym_gen(max(BUCKET_GATE_BUCKETS))[0].list_arguments()
+    init = {n: rng.uniform(-0.1, 0.1, s).astype(np.float32)
+            for n, s in zip(names, shapes)
+            if n not in ("data", "softmax_label")}
+    fits = {}
+    with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+        for name, ctx, skip in (("card", dev, None),
+                                ("cpu", mx.cpu(), None),
+                                ("control", mx.cpu(), 3)):
+            _reset_opt_counts(tou)
+            it = mx.rnn.BucketSentenceIter(
+                gate_sents, 32, buckets=list(BUCKET_GATE_BUCKETS),
+                invalid_label=0, shuffle_seed=2)
+            mod, keys, _, _ = bucketed(ctx, it, skip=skip, args=init)
+            params = mod.get_params()[0]
+            fits[name] = ({k: torch.from_numpy(v.asnumpy())
+                           for k, v in params.items()}, keys)
+            if name == "card":
+                for k in OPT_KERNELS:
+                    totals[k][0] += getattr(tou, "launches_" + k)
+                    totals[k][1] += getattr(tou, "leaves_" + k)
+    card, keys = fits["card"]
+    if len(keys) != 6 or len(set(keys)) != 3 or keys != fits["cpu"][1]:
+        fail("bucketing_fit: the gate's batches %s / %s" % (
+            keys, fits["cpu"][1]))
+    gate = {k: _rel_l2([card[k]], [fits["cpu"][0][k]]) for k in card}
+    ctrl = {k: _rel_l2([fits["control"][0][k]], [fits["cpu"][0][k]])
+            for k in card}
+    if not max(gate.values()) <= BUCKET_TOL:
+        fail("bucketing_fit: the card's fit is %s (relative L2) from the "
+             "CPU's (tol %g)" % (gate, BUCKET_TOL))
+    if not max(ctrl.values()) > BUCKET_TOL:
+        fail("bucketing_fit: the control (one batch left out) passes the "
+             "gate: %s" % ctrl)
+    result["card_vs_cpu"] = {"buckets": list(BUCKET_GATE_BUCKETS),
+                             "batches": keys, "rel_l2": gate,
+                             "control_rel_l2_max": max(ctrl.values()),
+                             "tol": BUCKET_TOL}
+    result["rnn_routes"] = dict(tnn.RNN_COUNTS)
+    return result, {k: tuple(v) for k, v in totals.items()}
+
 
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
@@ -6580,7 +7259,8 @@ PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_long_bf16", "serve_f16", "train_f16", "f16_kernel",
           "serve_long_f16", "train_long_f16", "supervised_fit",
           "serve_engine", "serve_engine_rtc", "model_server", "frontdoor",
-          "fleet", "imperative", "stochastic_fit")
+          "fleet", "imperative", "stochastic_fit", "rnn_seq",
+          "bucketing_fit")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",),
@@ -6856,6 +7536,17 @@ def main():
     if "stochastic_fit" in phases:
         res, opt_paths["stochastic_fit"] = phase_stochastic_fit(
             torch, dev, args.seed)
+        emit({**res, "card": card})
+        torch.cuda.empty_cache()
+    if "rnn_seq" in phases:
+        res, opt_paths["rnn_seq"] = phase_rnn_seq(torch, dev, args.seed,
+                                                  args.profile_dir)
+        emit({**res, "card": card})
+        torch.cuda.empty_cache()
+    if "bucketing_fit" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            res, opt_paths["bucketing_fit"] = phase_bucketing_fit(
+                torch, dev, args.seed, tmp)
         emit({**res, "card": card})
         torch.cuda.empty_cache()
     if "serve_engine" in phases:

@@ -43,6 +43,11 @@ random and optimizer families), ``mx.autograd`` on torch's autograd
 graph, Python ``mx.operator.CustomOp``s, and stochastic graphs (Dropout
 and the sampling ops draw from a ``torch.Generator``; a train step seeds
 one from numpy's global RNG each step).
+Its eighteenth slice trains sequence models: the ``RNN`` op (cuDNN on the
+card, over the reference's packed parameters), ``mx.rnn`` (the symbolic
+cells, ``BucketSentenceIter`` and the RNN checkpoints),
+``mx.mod.BucketingModule``, ``CTCLoss``, the remaining metrics
+(``Perplexity``, ...), ``mx.AttrScope`` and ``mx.name.Prefix``.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``, and raise ``MXNetError`` when CUDA is missing.
@@ -52,9 +57,11 @@ from __future__ import annotations
 __version__ = "1.2.0+cuda"
 
 from . import models, name, ndarray, parallel, profiler, rtc, symbol
-from . import (autograd, callback, engine, imperative, initializer, io,
-               kvstore, lr_scheduler, metric, model, module, monitor,
-               operator, optimizer, random, resilience, serving)
+from . import (attribute, autograd, callback, engine, imperative,
+               initializer, io, kvstore, lr_scheduler, metric, model, module,
+               monitor, operator, optimizer, random, resilience, rnn,
+               serving)
+from .attribute import AttrScope
 from .base import MXNetError
 from .context import cpu, gpu, tpu, default_device
 from .executor import Executor
@@ -71,5 +78,5 @@ __all__ = ["MXNetError", "cpu", "gpu", "tpu", "default_device", "profiler",
            "Executor", "models", "name", "nd", "ndarray", "rtc", "sym",
            "symbol", "mod", "module", "io", "metric", "init", "initializer",
            "optimizer", "lr_scheduler", "kvstore", "model", "callback",
-           "random", "resilience", "engine", "monitor", "serving",
-           "__version__"]
+           "random", "resilience", "engine", "monitor", "serving", "rnn",
+           "attribute", "AttrScope", "__version__"]

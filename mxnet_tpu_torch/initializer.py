@@ -7,8 +7,8 @@ betas to 0, gammas to 1, moving means to 0 and moving variances to 1; a
 variable's ``__init__`` attribute overrides the routing. The random
 initializers fill the array in place from ``mx.random``'s generator of
 the array's device: the same shapes and scales as the reference, torch's
-values. ``MSRAPrelu``, ``Orthogonal``, ``Bilinear``, ``LSTMBias`` and
-``Mixed`` are not yet ported (ROADMAP A2).
+values. ``LSTMBias`` (the LSTM cells' i2h bias) is ported; ``MSRAPrelu``,
+``Orthogonal``, ``Bilinear`` and ``Mixed`` are not yet (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -21,10 +21,11 @@ from . import random as _random
 from .base import MXNetError, Registry
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Zero", "One",
-           "Constant", "Xavier", "register", "create", "init_registry"]
+           "Constant", "Xavier", "LSTMBias", "register", "create",
+           "init_registry"]
 
 init_registry = Registry("initializer", not_ported=(
-    "MSRAPrelu", "Orthogonal", "Bilinear", "LSTMBias", "Mixed"), item="A2")
+    "MSRAPrelu", "Orthogonal", "Bilinear", "Mixed"), item="A2")
 
 
 class InitDesc(str):
@@ -204,3 +205,19 @@ class Xavier(Initializer):
             _uniform(arr, -scale, scale)
         else:
             _normal(arr, 0, scale)
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, with ``forget_bias`` on the forget gate's quarter of the
+    [i, f, g, o] packing (reference: initializer.py LSTMBias)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        num_hidden = arr.shape[0] // 4
+        a = _np.zeros(arr.shape, dtype=_np.float32)
+        a[num_hidden:2 * num_hidden] = self.forget_bias
+        arr[:] = a

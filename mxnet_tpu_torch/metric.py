@@ -1,6 +1,8 @@
 """Evaluation metrics of the port: ``EvalMetric``, ``CompositeEvalMetric``,
-``Accuracy``, ``TopKAccuracy``, ``CrossEntropy``, ``CustomMetric`` and
-``create`` (reference: ``mxnet_tpu/metric.py`` L93-320, L481-523).
+``Accuracy``, ``TopKAccuracy``, ``F1``, ``Perplexity``, ``MAE``, ``MSE``,
+``RMSE``, ``CrossEntropy``, ``NegativeLogLikelihood``,
+``PearsonCorrelation``, ``Loss``, ``CustomMetric`` and ``create``
+(reference: ``mxnet_tpu/metric.py`` L93-595).
 
 ``Accuracy`` and ``CrossEntropy`` compute each batch's increment as a
 0-d tensor on the outputs' device, on the CPU and on the card alike.
@@ -8,12 +10,14 @@
 reference's in-graph path, ``_as_device``/``_device_fn``, L32-91), which
 ``Module.update_metric`` takes on the fused train path, keeps it pending
 until ``get()``, so the fit loop does not wait for the card every batch.
-Both fold with the same numpy-scalar arithmetic. ``TopKAccuracy`` and
-``CustomMetric`` update on the host (numpy).
-The other metrics of the reference (``F1``, ``Perplexity``, ``MAE``, ...)
-are not yet ported (ROADMAP A2): ``create`` raises on them.
+Both fold with the same numpy-scalar arithmetic. The other metrics update
+on the host (numpy), as the reference's ``update`` does. The plugin
+metrics ``Torch`` and ``Caffe`` are not yet ported (ROADMAP A2):
+``create`` raises on them.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as _np
 import torch
@@ -22,12 +26,12 @@ from .base import Registry
 from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "CustomMetric", "np", "create", "metric_registry"]
+           "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
+           "NegativeLogLikelihood", "PearsonCorrelation", "Loss",
+           "CustomMetric", "np", "create", "metric_registry"]
 
-metric_registry = Registry("metric", not_ported=(
-    "F1", "Perplexity", "MAE", "MSE", "RMSE", "NegativeLogLikelihood",
-    "nll_loss", "PearsonCorrelation", "Loss", "ce_loss", "Torch", "Caffe"),
-    item="A2")
+metric_registry = Registry("metric", not_ported=("Torch", "Caffe"),
+                           item="A2")
 
 
 def check_label_shapes(labels, preds, shape=False):
@@ -289,6 +293,234 @@ class CrossEntropy(_TensorMetric):
             check_label_shapes(l.reshape(-1), p[:, 0], shape=True)
             out.append((_ce_increment(p, l, self.eps), l.numel()))
         return out
+
+
+class _BinaryClassificationMetrics:
+    def __init__(self):
+        self.reset_stats()
+
+    def update_binary_stats(self, label, pred):
+        pred_label = _np.argmax(pred, axis=1) if pred.ndim > 1 \
+            else (pred > 0.5)
+        label = label.astype("int32").flatten()
+        pred_label = pred_label.astype("int32").flatten()
+        if len(_np.unique(label)) > 2:
+            raise ValueError("F1 currently only supports binary "
+                             "classification.")
+        self.true_positives += ((pred_label == 1) & (label == 1)).sum()
+        self.false_positives += ((pred_label == 1) & (label == 0)).sum()
+        self.false_negatives += ((pred_label == 0) & (label == 1)).sum()
+        self.true_negatives += ((pred_label == 0) & (label == 0)).sum()
+
+    @property
+    def precision(self):
+        tp_fp = self.true_positives + self.false_positives
+        return self.true_positives / tp_fp if tp_fp else 0.0
+
+    @property
+    def recall(self):
+        tp_fn = self.true_positives + self.false_negatives
+        return self.true_positives / tp_fn if tp_fn else 0.0
+
+    @property
+    def fscore(self):
+        p, r = self.precision, self.recall
+        return 2 * p * r / (p + r) if (p + r) else 0.0
+
+    @property
+    def total_examples(self):
+        return (self.true_positives + self.false_positives
+                + self.false_negatives + self.true_negatives)
+
+    def reset_stats(self):
+        self.true_positives = 0
+        self.false_positives = 0
+        self.false_negatives = 0
+        self.true_negatives = 0
+
+
+@register
+class F1(EvalMetric):
+    """Binary F1, averaged over updates (``macro``) or over examples
+    (reference metric.py:321)."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None,
+                 average="macro"):
+        self.average = average
+        self.metrics = _BinaryClassificationMetrics()
+        super().__init__(name=name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        for label, pred in zip(labels, preds):
+            self.metrics.update_binary_stats(_as_np(label), _as_np(pred))
+        if self.average == "macro":
+            self.sum_metric += self.metrics.fscore
+            self.num_inst += 1
+            self.metrics.reset_stats()
+        else:
+            self.sum_metric = self.metrics.fscore \
+                * self.metrics.total_examples
+            self.num_inst = self.metrics.total_examples
+
+    def reset(self):
+        super().reset()
+        if hasattr(self, "metrics"):
+            self.metrics.reset_stats()
+
+
+@register
+class Perplexity(EvalMetric):
+    """exp of the mean negative log-probability of the labels; labels equal
+    to ``ignore_label`` count for nothing (reference metric.py:390)."""
+
+    def __init__(self, ignore_label=None, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, ignore_label=ignore_label, axis=axis,
+                         output_names=output_names, label_names=label_names)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        assert len(labels) == len(preds)
+        loss = 0.0
+        num = 0
+        for label, pred in zip(labels, preds):
+            label = _as_np(label)
+            pred = _as_np(pred)
+            assert label.size == pred.size / pred.shape[-1], \
+                "shape mismatch: %s vs. %s" % (label.shape, pred.shape)
+            label = label.reshape((label.size,)).astype("int32")
+            probs = pred.reshape((-1, pred.shape[-1]))[
+                _np.arange(label.size), label]
+            if self.ignore_label is not None:
+                ignore = (label == self.ignore_label).astype(probs.dtype)
+                num -= _np.sum(ignore)
+                probs = probs * (1 - ignore) + ignore
+            loss -= _np.sum(_np.log(_np.maximum(1e-10, probs)))
+            num += probs.size
+        self.sum_metric += loss
+        self.num_inst += num
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+
+def _as_columns(label, pred):
+    label, pred = _as_np(label), _as_np(pred)
+    if len(label.shape) == 1:
+        label = label.reshape(label.shape[0], 1)
+    if len(pred.shape) == 1:
+        pred = pred.reshape(pred.shape[0], 1)
+    return label, pred
+
+
+class _RegressionMetric(EvalMetric):
+    """Mean over updates of ``_error(label, pred)`` (MAE, MSE, RMSE)."""
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            self.sum_metric += self._error(*_as_columns(label, pred))
+            self.num_inst += 1
+
+
+@register
+class MAE(_RegressionMetric):
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _error(label, pred):
+        return _np.abs(label - pred).mean()
+
+
+@register
+class MSE(_RegressionMetric):
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _error(label, pred):
+        return ((label - pred) ** 2.0).mean()
+
+
+@register
+class RMSE(_RegressionMetric):
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _error(label, pred):
+        return _np.sqrt(((label - pred) ** 2.0).mean())
+
+
+@register
+class NegativeLogLikelihood(EvalMetric):
+    """Sum of -log(p(label) + eps) over the examples (reference
+    metric.py:525)."""
+
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None,
+                 label_names=None):
+        super().__init__(name, eps=eps, output_names=output_names,
+                         label_names=label_names)
+        self.eps = eps
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = _as_np(label).ravel()
+            pred = _as_np(pred)
+            num_examples = pred.shape[0]
+            assert label.shape[0] == num_examples, (label.shape[0],
+                                                    num_examples)
+            prob = pred[_np.arange(num_examples, dtype=_np.int64),
+                        _np.int64(label)]
+            self.sum_metric += (-_np.log(prob + self.eps)).sum()
+            self.num_inst += num_examples
+
+
+metric_registry.alias(NegativeLogLikelihood, "nll_loss")
+
+
+@register
+class PearsonCorrelation(EvalMetric):
+    def __init__(self, name="pearsonr", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            check_label_shapes(_as_np(label), _as_np(pred), shape=True)
+            label = _as_np(label).ravel()
+            pred = _as_np(pred).ravel()
+            self.sum_metric += _np.corrcoef(pred, label)[0, 1]
+            self.num_inst += 1
+
+
+@register
+class Loss(EvalMetric):
+    """The mean of a loss output the graph computes itself."""
+
+    def __init__(self, name="loss", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, _, preds):
+        if isinstance(preds, NDArray):
+            preds = [preds]
+        for pred in preds:
+            self.sum_metric += _as_np(pred).sum()
+            self.num_inst += pred.size
+
+
+metric_registry.alias(Loss, "ce_loss")
 
 
 @register

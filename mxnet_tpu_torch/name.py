@@ -2,13 +2,13 @@
 
 The symbol module consults ``current()`` for every unnamed node, so
 unnamed nodes get the reference's names ("pooling0", "flatten0", ...);
-``with NameManager():`` starts a fresh count. (``Prefix`` is not yet
-ported, ROADMAP A6 part 2.)"""
+``with NameManager():`` starts a fresh count, and ``with Prefix("net_"):``
+a fresh count whose names carry the prefix."""
 from __future__ import annotations
 
 import threading
 
-__all__ = ["NameManager", "current"]
+__all__ = ["NameManager", "Prefix", "current"]
 
 
 class NameManager:
@@ -35,6 +35,21 @@ class NameManager:
 
     def __exit__(self, *exc):
         NameManager._state.stack.pop()
+
+
+class Prefix(NameManager):
+    """Auto names gain ``prefix`` inside the scope (reference name.py:74):
+
+    >>> with mx.name.Prefix("mynet_"):
+    ...     mx.sym.FullyConnected(data, num_hidden=1)  # mynet_fullyconnected0
+    """
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        return self._prefix + super().get(name, hint)
 
 
 def current():

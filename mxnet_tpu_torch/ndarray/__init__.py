@@ -140,8 +140,8 @@ def __getattr__(name):
         op = find_op(name)
         if op is None:
             raise AttributeError("mx.nd.%s: no such operator (the port has "
-                                 "%d; RNN and the contrib, image, linalg "
-                                 "and vision families are ROADMAP A6 part 2)"
+                                 "%d; the image, linalg, multibox and "
+                                 "vision families are ROADMAP A6 part 3)"
                                  % (name, len(OPS)))
         fn = _make_nd_function(op)
     _GENERATED[name] = fn

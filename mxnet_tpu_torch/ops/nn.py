@@ -1,12 +1,13 @@
 """Neural-network ops of the port, plain PyTorch on NCHW tensors.
 
-Counterpart of ``mxnet_tpu/ops/nn.py`` but for ``RNN`` (ROADMAP A6 part
-2): FullyConnected (L70), Convolution (L112) and Deconvolution (L145),
-Pooling (L187), Activation and LeakyReLU (L242-283), the softmax family
-(L296-320), BatchNorm (L339), LayerNorm, InstanceNorm, L2Normalization
-and LRN (L375-442), Dropout (L456), Embedding (L480), UpSampling (L498),
-and the loss layers SoftmaxOutput, the regression outputs, SVMOutput and
-MakeLoss (L519-675), with ``loss_grad_scale_scope`` (L26-51).
+Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected (L70), Convolution
+(L112) and Deconvolution (L145), Pooling (L187), Activation and LeakyReLU
+(L242-283), the softmax family (L296-320), BatchNorm (L339), LayerNorm,
+InstanceNorm, L2Normalization and LRN (L375-442), Dropout (L456),
+Embedding (L480), UpSampling (L498), the loss layers SoftmaxOutput, the
+regression outputs, SVMOutput and MakeLoss (L519-675), with
+``loss_grad_scale_scope`` (L26-51), and the fused RNN (L683-824) with its
+packed parameter layout.
 Convolution, matmul and BatchNorm go to torch's own calls (cuDNN/cuBLAS
 on the card), as the JAX package leaves them to XLA; the conventions are
 the reference's, not torch's:
@@ -27,6 +28,10 @@ the reference's, not torch's:
   them (``rng``); at ``p=0``, in predict mode and outside training they
   return their input itself.
 - LeakyReLU's ``gelu`` is jax's default tanh approximation.
+- RNN runs torch's cuDNN RNN (``torch._VF``) on CUDA tensors, over views
+  into the reference's packed ``parameters``; on other devices a per-step
+  loop that transcribes the reference's scan. Its dropout between layers
+  draws from ``rng``, never from cuDNN's dropout state.
 """
 from __future__ import annotations
 
@@ -196,7 +201,7 @@ def _pooling(params, x):
             x[:, :, None])[:, :, 0]
     if spatial not in _MAX_POOL:
         raise MXNetError("Pooling: %d-D input is not yet ported (ROADMAP A6 "
-                         "part 2; 1-D to 3-D are)" % spatial)
+                         "part 3; 1-D to 3-D are)" % spatial)
     kernel = tuple(params.kernel)
     stride = tuple(params.stride or (1,) * spatial)
     pad = tuple(params.pad or (0,) * spatial)
@@ -686,3 +691,228 @@ class _MakeLoss(torch.autograd.Function):
 @register_op("MakeLoss", param_cls=MakeLossParam)
 def _make_loss_op(params, data):
     return _MakeLoss.apply(data, params)
+
+
+# ---------------------------------------------------------------------------
+# Fused RNN (rnn-inl.h; reference L683-824, a lax.scan there). On the card
+# the layers run torch's cuDNN RNN (``torch._VF``) over views into the one
+# ``parameters`` tensor, so the gradient reaches it; elsewhere the plain
+# per-step loop below, which transcribes the reference's scan.
+# ---------------------------------------------------------------------------
+
+
+class RNNParam(Params):
+    state_size = param_field(int, required=True)
+    num_layers = param_field(int, required=True)
+    bidirectional = param_field(bool, default=False)
+    mode = param_field(str, required=True,
+                       enum=("rnn_relu", "rnn_tanh", "lstm", "gru"))
+    p = param_field(float, default=0.0)
+    state_outputs = param_field(bool, default=False)
+    # accepted and never applied, as in the reference (ROADMAP §C)
+    lstm_state_clip_min = param_field(float, default=None)
+    lstm_state_clip_max = param_field(float, default=None)
+
+
+def _rnn_inputs(p):
+    if p is not None and p.mode == "lstm":
+        return ("data", "parameters", "state", "state_cell")
+    return ("data", "parameters", "state")
+
+
+def _rnn_n_outputs(p):
+    if p is None or not p.state_outputs:
+        return 1
+    return 3 if p.mode == "lstm" else 2
+
+
+def _gates(mode):
+    return {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}[mode]
+
+
+def rnn_param_size(mode, input_size, state_size, num_layers, bidirectional):
+    """Total packed parameter count. The packing: all weights (layer-major,
+    direction-minor, i2h then h2h), then all biases in the same order."""
+    g = _gates(mode)
+    d = 2 if bidirectional else 1
+    size = 0
+    for layer in range(num_layers):
+        ins = input_size if layer == 0 else state_size * d
+        size += d * g * state_size * (ins + state_size)
+    return size + num_layers * d * 2 * g * state_size
+
+
+def unpack_rnn_params(flat, mode, input_size, state_size, num_layers,
+                      bidirectional):
+    """``[layer][direction] -> [wi, wh, bi, bh]``, each a view into
+    ``flat`` (reference ``_unpack_rnn_params`` L727)."""
+    g = _gates(mode)
+    d = 2 if bidirectional else 1
+    H = state_size
+    layers, off = [], 0
+    for layer in range(num_layers):
+        ins = input_size if layer == 0 else H * d
+        dirs = []
+        for _ in range(d):
+            wi = flat[off:off + g * H * ins].reshape(g * H, ins)
+            off += g * H * ins
+            wh = flat[off:off + g * H * H].reshape(g * H, H)
+            off += g * H * H
+            dirs.append([wi, wh, None, None])
+        layers.append(dirs)
+    for layer in range(num_layers):
+        for dd in range(d):
+            layers[layer][dd][2] = flat[off:off + g * H]
+            off += g * H
+            layers[layer][dd][3] = flat[off:off + g * H]
+            off += g * H
+    return layers
+
+
+def _rnn_cell_step(mode):
+    """One step ``(carry, xw_t, wh, bh) -> (carry, out)`` (reference
+    L746-774)."""
+    if mode == "lstm":
+        def step(carry, xw, wh, bh):
+            h, c = carry
+            gates = xw + h @ wh.t() + bh
+            i, f, gg, o = gates.chunk(4, dim=-1)
+            i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+            c = f * c + i * torch.tanh(gg)
+            h = o * torch.tanh(c)
+            return (h, c), h
+    elif mode == "gru":
+        def step(carry, xw, wh, bh):
+            (h,) = carry
+            xr, xz, xn = xw.chunk(3, dim=-1)
+            hr, hz, hn = (h @ wh.t() + bh).chunk(3, dim=-1)
+            r = torch.sigmoid(xr + hr)
+            z = torch.sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            h = (1 - z) * n + z * h
+            return (h,), h
+    else:
+        act = torch.relu if mode == "rnn_relu" else torch.tanh
+
+        def step(carry, xw, wh, bh):
+            (h,) = carry
+            h = act(xw + h @ wh.t() + bh)
+            return (h,), h
+    return step
+
+
+def run_rnn_layer_plain(mode, x, wi, wh, bi, bh, h0, c0, reverse=False):
+    """One direction of one layer: ``x`` (T, N, I) -> (out (T, N, H), h_T,
+    c_T or None). The input products over all steps come first, as one
+    matmul (reference L776-791)."""
+    step = _rnn_cell_step(mode)
+    xw = x @ wi.t() + bi
+    carry = (h0, c0) if mode == "lstm" else (h0,)
+    order = range(x.shape[0] - 1, -1, -1) if reverse else range(x.shape[0])
+    outs = [None] * x.shape[0]
+    for t in order:
+        carry, outs[t] = step(carry, xw[t], wh, bh)
+    return (torch.stack(outs), carry[0],
+            carry[1] if mode == "lstm" else None)
+
+
+#: calls of the RNN op by route ("cudnn": torch._VF on the card, "plain":
+#: the per-step loop); the chip check and the tests read them
+RNN_COUNTS = {"cudnn": 0, "plain": 0}
+
+
+def rnn_route(device):
+    """``"cudnn"`` for a CUDA tensor, ``"plain"`` elsewhere: on the card the
+    op runs torch's cuDNN RNN or raises; it never falls back."""
+    return "cudnn" if torch.device(device).type == "cuda" else "plain"
+
+
+def _vf_layers(mode, x, weights, h0, c0, num_layers, bidirectional, train):
+    """``num_layers`` layers through one ``torch._VF`` call (cuDNN on the
+    card, torch's own RNN on the CPU) with dropout 0. ``weights``: per
+    layer and direction ``[wi, wh, bi, bh]``, in torch's order."""
+    flat = [w for dirs in weights for dd in dirs for w in dd]
+    fn = getattr(torch._VF, mode)
+    # cuDNN takes dense inputs and states only (a graph's zero states are
+    # broadcast views)
+    x, h0 = x.contiguous(), h0.contiguous()
+    if mode == "lstm":
+        c0 = c0.contiguous()
+        out, hT, cT = fn(x, (h0, c0), flat, True, num_layers, 0.0, train,
+                         bidirectional, False)
+        return out, hT, cT
+    out, hT = fn(x, h0, flat, True, num_layers, 0.0, train, bidirectional,
+                 False)
+    return out, hT, None
+
+
+def rnn_forward(params, data, parameters, state, state_cell=None,
+                is_train=False, rng=None, route=None):
+    """The RNN op on tensors through ``route`` (``rnn_route`` of the data's
+    device by default). Between layers, in training at ``p > 0``, each
+    layer's output is masked from ``rng`` as Dropout masks (reference
+    L814-818): the cuDNN route then runs one ``_VF`` call a layer, so
+    cuDNN's own dropout state never draws."""
+    mode, H = params.mode, params.state_size
+    L, bi = params.num_layers, params.bidirectional
+    d = 2 if bi else 1
+    T, N, In = data.shape
+    if data.device.type == "meta":
+        out = torch.empty((T, N, d * H), dtype=data.dtype, device="meta")
+        if not params.state_outputs:
+            return out
+        hs = torch.empty((L * d, N, H), dtype=data.dtype, device="meta")
+        return (out, hs, hs.clone()) if mode == "lstm" else (out, hs)
+    route = route or rnn_route(data.device)
+    RNN_COUNTS[route] += 1
+    layers = unpack_rnn_params(parameters, mode, In, H, L, bi)
+    drop = params.p > 0 and is_train and L > 1
+    x, h_states, c_states = data, [], []
+    if route == "cudnn":
+        # cuDNN keeps what its backward needs only in training mode
+        train = bool(is_train or torch.is_grad_enabled())
+        groups = [(li, li + 1) for li in range(L)] if drop else [(0, L)]
+        for lo, hi in groups:
+            c0 = state_cell[lo * d:hi * d] if mode == "lstm" else None
+            x, hT, cT = _vf_layers(mode, x, layers[lo:hi],
+                                   state[lo * d:hi * d], c0, hi - lo, bi,
+                                   train)
+            h_states.append(hT)
+            if cT is not None:
+                c_states.append(cT)
+            if drop and hi < L:
+                x = _dropout(DropoutParam(p=params.p), x, True, rng)
+        hs = torch.cat(h_states)
+        cs = torch.cat(c_states) if c_states else None
+    else:
+        for li, dirs in enumerate(layers):
+            outs = []
+            for di, (wi, wh, b_i, b_h) in enumerate(dirs):
+                sidx = li * d + di
+                c0 = state_cell[sidx] if mode == "lstm" else None
+                o, hT, cT = run_rnn_layer_plain(mode, x, wi, wh, b_i, b_h,
+                                                state[sidx], c0,
+                                                reverse=(di == 1))
+                outs.append(o)
+                h_states.append(hT)
+                if cT is not None:
+                    c_states.append(cT)
+            x = outs[0] if d == 1 else torch.cat(outs, dim=-1)
+            if drop and li < L - 1:
+                x = _dropout(DropoutParam(p=params.p), x, True, rng)
+        hs = torch.stack(h_states)
+        cs = torch.stack(c_states) if c_states else None
+    if not params.state_outputs:
+        return x
+    return (x, hs, cs) if mode == "lstm" else (x, hs)
+
+
+@register_op("RNN", param_cls=RNNParam, input_names=_rnn_inputs,
+             num_outputs=_rnn_n_outputs, need_train=True, need_rng=True)
+def _rnn(params, data, parameters, state, state_cell=None, is_train=False,
+         rng=None):
+    """data (T, N, I), state (L*D, N, H); outputs (T, N, D*H) and, with
+    ``state_outputs``, h_T (and c_T for lstm). Reference
+    src/operator/rnn-inl.h."""
+    return rnn_forward(params, data, parameters, state, state_cell,
+                       is_train=is_train, rng=rng)

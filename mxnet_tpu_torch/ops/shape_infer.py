@@ -1,8 +1,8 @@
 """Learnable-parameter shape inference hooks.
 
 Counterpart of ``mxnet_tpu/ops/shape_infer.py`` for the port's ops
-(RNN, LSoftmax, the quantized and the sparse-regularization hooks wait
-for their ops, ROADMAP A6 part 2): each
+(LSoftmax, the quantized and the sparse-regularization hooks wait for
+their ops, ROADMAP A6 part 3): each
 op's output shapes come from running it on ``meta`` tensors
 (``OpDef.infer``); these hooks supply the *input* shapes that running the
 op cannot derive (weights, aux states, labels).
@@ -145,3 +145,17 @@ def _same_label(params, shapes):
 for _name in ("LinearRegressionOutput", "MAERegressionOutput",
               "LogisticRegressionOutput"):
     hook(_name)(_same_label)
+
+
+@hook("RNN")
+def _rnn(params, shapes):
+    from .nn import rnn_param_size
+    data = shapes["data"]  # (T, N, I)
+    d = 2 if params.bidirectional else 1
+    n = rnn_param_size(params.mode, data[2], params.state_size,
+                       params.num_layers, params.bidirectional)
+    out = {"parameters": (n,),
+           "state": (params.num_layers * d, data[1], params.state_size)}
+    if params.mode == "lstm":
+        out["state_cell"] = out["state"]
+    return out

@@ -29,6 +29,8 @@ def _invoke_symbol(opdef, sym_inputs, attrs, name=None):
     in_names = opdef.list_inputs(params) + opdef.list_aux(params)
     if name is None:
         name = _NAMES.get(opdef.name.lower())
+    from ..attribute import current_attrs
+    scope_attrs = current_attrs()
     inputs = []
     for i, nm in enumerate(in_names):
         if i < len(sym_inputs) and sym_inputs[i] is not None:
@@ -39,8 +41,11 @@ def _invoke_symbol(opdef, sym_inputs, attrs, name=None):
             inputs.append(s._outputs[0])
         else:
             # auto-create the parameter/aux variable (reference composer)
-            inputs.append((Node(None, {}, [], "%s_%s" % (name, nm)), 0))
+            vnode = Node(None, {}, [], "%s_%s" % (name, nm))
+            vnode._extra_attrs.update(scope_attrs)
+            inputs.append((vnode, 0))
     node = Node(opdef, attrs, inputs, name)
+    node._extra_attrs.update(scope_attrs)
     return Symbol([(node, i) for i in range(opdef.n_outputs(params))])
 
 
@@ -96,7 +101,7 @@ for _al, _target in _OP_ALIASES.items():
 def __getattr__(name):
     # mx.sym.<op> for an op of the reference the port has not registered
     raise AttributeError("mx.sym.%s: operator not yet ported (ROADMAP A6 "
-                         "part 2)" % name)
+                         "part 3)" % name)
 
 
 def _shape(shape):

@@ -20,9 +20,10 @@ the reversed ``_rminus_scalar``, ``_rdiv_scalar``, ``_rpower_scalar``,
 ``_rmod_scalar``), unary minus, the comparisons (``equal``, ...,
 ``_lesser_equal_scalar``), and the shape and math mirrors (``reshape``,
 ``transpose``, ``flatten``, ``astype``, ``sum``, ``mean``,
-``slice_axis``, ``expand_dims``, ``softmax``). ``infer_shape_partial``,
-``attr``-scopes and ``get_children`` raise "not yet ported" (ROADMAP A6
-part 2).
+``slice_axis``, ``expand_dims``, ``softmax``), ``get_children``,
+``attr`` and ``infer_shape_partial``. Symbols made inside an
+``mx.AttrScope`` carry its attributes. ``grad`` raises the reference's
+message.
 """
 from __future__ import annotations
 
@@ -206,6 +207,14 @@ class Symbol:
                 outs.extend((node, i) for i in range(n))
         return Symbol(outs)
 
+    def get_children(self):
+        """The inputs of the output nodes as one Symbol, or None for a
+        variable (reference L212)."""
+        children = []
+        for node, _ in self._outputs:
+            children.extend(node.inputs)
+        return Symbol(children) if children else None
+
     def __getitem__(self, index):
         if isinstance(index, str):
             names = self.list_outputs()
@@ -227,6 +236,13 @@ class Symbol:
         return (self[i] for i in range(len(self._outputs)))
 
     # -- attributes --------------------------------------------------------
+    def attr(self, key):
+        """The user attribute ``key`` of a single-output symbol (scope
+        attributes included), else None (reference L241)."""
+        if len(self._outputs) == 1:
+            return self._outputs[0][0]._extra_attrs.get(key)
+        return None
+
     def _set_attr(self, **kwargs):
         for node, _ in self._outputs:
             node._extra_attrs.update({k: str(v) for k, v in kwargs.items()})
@@ -350,6 +366,14 @@ class Symbol:
     def infer_shape(self, *args, **kwargs):
         """(argument shapes, output shapes, aux-state shapes) from the
         given argument shapes, in ``list_arguments`` order or by name."""
+        return self._infer_shape_impl(False, *args, **kwargs)
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """``infer_shape`` that leaves None where a shape cannot be
+        inferred, instead of raising (reference L410)."""
+        return self._infer_shape_impl(True, *args, **kwargs)
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
         known = {}
         if args:
             for name, shape in zip(self.list_arguments(), args):
@@ -396,6 +420,8 @@ class Symbol:
                         if inp.is_variable:
                             var_shape[id(inp)] = filled[nm]
             if any(v is None or unknown(v) for v in in_shapes.values()):
+                if partial:
+                    continue
                 missing = [nm for nm, v in in_shapes.items()
                            if v is None or unknown(v)]
                 raise MXNetError("infer_shape: cannot infer %s for node %s"
@@ -563,17 +589,9 @@ class Symbol:
         forward; returns the outputs."""
         return self.bind(ctx, kwargs, grad_req="null").forward()
 
-
-def _not_ported(name):
-    def method(self, *args, **kwargs):
-        raise MXNetError("Symbol.%s is not yet ported (ROADMAP A6 part 2)"
-                         % name)
-    method.__name__ = name
-    return method
-
-
-for _name in ("get_children", "attr", "infer_shape_partial", "grad"):
-    setattr(Symbol, _name, _not_ported(_name))
+    def grad(self, wrt):
+        raise MXNetError("Symbol.grad is deprecated in the reference; use "
+                         "bind + backward")
 
 
 def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
@@ -582,6 +600,8 @@ def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     node = Node(None, {}, [], name)
+    from ..attribute import current_attrs
+    node._extra_attrs.update(current_attrs())
     if shape is not None:
         node._extra_attrs["__shape__"] = str(list(shape))
     if lr_mult is not None:

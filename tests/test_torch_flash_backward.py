@@ -27,6 +27,7 @@ absolute and relative for forward values and 1e-4 relative / 1e-5
 absolute for gradients (each gradient sums over a whole row or column of
 scores).
 """
+import functools
 import importlib
 
 import numpy as np
@@ -96,19 +97,40 @@ def test_flash_fwd_plain_matches_pallas(causal):
     _close(lse, ref_l, FWD_TOL)
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas_bwd(causal):
+    """The forward residuals and the Pallas pair in interpret mode, one
+    jitted program a mask: the offsets are traced, so the cases of a mask
+    share its compile."""
+    def run(q, k, v, offs, do, dlse):
+        out, lse = jfa.flash_attention_with_lse(q, k, v, offs, SM, causal,
+                                                BLOCK, BLOCK, True, "stream")
+        return out, lse, jfa._flash_bwd_offs_pallas(
+            q, k, v, offs, do, dlse, out, lse, SM, causal, BLOCK, BLOCK,
+            interpret=True)
+    return jax.jit(run)
+
+
+@functools.lru_cache(maxsize=None)
+def _lse_vjp(causal):
+    """jax.vjp of the JAX flash_attention_with_lse, one jitted program a
+    mask (offsets traced)."""
+    def run(q, k, v, offs, do, dlse):
+        (out, lse), vjp = jax.vjp(
+            lambda q, k, v: jfa.flash_attention_with_lse(
+                q, k, v, offs, SM, causal, BLOCK, BLOCK, True, "stream"),
+            q, k, v)
+        return out, lse, vjp((do, dlse))
+    return jax.jit(run)
+
+
 @pytest.mark.parametrize("causal,offs", CASES)
 def test_flash_bwd_offs_plain_matches_pallas(causal, offs):
     """The plain backward against the Pallas pair, from the same forward
     residuals and a nonzero lse cotangent."""
     q, k, v, do, dlse = _inputs(1)
-    offs_j = jnp.asarray(offs, jnp.int32)
-    out, lse = jfa.flash_attention_with_lse(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), offs_j, SM, causal,
-        BLOCK, BLOCK, True, "stream")
-    ref = jfa._flash_bwd_offs_pallas(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), offs_j,
-        jnp.asarray(do), jnp.asarray(dlse), out, lse, SM, causal, BLOCK,
-        BLOCK, interpret=True)
+    out, lse, ref = _pallas_bwd(causal)(q, k, v,
+                                        np.asarray(offs, np.int32), do, dlse)
     t = lambda a: torch.from_numpy(np.array(a))
     got = tfa.flash_bwd_offs_plain(t(q), t(k), t(v),
                                    torch.tensor(offs, dtype=torch.int32),
@@ -148,12 +170,8 @@ def test_flash_with_lse_function_matches_jax_vjp(causal, offs, with_dlse):
     q, k, v, do, dlse = _inputs(3)
     if not with_dlse:
         dlse = np.zeros_like(dlse)
-    f = lambda q, k, v: jfa.flash_attention_with_lse(
-        q, k, v, jnp.asarray(offs, jnp.int32), SM, causal, BLOCK, BLOCK,
-        True, "stream")
-    (ref_o, ref_l), vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k),
-                                  jnp.asarray(v))
-    ref_g = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    ref_o, ref_l, ref_g = _lse_vjp(causal)(
+        q, k, v, np.asarray(offs, np.int32), do, dlse)
     ts = _leaves(q, k, v)
     out, lse = tfa.flash_attention_with_lse(
         *ts, torch.tensor(offs, dtype=torch.int32), SM, causal, BLOCK, BLOCK)

@@ -275,7 +275,7 @@ def test_unported_optimizer_and_metric_raise():
     with pytest.raises(MXNetError, match="ROADMAP A2"):
         tmx.optimizer.create("rmsprop")
     with pytest.raises(MXNetError, match="ROADMAP A2"):
-        tmx.metric.create("f1")
+        tmx.metric.create("torch")
     with pytest.raises(MXNetError, match="not registered"):
         tmx.optimizer.create("nonesuch")
 

@@ -32,7 +32,7 @@ torch.backends.cudnn.allow_tf32 = False
 RTOL, ATOL = 2e-5, 1e-6
 SHAPE = (3, 4)
 
-#: the reference files of this slice (RNN waits for A6 part 2)
+#: the reference files of the imperative slice, RNN included
 SLICE_MODULES = ("mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.tensor",
                  "mxnet_tpu.ops.nn", "mxnet_tpu.ops.random_ops",
                  "mxnet_tpu.ops.optimizer_ops", "mxnet_tpu.operator")
@@ -40,8 +40,8 @@ SLICE_MODULES = ("mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.tensor",
 
 def test_the_slice_registers_every_op_of_the_reference_files():
     want = {n for n, op in JOPS.items()
-            if op.fn.__module__ in SLICE_MODULES and n != "RNN"}
-    assert len(want) == 191
+            if op.fn.__module__ in SLICE_MODULES}
+    assert len(want) == 192
     assert want <= set(TOPS), sorted(want - set(TOPS))
     for name in sorted(want):
         assert callable(getattr(tmx.nd, name)), name

@@ -115,9 +115,26 @@ def test_transformer_forward_matches_jax(monkeypatch):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **FWD_TOL)
 
 
+@pytest.fixture(scope="module")
+def loss_refs():
+    """The JAX loss and gradients on ``_np_params(2)`` and ``_batch(3)``
+    by (remat, attention variant), each computed once: the plain and the
+    function tiers hold the port to the same reference."""
+    refs = {}
+
+    def get(remat, variant):
+        if (remat, variant) not in refs:
+            with pytest.MonkeyPatch.context() as mp:
+                refs[remat, variant] = _jax_loss_and_grads(
+                    mp, _np_params(2), *_batch(3), remat, variant)
+        return refs[remat, variant]
+    return get
+
+
 @pytest.mark.parametrize("remat", [False, True])
 @pytest.mark.parametrize("tier", ["plain", "function", "grid"])
-def test_transformer_loss_and_grads_match_jax(monkeypatch, remat, tier):
+def test_transformer_loss_and_grads_match_jax(monkeypatch, loss_refs, remat,
+                                              tier):
     """``grid``: both configs with ``attn_variant="grid"`` (the JAX side
     runs its grid kernels in interpret mode, the port the grid kernel
     tier's Function, whose CPU path is the grid kernels' plain
@@ -125,8 +142,7 @@ def test_transformer_loss_and_grads_match_jax(monkeypatch, remat, tier):
     params = _np_params(2)
     tokens, targets = _batch(3)
     variant = "grid" if tier == "grid" else "stream"
-    ref_loss, ref_grads = _jax_loss_and_grads(monkeypatch, params, tokens,
-                                              targets, remat, variant)
+    ref_loss, ref_grads = loss_refs(remat, variant)
     if tier != "plain":
         # the kernel tier's autograd Function; on CPU tensors it runs the
         # kernels' plain versions (forward and the written-out backward)
