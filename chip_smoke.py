@@ -596,6 +596,50 @@ no result line):
              out, must fail it. Reports each bucket's step wall p50, its
              device ms (one traced step) and update path, and #7's
              launches.
+40. detection_ops — the op families of ROADMAP A6 part 3 on the card
+             against the same ops on CPU tensors. The multibox ops at
+             SSD-300's shapes (the reference's example/ssd graph, built
+             by its own files: batch 32, 21 classes, the anchors of its
+             6-scale pyramid at 300x300, counted from the graph):
+             MultiBoxPrior within DET_TOL; MultiBoxTarget with the train
+             graph's parameters on SyntheticDetIter labels and seeded
+             class scores, its classes and masks equal and its targets
+             within DET_TOL (controls: variances reversed, mining ratio
+             2); MultiBoxDetection as the train graph runs it (nms_topk
+             400), ids equal, scores and boxes within DET_TOL (control:
+             variances reversed); box_nms over each image's top 400
+             rows equal (control: overlap 0.3). Each reports its wall,
+             its device ms (a traced call) and the CPU's wall. Then 33
+             more ops of the families (ROI pooling and align, the
+             deformable ops, proposals, samplers, correlations, the
+             fork's ops, image and linalg ops, 4-D Pooling) at
+             detection-sized inputs, outputs and the gradients of the
+             first output within OPS_TOL of max(1, |CPU|) (images
+             IMG_TOL; bipartite matching and flips equal; control:
+             ROIAlign's features moved by 0.01), and gelqf / syevd
+             (eigenvalues 1..32) within OPS_TOL of LAPACK's up to each
+             row's sign, reconstructing their input, rows orthonormal.
+41. ssd_fit — (a) SSD-300 (VGG16-reduced, symbol_builder's DEFAULT_*
+             pyramid, 20 classes plus background) through
+             Module.fit(kvstore='tpu_sync', optimizer='sgd') at batch 32
+             on 4 seeded SyntheticDetIter batches for 4 epochs (lr 0.004,
+             momentum 0.9, wd 5e-4): #7 launches once a step over all 71
+             float32 leaves, both MultiBoxMetric losses lower in the last
+             epoch than in the first; reports the step wall p50, a
+             Module step's device ms and idle share (profiled), and the
+             wall inside MultiBoxTarget and MultiBoxDetection. (b) A
+             narrow SSD (three small conv blocks for the backbone, two
+             scales, 3x64x64, batch 4, 3 classes) takes 3 tpu_sync steps
+             on the card and on the CPU from one numpy init: each leaf
+             within NARROW_TOL relative L2; the control, the CPU fit one
+             batch short, must fail it. (c) The reference's
+             example/ssd/train.py, unchanged, through the launcher with
+             --tpus 0 --batch-size 32 --data-shape 300 --epochs 1
+             --num-batches 8 (its synthetic data; its default kvstore
+             'local' updates through the per-parameter updater): it
+             must print Epoch[0]'s Train-CrossEntropy and
+             Validation-mAP, finite, and "run_script: jax not in
+             sys.modules".
 
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
@@ -620,8 +664,8 @@ on its path's run (serving, training, symbolic training, long-context
 serving or training, the rtc kernels' full-size run or the ResNet-50
 forwards, the bf16 and float16 serving and training runs, long ones
 included; #7's adds its launches in module_fit, example_scripts,
-symbolic_bf16, supervised_fit, imperative, stochastic_fit, rnn_seq and
-bucketing_fit, by path in ``launches_by_path``; #1's and #8's ``launches_by_path`` add
+symbolic_bf16, supervised_fit, imperative, stochastic_fit, rnn_seq,
+bucketing_fit and ssd_fit, by path in ``launches_by_path``; #1's and #8's ``launches_by_path`` add
 model_server's and serve_engine_rtc's counts, taken on the host at
 capture, #8's imperative's; #1's and #3's (and
 its combine's) add frontdoor's), its error (the 16-bit
@@ -7251,6 +7295,659 @@ def phase_bucketing_fit(torch, dev, seed, tmp):
     return result, {k: tuple(v) for k, v in totals.items()}
 
 
+SSD_CLASSES = 20        # VOC: 20 classes plus the background
+SSD_BATCH = 32
+SSD_SIDE = 300
+SSD_OBJECTS = 8         # SyntheticDetIter's label rows (padding -1)
+SSD_OPT = {"learning_rate": 0.004, "momentum": 0.9, "wd": 5e-4}
+SSD_EPOCH = 4           # ssd_fit (a): 4 epochs over 4 synthetic batches
+SSD_EPOCHS = 4
+SSD_SCRIPT_ARGS = ["--tpus", "0", "--batch-size", "32", "--data-shape",
+                   "300", "--epochs", "1", "--num-batches", "8"]
+DET_TOL = 1e-5          # boxes, targets and scores: card against CPU
+OPS_TOL = 1e-4          # the other families: |card - CPU| / max(1, |CPU|)
+IMG_TOL = 1e-3          # images on the [0, 255] scale
+NARROW_BATCH = 4
+NARROW_SIDE = 64
+NARROW_CLASSES = 3
+NARROW_STEPS = 3
+NARROW_TOL = 1e-4       # ssd_fit (b): each leaf's relative L2
+
+
+def ssd_example(mx):
+    """The reference's example/ssd files, unchanged: its symbol package
+    (symbol_builder, common, vgg16_reduced), train/metric.py and
+    dataset/iterator.py, loaded under names of their own with
+    ``mxnet_tpu`` (and ``mxnet_tpu.io``) bound to ``mx`` while they
+    import."""
+    import importlib
+    import importlib.util
+    base = os.path.join(ROOT, "example", "ssd")
+    names = ("mxnet_tpu", "mxnet_tpu.io")
+    saved = {n: sys.modules.get(n) for n in names}
+    sys.modules.update({"mxnet_tpu": mx, "mxnet_tpu.io": mx.io})
+    out = {}
+    try:
+        for key, rel, pkg in (("symbol", "symbol/__init__.py", True),
+                              ("metric", "train/metric.py", False),
+                              ("iterator", "dataset/iterator.py", False)):
+            path = os.path.join(base, rel)
+            name = "chip_smoke_ssd_" + key
+            spec = importlib.util.spec_from_file_location(
+                name, path, submodule_search_locations=[
+                    os.path.dirname(path)] if pkg else None)
+            mod = importlib.util.module_from_spec(spec)
+            sys.modules[name] = mod
+            spec.loader.exec_module(mod)
+            out[key] = mod
+        for sub in ("symbol_builder", "vgg16_reduced"):
+            out[sub] = importlib.import_module("chip_smoke_ssd_symbol."
+                                               + sub)
+    finally:
+        for n, m in saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+    return out
+
+
+def narrow_backbone(mx):
+    """A stand-in for vgg16_reduced.get_symbol: three small conv blocks,
+    relu4_3's tap at 1/4 of the input (16 channels), relu7's at 1/8 (32)."""
+    def get_symbol(num_classes=1000, **kwargs):
+        body = mx.sym.Variable(name="data")
+        taps = []
+        for i, (filters, pool) in enumerate(((8, True), (16, True),
+                                             (32, False))):
+            if i == 2:
+                body = mx.sym.Pooling(data=body, pool_type="max",
+                                      kernel=(2, 2), stride=(2, 2),
+                                      name="pool_b%d" % i)
+            body = mx.sym.Convolution(data=body, kernel=(3, 3), pad=(1, 1),
+                                      num_filter=filters,
+                                      name="conv_b%d" % i)
+            body = mx.sym.Activation(data=body, act_type="relu",
+                                     name="relu_b%d" % i)
+            if pool:
+                body = mx.sym.Pooling(data=body, pool_type="max",
+                                      kernel=(2, 2), stride=(2, 2),
+                                      name="pool_a%d" % i)
+            taps.append(body)
+        return taps[1], taps[2]
+    return get_symbol
+
+
+def _max_err(torch, got, want):
+    """``scaled_err`` over lists of tensors (of any device), the max."""
+    return max((scaled_err(g.detach().double().cpu(),
+                           w.detach().double().cpu())
+                for g, w in zip(got, want) if w.numel()), default=0.0)
+
+
+def _same(torch, got, want):
+    return all(torch.equal(g.detach().cpu(), w.detach().cpu())
+               for g, w in zip(got, want))
+
+
+def detection_battery(np, rng):
+    """The other families' ops at detection-sized inputs: (name, op,
+    numpy inputs, attrs, inputs whose gradient is held, tolerance or
+    "exact")."""
+    def f(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def rois(n, side=600.0):
+        xy = rng.uniform(0, side * 0.7, (n, 2))
+        wh = rng.uniform(16, side * 0.3, (n, 2))
+        return np.concatenate([rng.randint(0, 2, (n, 1)), xy, xy + wh],
+                              axis=1).astype(np.float32)
+
+    def tri(n, b):
+        a = f(b, n, n, lo=-0.5, hi=0.5) + 4.0 * np.eye(n, dtype=np.float32)
+        return np.tril(a)
+
+    spd = f(8, 32, 32)
+    spd = (spd @ spd.transpose(0, 2, 1) + 32 * np.eye(32)).astype(
+        np.float32)
+    boxes = np.concatenate([f(400, 2, lo=0, hi=0.7), f(400, 2, lo=0,
+                                                        hi=0.7) + 0.3], 1)
+    img = rng.uniform(0, 255, (8, 300, 300, 3)).astype(np.float32)
+    scale = {"spatial_scale": 0.0625}
+    return [
+        ("roi_pooling", "ROIPooling", [f(2, 8, 38, 38), rois(32)],
+         dict(scale, pooled_size=(7, 7)), (0,), OPS_TOL),
+        ("roi_align", "_contrib_ROIAlign", [f(2, 16, 38, 38), rois(64)],
+         dict(scale, pooled_size=(7, 7), sample_ratio=2), (0,), OPS_TOL),
+        ("psroi_pooling", "_contrib_PSROIPooling",
+         [f(2, 18, 38, 38), rois(64)],
+         dict(scale, output_dim=2, pooled_size=3), (0,), OPS_TOL),
+        ("deformable_psroi_pooling", "_contrib_DeformablePSROIPooling",
+         [f(2, 18, 38, 38), rois(64), f(64, 18, lo=-0.5, hi=0.5)],
+         dict(scale, output_dim=2, group_size=3, pooled_size=3,
+              part_size=3, sample_per_part=2, trans_std=0.1), (0, 2),
+         OPS_TOL),
+        ("deformable_convolution", "_contrib_DeformableConvolution",
+         [f(2, 16, 19, 19), f(2, 18, 19, 19), f(32, 16, 3, 3, lo=-0.1,
+                                                 hi=0.1), f(32)],
+         {"kernel": (3, 3), "pad": (1, 1), "num_filter": 32}, (0, 1, 2),
+         OPS_TOL),
+        ("multi_proposal", "_contrib_MultiProposal",
+         [f(2, 24, 19, 19, lo=0, hi=1), f(2, 48, 19, 19, lo=-0.1, hi=0.1),
+          np.array([[304, 304, 1.0]] * 2, np.float32)],
+         {"rpn_pre_nms_top_n": 2000, "rpn_post_nms_top_n": 100,
+          "feature_stride": 16}, (), OPS_TOL),
+        ("box_iou", "_contrib_box_iou", [boxes[:300], boxes[100:]], {},
+         (0, 1), DET_TOL),
+        ("bipartite_matching", "_contrib_bipartite_matching",
+         [f(8, 64, 48, lo=0, hi=1)], {"threshold": 0.2}, (), "exact"),
+        ("bilinear_sampler", "BilinearSampler",
+         [f(4, 16, 38, 38), f(4, 2, 38, 38, lo=-1.1, hi=1.1)], {}, (0, 1),
+         OPS_TOL),
+        ("spatial_transformer", "SpatialTransformer",
+         [f(4, 16, 38, 38), np.array([[1.0, 0.1, 0.05, -0.1, 0.9, 0.0]] * 4,
+                                     np.float32)],
+         {"transform_type": "affine", "sampler_type": "bilinear",
+          "target_shape": (32, 32)}, (0, 1), OPS_TOL),
+        ("grid_generator_warp", "GridGenerator", [f(4, 2, 38, 38)],
+         {"transform_type": "warp"}, (0,), OPS_TOL),
+        ("correlation", "Correlation", [f(2, 16, 24, 24), f(2, 16, 24, 24)],
+         {"max_displacement": 4, "pad_size": 4}, (0, 1), OPS_TOL),
+        ("correlation1d", "Correlation1D",
+         [f(2, 16, 24, 48), f(2, 16, 24, 48)],
+         {"max_displacement": 8, "pad_size": 8}, (0, 1), OPS_TOL),
+        ("bilinear_resize", "_contrib_BilinearResize2D", [f(4, 16, 19, 19)],
+         {"height": 38, "width": 38}, (0,), OPS_TOL),
+        ("adaptive_avg_pool", "_contrib_AdaptiveAvgPooling2D",
+         [f(4, 16, 38, 38)], {"output_size": (7, 7)}, (0,), OPS_TOL),
+        ("crop", "Crop", [f(4, 16, 38, 38)],
+         {"h_w": (32, 32), "center_crop": True}, (0,), OPS_TOL),
+        ("pooling_4d", "Pooling", [f(2, 4, 8, 8, 8, 8)],
+         {"kernel": (2, 2, 2, 2), "stride": (2, 2, 2, 2)}, (0,), OPS_TOL),
+        ("lsoftmax_train", "LSoftmax",
+         [f(64, 128), f(100, 128), rng.randint(0, 100, 64).astype(
+             np.float32)], {"num_hidden": 100, "margin": 2}, (0, 1),
+         OPS_TOL),
+        ("multi_logistic", "MultiLogistic",
+         [f(64, 100, lo=-3, hi=3), (f(64, 100) > 0).astype(np.float32)],
+         {"weight": 3.0}, (0,), OPS_TOL),
+        ("weighted_l1", "WeightedL1", [f(64, 100), f(64, 100)], {}, (0,),
+         OPS_TOL),
+        ("kl_sparse_reg", "IdentityAttachKLSparseReg",
+         [f(64, 256, lo=0.05, hi=0.95), f(256, lo=0.05, hi=0.3)], {}, (0,),
+         OPS_TOL),
+        ("count_sketch", "_contrib_count_sketch",
+         [f(64, 512), rng.randint(0, 128, (1, 512)).astype(np.float32),
+          np.sign(f(1, 512))], {"out_dim": 128}, (0,), OPS_TOL),
+        ("khatri_rao", "khatri_rao", [f(8, 16), f(6, 16)], {}, (0, 1),
+         OPS_TOL),
+        ("linalg_gemm", "linalg_gemm", [f(8, 64, 48), f(8, 48, 32),
+                                        f(8, 64, 32)],
+         {"alpha": 0.5, "beta": 2.0}, (0, 1, 2), OPS_TOL),
+        ("linalg_trsm", "linalg_trsm", [tri(32, 8), f(8, 32, 16)],
+         {"alpha": 2.0}, (0, 1), OPS_TOL),
+        ("linalg_trmm", "linalg_trmm", [tri(32, 8), f(8, 16, 32)],
+         {"rightside": True, "transpose": True}, (0, 1), OPS_TOL),
+        ("linalg_potri", "linalg_potri",
+         [np.linalg.cholesky(spd).astype(np.float32)], {}, (0,), OPS_TOL),
+        ("linalg_sumlogdiag", "linalg_sumlogdiag", [spd], {}, (0,),
+         OPS_TOL),
+        ("linalg_makediag", "linalg_makediag", [f(8, 32)], {"offset": 1},
+         (0,), OPS_TOL),
+        ("image_flip", "_image_flip_left_right", [img], {}, (), "exact"),
+        ("image_hue", "_image_random_hue", [img],
+         {"min_factor": 0.1, "max_factor": 0.1}, (), IMG_TOL),
+        ("image_lighting", "_image_adjust_lighting", [img],
+         {"alpha": (0.1, -0.2, 0.05)}, (), IMG_TOL),
+        ("image_contrast", "_image_random_contrast", [img],
+         {"min_factor": 0.6, "max_factor": 0.6}, (), IMG_TOL),
+    ]
+
+
+def _run_op(torch, op, arrays, attrs, grad, device, seed):
+    """The op on ``device``: (outputs, gradients of the first output for a
+    seeded cotangent)."""
+    import numpy as np
+    ins = [torch.from_numpy(a).to(device) for a in arrays]
+    for i in grad:
+        ins[i].requires_grad_(True)
+    gen = torch.Generator(device=device).manual_seed(seed) \
+        if op.need_rng else None
+    with torch.set_grad_enabled(bool(grad)):
+        outs = op.apply(op.make_params(dict(attrs)), ins, is_train=True,
+                        rng=gen)
+    grads = []
+    if grad:
+        cot = torch.from_numpy(np.random.RandomState(seed).standard_normal(
+            tuple(outs[0].shape)).astype(np.float32)).to(device)
+        grads = list(torch.autograd.grad(outs[0], [ins[i] for i in grad],
+                                         cot))
+    return [o.detach() for o in outs], grads
+
+
+def phase_detection_ops(torch, dev, seed):
+    """The slice's op families on the card against the same ops on CPU
+    tensors (module docstring, phase 40). Returns the result."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import OPS
+    cpu = torch.device("cpu")
+    card = str(dev)
+    result = {"phase": "detection_ops"}
+    ex = ssd_example(mx)
+    sb = ex["symbol_builder"]
+    with mx.name.NameManager():
+        net = sb.get_symbol_train(SSD_CLASSES)
+    shapes = {"data": (SSD_BATCH, 3, SSD_SIDE, SSD_SIDE),
+              "label": (SSD_BATCH, SSD_OBJECTS, 5)}
+    internals = net.get_internals()
+    taps = ["relu4_3_output", "relu7_output"] + [
+        "multi_feat_%d_conv_3x3_relu_output" % k for k in range(2, 6)]
+    maps = mx.sym.Group([internals[t] for t in taps]).infer_shape(
+        data=shapes["data"])[1]
+    n_anchors = internals["multibox_anchors_output"].infer_shape(
+        data=shapes["data"])[1][0][1]
+
+    # (1) anchors of the six scales, card against CPU
+    prior = OPS["_contrib_MultiBoxPrior"]
+    anchors = {}
+    for device in (dev, cpu):
+        anchors[str(device)] = torch.cat([prior.apply(prior.make_params(
+            {"sizes": sb.DEFAULT_SIZES[k], "ratios": sb.DEFAULT_RATIOS[k]}),
+            [torch.zeros((1, 1) + tuple(m[2:]), device=device)])[0]
+            for k, m in enumerate(maps)], dim=1)
+    if anchors[card].shape != (1, n_anchors, 4):
+        fail("detection_ops: anchors %s, the graph has %d"
+             % (tuple(anchors[card].shape), n_anchors))
+    prior_err = _max_err(torch, [anchors[card]], [anchors["cpu"]])
+    if not prior_err <= DET_TOL:
+        fail("detection_ops: MultiBoxPrior is %g from the CPU's" % prior_err)
+    result["anchors"] = {"count": n_anchors, "maps": [list(m[2:])
+                                                      for m in maps],
+                         "max_abs_err": prior_err}
+
+    # (2) MultiBoxTarget at SSD-300's shapes, the train graph's params
+    rng = np.random.RandomState(seed + 41)
+    it = ex["iterator"].SyntheticDetIter(
+        SSD_BATCH, data_shape=(3, SSD_SIDE, SSD_SIDE),
+        num_classes=SSD_CLASSES, num_batches=1, seed=seed)
+    label = it.next().label[0].asnumpy()
+    cls_pred = rng.standard_normal((SSD_BATCH, SSD_CLASSES + 1,
+                                    n_anchors)).astype(np.float32)
+    target = OPS["_contrib_MultiBoxTarget"]
+    tgt_attrs = {"overlap_threshold": 0.5, "ignore_label": -1.0,
+                 "negative_mining_ratio": 3.0,
+                 "minimum_negative_samples": 0,
+                 "negative_mining_thresh": 0.5,
+                 "variances": (0.1, 0.1, 0.2, 0.2)}
+
+    def run_target(device, **over):
+        ins = [anchors[str(device)], torch.from_numpy(label).to(device),
+               torch.from_numpy(cls_pred).to(device)]
+        return target.apply(target.make_params(dict(tgt_attrs, **over)),
+                            ins)
+    t_card, t_cpu = run_target(dev), run_target(cpu)
+    t_err = _max_err(torch, t_card[:1], t_cpu[:1])
+    if not (_same(torch, t_card[1:], t_cpu[1:]) and t_err <= DET_TOL):
+        fail("detection_ops: MultiBoxTarget: masks/classes equal %s, "
+             "box_target err %g" % (_same(torch, t_card[1:], t_cpu[1:]),
+                                    t_err))
+    ctrl_var = _max_err(torch, run_target(dev, variances=(
+        0.2, 0.2, 0.1, 0.1))[:1], t_cpu[:1])
+    ctrl_mining = _same(torch, run_target(dev, negative_mining_ratio=2.0)[
+        2:], t_cpu[2:])
+    if not ctrl_var > DET_TOL or ctrl_mining:
+        fail("detection_ops: a MultiBoxTarget control passes: reversed "
+             "variances err %g, mining ratio 2 classes equal %s"
+             % (ctrl_var, ctrl_mining))
+    cls_t = t_cpu[2]
+    result["multibox_target"] = {
+        "max_abs_err": t_err, "classes_equal": True,
+        "control_variances_reversed_err": ctrl_var,
+        "control_mining_ratio_2_classes_equal": ctrl_mining,
+        "positives": int((cls_t > 0).sum()),
+        "negatives": int((cls_t == 0).sum()),
+        "ignored": int((cls_t == -1).sum()),
+        "wall_ms": _synced_ms(torch, lambda: run_target(dev), n=5),
+        "device_ms": profile_calls(torch, lambda: run_target(dev),
+                                   "multibox_target", None, warm=1, n=2,
+                                   calls=4)["device_ms"],
+        "cpu_wall_ms": _synced_ms(torch, lambda: run_target(cpu), n=2)}
+
+    # (3) MultiBoxDetection as the train graph runs it
+    logits = rng.standard_normal((SSD_BATCH, SSD_CLASSES + 1,
+                                  n_anchors)).astype(np.float32) * 3.0
+    cls_prob = np.exp(logits - logits.max(axis=1, keepdims=True))
+    cls_prob = (cls_prob / cls_prob.sum(axis=1, keepdims=True)).astype(
+        np.float32)
+    loc = (rng.standard_normal((SSD_BATCH, n_anchors * 4)) * 0.2).astype(
+        np.float32)
+    detect = OPS["_contrib_MultiBoxDetection"]
+    det_attrs = {"nms_threshold": 0.5, "force_suppress": False,
+                 "variances": (0.1, 0.1, 0.2, 0.2), "nms_topk": 400}
+
+    def run_detect(device, **over):
+        ins = [torch.from_numpy(cls_prob).to(device),
+               torch.from_numpy(loc).to(device), anchors[str(device)]]
+        return detect.apply(detect.make_params(dict(det_attrs, **over)),
+                            ins)[0]
+    d_card, d_cpu = run_detect(dev), run_detect(cpu)
+    ids_equal = _same(torch, [d_card[..., 0]], [d_cpu[..., 0]])
+    d_err = _max_err(torch, [d_card[..., 1:]], [d_cpu[..., 1:]])
+    if not (ids_equal and d_err <= DET_TOL):
+        fail("detection_ops: MultiBoxDetection: ids equal %s, err %g"
+             % (ids_equal, d_err))
+    ctrl_det = _max_err(torch, [run_detect(dev, variances=(
+        0.2, 0.2, 0.1, 0.1))[..., 1:]], [d_cpu[..., 1:]])
+    if not ctrl_det > DET_TOL:
+        fail("detection_ops: the MultiBoxDetection control (variances "
+             "reversed) passes: %g" % ctrl_det)
+    result["multibox_detection"] = {
+        "max_abs_err": d_err, "ids_equal": True,
+        "kept": int((d_cpu[..., 0] >= 0).sum()),
+        "control_variances_reversed_err": ctrl_det,
+        "wall_ms": _synced_ms(torch, lambda: run_detect(dev), n=5),
+        "device_ms": profile_calls(torch, lambda: run_detect(dev),
+                                   "multibox_detection", None, warm=1, n=2,
+                                   calls=4)["device_ms"],
+        "cpu_wall_ms": _synced_ms(torch, lambda: run_detect(cpu), n=2)}
+
+    # (4) box_nms over each image's top 400 detections
+    nms = OPS["_contrib_box_nms"]
+    rows = d_cpu[:, :400].clone()
+    nms_attrs = {"overlap_thresh": 0.45, "id_index": 0, "topk": 200}
+
+    def run_nms(device, **over):
+        return nms.apply(nms.make_params(dict(nms_attrs, **over)),
+                         [rows.to(device)])[0]
+    n_card, n_cpu = run_nms(dev), run_nms(cpu)
+    if not torch.equal(n_card.cpu(), n_cpu):
+        fail("detection_ops: box_nms's rows differ from the CPU's")
+    ctrl_nms = torch.equal(run_nms(dev, overlap_thresh=0.3).cpu(), n_cpu)
+    if ctrl_nms:
+        fail("detection_ops: the box_nms control (overlap 0.3) passes")
+    result["box_nms"] = {"equal": True, "kept": int((n_cpu[..., 0] >= 0)
+                                                    .sum()),
+                         "control_overlap_0.3_equal": ctrl_nms,
+                         "wall_ms": _synced_ms(torch, lambda: run_nms(dev),
+                                               n=5)}
+
+    # (5) the other families, outputs and gradients
+    ops, bad = {}, {}
+    battery = detection_battery(np, np.random.RandomState(seed + 42))
+    for name, opname, arrays, attrs, grad, tol in battery:
+        op = OPS[opname]
+        got = _run_op(torch, op, arrays, attrs, grad, dev, seed)
+        want = _run_op(torch, op, arrays, attrs, grad, cpu, seed)
+        if tol == "exact":
+            ok = _same(torch, got[0], want[0])
+            err = grad_err = 0.0 if ok else float("inf")
+        else:
+            err = _max_err(torch, got[0], want[0])
+            grad_err = _max_err(torch, got[1], want[1])
+            ok = max(err, grad_err) <= tol
+        ops[name] = {"op": opname, "err": err, "grad_err": grad_err,
+                     "tol": tol, "grads": len(grad), "wall_ms": _synced_ms(
+                         torch, lambda: _run_op(torch, op, arrays, attrs,
+                                                (), dev, seed), n=3)}
+        if not ok:
+            bad[name] = ops[name]
+    if bad:
+        fail("detection_ops: ops off the CPU's: %s" % json.dumps(bad))
+    # the battery's control: ROIAlign on the card with its features moved
+    # by 0.01
+    name, opname, arrays, attrs, grad, tol = battery[1]
+    moved = [arrays[0] + np.float32(0.01)] + arrays[1:]
+    ctrl = _max_err(torch, _run_op(torch, OPS[opname], moved, attrs, grad,
+                                   dev, seed)[0],
+                    _run_op(torch, OPS[opname], arrays, attrs, grad, cpu,
+                            seed)[0])
+    if not ctrl > OPS_TOL:
+        fail("detection_ops: the battery's control (%s's features moved by "
+             "0.01) passes: %g" % (opname, ctrl))
+    # the factorisations: cuSOLVER's against LAPACK's up to each row's
+    # sign; the symmetric matrices have eigenvalues 1, 2, ..., 32, so each
+    # eigenvector is defined up to its sign
+    frng = np.random.RandomState(seed + 43)
+    a = frng.uniform(-1, 1, (8, 32, 48)).astype(np.float32)
+    q = np.linalg.qr(frng.standard_normal((8, 32, 32)))[0]
+    s = q @ (np.arange(1.0, 33.0)[:, None] * q.transpose(0, 2, 1))
+    s = (s + s.transpose(0, 2, 1)) / 2
+    factor = {}
+    for opname, arr in (("linalg_gelqf", a), ("linalg_syevd",
+                                              s.astype(np.float32))):
+        op = OPS[opname]
+        (g1, g2), _ = _run_op(torch, op, [arr], {}, (), dev, seed)
+        (w1, w2), _ = _run_op(torch, op, [arr], {}, (), cpu, seed)
+        g1, g2 = g1.cpu().double(), g2.cpu().double()
+        w1, w2 = w1.double(), w2.double()
+        signs = torch.sign((g1 * w1).sum(-1, keepdim=True))
+        flips = int((signs < 0).sum())
+        if opname == "linalg_gelqf":
+            recon = g2 @ g1
+            err = _max_err(torch, [g1 * signs, g2 * signs.transpose(-1, -2),
+                                   recon], [w1, w2, torch.from_numpy(a)
+                                            .double()])
+        else:
+            recon = g1.transpose(-1, -2) @ (g2[..., None] * g1)
+            err = _max_err(torch, [g1 * signs, g2, recon / 32.0],
+                           [w1, w2, torch.from_numpy(s).double() / 32.0])
+        ortho = _max_err(torch, [g1 @ g1.transpose(-1, -2)],
+                         [torch.eye(g1.shape[-2]).double().expand(
+                             g1.shape[:-2] + (g1.shape[-2],) * 2)])
+        if not (err <= OPS_TOL and ortho <= OPS_TOL):
+            fail("detection_ops: %s up to sign %g, orthonormality %g"
+                 % (opname, err, ortho))
+        factor[opname] = {"err_up_to_sign": err, "sign_flips_vs_cpu": flips,
+                          "orthonormality_err": ortho}
+    result["ops"] = ops
+    result["battery_control_err"] = ctrl
+    result["factorisations"] = factor
+    result["families"] = len(ops) + len(factor) + 4
+    return result
+
+
+def phase_ssd_fit(torch, dev, seed, tmp, out_dir):
+    """Full-width SSD-300 through Module.fit(kvstore='tpu_sync'), a narrow
+    SSD's fit on the card against the CPU, and the reference's
+    example/ssd/train.py through the launcher (module docstring, phase
+    41). Returns (result, #7's (launches, leaves) by kind on the path)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.ops import OPS
+    result = {"phase": "ssd_fit"}
+    totals = {k: [0, 0] for k in OPT_KERNELS}
+
+    def add_counts():
+        """#7's counts since the last call join the path's totals."""
+        for k in OPT_KERNELS:
+            totals[k][0] += getattr(tou, "launches_" + k)
+            totals[k][1] += getattr(tou, "leaves_" + k)
+        _reset_opt_counts(tou)
+
+    # (a) SSD-300 (VGG16-reduced, symbol_builder's DEFAULT_* pyramid)
+    ex = ssd_example(mx)
+    with mx.name.NameManager():
+        net = ex["symbol_builder"].get_symbol_train(SSD_CLASSES)
+    n_leaves = len(net.list_arguments()) - 2
+    synth = ex["iterator"].SyntheticDetIter(
+        SSD_BATCH, data_shape=(3, SSD_SIDE, SSD_SIDE),
+        num_classes=SSD_CLASSES, num_batches=SSD_EPOCH, seed=seed)
+    fixed = [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in synth]
+    it = mx.io.NDArrayIter(np.concatenate([d for d, _ in fixed]),
+                           np.concatenate([lb for _, lb in fixed]),
+                           SSD_BATCH, label_name="label")
+    del fixed
+    stamps, losses = [], []
+
+    def on_batch(p):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        if p.nbatch == SSD_EPOCH - 1:      # each epoch's MultiBoxMetric
+            losses.append([float(v) for v in p.eval_metric.get()[1]])
+
+    mx.random.seed(seed)
+    mod = mx.mod.Module(net, label_names=("label",), context=dev)
+    _reset_opt_counts(tou)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+        mod.fit(it, eval_metric=ex["metric"].MultiBoxMetric(),
+                kvstore="tpu_sync", optimizer="sgd",
+                optimizer_params=SSD_OPT, initializer=mx.init.Xavier(),
+                batch_end_callback=on_batch, num_epoch=SSD_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = SSD_EPOCH * SSD_EPOCHS
+    counts = (_opt_counts(tou), _opt_leaves(tou))
+    want = ({"sgd": 0, "sgd_mom": steps, "adam": 0},
+            {"sgd": 0, "sgd_mom": n_leaves * steps, "adam": 0})
+    if mod._fused_step is None or counts != want:
+        fail("ssd_fit: fused step %s, #7 (launches, leaves) %s, want %s"
+             % (mod._fused_step is not None, counts, want))
+    add_counts()
+    if len(losses) != SSD_EPOCHS or not all(math.isfinite(v) for q in
+                                            losses for v in q):
+        fail("ssd_fit: MultiBoxMetric by epoch %s" % losses)
+    if not (losses[-1][0] < losses[0][0] and losses[-1][1] < losses[0][1]):
+        fail("ssd_fit: the two MultiBoxMetric losses did not both fall: "
+             "%s" % losses)
+    half = steps // 2
+    walls = [(b - a) * 1e3 for a, b in zip(stamps[half:], stamps[half + 1:])]
+    metric = ex["metric"].MultiBoxMetric()
+    it.reset()
+    batch = it.next()
+
+    def module_step():
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric, batch.label)
+
+    with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+        prof = profile_calls(torch, module_step, "ssd_fit", out_dir,
+                             warm=1, n=3, calls=2, classify=kind_of)
+        inside = {}
+
+        def timed(name, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                inside.setdefault(name, []).append(
+                    (time.perf_counter() - t) * 1e3)
+                return out
+            return run
+        ops = {n: OPS["_contrib_" + n] for n in ("MultiBoxTarget",
+                                                 "MultiBoxDetection")}
+        with mock.patch.object(ops["MultiBoxTarget"], "fn", timed(
+                "MultiBoxTarget", ops["MultiBoxTarget"].fn)), \
+                mock.patch.object(ops["MultiBoxDetection"], "fn", timed(
+                    "MultiBoxDetection", ops["MultiBoxDetection"].fn)):
+            for _ in range(3):
+                module_step()
+        add_counts()
+    result["ssd300"] = {
+        "config": "VGG16-reduced, symbol_builder DEFAULT_* (6 scales), "
+                  "%d classes + background" % SSD_CLASSES,
+        "batch": [SSD_BATCH, 3, SSD_SIDE, SSD_SIDE], "steps": steps,
+        "leaves": n_leaves, "fit_s": fit_s,
+        "step_wall_ms_p50": statistics.median(walls),
+        "multibox_metric_by_epoch": losses,
+        "sgd_mom_launches": counts[0]["sgd_mom"],
+        "sgd_mom_leaves": counts[1]["sgd_mom"],
+        "module_step": prof,
+        "op_wall_ms_p50": {n: statistics.median(v)
+                           for n, v in inside.items()}}
+    del mod
+    torch.cuda.empty_cache()
+
+    # (b) a narrow SSD: 3 steps on the card against the CPU
+    vgg = ex["vgg16_reduced"]
+    saved = vgg.get_symbol
+    vgg.get_symbol = narrow_backbone(mx)
+    try:
+        sb = ex["symbol_builder"]
+        with mx.name.NameManager():
+            small = sb.get_symbol_train(
+                NARROW_CLASSES, num_filters=(16, 32),
+                sizes=sb.DEFAULT_SIZES[:2], ratios=sb.DEFAULT_RATIOS[:2],
+                normalization=(20, -1))
+    finally:
+        vgg.get_symbol = saved
+    synth = ex["iterator"].SyntheticDetIter(
+        NARROW_BATCH, data_shape=(3, NARROW_SIDE, NARROW_SIDE),
+        num_classes=NARROW_CLASSES, num_batches=NARROW_STEPS, seed=seed)
+    batches = [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in synth]
+    shapes = {"data": (NARROW_BATCH, 3, NARROW_SIDE, NARROW_SIDE),
+              "label": batches[0][1].shape}
+    rng = np.random.RandomState(seed + 44)
+    init = {}
+    for name, shape in zip(small.list_arguments(),
+                           small.infer_shape(**shapes)[0]):
+        if name in shapes:
+            continue
+        if name.endswith("_scale"):
+            init[name] = np.full(shape, 20.0, np.float32)
+        elif name.endswith("_bias"):
+            init[name] = np.zeros(shape, np.float32)
+        else:
+            init[name] = rng.normal(0, (2.0 / np.prod(shape[1:])) ** 0.5,
+                                    shape).astype(np.float32)
+
+    def narrow_fit(ctx, n):
+        data = np.concatenate([d for d, _ in batches[:n]])
+        lab = np.concatenate([lb for _, lb in batches[:n]])
+        train = mx.io.NDArrayIter(data, lab, NARROW_BATCH, label_name="label")
+        m = mx.mod.Module(small, label_names=("label",), context=ctx)
+        m.fit(train, eval_metric=ex["metric"].MultiBoxMetric(),
+              kvstore="tpu_sync", optimizer="sgd", optimizer_params=SSD_OPT,
+              arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                          for k, v in init.items()},
+              aux_params={}, num_epoch=1)
+        return {k: torch.from_numpy(v.asnumpy())
+                for k, v in m.get_params()[0].items()}
+
+    with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+        on_card = narrow_fit(dev, NARROW_STEPS)
+        add_counts()
+        on_cpu = narrow_fit(mx.cpu(), NARROW_STEPS)
+        short = narrow_fit(mx.cpu(), NARROW_STEPS - 1)
+    gate = {k: _rel_l2([on_card[k]], [on_cpu[k]]) for k in on_cpu}
+    ctrl = {k: _rel_l2([short[k]], [on_cpu[k]]) for k in on_cpu}
+    if not max(gate.values()) <= NARROW_TOL:
+        fail("ssd_fit: the narrow SSD's fit on the card is %s (relative "
+             "L2) from the CPU's (tol %g)" % (gate, NARROW_TOL))
+    if not max(ctrl.values()) > NARROW_TOL:
+        fail("ssd_fit: the control (one batch short) passes the gate: %s"
+             % ctrl)
+    result["narrow_card_vs_cpu"] = {
+        "batch": list(shapes["data"]), "steps": NARROW_STEPS,
+        "rel_l2_max": max(gate.values()),
+        "control_rel_l2_max": max(ctrl.values()), "tol": NARROW_TOL}
+
+    # (c) the reference's example/ssd/train.py, unchanged
+    out, child, seconds = _run_script(
+        torch, "ssd/train.py", SSD_SCRIPT_ARGS,
+        {"MXNET_TPU_FUSED_OPTUPDATE": "1"}, tmp)
+    import re
+    ce = [float(v) for v in re.findall(
+        r"Epoch\[0\] Train-CrossEntropy=([0-9.e+-]+)", out)]
+    maps = [float(v) for v in re.findall(
+        r"Epoch\[0\] Validation-mAP=([0-9.e+-]+)", out)]
+    if not ce or not maps or not all(math.isfinite(v) for v in ce + maps):
+        fail("ssd_fit: example/ssd/train.py printed Train-CrossEntropy %s, "
+             "Validation-mAP %s: %s" % (ce, maps, out[-2000:]))
+    for k in OPT_KERNELS:
+        totals[k][0] += child[k][0]
+        totals[k][1] += child[k][1]
+    result["script"] = {"args": SSD_SCRIPT_ARGS, "seconds": seconds,
+                        "train_cross_entropy": ce, "validation_map": maps,
+                        "opt_update_counts": child}
+    return result, {k: tuple(v) for k, v in totals.items()}
+
+
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
           "grid_kernel", "serve_long", "train_long", "rtc_kernel",
@@ -7260,7 +7957,7 @@ PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "serve_long_f16", "train_long_f16", "supervised_fit",
           "serve_engine", "serve_engine_rtc", "model_server", "frontdoor",
           "fleet", "imperative", "stochastic_fit", "rnn_seq",
-          "bucketing_fit")
+          "bucketing_fit", "detection_ops", "ssd_fit")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",),
@@ -7547,6 +8244,15 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             res, opt_paths["bucketing_fit"] = phase_bucketing_fit(
                 torch, dev, args.seed, tmp)
+        emit({**res, "card": card})
+        torch.cuda.empty_cache()
+    if "detection_ops" in phases:
+        emit({**phase_detection_ops(torch, dev, args.seed), "card": card})
+        torch.cuda.empty_cache()
+    if "ssd_fit" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            res, opt_paths["ssd_fit"] = phase_ssd_fit(
+                torch, dev, args.seed, tmp, args.profile_dir)
         emit({**res, "card": card})
         torch.cuda.empty_cache()
     if "serve_engine" in phases:

@@ -26,7 +26,8 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..ops import OPS, find_op
 from ..ops.registry import _ALIASES as _OP_ALIASES
-from ..ops.registry import draws
+from ..ops.registry import QUANTIZED, draws, make_internal_namespace, \
+    make_prefix_namespace, quantized_error
 from .ndarray import (NDArray, arange, array, concatenate, empty, full,
                       moveaxis, ones, waitall, zeros)
 from .utils import load, save
@@ -139,10 +140,10 @@ def __getattr__(name):
     if fn is None:
         op = find_op(name)
         if op is None:
-            raise AttributeError("mx.nd.%s: no such operator (the port has "
-                                 "%d; the image, linalg, multibox and "
-                                 "vision families are ROADMAP A6 part 3)"
-                                 % (name, len(OPS)))
+            if name in QUANTIZED:
+                raise quantized_error("mx.nd." + name, AttributeError)
+            raise AttributeError("module %r has no attribute %r"
+                                 % (__name__, name))
         fn = _make_nd_function(op)
     _GENERATED[name] = fn
     return fn
@@ -196,7 +197,12 @@ power = _binary_or_scalar("power", torch.pow, lambda a, b: a ** b)
 
 from . import random  # noqa: E402  (mx.nd.random)
 
+_internal = make_internal_namespace(_GENERATED, _OP_ALIASES)
+contrib = make_prefix_namespace(_GENERATED, "_contrib_", "contrib")
+image = make_prefix_namespace(_GENERATED, "_image_", "image")
+
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "arange", "empty",
            "concatenate", "moveaxis", "waitall", "random", "save", "load",
            "add", "subtract", "multiply", "divide", "true_divide", "modulo",
-           "maximum", "minimum", "power", "invoke"] + list(_GENERATED)
+           "maximum", "minimum", "power", "invoke", "contrib",
+           "image"] + list(_GENERATED)

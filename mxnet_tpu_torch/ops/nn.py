@@ -14,7 +14,8 @@ the reference's, not torch's:
 
 - Pooling: average pooling divides by the whole kernel, padding included;
   ``pooling_convention="full"`` pads only on the right (not torch's
-  ``ceil_mode``); the global pool is a mean.
+  ``ceil_mode``); the global pool is a mean; 4 and more spatial dims
+  unfold every window and reduce it.
 - BatchNorm: the batch variance is the biased one; the moving statistics
   update as ``mm * momentum + mean * (1 - momentum)`` (not torch's
   running-stat update, which keeps the unbiased variance);
@@ -182,6 +183,22 @@ _MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
 _AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
 
 
+def _pool_windows(x, kernel, stride, pool_type):
+    """Pooling over 4 or more spatial dims of an input padded already:
+    every window unfolded, then reduced. A max sends its gradient to the
+    window's first maximum, as the reference's ``reduce_window`` and
+    torch's pooling kernels do."""
+    nd = len(kernel)
+    for i in range(nd):
+        x = x.unfold(2 + i, kernel[i], stride[i])
+    win = x.reshape(x.shape[:2 + nd] + (-1,))
+    if pool_type == "max":
+        return win.max(dim=-1).values
+    summed = win.sum(dim=-1)
+    return summed if pool_type == "sum" else \
+        summed / float(_np.prod(kernel))
+
+
 @register_op("Pooling", param_cls=PoolParam)
 def _pooling(params, x):
     spatial = x.dim() - 2
@@ -199,9 +216,6 @@ def _pooling(params, x):
             pad=(0,) + (params.pad or (0,)),
             pooling_convention=params.pooling_convention),
             x[:, :, None])[:, :, 0]
-    if spatial not in _MAX_POOL:
-        raise MXNetError("Pooling: %d-D input is not yet ported (ROADMAP A6 "
-                         "part 3; 1-D to 3-D are)" % spatial)
     kernel = tuple(params.kernel)
     stride = tuple(params.stride or (1,) * spatial)
     pad = tuple(params.pad or (0,) * spatial)
@@ -212,7 +226,8 @@ def _pooling(params, x):
         for i in range(spatial):
             rem = (x.shape[2 + i] + 2 * pad[i] - kernel[i]) % stride[i]
             extra[i] = (stride[i] - rem) % stride[i] if rem else 0
-    native = not any(extra) and all(2 * p <= k for p, k in zip(pad, kernel))
+    native = spatial in _MAX_POOL and not any(extra) and \
+        all(2 * p <= k for p, k in zip(pad, kernel))
     if not native:
         # explicit padding: -inf for max (the reference's init value), 0
         # for the sums; then pool without padding
@@ -222,6 +237,8 @@ def _pooling(params, x):
         fill = -math.inf if params.pool_type == "max" else 0.0
         x = F.pad(x, widths, value=fill)
         pad = (0,) * spatial
+    if spatial not in _MAX_POOL:
+        return _pool_windows(x, kernel, stride, params.pool_type)
     if params.pool_type == "max":
         return _MAX_POOL[spatial](x, kernel, stride, pad)
     # the window SUM (zeros in the padding), then / kernel size for avg

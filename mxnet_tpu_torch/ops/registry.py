@@ -14,7 +14,9 @@ Op function contract::
 The returned tuple has length ``num_outputs + num_aux``: visible outputs
 first, then updated auxiliary states (BatchNorm's moving_mean/moving_var).
 ``inputs`` likewise carries the aux states at the end (data, weight, ...,
-aux...). An op the port has not registered raises "not yet ported".
+aux...). The reference's quantization ops (``QUANTIZED``) raise "not yet
+ported (ROADMAP A9)"; any other unknown name raises the reference's "not
+registered".
 
 - ``is_train`` reaches ops registered with ``need_train``.
 - ``rng`` reaches ops registered with ``need_rng``: a ``torch.Generator``
@@ -32,10 +34,63 @@ import torch
 from ..base import MXNetError, Params
 
 __all__ = ["OpDef", "register_op", "get_op", "find_op", "list_ops", "OPS",
-           "draws"]
+           "draws", "QUANTIZED", "make_internal_namespace",
+           "make_prefix_namespace"]
 
 OPS = {}
 _ALIASES = {}
+
+#: the reference's quantization ops (``mxnet_tpu/ops/quantization.py``),
+#: which come with quantized graphs
+QUANTIZED = ("_contrib_quantize", "_contrib_dequantize",
+             "_contrib_requantize", "_contrib_quantized_conv",
+             "_contrib_quantized_fully_connected",
+             "_contrib_quantized_pooling", "_contrib_quantized_flatten")
+
+
+def quantized_error(name, cls=MXNetError):
+    return cls("operator %r is not yet ported (ROADMAP A9: quantized "
+               "graphs)" % name)
+
+
+def make_internal_namespace(generated, aliases):
+    """The ``_internal`` namespace over a table of op functions (reference
+    python/mxnet/{ndarray,symbol}/_internal.py); ``mx.nd._internal`` and
+    ``mx.sym._internal`` share it."""
+
+    class _InternalNamespace(object):
+        def __getattr__(self, name):
+            fn = generated.get(name)
+            if fn is None and name in aliases:
+                fn = generated.get(aliases[name])
+            if fn is None:
+                if name in QUANTIZED:
+                    raise quantized_error(name, AttributeError)
+                raise AttributeError("no internal op %r" % name)
+            return fn
+
+    return _InternalNamespace()
+
+
+def make_prefix_namespace(generated, prefix, label):
+    """The ops registered under ``prefix`` by their bare names:
+    ``mx.nd.contrib`` ("_contrib_"), ``mx.nd.image`` ("_image_") and their
+    ``mx.sym`` twins (reference python/mxnet/ndarray/{contrib,image}.py)."""
+
+    class _PrefixNamespace(object):
+        def __getattr__(self, name):
+            fn = generated.get(prefix + name)
+            if fn is None:
+                if prefix + name in QUANTIZED:
+                    raise quantized_error(prefix + name, AttributeError)
+                raise AttributeError("no %s op %r" % (label, name))
+            return fn
+
+        def __dir__(self):
+            return [k[len(prefix):] for k in generated
+                    if k.startswith(prefix)]
+
+    return _PrefixNamespace()
 
 
 class _EmptyParams(Params):
@@ -132,8 +187,9 @@ def register_op(name, aliases=(), **kw):
 def get_op(name):
     op = find_op(name)
     if op is None:
-        raise MXNetError("operator %r is not yet ported (ROADMAP A6; the "
-                         "port has %s)" % (name, list_ops()))
+        if name in QUANTIZED:
+            raise quantized_error(name)
+        raise MXNetError("operator %r is not registered" % name)
     return op
 
 

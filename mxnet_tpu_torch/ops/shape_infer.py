@@ -1,8 +1,7 @@
 """Learnable-parameter shape inference hooks.
 
-Counterpart of ``mxnet_tpu/ops/shape_infer.py`` for the port's ops
-(LSoftmax, the quantized and the sparse-regularization hooks wait for
-their ops, ROADMAP A6 part 3): each
+Counterpart of ``mxnet_tpu/ops/shape_infer.py`` for the port's ops (the
+quantized ops' hooks wait for their ops, ROADMAP A9): each
 op's output shapes come from running it on ``meta`` tensors
 (``OpDef.infer``); these hooks supply the *input* shapes that running the
 op cannot derive (weights, aux states, labels).
@@ -159,3 +158,16 @@ def _rnn(params, shapes):
     if params.mode == "lstm":
         out["state_cell"] = out["state"]
     return out
+
+
+@hook("LSoftmax")
+def _lsoftmax(params, shapes):
+    data = shapes["data"]
+    return {"weight": (params.num_hidden, int(_np.prod(data[1:])))}
+
+
+@hook("IdentityAttachKLSparseReg")
+def _kl_sparse_reg(params, shapes):
+    # moving_avg tracks each unit's mean activation: data's shape sans batch
+    data = shapes.get("data")
+    return {"moving_avg": tuple(data[1:])} if data else {}

@@ -13,6 +13,8 @@ import sys
 
 from ..base import MXNetError
 from ..ops import OPS
+from ..ops.registry import QUANTIZED, make_internal_namespace, \
+    make_prefix_namespace, quantized_error
 from ..ops.registry import _ALIASES as _OP_ALIASES
 from .symbol import (Group, Node, Symbol, Variable, _NAMES, fromjson, load,
                      load_json, var)
@@ -95,13 +97,16 @@ for _name, _opdef in list(OPS.items()):
     setattr(_this, _name, _GENERATED[_name])
 for _al, _target in _OP_ALIASES.items():
     if _target in _GENERATED:
+        # also in the table, so the contrib namespace resolves alias-only
+        # spellings (sym.contrib.ctc_loss)
+        _GENERATED.setdefault(_al, _GENERATED[_target])
         setattr(_this, _al, _GENERATED[_target])
 
 
 def __getattr__(name):
-    # mx.sym.<op> for an op of the reference the port has not registered
-    raise AttributeError("mx.sym.%s: operator not yet ported (ROADMAP A6 "
-                         "part 3)" % name)
+    if name in QUANTIZED:
+        raise quantized_error("mx.sym." + name, AttributeError)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))
 
 
 def _shape(shape):
@@ -141,6 +146,10 @@ def pow(base, exp):
 
 from . import random  # noqa: E402  (mx.sym.random)
 
+_internal = make_internal_namespace(_GENERATED, _OP_ALIASES)
+contrib = make_prefix_namespace(_GENERATED, "_contrib_", "contrib")
+image = make_prefix_namespace(_GENERATED, "_image_", "image")
+
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
            "fromjson", "zeros", "ones", "full", "arange", "pow",
-           "random"] + list(_GENERATED)
+           "random", "contrib", "image"] + list(_GENERATED)

@@ -32,7 +32,7 @@ import json
 import numpy as _np
 
 from ..base import MXNetError
-from ..ops import find_op, get_op
+from ..ops import get_op
 from ..ops.shape_infer import BACKFILL_SHAPE_HOOKS, PARAM_SHAPE_HOOKS
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
@@ -645,10 +645,7 @@ def load_json(json_str):
             node = Node(None, {}, [], meta["name"])
             node._extra_attrs = {k: str(v) for k, v in attrs.items()}
         else:
-            opdef = find_op(meta["op"])
-            if opdef is None:
-                raise MXNetError("load_json: op %r is not yet ported "
-                                 "(ROADMAP A6)" % meta["op"])
+            opdef = get_op(meta["op"])
             extra = {k: v for k, v in attrs.items() if k.startswith("__")}
             # drop unknown legacy params silently (forward compat)
             valid = set(opdef.param_cls._fields)

@@ -32,16 +32,22 @@ torch.backends.cudnn.allow_tf32 = False
 RTOL, ATOL = 2e-5, 1e-6
 SHAPE = (3, 4)
 
-#: the reference files of the imperative slice, RNN included
+#: the reference files of the imperative slice, RNN included, and of
+#: the remaining op families (multibox, vision, compat, contrib, the
+#: fork's ops, image and linalg)
 SLICE_MODULES = ("mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.tensor",
                  "mxnet_tpu.ops.nn", "mxnet_tpu.ops.random_ops",
-                 "mxnet_tpu.ops.optimizer_ops", "mxnet_tpu.operator")
+                 "mxnet_tpu.ops.optimizer_ops", "mxnet_tpu.operator",
+                 "mxnet_tpu.ops.multibox", "mxnet_tpu.ops.vision",
+                 "mxnet_tpu.ops.compat_extra", "mxnet_tpu.ops.contrib_extra",
+                 "mxnet_tpu.ops.fork_ops", "mxnet_tpu.ops.image_ops",
+                 "mxnet_tpu.ops.linalg_extra")
 
 
 def test_the_slice_registers_every_op_of_the_reference_files():
     want = {n for n, op in JOPS.items()
             if op.fn.__module__ in SLICE_MODULES}
-    assert len(want) == 192
+    assert len(want) == 260
     assert want <= set(TOPS), sorted(want - set(TOPS))
     for name in sorted(want):
         assert callable(getattr(tmx.nd, name)), name
