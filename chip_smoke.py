@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--profile-dir DIR] [--seed N] [--phases A,B]
                           [--parent DIR]
 
-Phases, each printing one JSON line (any failure exits nonzero and prints
-no result line):
+Phases, each printing one JSON line with the script's elapsed seconds at
+its end (``elapsed_s``; any failure exits nonzero and prints no result
+line):
 
 1. device  — CUDA must be available; prints the card's name and power
              limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them.
@@ -641,6 +642,56 @@ no result line):
              Validation-mAP, finite, and "run_script: jax not in
              sys.modules".
 
+42. optimizers — the port's twelve other optimizers (Signum, NAG, LBSGD,
+             DCASGD, SGLD, AdaGrad, RMSProp plain and centered, AdaDelta,
+             Ftrl, Adamax, Nadam, FTML) through ``optimizer.Updater``,
+             3 updates over ResNet-50's float32 leaves (rescale 1/32, wd
+             1e-4) on the card and on the CPU from one numpy draw: each
+             leaf within OPTS_TOL relative L2 (control: NAG with the
+             momentum's sign flipped on the card must fail it). SGLD,
+             whose noise is each device's own draw, is held by the noise's
+             mean and variance (5 sigma) and by the same bits from a
+             reseeded generator. Reports one update's wall per optimizer
+             beside #7's one-launch SGD-momentum and the per-parameter
+             SGD-momentum updater on the same leaves (neither counted on
+             the path). Then the reference's
+             example/image-classification/train_imagenet.py, unchanged,
+             through the launcher with --benchmark 1 --gpus 0 --kv-store
+             tpu_sync --optimizer nag (the per-parameter updater: "has no
+             fused kernel"; #7 never launches) with --model-prefix (its
+             do_checkpoint writes epoch 1), then again with --load-epoch
+             1 --num-epochs 2 (it loads that checkpoint and trains epoch
+             1); reports the step wall from its Speedometer.
+43. checkpoint_fit — full-width ResNet-50 v2 at batch 32 through
+             Module.fit(kvstore='tpu_sync', checkpoint_manager=...) on #7
+             (SGD, momentum 0.9, wd 1e-4, a FactorScheduler), 2 epochs of
+             4 seeded, shuffled batches, cuDNN deterministic, each run in
+             a process of its own (``--checkpoint-child``, with
+             timeouts): (a) the uninterrupted fit and, beside it at the
+             same time, (b) the same fit with the manager's preemption
+             hook, sent SIGTERM by this process during epoch 1: it
+             commits a mid-epoch snapshot and exits 143; then (c) a
+             fresh process with other seeds resumes from the newest
+             epoch-boundary checkpoint (epoch 0) and finishes.
+             Gate: (c)'s params, aux states and momentum slots bit for bit
+             (a)'s, num_update and the scheduler's lr equal, and #7's
+             launches 8, 6, 4 and 3 (the control's) a step each over
+             every leaf, each read in its own run ((b)'s as the hook's
+             exit passes through the child's top frame); control:
+             the same resume one batch off (in (c)'s process, from a copy
+             of the checkpoints) must fail the gate. Reports, from (c)
+             alone on the card, the ms a save costs the training thread
+             (its host enqueue; the clones' device time, enqueued behind
+             a busy-wait kernel so the host's enqueue is hidden), the
+             writer's ms and bytes for one checkpoint, and the resume's
+             ms and its ms to the first step (and the uninterrupted
+             fit's ms from its empty resume to its first step, taken
+             beside (b) on the card, so not a fresh fit's cost). Then
+             ``InferenceEngine.reload_from`` swaps the committed
+             checkpoint into a ResNet-50 engine (buckets 1 and 4): a
+             served 3-row request bit for bit the eager forward of its
+             padded bucket on the checkpoint's params.
+
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
 phase, ``parent``: the attention kernels and #7 of the checkout in DIR
@@ -657,7 +708,11 @@ BF16_ULPS row ulps of the plain version, with the row-ulp distance to
 DIR's output recorded (``bf16``); every kernel is timed in turns (DIR's,
 this, this, DIR's) at its path's shape. The float16 entries, which DIR
 may lack, are held to F16_ULPS of the plain version and timed in this
-checkout only (``f16``).
+checkout only (``f16``). With ``--parent`` the optimizers phase also loads
+DIR's ``optimizer.py`` inside this checkout's package and holds its
+per-parameter SGD-momentum updater against this one's: the same bits after
+one update of ResNet-50's leaves, one pass of each timed in turns
+(``beside.updater_sgd_mom_vs_parent``).
 
 The line before last is ``{"kernels": [...]}`` with each kernel's launches
 on its path's run (serving, training, symbolic training, long-context
@@ -665,7 +720,8 @@ serving or training, the rtc kernels' full-size run or the ResNet-50
 forwards, the bf16 and float16 serving and training runs, long ones
 included; #7's adds its launches in module_fit, example_scripts,
 symbolic_bf16, supervised_fit, imperative, stochastic_fit, rnn_seq,
-bucketing_fit and ssd_fit, by path in ``launches_by_path``; #1's and #8's ``launches_by_path`` add
+bucketing_fit, ssd_fit and checkpoint_fit, by path in
+``launches_by_path``; #1's and #8's ``launches_by_path`` add
 model_server's and serve_engine_rtc's counts, taken on the host at
 capture, #8's imperative's; #1's and #3's (and
 its combine's) add frontdoor's), its error (the 16-bit
@@ -676,10 +732,14 @@ import argparse
 import json
 import math
 import os
+import queue
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -706,7 +766,14 @@ OPT_KERNELS = {"sgd": ("96", "optupdate_multi_sgd_f32"),
 OPT_BY_ENTRY = {name: kind for kind, (_, name) in OPT_KERNELS.items()}
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the script's elapsed seconds
+    when it ends (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -7948,6 +8015,713 @@ def phase_ssd_fit(torch, dev, seed, tmp, out_dir):
     return result, {k: tuple(v) for k, v in totals.items()}
 
 
+# --- every optimizer, and resumable fits (phases 42 and 43) -----------------
+
+OPTS_TOL = 1e-5         # each leaf's relative L2, card against CPU
+OPTS_STEPS = 3
+OPTS_KW = {"rescale_grad": 1.0 / SYM_BATCH, "wd": 1e-4}
+#: id -> (registry name, hyperparameters); SGLD is held apart
+OPTS = {
+    "signum": ("signum", {"learning_rate": 0.01, "momentum": 0.9,
+                          "wd_lh": 1e-4}),
+    "nag": ("nag", {"learning_rate": 0.05, "momentum": 0.9}),
+    "lbsgd": ("lbsgd", {"learning_rate": 0.05, "momentum": 0.9,
+                        "warmup_epochs": 1, "updates_per_epoch": 2,
+                        "batch_scale": 1}),
+    "dcasgd": ("dcasgd", {"learning_rate": 0.05, "momentum": 0.9}),
+    "adagrad": ("adagrad", {"learning_rate": 0.01}),
+    "rmsprop": ("rmsprop", {"learning_rate": 0.001}),
+    "rmsprop_centered": ("rmsprop", {"learning_rate": 0.001,
+                                     "centered": True}),
+    "adadelta": ("adadelta", {}),
+    "ftrl": ("ftrl", {"learning_rate": 0.1}),
+    "adamax": ("adamax", {"learning_rate": 0.002}),
+    "nadam": ("nadam", {"learning_rate": 0.001}),
+    "ftml": ("ftml", {"learning_rate": 0.0025}),
+}
+SGLD_LR = 0.01
+IMAGENET_NAG = ["--gpus", "0", "--benchmark", "1", "--kv-store", "tpu_sync",
+                "--optimizer", "nag", "--num-examples", "96",
+                "--disp-batches", "1"]
+
+
+def _opt_inputs(np, shapes, seed):
+    """ResNet-50's leaves and 3 updates' gradients, numpy, from a seed."""
+    rng = np.random.RandomState(seed)
+    weights = {n: (rng.standard_normal(s) * 0.05).astype(np.float32)
+               for n, s in shapes.items()}
+    grads = [{n: (rng.standard_normal(s) * 1e-3).astype(np.float32)
+              for n, s in shapes.items()} for _ in range(OPTS_STEPS + 1)]
+    return weights, grads
+
+
+def _run_updates(mx, name, hp, weights, grads, ctx, steps=OPTS_STEPS,
+                 optmod=None):
+    """(updater, weight arrays) after ``steps`` updates of every leaf
+    (``optmod``: the optimizer module, by default ``mx.optimizer``)."""
+    optmod = optmod or mx.optimizer
+    names = list(weights)
+    opt = optmod.create(name, param_idx2name=dict(enumerate(names)),
+                        **dict(OPTS_KW, **hp))
+    upd = optmod.get_updater(opt)
+    w = {n: mx.nd.array(weights[n], ctx=ctx) for n in names}
+    for g in grads[:steps]:
+        for i, n in enumerate(names):
+            upd(i, mx.nd.array(g[n], ctx=ctx), w[n])
+    return upd, w
+
+
+def _leaf_rel(torch, got, want):
+    got = got._data.detach().double().cpu()
+    want = want._data.detach().double().cpu()
+    return (torch.linalg.vector_norm(got - want)
+            / max(torch.linalg.vector_norm(want).item(), 1e-30)).item()
+
+
+def _updater_wall_ms(torch, upd, w, grads_dev):
+    """Synced wall of one update of every leaf (median of 3), and the
+    device span between CUDA events around it."""
+    walls, spans = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        for i, n in enumerate(w):
+            upd(i, grads_dev[n], w[n])
+        e1.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        spans.append(e0.elapsed_time(e1))
+    return statistics.median(walls), statistics.median(spans)
+
+
+def _parent_module(parent, name):
+    """Module ``mxnet_tpu_torch.<name>`` of the checkout in ``parent``,
+    loaded under another name inside this checkout's package, so that its
+    relative imports resolve to this checkout's modules."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "mxnet_tpu_torch._parent_" + name.replace(".", "_"),
+        os.path.join(parent, "mxnet_tpu_torch", *name.split(".")) + ".py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _updater_vs_parent(torch, mx, parent, weights, grads, grads_dev, dev):
+    """The per-parameter SGD-momentum updater of DIR's checkout against
+    this one's: one update of every leaf from the same weights must give
+    the same bits; then one pass each timed in turns (DIR's, this, this,
+    DIR's)."""
+    optmods = {"parent": _parent_module(parent, "optimizer"),
+               "this": mx.optimizer}
+    hp = {"learning_rate": 0.05, "momentum": 0.9}
+    runs = {tag: _run_updates(mx, "sgd", hp, weights, grads, dev, steps=1,
+                              optmod=m) for tag, m in optmods.items()}
+    same = all(torch.equal(runs["parent"][1][n]._data,
+                           runs["this"][1][n]._data) for n in weights)
+    if not same:
+        fail("optimizers: the SGD-momentum updater's bits differ from the "
+             "parent's")
+    walls = {"parent": [], "this": []}
+    for tag in ("parent", "this", "this", "parent"):
+        walls[tag].append(_updater_wall_ms(torch, *runs[tag], grads_dev)[0])
+    return {"bitwise": same, "parent_ms": statistics.mean(walls["parent"]),
+            "ms": statistics.mean(walls["this"])}
+
+
+def phase_optimizers(torch, dev, seed, tmp, parent=None):
+    """Every optimizer card against CPU, and train_imagenet.py with NAG
+    (module docstring, phase 42); with ``parent`` (``--parent DIR``), the
+    SGD-momentum updater against DIR's. Returns (result, #7's (launches,
+    leaves) on the path: none)."""
+    import re
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    from mxnet_tpu_torch.models import resnet as tres
+    _, shapes = resnet50_param_shapes(tres)
+    weights, grads = _opt_inputs(np, shapes, seed)
+    n_elem = sum(int(np.prod(s)) for s in shapes.values())
+    _reset_opt_counts(tou)
+    result = {"phase": "optimizers", "leaves": len(shapes),
+              "elements": n_elem, "steps": OPTS_STEPS, "tol": OPTS_TOL,
+              "by_optimizer": {}}
+    grads_dev = {n: mx.nd.array(v, ctx=dev) for n, v in grads[-1].items()}
+    for key, (name, hp) in OPTS.items():
+        t0 = time.perf_counter()
+        _, w_cpu = _run_updates(mx, name, hp, weights, grads, mx.cpu())
+        cpu_s = time.perf_counter() - t0
+        upd, w_dev = _run_updates(mx, name, hp, weights, grads, dev)
+        worst = max(_leaf_rel(torch, w_dev[n], w_cpu[n]) for n in shapes)
+        if not worst <= OPTS_TOL:
+            fail("optimizers %s: a leaf %g relative L2 from the CPU (limit "
+                 "%g)" % (key, worst, OPTS_TOL))
+        wall, span = _updater_wall_ms(torch, upd, w_dev, grads_dev)
+        result["by_optimizer"][key] = {
+            "max_leaf_rel_l2": worst, "update_ms": wall,
+            "update_event_ms": span, "cpu_3_updates_s": cpu_s}
+        del upd, w_dev, w_cpu
+    # the control: NAG with the momentum's sign flipped on the card
+    name, hp = OPTS["nag"]
+    _, w_cpu = _run_updates(mx, name, hp, weights, grads, mx.cpu())
+    _, w_bad = _run_updates(mx, name, dict(hp, momentum=-hp["momentum"]),
+                            weights, grads, dev)
+    control = max(_leaf_rel(torch, w_bad[n], w_cpu[n]) for n in shapes)
+    if control <= OPTS_TOL:
+        fail("optimizers: the control (NAG, momentum's sign flipped) passes "
+             "the gate: %g" % control)
+    result["control_nag_flipped_rel_l2"] = control
+    del w_cpu, w_bad
+
+    # SGLD: the noise by its moments, and the same bits when reseeded
+    def sgld(seed_):
+        mx.random.seed(seed_)
+        _, w = _run_updates(mx, "sgld", {"learning_rate": SGLD_LR}, weights,
+                            grads, dev, steps=1)
+        return w
+    first, again, other = sgld(seed + 1), sgld(seed + 1), sgld(seed + 2)
+    same = all(torch.equal(first[n]._data, again[n]._data) for n in shapes)
+    differs = any(not torch.equal(first[n]._data, other[n]._data)
+                  for n in shapes)
+    noise = []
+    for n in shapes:
+        g = grads[0][n].astype(np.float64) * OPTS_KW["rescale_grad"]
+        w0 = weights[n].astype(np.float64)
+        det = w0 - SGLD_LR / 2 * (g + OPTS_KW["wd"] * w0)
+        noise.append(first[n].asnumpy().astype(np.float64).ravel()
+                     - det.ravel())
+    noise = np.concatenate(noise)
+    mean, var = float(noise.mean()), float(noise.var())
+    mean_lim = 5 * math.sqrt(SGLD_LR / noise.size)
+    var_lim = 5 * SGLD_LR * math.sqrt(2.0 / noise.size)
+    if not (same and differs and abs(mean) < mean_lim
+            and abs(var - SGLD_LR) < var_lim):
+        fail("optimizers sgld: reseeded same %s, other seed differs %s, "
+             "noise mean %g (limit %g), variance %g (lr %g +- %g)"
+             % (same, differs, mean, mean_lim, var, SGLD_LR, var_lim))
+    upd, w_dev = _run_updates(mx, "sgld", {"learning_rate": SGLD_LR},
+                              weights, grads, dev, steps=1)
+    wall, span = _updater_wall_ms(torch, upd, w_dev, grads_dev)
+    result["by_optimizer"]["sgld"] = {
+        "noise_mean": mean, "noise_var": var, "reseeded_bitwise": same,
+        "update_ms": wall, "update_event_ms": span}
+    del first, again, other, upd, w_dev
+
+    # beside them: #7's SGD-momentum (one launch) and the per-parameter
+    # SGD-momentum updater over the same leaves; #7's timing launches are
+    # not the path's
+    params = {n: torch.from_numpy(v).to(dev) for n, v in weights.items()}
+    gdev = {n: a._data for n, a in grads_dev.items()}
+    state = _opt_state(torch, "sgd_mom", params)
+    saved = _opt_counts(tou), _opt_leaves(tou)
+    kernel_ms = _synced_ms(torch, lambda: tou.fused_update_step(
+        "sgd", {"lr": 0.05, "momentum": 0.9}, params, state, gdev,
+        rescale=1.0 / SYM_BATCH, wd=1e-4), n=5)
+    for k in OPT_KERNELS:
+        setattr(tou, "launches_" + k, saved[0][k])
+        setattr(tou, "leaves_" + k, saved[1][k])
+    upd, w_dev = _run_updates(mx, "sgd", {"learning_rate": 0.05,
+                                          "momentum": 0.9}, weights, grads,
+                              dev, steps=1)
+    wall, span = _updater_wall_ms(torch, upd, w_dev, grads_dev)
+    result["beside"] = {"kernel7_sgd_mom_ms": kernel_ms,
+                        "updater_sgd_mom_ms": wall,
+                        "updater_sgd_mom_event_ms": span}
+    del params, gdev, state, upd, w_dev
+    if parent is not None:
+        result["beside"]["updater_sgd_mom_vs_parent"] = _updater_vs_parent(
+            torch, mx, parent, weights, grads, grads_dev, dev)
+    del grads_dev
+    torch.cuda.empty_cache()
+
+    # the reference's train_imagenet.py with NAG, its checkpoint and resume
+    prefix = os.path.join(tmp, "nag")
+    total = {k: [0, 0] for k in OPT_KERNELS}
+    runs = {}
+    for run, extra in (("nag_model_prefix", ["--num-epochs", "1",
+                                             "--model-prefix", prefix]),
+                       ("nag_load_epoch", ["--num-epochs", "2",
+                                           "--model-prefix", prefix,
+                                           "--load-epoch", "1"])):
+        out, counts, seconds = _run_script(
+            torch, "image-classification/train_imagenet.py",
+            IMAGENET_NAG + extra, {}, tmp)
+        acc = re.findall(r"Epoch\[(\d+)\] Train-accuracy=([0-9.]+)", out)
+        speeds = [float(v) for v in re.findall(
+            r"Speed: ([0-9.]+) samples/sec", out)]
+        want_epoch = "1" if run == "nag_load_epoch" else "0"
+        if [e for e, _ in acc] != [want_epoch] or not speeds or \
+                "has no fused kernel" not in out:
+            fail("optimizers %s: epochs %s, Speedometer %s, per-parameter "
+                 "route %s: %s" % (run, acc, speeds,
+                                   "has no fused kernel" in out,
+                                   out[-2000:]))
+        if any(counts[k][0] for k in OPT_KERNELS):
+            fail("optimizers %s: #7 launched %s" % (run, counts))
+        if run == "nag_load_epoch" and "Loaded model" not in out:
+            fail("optimizers %s: no checkpoint loaded" % run)
+        runs[run] = {"seconds": seconds, "train_accuracy": float(acc[0][1]),
+                     "samples_per_s": speeds,
+                     "step_wall_ms": [SYM_BATCH / v * 1e3 for v in speeds]}
+    for epoch in (1, 2):
+        if not os.path.isfile("%s-%04d.params" % (prefix, epoch)):
+            fail("optimizers: %s-%04d.params was not written"
+                 % (prefix, epoch))
+    result["train_imagenet"] = {"args": IMAGENET_NAG, "runs": runs}
+    return result, {k: tuple(v) for k, v in total.items()}
+
+
+CKPT_EPOCHS = 2
+CKPT_BATCHES = 4
+CKPT_SIGTERM_AT = 1     # (b) is signalled after this batch of epoch 1
+CKPT_WAIT_S = 300.0     # a child's whole run
+CKPT_OPT = dict(FIT_OPT)
+
+
+def _ckpt_opt(mx):
+    return dict(CKPT_OPT, lr_scheduler=mx.lr_scheduler.FactorScheduler(
+        step=3, factor=0.5))
+
+
+class _SkipFirst:
+    """An iterator that drops the first batch it would give: the
+    control's resume, one batch off."""
+
+    def __init__(self, base):
+        self.base = base
+        self.batch_size = base.batch_size
+        self.provide_data = base.provide_data
+        self.provide_label = base.provide_label
+        self._skip = True
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.next()
+
+    def next(self):
+        if self._skip:
+            self._skip = False
+            self.base.next()
+        return self.base.next()
+
+    def reset(self):
+        self.base.reset()
+
+    def iter_checkpoint(self):
+        return self.base.iter_checkpoint()
+
+    def iter_restore(self, state):
+        self.base.iter_restore(state)
+
+
+def _ckpt_data(np, spec):
+    rng = np.random.RandomState(spec["seed"])
+    batch, shape = spec["shape"][0], tuple(spec["shape"][1:])
+    data = rng.uniform(-1, 1, (CKPT_BATCHES * batch,) + shape) \
+        .astype(np.float32)
+    label = rng.randint(0, spec["classes"], (CKPT_BATCHES * batch,)) \
+        .astype(np.float32)
+    return data, label
+
+
+def _ckpt_symbol(mx, spec):
+    from mxnet_tpu_torch.models import resnet as tres
+    with mx.name.NameManager():
+        return tres.get_symbol(
+            num_classes=spec["classes"], num_layers=spec["layers"],
+            image_shape=",".join(str(d) for d in spec["shape"][1:]))
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _ckpt_fit(torch, mx, dev, sym, spec, directory, out_name, skip=False,
+              on_batch=None):
+    """One checkpointed fit as the spec says; writes the fused step's
+    params, aux states and momentum to ``out_name``.pt and returns its
+    record."""
+    import numpy as np
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    np.random.seed(spec["np_seed"])
+    mx.random.seed(spec["mx_seed"])
+    data, label = _ckpt_data(np, spec)
+    train = mx.io.NDArrayIter(data, label, spec["shape"][0], shuffle=True)
+    if skip:
+        train = _SkipFirst(train)
+    mgr = mx.checkpoint.CheckpointManager(
+        directory, preemption_signal=spec["role"] == "sigterm" or None)
+    timing = {}
+    resume = mgr.resume
+
+    def timed_resume(*a, **kw):
+        t = time.perf_counter()
+        out = resume(*a, **kw)
+        _sync(torch, dev)
+        timing["resume_ms"] = (time.perf_counter() - t) * 1e3
+        timing["resume_end"] = time.perf_counter()
+        return out
+
+    mgr.resume = timed_resume
+    mod = mx.mod.Module(sym, context=dev)
+
+    def cb(p):
+        if "first_step_ms" not in timing:
+            _sync(torch, dev)
+            timing["first_step_ms"] = (time.perf_counter()
+                                       - timing["resume_end"]) * 1e3
+        if on_batch is not None:
+            on_batch(p)
+
+    _reset_opt_counts(tou)
+    t0 = time.perf_counter()
+    mod.fit(train, kvstore="tpu_sync", optimizer="sgd",
+            optimizer_params=_ckpt_opt(mx),
+            initializer=mx.init.Xavier(rnd_type="gaussian", magnitude=2),
+            num_epoch=CKPT_EPOCHS, checkpoint_manager=mgr,
+            batch_end_callback=cb)
+    _sync(torch, dev)
+    step = mod._fused_step
+    torch.save({"params": {n: t.detach().cpu() for n, t in
+                           step.params.items()},
+                "aux": {n: t.detach().cpu() for n, t in step.aux.items()},
+                "mom": {n: t.detach().cpu() for n, t in
+                        step.opt_state["mom"].items()}},
+               os.path.join(spec["out"], out_name + ".pt"))
+    record = {"fit_s": time.perf_counter() - t0,
+              "num_update": mod._optimizer.num_update,
+              "lr": mod._optimizer.lr_scheduler.base_lr,
+              "opt_update_counts": {k: [_opt_counts(tou)[k],
+                                        _opt_leaves(tou)[k]]
+                                    for k in OPT_KERNELS},
+              "resume_ms": timing.get("resume_ms"),
+              "resume_to_first_step_ms": timing.get("first_step_ms")}
+    return mod, mgr, record
+
+
+def _save_costs(torch, mx, dev, mod, spec):
+    """What a save costs the training thread, and the writer's time, in a
+    directory of their own: the host's enqueue of one save; the clones'
+    device time, the save enqueued behind a busy-wait kernel so the host
+    is done before the card starts them; the save to its commit."""
+    mgr = mx.checkpoint.CheckpointManager(os.path.join(spec["out"],
+                                                       "timing"))
+    out = {}
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    handle = mgr.save(step=100, module=mod, epoch=100)
+    out["save_host_ms"] = (time.perf_counter() - t0) * 1e3
+    path = handle.wait(timeout=CKPT_WAIT_S)
+    out["save_to_commit_ms"] = (time.perf_counter() - t0) * 1e3
+    out["checkpoint_bytes"] = {
+        name: os.path.getsize(os.path.join(path, name))
+        for name in sorted(os.listdir(path))}
+    if dev.type == "cuda":
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        _sync(torch, dev)
+        ev[0].record()
+        torch.cuda._sleep(int(2e8))
+        ev[1].record()
+        t0 = time.perf_counter()
+        handle = mgr.save(step=101, module=mod, epoch=101)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        handle.wait(timeout=CKPT_WAIT_S)
+        out["save_busy_wait_ms"] = ev[0].elapsed_time(ev[1])
+        out["save_host_ms_behind_wait"] = host_ms
+        out["save_clone_device_ms"] = ev[1].elapsed_time(ev[2])
+        out["save_host_hidden"] = host_ms < out["save_busy_wait_ms"]
+    return out
+
+
+def checkpoint_child(spec_path):
+    """A checkpoint_fit run in its own process (the hidden
+    ``--checkpoint-child``): role "full", "sigterm" or "resume"."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, ROOT)
+    import torch
+    import mxnet_tpu_torch as mx
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _deterministic_cudnn(torch)
+    os.environ["MXNET_TPU_FUSED_OPTUPDATE"] = "1"
+    dev = torch.device(spec["device"])
+    sym = _ckpt_symbol(mx, spec)
+    role = spec["role"]
+    on_batch = None
+    if role == "sigterm":
+        def on_batch(p):
+            if p.epoch == 1 and p.nbatch == CKPT_SIGTERM_AT:
+                print("checkpoint_child: in epoch 1", flush=True)
+                for _ in range(int(CKPT_WAIT_S / 0.05)):
+                    time.sleep(0.05)   # the signal ends this wait
+                print("checkpoint_child: no signal came", flush=True)
+                sys.exit(3)
+    try:
+        mod, mgr, record = _ckpt_fit(torch, mx, dev, sym, spec, spec["dir"],
+                                     role, on_batch=on_batch)
+    except SystemExit as e:
+        if role == "sigterm" and e.code == 128 + signal.SIGTERM:
+            # the preemption hook's exit, after its flush: #7's counts from
+            # this fit's start to here
+            from mxnet_tpu_torch.kernels import opt_update as tou
+            with open(os.path.join(spec["out"], role + ".json"), "w") as f:
+                json.dump({"opt_update_counts": {
+                    k: [_opt_counts(tou)[k], _opt_leaves(tou)[k]]
+                    for k in OPT_KERNELS}}, f)
+        raise
+    if role == "resume":
+        record.update(_save_costs(torch, mx, dev, mod, spec))
+        _, _, control = _ckpt_fit(torch, mx, dev, sym, spec,
+                                  spec["control_dir"], "control", skip=True)
+        record["control"] = control
+    with open(os.path.join(spec["out"], role + ".json"), "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def _start_child(spec, tmp):
+    """Start a checkpoint child; its output lines go to a queue."""
+    path = os.path.join(tmp, spec["role"] + ".spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--checkpoint-child", path], cwd=tmp, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    return {"role": spec["role"], "proc": proc, "lines": lines,
+            "reader": reader, "t0": time.perf_counter()}
+
+
+def _finish_child(child, sigterm=False):
+    """Wait for a child (with ``sigterm``, send it SIGTERM once it says
+    it is in epoch 1). Returns (exit code, output, seconds)."""
+    proc, lines = child["proc"], child["lines"]
+    out, signalled = [], False
+    deadline = child["t0"] + CKPT_WAIT_S
+    try:
+        while True:
+            try:
+                line = lines.get(timeout=max(
+                    0.1, deadline - time.perf_counter()))
+            except queue.Empty:
+                fail("checkpoint_fit: the %s child ran past %gs: %s"
+                     % (child["role"], CKPT_WAIT_S, "".join(out)[-3000:]))
+            if line is None:
+                break
+            out.append(line)
+            if sigterm and not signalled and "in epoch 1" in line:
+                proc.send_signal(signal.SIGTERM)
+                signalled = True
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        child["reader"].join(timeout=30)
+    if sigterm and not signalled:
+        fail("checkpoint_fit: the sigterm child never reached epoch 1: %s"
+             % "".join(out)[-3000:])
+    return rc, "".join(out), time.perf_counter() - child["t0"]
+
+
+def _same_tree(torch, got, want):
+    """(every leaf the same bits, worst max abs) over the .pt trees."""
+    same, worst = True, 0.0
+    for part in ("params", "aux", "mom"):
+        if set(got[part]) != set(want[part]):
+            return False, math.inf
+        for n, w in want[part].items():
+            s, d = _bit_diff(torch, got[part][n], w)
+            same &= s
+            worst = max(worst, d)
+    return same, worst
+
+
+def phase_checkpoint_fit(torch, dev, seed, tmp, spec=None):
+    """Full-width ResNet-50 fits checkpointed, SIGTERMed and resumed, each
+    in its own process, then reload_from (module docstring, phase 43).
+    Returns (result, #7's (launches, leaves) on the path)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.executor import GraphPlan, run_graph
+    from mxnet_tpu_torch.serving import (InferenceEngine, bucket_for,
+                                         pad_to_bucket)
+    result = {"phase": "checkpoint_fit", "model": "resnet50",
+              "batch": list(RESNET_SHAPES["data"]), "epochs": CKPT_EPOCHS,
+              "batches": CKPT_BATCHES, "children": {}}
+    out_dir = os.path.join(tmp, "out")
+    os.makedirs(out_dir)
+    base = dict(spec or {"device": str(dev), "layers": 50, "classes": 1000,
+                         "shape": RESNET_SHAPES["data"]},
+                seed=seed, np_seed=seed, mx_seed=seed, out=out_dir)
+    runs = (("full", dict(base, role="full", dir=os.path.join(tmp, "a"))),
+            ("sigterm", dict(base, role="sigterm",
+                             dir=os.path.join(tmp, "b"))),
+            ("resume", dict(base, role="resume", np_seed=seed + 101,
+                            mx_seed=seed + 202, dir=os.path.join(tmp, "b"),
+                            control_dir=os.path.join(tmp, "b_control"))))
+    # (a) and (b) side by side, then (c) alone
+    specs = dict(runs)
+    children = {role: _start_child(specs[role], tmp)
+                for role in ("full", "sigterm")}
+    finished = {"sigterm": _finish_child(children["sigterm"], sigterm=True),
+                "full": _finish_child(children["full"])}
+    mgr = mx.checkpoint.CheckpointManager(specs["sigterm"]["dir"])
+    metas = {s_: mx.checkpoint.read_meta(
+        mx.checkpoint.layout.step_path(specs["sigterm"]["dir"], s_))
+        for s_ in mgr.all_steps()}
+    shutil.copytree(specs["resume"]["dir"], specs["resume"]["control_dir"])
+    finished["resume"] = _finish_child(_start_child(specs["resume"], tmp))
+    for role, (rc, out, seconds) in finished.items():
+        result["children"][role] = {"rc": rc, "seconds": seconds}
+        want_rc = 128 + signal.SIGTERM if role == "sigterm" else 0
+        if rc != want_rc:
+            fail("checkpoint_fit: the %s child exited %d, want %d: %s"
+                 % (role, rc, want_rc, out[-3000:]))
+    if sorted(metas) != [0, 1] or metas[0].get("mid_epoch") or \
+            not metas[1].get("mid_epoch") or not metas[1].get("preempted"):
+        fail("checkpoint_fit: after SIGTERM the checkpoints are %s"
+             % {s_: (m.get("mid_epoch"), m.get("preempted"))
+                for s_, m in metas.items()})
+    result["after_sigterm"] = {"steps": sorted(metas),
+                               "step1_mid_epoch": True}
+    records = {}
+    for role in ("full", "sigterm", "resume"):
+        path = os.path.join(out_dir, role + ".json")
+        if os.path.isfile(path):
+            with open(path) as f:
+                records[role] = json.load(f)
+    if set(records) != {"full", "sigterm", "resume"}:
+        fail("checkpoint_fit: the children wrote records %s, want full, "
+             "sigterm and resume" % sorted(records))
+    full, resumed = records["full"], records["resume"]
+    control = resumed.pop("control")
+    trees = {k: torch.load(os.path.join(out_dir, k + ".pt"))
+             for k in ("full", "resume", "control")}
+    same, worst = _same_tree(torch, trees["resume"], trees["full"])
+    c_same, c_worst = _same_tree(torch, trees["control"], trees["full"])
+    n_leaves = len(trees["full"]["params"])
+    if not (same and resumed["num_update"] == full["num_update"]
+            and resumed["lr"] == full["lr"]):
+        fail("checkpoint_fit: the resumed fit is not the uninterrupted one: "
+             "bitwise %s (max abs %g), num_update %s vs %s, lr %s vs %s"
+             % (same, worst, resumed["num_update"], full["num_update"],
+                resumed["lr"], full["lr"]))
+    if c_same:
+        fail("checkpoint_fit: the control (resumed one batch off) passes "
+             "the bitwise gate")
+    schedule = {"full": CKPT_EPOCHS * CKPT_BATCHES,
+                "sigterm": CKPT_BATCHES + CKPT_SIGTERM_AT + 1,
+                "resume": CKPT_BATCHES, "control": CKPT_BATCHES - 1}
+    totals = {k: [0, 0] for k in OPT_KERNELS}
+    measured = {}
+    for role, rec in (("full", full), ("sigterm", records["sigterm"]),
+                      ("resume", resumed), ("control", control)):
+        counts = measured[role] = rec["opt_update_counts"]
+        want = {k: [schedule[role] if k == "sgd_mom" else 0,
+                    schedule[role] * n_leaves if k == "sgd_mom" else 0]
+                for k in OPT_KERNELS}
+        if counts != want:
+            fail("checkpoint_fit: #7 (launches, leaves) in %s %s, want %s"
+                 % (role, counts, want))
+        for k in OPT_KERNELS:
+            totals[k][0] += counts[k][0]
+            totals[k][1] += counts[k][1]
+    result.update({
+        "resumed_bitwise": same, "num_update": full["num_update"],
+        "lr": full["lr"], "control_bitwise": c_same,
+        "control_max_abs": c_worst,
+        "launches": {role: counts["sgd_mom"][0]
+                     for role, counts in measured.items()},
+        "save": {k: resumed[k] for k in (
+            "save_host_ms", "save_to_commit_ms", "checkpoint_bytes",
+            "save_busy_wait_ms", "save_host_ms_behind_wait",
+            "save_clone_device_ms", "save_host_hidden") if k in resumed},
+        "resume_ms": resumed["resume_ms"],
+        "resume_to_first_step_ms": resumed["resume_to_first_step_ms"],
+        # the same span of the uninterrupted fit, which resumes nothing; it
+        # ran beside (b) on the card, (c) alone, so the two do not compare
+        "full_first_step_ms_beside_sigterm": full["resume_to_first_step_ms"],
+        "fit_s": {"full": full["fit_s"], "resume": resumed["fit_s"]}})
+
+    # reload_from: the committed checkpoint served bit for bit its eager
+    # padded bucket
+    directory = runs[2][1]["dir"]
+    sym = _ckpt_symbol(mx, base)
+    arg, aux = {}, {}
+    for part, dst in (("params", arg), ("aux", aux)):
+        for n, t in trees["control"][part].items():
+            dst[n] = t.numpy()
+    prior = _deterministic_cudnn(torch)
+    eng = None
+    try:
+        eng = InferenceEngine(sym, arg, aux, ctx=dev, buckets=(1, 4),
+                              async_worker=False, name="resnet50_ckpt")
+        eng.warmup({"data": (4,) + tuple(base["shape"][1:])})
+        t0 = time.perf_counter()
+        step = eng.reload_from(directory)
+        _sync(torch, dev)
+        reload_ms = (time.perf_counter() - t0) * 1e3
+        if step != CKPT_EPOCHS - 1:
+            fail("checkpoint_fit: reload_from loaded step %s, want %d"
+                 % (step, CKPT_EPOCHS - 1))
+        x = np.random.RandomState(seed).uniform(
+            -1, 1, (3,) + tuple(base["shape"][1:])).astype(np.float32)
+        served = eng.predict({"data": x})[0]._data
+        args_c, aux_c = mx.checkpoint.load_params(
+            mx.checkpoint.latest_checkpoint(directory))
+        params = {n: v._data.to(dev) for n, v in args_c.items()}
+        auxs = {n: v._data.to(dev) for n, v in aux_c.items()}
+        padded = pad_to_bucket({"data": x}, 3, bucket_for(3, (1, 4)))
+        plan = GraphPlan(sym)
+
+        def eager(params, auxs):
+            """The padded bucket's eager forward on these params."""
+            with torch.no_grad():
+                args = dict(params)
+                args.update(_request(torch, torch.from_numpy(
+                    padded["data"]).to(dev)))
+                return run_graph(plan, args, auxs, False)[0][0]
+
+        on_ckpt = eager(params, auxs)
+        if not torch.equal(served, on_ckpt[:3]):
+            fail("checkpoint_fit: a request served after reload_from differs "
+                 "from the eager forward of its padded bucket (max abs %g)"
+                 % (served - on_ckpt[:3]).abs().max().item())
+        on_first = eager(
+            {n: torch.from_numpy(v).to(dev) for n, v in arg.items()},
+            {n: torch.from_numpy(v).to(dev) for n, v in aux.items()})
+        if torch.equal(served, on_first[:3]):
+            fail("checkpoint_fit: the served rows equal the engine's first "
+                 "params: reload_from swapped nothing in")
+        result["reload_from"] = {"step": step, "ms": reload_ms,
+                                 "bitwise_vs_eager_bucket": True,
+                                 "captures": eng.captures}
+    finally:
+        if eng is not None:
+            eng.stop()
+        _restore_cudnn(torch, prior)
+    return result, {k: tuple(v) for k, v in totals.items()}
+
+
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
           "grid_kernel", "serve_long", "train_long", "rtc_kernel",
@@ -7957,7 +8731,8 @@ PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "serve_long_f16", "train_long_f16", "supervised_fit",
           "serve_engine", "serve_engine_rtc", "model_server", "frontdoor",
           "fleet", "imperative", "stochastic_fit", "rnn_seq",
-          "bucketing_fit", "detection_ops", "ssd_fit")
+          "bucketing_fit", "detection_ops", "ssd_fit", "optimizers",
+          "checkpoint_fit")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",),
@@ -7983,10 +8758,15 @@ def main():
                         % ",".join(PHASES))
     parser.add_argument("--frontdoor-client", default=None,
                         help=argparse.SUPPRESS)
+    parser.add_argument("--checkpoint-child", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.frontdoor_client:
         # the frontdoor phase's client process (it needs no card)
         return frontdoor_client(args.frontdoor_client)
+    if args.checkpoint_child:
+        # a checkpoint_fit run in its own process
+        return checkpoint_child(args.checkpoint_child)
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
         parser.error("unknown phases %s" % sorted(phases - set(PHASES)))
@@ -8253,6 +9033,18 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             res, opt_paths["ssd_fit"] = phase_ssd_fit(
                 torch, dev, args.seed, tmp, args.profile_dir)
+        emit({**res, "card": card})
+        torch.cuda.empty_cache()
+    if "optimizers" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            res, opt_paths["optimizers"] = phase_optimizers(
+                torch, dev, args.seed, tmp, args.parent)
+        emit({**res, "card": card})
+        torch.cuda.empty_cache()
+    if "checkpoint_fit" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            res, opt_paths["checkpoint_fit"] = phase_checkpoint_fit(
+                torch, dev, args.seed, tmp)
         emit({**res, "card": card})
         torch.cuda.empty_cache()
     if "serve_engine" in phases:

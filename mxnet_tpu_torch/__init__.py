@@ -48,6 +48,13 @@ card, over the reference's packed parameters), ``mx.rnn`` (the symbolic
 cells, ``BucketSentenceIter`` and the RNN checkpoints),
 ``mx.mod.BucketingModule``, ``CTCLoss``, the remaining metrics
 (``Perplexity``, ...), ``mx.AttrScope`` and ``mx.name.Prefix``.
+Its twentieth slice makes training resumable: every optimizer of the
+reference, ``mx.checkpoint.CheckpointManager`` (asynchronous, atomic
+saves from device clones; ``fit(checkpoint_manager=...)`` resumes bit for
+bit, also under a supervisor; a preemption signal flushes a final
+checkpoint; ``InferenceEngine.reload_from`` follows a run), the record
+files (``mx.recordio``), ``FeedForward`` and the remaining iterators,
+initializers and schedulers.
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``, and raise ``MXNetError`` when CUDA is missing.
@@ -57,10 +64,10 @@ from __future__ import annotations
 __version__ = "1.2.0+cuda"
 
 from . import models, name, ndarray, parallel, profiler, rtc, symbol
-from . import (attribute, autograd, callback, engine, imperative,
-               initializer, io, kvstore, lr_scheduler, metric, model, module,
-               monitor, operator, optimizer, random, resilience, rnn,
-               serving)
+from . import (attribute, autograd, callback, checkpoint, engine,
+               imperative, initializer, io, kvstore, lr_scheduler, metric,
+               model, module, monitor, operator, optimizer, random, recordio,
+               resilience, rnn, serving)
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import cpu, gpu, tpu, default_device
@@ -79,4 +86,5 @@ __all__ = ["MXNetError", "cpu", "gpu", "tpu", "default_device", "profiler",
            "symbol", "mod", "module", "io", "metric", "init", "initializer",
            "optimizer", "lr_scheduler", "kvstore", "model", "callback",
            "random", "resilience", "engine", "monitor", "serving", "rnn",
-           "attribute", "AttrScope", "__version__"]
+           "attribute", "AttrScope", "checkpoint", "recordio",
+           "__version__"]

@@ -2,16 +2,15 @@
 L12-133): ``Speedometer``, ``do_checkpoint``, ``module_checkpoint`` and
 ``log_train_metric``, with the reference's log lines.
 
-``do_checkpoint`` writes synchronously. Its ``background=True`` (a writer
-thread) and a ``CheckpointManager`` prefix are not yet ported (ROADMAP
-A8).
+``do_checkpoint`` writes the two-file checkpoint, on a writer thread
+with ``background=True`` (at most one in flight: the previous epoch's is
+awaited first), or saves through a ``checkpoint.CheckpointManager`` given
+as ``prefix``. Its ``wait`` is what ``Module.fit`` awaits at the end.
 """
 from __future__ import annotations
 
 import logging
 import time
-
-from .base import MXNetError
 
 __all__ = ["Speedometer", "do_checkpoint", "log_train_metric",
            "module_checkpoint"]
@@ -32,21 +31,44 @@ def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
 
 def do_checkpoint(prefix, period=1, background=False):
     """Epoch-end callback writing ``save_checkpoint(prefix, epoch, ...)``
-    every ``period`` epochs."""
-    if background:
-        raise MXNetError("do_checkpoint(background=True) is not yet ported "
-                         "(ROADMAP A8)")
-    if not isinstance(prefix, str):
-        raise MXNetError("do_checkpoint with a %s is not yet ported "
-                         "(ROADMAP A8)" % type(prefix).__name__)
-    from .model import save_checkpoint
+    every ``period`` epochs (reference: callback.py:25). ``prefix`` may be
+    a ``checkpoint.CheckpointManager``: the epoch is then its step, and
+    ``background`` picks a queued or a blocking write."""
+    from .checkpoint import CheckpointManager
     every = int(max(1, period))
+
+    if isinstance(prefix, CheckpointManager):
+        manager = prefix
+
+        def _callback(iter_no, sym, arg, aux):
+            if (iter_no + 1) % every:
+                return
+            manager.save(step=iter_no, symbol=sym, arg_params=arg,
+                         aux_params=aux, epoch=iter_no,
+                         blocking=not background)
+
+        _callback.wait = manager.wait
+        return _callback
+
+    from .model import save_checkpoint
+    pending = []
 
     def _callback(iter_no, sym, arg, aux):
         epoch = iter_no + 1
-        if epoch % every == 0:
-            save_checkpoint(prefix, epoch, sym, arg, aux)
+        if epoch % every:
+            return
+        if pending:
+            pending.pop().wait()  # its error surfaces; one writer at a time
+        handle = save_checkpoint(prefix, epoch, sym, arg, aux,
+                                 background=background)
+        if handle is not None:
+            pending.append(handle)
 
+    def _wait(timeout=None):
+        while pending:
+            pending.pop().wait(timeout)
+
+    _callback.wait = _wait
     return _callback
 
 

@@ -7,12 +7,16 @@ betas to 0, gammas to 1, moving means to 0 and moving variances to 1; a
 variable's ``__init__`` attribute overrides the routing. The random
 initializers fill the array in place from ``mx.random``'s generator of
 the array's device: the same shapes and scales as the reference, torch's
-values. ``LSTMBias`` (the LSTM cells' i2h bias) is ported; ``MSRAPrelu``,
-``Orthogonal``, ``Bilinear`` and ``Mixed`` are not yet (ROADMAP A2).
+values. ``MSRAPrelu`` is ``Xavier`` with the reference's magnitude, so it
+draws torch's values too. ``Orthogonal`` draws from numpy's global RNG
+as the reference does, so a seeded run gives the reference's values bit
+for bit; ``Bilinear`` and ``LSTMBias`` are deterministic; ``Mixed``
+routes names to initializers by regular expression.
 """
 from __future__ import annotations
 
 import json
+import re
 
 import numpy as _np
 import torch
@@ -21,11 +25,10 @@ from . import random as _random
 from .base import MXNetError, Registry
 
 __all__ = ["InitDesc", "Initializer", "Uniform", "Normal", "Zero", "One",
-           "Constant", "Xavier", "LSTMBias", "register", "create",
-           "init_registry"]
+           "Constant", "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear",
+           "LSTMBias", "Mixed", "register", "create", "init_registry"]
 
-init_registry = Registry("initializer", not_ported=(
-    "MSRAPrelu", "Orthogonal", "Bilinear", "Mixed"), item="A2")
+init_registry = Registry("initializer")
 
 
 class InitDesc(str):
@@ -208,6 +211,53 @@ class Xavier(Initializer):
 
 
 @register
+class MSRAPrelu(Xavier):
+    """reference: initializer.py:198."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """reference: initializer.py:206; numpy's global RNG, as there."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(_np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _np.random.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = _np.random.normal(0.0, 1.0, (nout, nin))
+        u, _, v = _np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == (nout, nin) else v
+        arr[:] = self.scale * q.reshape(arr.shape).astype(_np.float32)
+
+
+@register
+class Bilinear(Initializer):
+    """reference: initializer.py:224, the upsampling kernel."""
+
+    def _init_weight(self, _, arr):
+        weight = _np.zeros(int(_np.prod(arr.shape)), dtype="float32")
+        shape = arr.shape
+        f = _np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(_np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        arr[:] = weight.reshape(shape)
+
+
+@register
 class LSTMBias(Initializer):
     """Zeros, with ``forget_bias`` on the forget gate's quarter of the
     [i, f, g, o] packing (reference: initializer.py LSTMBias)."""
@@ -221,3 +271,21 @@ class LSTMBias(Initializer):
         a = _np.zeros(arr.shape, dtype=_np.float32)
         a[num_hidden:2 * num_hidden] = self.forget_bias
         arr[:] = a
+
+
+@register
+class Mixed:
+    """Initializers chosen by the first pattern a name matches
+    (reference: initializer.py:254)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers length mismatch")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for pat, init in self.map:
+            if pat.match(str(name)):
+                init(name, arr)
+                return
+        raise MXNetError("Parameter %s did not match any pattern" % name)

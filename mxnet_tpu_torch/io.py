@@ -1,5 +1,6 @@
-"""Data iterators of the port: ``DataDesc``, ``DataBatch``, ``DataIter``
-and ``NDArrayIter`` (reference: ``mxnet_tpu/io.py`` L28-292).
+"""Data iterators of the port: ``DataDesc``, ``DataBatch``, ``DataIter``,
+``NDArrayIter``, ``ResizeIter``, ``PrefetchingIter``, ``CSVIter`` and
+``MNISTIter`` (reference: ``mxnet_tpu/io.py`` L28-592).
 
 The iterators live on the host, as MXNet's did: ``NDArrayIter`` keeps its
 data as numpy and builds each batch as arrays on the CPU. The executor
@@ -14,12 +15,19 @@ reset), and nothing else here draws from it, so a seeded run of either
 package sees the same batches. ``NDArrayIter`` offers the reference's
 resumable-iterator capability (``iter_checkpoint`` / ``iter_restore``:
 the cursor, the permutation and numpy's shuffle-RNG chain;
-``is_resumable``). ``ResizeIter``, ``PrefetchingIter`` and the file
-iterators (``CSVIter``, ``LibSVMIter``, ``MNISTIter``,
-``ImageRecordIter``) are not yet ported (ROADMAP A2).
+``is_resumable``). ``PrefetchingIter`` reads ahead on a thread; every
+wait on its queue and every join has a timeout. ``CSVIter`` and
+``MNISTIter`` (idx files, gzipped or not) read local files into an
+``NDArrayIter``. Not yet ported, and raising: ``LibSVMIter`` (it yields
+sparse batches) and the image record pipelines ``ImageRecordIter`` and
+``ImageDetRecordIter``, which need a JPEG decoder (ROADMAP A9).
 """
 from __future__ import annotations
 
+import gzip
+import queue
+import struct
+import threading
 from collections import namedtuple
 
 import numpy as _np
@@ -28,16 +36,16 @@ from .base import MXNetError
 from .context import cpu
 from .ndarray.ndarray import NDArray, array
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter",
-           "DevicePrefetchIter", "is_resumable"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter", "CSVIter", "MNISTIter", "DevicePrefetchIter",
+           "is_resumable"]
 
-_NOT_PORTED = ("ResizeIter", "PrefetchingIter", "CSVIter", "LibSVMIter",
-               "MNISTIter", "ImageRecordIter", "ImageDetRecordIter")
+_NOT_PORTED = ("LibSVMIter", "ImageRecordIter", "ImageDetRecordIter")
 
 
 def __getattr__(name):
     if name in _NOT_PORTED:
-        raise MXNetError("mx.io.%s is not yet ported (ROADMAP A2)" % name)
+        raise MXNetError("mx.io.%s is not yet ported (ROADMAP A9)" % name)
     raise AttributeError("module %r has no attribute %r" % (__name__, name))
 
 
@@ -276,6 +284,270 @@ class NDArrayIter(DataIter):
         self.idx = _np.asarray(state["idx"], dtype=self.idx.dtype)
         if state.get("np_rng") is not None:
             _np.random.set_state(_decode_np_rng_state(state["np_rng"]))
+
+
+class ResizeIter(DataIter):
+    """Loop or truncate an iterator to ``size`` batches a epoch
+    (reference: io.py:295)."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        if hasattr(data_iter, "default_bucket_key"):
+            self.default_bucket_key = data_iter.default_bucket_key
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class PrefetchingIter(DataIter):
+    """Reads the next batches of one or more iterators on a thread
+    (reference: io.py:344). A worker's error or the end of the data
+    reaches ``next`` once and then stays: every later ``next`` raises it
+    again."""
+
+    _WAIT_S = 0.1
+
+    def __init__(self, iters, rename_data=None, rename_label=None):
+        if not isinstance(iters, list):
+            iters = [iters]
+        super().__init__(iters[0].batch_size)
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self._queue = queue.Queue(maxsize=4)
+        self._stop = threading.Event()
+        self._thread = None
+        self._terminal = None
+        self._start()
+
+    @property
+    def provide_data(self):
+        if self.rename_data is None:
+            return sum([i.provide_data for i in self.iters], [])
+        return sum([[DataDesc(r[x.name], x.shape, x.dtype)
+                     if isinstance(r, dict) else x
+                     for x in i.provide_data]
+                    for r, i in zip(self.rename_data, self.iters)], [])
+
+    @property
+    def provide_label(self):
+        if self.rename_label is None:
+            return sum([i.provide_label for i in self.iters], [])
+        return sum([[DataDesc(r[x.name], x.shape, x.dtype)
+                     if isinstance(r, dict) else x
+                     for x in i.provide_label]
+                    for r, i in zip(self.rename_label, self.iters)], [])
+
+    def _put(self, item):
+        # a bounded put that a reset can always interrupt
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=self._WAIT_S)
+                return
+            except queue.Full:
+                pass
+
+    def _worker(self):
+        try:
+            while not self._stop.is_set():
+                try:
+                    batches = [i.next() for i in self.iters]
+                except StopIteration:
+                    self._put(None)
+                    return
+                self._put(batches)
+        except Exception as e:  # transported to next()
+            self._put(e)
+
+    def _start(self):
+        self._thread = threading.Thread(target=self._worker,
+                                        name="mx-prefetching-iter",
+                                        daemon=True)
+        self._thread.start()
+
+    def _shutdown(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            if self._thread.is_alive():
+                raise MXNetError("PrefetchingIter: the worker did not stop "
+                                 "within 5 s")
+            self._thread = None
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+
+    def reset(self):
+        self._shutdown()
+        for i in self.iters:
+            i.reset()
+        self._terminal = None
+        self._stop.clear()
+        self._start()
+
+    def next(self):
+        if self._terminal is not None:
+            raise self._terminal
+        while True:
+            try:
+                item = self._queue.get(timeout=self._WAIT_S)
+                break
+            except queue.Empty:
+                if self._thread is None or not self._thread.is_alive():
+                    # the worker puts its last item before it exits
+                    try:
+                        item = self._queue.get_nowait()
+                        break
+                    except queue.Empty:
+                        self._terminal = MXNetError(
+                            "PrefetchingIter: the worker ended without a "
+                            "batch or an end")
+                        raise self._terminal
+        if item is None:
+            self._terminal = StopIteration()
+            raise self._terminal
+        if isinstance(item, Exception):
+            self._terminal = item
+            raise item
+        batch = item[0]
+        if len(item) > 1:
+            batch = DataBatch(data=sum([b.data for b in item], []),
+                              label=sum([b.label for b in item], []),
+                              pad=item[0].pad, index=item[0].index)
+        return batch
+
+    def iter_next(self):
+        raise NotImplementedError
+
+    def __del__(self):
+        try:
+            self._stop.set()
+        except Exception:
+            pass
+
+
+class CSVIter(DataIter):
+    """Batches of a CSV file's rows (reference: io.py:447)."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None,
+                 label_shape=(1,), batch_size=1, round_batch=True,
+                 dtype="float32", **kwargs):
+        super().__init__(batch_size)
+        data = _np.loadtxt(data_csv, delimiter=",", dtype=dtype, ndmin=2)
+        data = data.reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = _np.loadtxt(label_csv, delimiter=",", dtype=dtype,
+                                ndmin=2)
+            label = label.reshape((-1,) + tuple(label_shape))
+            if label.shape[-1] == 1:
+                label = label.reshape(label.shape[:-1])
+        else:
+            label = _np.zeros((data.shape[0],), dtype=dtype)
+        self._inner = NDArrayIter(
+            data, label, batch_size,
+            last_batch_handle="pad" if round_batch else "discard",
+            data_name="data", label_name="label")
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+
+class MNISTIter(DataIter):
+    """Batches of MNIST's idx files, gzipped or not (reference:
+    io.py:553); the shuffle draws from numpy's global RNG."""
+
+    def __init__(self, image, label, batch_size=128, shuffle=True,
+                 flat=False, silent=False, seed=None, input_shape=None,
+                 num_parts=1, part_index=0, **kwargs):
+        super().__init__(batch_size)
+        images = self._read_idx(image)
+        labels = self._read_idx(label)
+        images = images.astype(_np.float32) / 255.0
+        if flat:
+            images = images.reshape(images.shape[0], -1)
+        else:
+            images = images.reshape(images.shape[0], 1,
+                                    images.shape[1], images.shape[2])
+        shard = images.shape[0] // num_parts
+        lo = part_index * shard
+        hi = images.shape[0] if part_index == num_parts - 1 else lo + shard
+        self._inner = NDArrayIter(images[lo:hi],
+                                  labels[lo:hi].astype(_np.float32),
+                                  batch_size, shuffle=shuffle)
+
+    @staticmethod
+    def _read_idx(path):
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rb") as f:
+            magic = struct.unpack(">I", f.read(4))[0]
+            ndim = magic & 0xFF
+            dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+            data = _np.frombuffer(f.read(), dtype=_np.uint8)
+            return data.reshape(dims)
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return [DataDesc("softmax_label", (self.batch_size,))]
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
 
 
 # the device stager lives in io_device.py but belongs to mx.io

@@ -11,12 +11,13 @@ same store; ``Module`` turns it into its fused train step
 
 One process, one device: ``rank`` is 0 and ``num_workers`` 1. A push of
 more than one device copy, ``dist*`` and ``*async*`` stores and gradient
-compression are not yet ported (ROADMAP A7), nor the optimizer-state
-files (ROADMAP A8).
+compression are not yet ported (ROADMAP A7).
+``save_optimizer_states``/``load_optimizer_states`` write and read the
+store's updater as ``checkpoint/state.py``'s tagged payload.
 """
 from __future__ import annotations
 
-from .base import MXNetError
+from .base import MXNetError, atomic_write
 from . import optimizer as opt_mod
 
 __all__ = ["KVStore", "KVStoreTPUSync", "create"]
@@ -116,10 +117,17 @@ class KVStore:
         _not_ported("KVStore.set_gradient_compression", "A7")
 
     def save_optimizer_states(self, fname, dump_optimizer=False):
-        _not_ported("KVStore.save_optimizer_states", "A8")
+        if self._updater is None:
+            raise MXNetError("Cannot save states: the store has no updater")
+        atomic_write(fname, self._updater.get_states(dump_optimizer))
 
     def load_optimizer_states(self, fname):
-        _not_ported("KVStore.load_optimizer_states", "A8")
+        if self._updater is None:
+            raise MXNetError("Cannot load states: the store has no updater")
+        from .checkpoint.state import _first_device, apply_updater_payload
+        with open(fname, "rb") as f:
+            apply_updater_payload(self._updater, f.read(),
+                                  ctx=_first_device(self._store))
 
     def barrier(self):
         pass

@@ -1,8 +1,8 @@
 """Learning-rate schedules of the port: ``LRScheduler``,
-``FactorScheduler`` and ``MultiFactorScheduler``, copied from the
-framework-free ``mxnet_tpu/lr_scheduler.py`` L19-97 (reference API:
-python/mxnet/lr_scheduler.py). ``PolyScheduler`` and ``CosineScheduler``
-are not yet copied (ROADMAP A2).
+``FactorScheduler``, ``MultiFactorScheduler``, ``PolyScheduler`` and
+``CosineScheduler``, copied from the framework-free
+``mxnet_tpu/lr_scheduler.py`` L19-138 (reference API:
+python/mxnet/lr_scheduler.py).
 
 A scheduler is a callable `num_update -> lr`. Each schedule derives the
 rate in closed form from the update count and folds it into the mutable
@@ -13,8 +13,10 @@ and step-decay schedules then continue scaling from the new value.
 from __future__ import annotations
 
 import logging
+import math
 
-__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler"]
+__all__ = ["LRScheduler", "FactorScheduler", "MultiFactorScheduler",
+           "PolyScheduler", "CosineScheduler"]
 
 
 class LRScheduler:
@@ -94,3 +96,46 @@ class MultiFactorScheduler(LRScheduler):
             logging.info("Update[%d]: lr decayed to %0.5e", num_update,
                          self.base_lr)
         return self.base_lr
+
+
+class _DecayToEnd(LRScheduler):
+    """Shared shape for schedules that anneal base_lr -> final over
+    `max_update` steps and then hold: subclasses supply the [0, 1]
+    progress -> [0, 1] remaining-fraction curve."""
+
+    def __init__(self, max_update, base_lr=0.01, final_lr=0.0):
+        super().__init__(base_lr)
+        if not isinstance(max_update, int) or max_update < 1:
+            raise ValueError("max_update must be a positive int, got %r"
+                             % (max_update,))
+        self.max_update = max_update
+        self.final_lr = final_lr
+        self.base_lr_orig = base_lr
+
+    def _remaining(self, progress):
+        raise NotImplementedError
+
+    def __call__(self, num_update):
+        if num_update <= self.max_update:
+            span = self.base_lr_orig - self.final_lr
+            self.base_lr = self.final_lr + span * self._remaining(
+                num_update / self.max_update)
+        return self.base_lr
+
+
+class PolyScheduler(_DecayToEnd):
+    """Polynomial decay: lr = base * (1 - n/max)^pwr (to 0)."""
+
+    def __init__(self, max_update, base_lr=0.01, pwr=2):
+        super().__init__(max_update, base_lr=base_lr, final_lr=0.0)
+        self.power = pwr
+
+    def _remaining(self, progress):
+        return (1.0 - progress) ** self.power
+
+
+class CosineScheduler(_DecayToEnd):
+    """Cosine annealing from base_lr to final_lr over max_update."""
+
+    def _remaining(self, progress):
+        return (1.0 + math.cos(math.pi * progress)) / 2.0

@@ -1,8 +1,9 @@
 """Evaluation metrics of the port: ``EvalMetric``, ``CompositeEvalMetric``,
 ``Accuracy``, ``TopKAccuracy``, ``F1``, ``Perplexity``, ``MAE``, ``MSE``,
 ``RMSE``, ``CrossEntropy``, ``NegativeLogLikelihood``,
-``PearsonCorrelation``, ``Loss``, ``CustomMetric`` and ``create``
-(reference: ``mxnet_tpu/metric.py`` L93-595).
+``PearsonCorrelation``, ``Loss`` (and the plugin names ``Torch`` and
+``Caffe``), ``CustomMetric`` and ``create`` (reference:
+``mxnet_tpu/metric.py`` L93-605).
 
 ``Accuracy`` and ``CrossEntropy`` compute each batch's increment as a
 0-d tensor on the outputs' device, on the CPU and on the card alike.
@@ -11,9 +12,7 @@ reference's in-graph path, ``_as_device``/``_device_fn``, L32-91), which
 ``Module.update_metric`` takes on the fused train path, keeps it pending
 until ``get()``, so the fit loop does not wait for the card every batch.
 Both fold with the same numpy-scalar arithmetic. The other metrics update
-on the host (numpy), as the reference's ``update`` does. The plugin
-metrics ``Torch`` and ``Caffe`` are not yet ported (ROADMAP A2):
-``create`` raises on them.
+on the host (numpy), as the reference's ``update`` does.
 """
 from __future__ import annotations
 
@@ -27,11 +26,10 @@ from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
-           "NegativeLogLikelihood", "PearsonCorrelation", "Loss",
-           "CustomMetric", "np", "create", "metric_registry"]
+           "NegativeLogLikelihood", "PearsonCorrelation", "Loss", "Torch",
+           "Caffe", "CustomMetric", "np", "create", "metric_registry"]
 
-metric_registry = Registry("metric", not_ported=("Torch", "Caffe"),
-                           item="A2")
+metric_registry = Registry("metric")
 
 
 def check_label_shapes(labels, preds, shape=False):
@@ -521,6 +519,23 @@ class Loss(EvalMetric):
 
 
 metric_registry.alias(Loss, "ce_loss")
+
+
+@register
+class Torch(Loss):
+    """A loss output under the name "torch" (reference: metric.py:596)."""
+
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class Caffe(Loss):
+    """A loss output under the name "caffe" (reference: metric.py:602)."""
+
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
 
 
 @register

@@ -17,7 +17,19 @@ supervised epoch observes every step's verdict before its params are
 read. ``monitor=`` installs a ``monitor.Monitor`` on the executors
 (``install_monitor``), ticked before each batch and printed after its
 metric update, as the reference's loop does (L211, L313-327).
-``checkpoint_manager=`` is not yet ported (ROADMAP A8).
+
+``checkpoint_manager=`` (a ``checkpoint.CheckpointManager``) makes the fit
+resumable (reference L167-384): after bind, init and ``init_optimizer``
+it resumes from the newest epoch-boundary checkpoint (params, optimizer
+slots, num_update and the lr scheduler, RNG, the iterator's exact
+position, the supervisor's state) and continues at the epoch after it;
+every ``effective_save_period()`` epochs, and at the last, it queues a
+save of the epoch's end with the iterator's position; the manager's live
+capture is the current epoch's params, which a preemption signal
+(``preemption_signal``, the hook installed for this fit) or
+``notify_preemption`` writes as a mid-epoch snapshot. The fit ends, or
+unwinds, by awaiting the manager's writes and those of epoch-end
+callbacks that have a ``wait``.
 """
 from __future__ import annotations
 
@@ -190,10 +202,6 @@ class BaseModule:
                 validation_metric=validation_metric, monitor=monitor,
                 sparse_row_id_fn=sparse_row_id_fn,
                 checkpoint_manager=checkpoint_manager))
-        if checkpoint_manager is not None:
-            raise MXNetError("fit(checkpoint_manager=...) is not yet ported "
-                             "(ROADMAP A8)")
-
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -214,24 +222,67 @@ class BaseModule:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
+
+        preempt_hook_installed = False
+        if checkpoint_manager is not None:
+            # after init, so the restored params and slots overwrite the
+            # fresh ones; the wrapped iterator takes the data position
+            begin_epoch = checkpoint_manager.resume(
+                self, begin_epoch, train_data=train_data,
+                supervisor=self._supervisor)
+            if checkpoint_manager.preemption_signal and \
+                    not checkpoint_manager._prev_handlers:
+                # this fit's own hook, removed when it ends
+                checkpoint_manager.install_preemption_hook()
+                preempt_hook_installed = True
+        flush_targets = list(_as_list(epoch_end_callback))
+        if checkpoint_manager is not None:
+            flush_targets.append(checkpoint_manager)
+
+        def _flush_async(raising):
+            """Await the async epoch callbacks and the manager's writes; on
+            an exception their errors are logged, not raised."""
+            for callback in flush_targets:
+                if callable(getattr(callback, "wait", None)):
+                    try:
+                        callback.wait()
+                    except Exception as e:
+                        if not raising:
+                            raise
+                        self.logger.error("async checkpoint flush: %s", e)
+
         try:
             self._fit_epochs(train_data, eval_data, eval_metric,
                              validation_metric, epoch_end_callback,
                              batch_end_callback, eval_end_callback,
                              eval_batch_end_callback, begin_epoch, num_epoch,
-                             monitor, sparse_row_id_fn)
+                             monitor, sparse_row_id_fn, checkpoint_manager)
+        except BaseException:
+            _flush_async(raising=True)
+            raise
         finally:
+            if checkpoint_manager is not None:
+                checkpoint_manager.set_live_capture(None)
+                if preempt_hook_installed:
+                    checkpoint_manager.uninstall_preemption_hook()
             # a wrapper this fit made stops its stager, also when the fit
             # unwinds (a supervisor's retry makes a fresh one)
             if train_data is not user_train_data:
                 train_data._shutdown()
+        _flush_async(raising=False)
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, epoch_end_callback,
                     batch_end_callback, eval_end_callback,
                     eval_batch_end_callback, begin_epoch, num_epoch,
-                    monitor, sparse_row_id_fn):
+                    monitor, sparse_row_id_fn, checkpoint_manager=None):
         for epoch in range(begin_epoch, num_epoch):
+            if checkpoint_manager is not None:
+                # what a preemption flushes mid-epoch: the live params
+                # under this epoch's step, marked mid_epoch (resume skips
+                # it and re-runs the epoch from its boundary)
+                checkpoint_manager.set_live_capture(
+                    lambda e=epoch: dict(step=e, module=self, epoch=e))
             tic = time.time()
             eval_metric.reset()
             source = iter(train_data)
@@ -280,6 +331,12 @@ class BaseModule:
                 for callback in _as_list(epoch_end_callback):
                     callback(epoch, self.symbol, arg_snapshot, aux_snapshot)
 
+            if checkpoint_manager is not None and (
+                    (epoch + 1) % checkpoint_manager.effective_save_period()
+                    == 0 or epoch == num_epoch - 1):
+                self._checkpoint_epoch(checkpoint_manager, train_data, epoch,
+                                       arg_snapshot, aux_snapshot)
+
             if eval_data is not None:
                 for name, val in self.score(
                         eval_data, validation_metric,
@@ -290,6 +347,29 @@ class BaseModule:
                                      name, val)
 
             train_data.reset()
+
+    def _checkpoint_epoch(self, manager, train_data, epoch, arg_snapshot,
+                          aux_snapshot):
+        """Queue the epoch's end: the train iterator's exact position
+        (``pending_reset``: this run resets after the save, and resume
+        replays that reset) and the supervisor's state ride the
+        manifest."""
+        extra = {}
+        if callable(getattr(train_data, "iter_checkpoint", None)):
+            try:
+                extra["data_position"] = {
+                    "epoch": epoch, "pending_reset": True,
+                    "iter": train_data.iter_checkpoint()}
+            except Exception as e:
+                self.logger.warning(
+                    "train iterator position not captured (%s); resume "
+                    "replays from the epoch boundary with a fresh iterator",
+                    e)
+        if self._supervisor is not None:
+            extra["supervisor_state"] = self._supervisor.state_dict()
+        manager.save(step=epoch, module=self, epoch=epoch,
+                     arg_params=arg_snapshot, aux_params=aux_snapshot,
+                     **extra)
 
     def _wrap_train_iter(self, train_data):
         """The iterator ``fit`` trains on (``Module`` wraps it in a device

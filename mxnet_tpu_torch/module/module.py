@@ -55,9 +55,15 @@ the reference, an error of the engine (a capture or a launch) raises; it
 never falls back. ``install_monitor`` (L877) hooks a ``monitor.Monitor``
 on the executors and turns the fused step off, as the reference does.
 
+``save_optimizer_states`` writes ``checkpoint/state.py``'s tagged payload
+(the fused step's slots, or the updater's, with the optimizer's schedule
+counters) from device clones; ``load_optimizer_states`` and
+``Module.load(..., load_optimizer_states=True)`` (applied by
+``init_optimizer``) read it back, also from the JAX package's files.
+
 Not yet ported, and raising: more than one context, ``group2ctxs`` and
-gradient compression (ROADMAP A7), optimizer state files (ROADMAP A8),
-and row-sparse parameters (ROADMAP A9).
+gradient compression (ROADMAP A7), and row-sparse parameters (ROADMAP
+A9).
 """
 from __future__ import annotations
 
@@ -69,7 +75,7 @@ import numpy as _np
 import torch
 
 from .. import profiler as _prof
-from ..base import MXNetError, env_flag, get_env
+from ..base import MXNetError, atomic_write, env_flag, get_env
 from ..context import pin_float32, resolve_device
 from ..initializer import Uniform, InitDesc
 from .. import optimizer as opt_mod
@@ -152,16 +158,20 @@ class Module(BaseModule):
         self._fused_step_count = 0
         self._monitor = None
         self._serving_engine = None
+        self._preload_opt_states = None
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
-        if load_optimizer_states:
-            _not_ported("Module.load(load_optimizer_states=True)", "A8")
+        """A Module of ``prefix``'s checkpoint; with
+        ``load_optimizer_states``, ``init_optimizer`` reads
+        ``prefix-%04d.states``."""
         sym, args, auxs = load_checkpoint(prefix, epoch)
         mod = Module(symbol=sym, **kwargs)
         mod._arg_params = args
         mod._aux_params = auxs
         mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
@@ -399,6 +409,9 @@ class Module(BaseModule):
         if not update_on_kvstore:
             self._updater = opt_mod.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     # ------------------------------------------------------------------
     # the fused tpu_sync path (reference: module.py:361-590)
@@ -664,10 +677,23 @@ class Module(BaseModule):
         self._params_dirty = False
 
     def save_optimizer_states(self, fname):
-        _not_ported("Module.save_optimizer_states", "A8")
+        """The optimizer's slots and schedule counters, as
+        ``checkpoint/state.py``'s tagged payload."""
+        assert self.optimizer_initialized
+        if self._update_on_kvstore and self._fused_step is None:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+            return
+        from ..checkpoint import state as ckpt_state
+        atomic_write(fname, ckpt_state.optimizer_payload_bytes(self))
 
     def load_optimizer_states(self, fname):
-        _not_ported("Module.load_optimizer_states", "A8")
+        assert self.optimizer_initialized
+        if self._update_on_kvstore and self._fused_step is None:
+            self._kvstore.load_optimizer_states(fname)
+            return
+        from ..checkpoint import state as ckpt_state
+        with open(fname, "rb") as f:
+            ckpt_state.apply_optimizer_payload(self, f.read())
 
     def install_monitor(self, mon):
         """Hook ``mon`` on the executors; interior capture needs them, so

@@ -1,7 +1,7 @@
 """Resilience layer of the port: deterministic fault injection, one
 retry/backoff policy, thread watchdogs, and the training supervisor
-(counterpart of ``mxnet_tpu/resilience/``; checkpoint-based rewind waits
-for ROADMAP A8).
+(counterpart of ``mxnet_tpu/resilience/``; the supervisor rewinds to a
+``checkpoint.CheckpointManager``'s newest checkpoint).
 
     from mxnet_tpu_torch.resilience import fault_point, RetryPolicy
 

@@ -22,12 +22,11 @@ the fit to :meth:`TrainingSupervisor.run_fit`:
 2. **Stall and crash recovery.** A step whose readback outlives
    ``step_deadline_s`` raises :class:`TrainingStalled`; stalls and the
    retry policy's transient errors restart the fit under full-jitter
-   backoff. Without a checkpoint manager a restart continues from the
-   in-memory state (no rewind), as the reference's does without one.
-
-Not yet ported, and raising: a checkpoint manager (``manager=``, or the
-fit's ``checkpoint_manager=``), with which each restart would resume from
-the newest checkpoint (ROADMAP A8).
+   backoff. With a checkpoint manager (``manager=``, or the fit's
+   ``checkpoint_manager=``, adopted) every attempt resumes from the
+   newest committed epoch-boundary checkpoint, at its exact data position
+   and with its supervisor state; without one a restart continues from
+   the in-memory state (no rewind), as the reference's does.
 
 Fault sites (``MXNET_TPU_FAULT_SPEC``): ``train.nan`` (a ``raise=`` action
 poisons that step's loss scale with NaN), ``train.stall`` (inside the
@@ -69,12 +68,6 @@ _faults.register_exception("TrainingStalled", TrainingStalled)
 _faults.register_exception("NumericDivergence", NumericDivergence)
 
 
-def _no_manager(manager):
-    if manager is not None:
-        raise MXNetError("TrainingSupervisor with a checkpoint manager is "
-                         "not yet ported (ROADMAP A8)")
-
-
 def supervisor_from_env(checkpoint_manager=None):
     """A TrainingSupervisor when ``MXNET_TPU_TRAIN_SUPERVISE=1``, else
     None. Read once per fit call, never on a step path."""
@@ -88,8 +81,9 @@ class TrainingSupervisor:
 
     Parameters (environment defaults as in the reference):
 
-    * ``manager`` — a checkpoint manager: not yet ported (ROADMAP A8),
-      so anything but None raises.
+    * ``manager`` — a ``checkpoint.CheckpointManager``; when None, the one
+      passed to ``fit(checkpoint_manager=...)`` is adopted. Without any,
+      restarts continue from the in-memory state (no rewind).
     * ``max_restarts`` — restart budget across the whole fit
       (``MXNET_TPU_TRAIN_MAX_RESTARTS``, default 3).
     * ``bad_steps_limit`` — consecutive bad steps before
@@ -107,7 +101,6 @@ class TrainingSupervisor:
     def __init__(self, manager=None, max_restarts=None, bad_steps_limit=None,
                  loss_scale=None, scale_window=None, step_deadline_s=None,
                  retryable=None, logger=None):
-        _no_manager(manager)
         self.manager = manager
         if max_restarts is None:
             max_restarts = get_env("MXNET_TPU_TRAIN_MAX_RESTARTS", 3, int)
@@ -152,7 +145,10 @@ class TrainingSupervisor:
         from .. import profiler as _prof
         fit_kwargs = dict(fit_kwargs)
         fit_kwargs["supervisor"] = False  # the inner fit must not re-enter
-        _no_manager(fit_kwargs.get("checkpoint_manager"))
+        if self.manager is not None:
+            fit_kwargs["checkpoint_manager"] = self.manager
+        elif fit_kwargs.get("checkpoint_manager") is not None:
+            self.manager = fit_kwargs["checkpoint_manager"]
         module._supervisor = self
         # a module built by an UNsupervised fit carries a fused step with
         # no verdict and no scale: rebuild it rather than run unsupervised
@@ -186,9 +182,10 @@ class TrainingSupervisor:
                     _faults.fault_point("train.restore", attempt=failures)
                     if delay > 0:
                         time.sleep(delay)
-                    # a fresh attempt: the data iterator rewinds, streaks
-                    # restart, and the failed attempt's in-flight verdicts
-                    # are dropped unjudged
+                    # a fresh attempt: the data iterator rewinds (the inner
+                    # fit's resume then replays the checkpointed position
+                    # on it), streaks restart, and the failed attempt's
+                    # in-flight verdicts are dropped unjudged
                     td = fit_kwargs.get("train_data")
                     if td is not None and callable(getattr(td, "reset",
                                                            None)):

@@ -24,8 +24,12 @@ programs, as the reference recompiles. A replay's outputs are cloned on
 the replay's stream before the next replay is enqueued, so a result held
 across later requests keeps its values.
 
-Not yet ported, and raising: ``reload_from`` (checkpoints, ROADMAP A8),
-``from_block`` (gluon) and quantized graphs (ROADMAP A9).
+``reload_from(directory)`` follows a training run's checkpoints
+(``checkpoint.CheckpointManager``): it loads the newest committed step
+newer than the one it serves and swaps it in through ``update_params``,
+once, or with ``poll_interval`` on a poller thread that ``stop`` ends
+(joined with a timeout). Not yet ported, and raising: ``from_block``
+(gluon) and quantized graphs (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from ..context import resolve_device
 from ..executor import GraphPlan, run_graph
 from ..ndarray.ndarray import NDArray
 from ..resilience import faults as _faults
+from ..resilience.retry import RetryPolicy, TransientError
 from .batcher import DynamicBatcher
 from .program_cache import DEFAULT_BUCKETS, BucketedProgramCache
 
@@ -51,6 +56,48 @@ _QSUF = "_quantize"
 
 def _not_ported(what, item):
     raise MXNetError("%s is not yet ported (ROADMAP %s)" % (what, item))
+
+
+def _reload_retry_policy():
+    """What counts as transient for a checkpoint reload, shared by the
+    engine's and the ModelServer's pollers: the framework's own errors
+    (an unknown model, a validation) surface at once; anything else (an
+    OSError, a directory pruned between discovery and read) retries."""
+    return RetryPolicy(
+        site="serving.reload",
+        retryable=lambda e: (isinstance(e, TransientError)
+                             or not isinstance(e, MXNetError)))
+
+
+def _run_reload_poller(hb_name, target_desc, poll_interval, stop_evt,
+                       reload_once):
+    """The checkpoint poller's body (engine and ModelServer
+    ``reload_from``): each distinct failure logs once and its repeats only
+    count (``profiler.retry_counters()["serving.reload.poll_failure"]``);
+    serving keeps the old weights throughout."""
+    import logging
+    from ..resilience.watchdog import watchdog as _watchdog
+    hb = _watchdog().register(hb_name, thread=threading.current_thread())
+    last_sig = None
+    try:
+        while not stop_evt.wait(poll_interval):
+            hb.beat()
+            try:
+                reload_once()
+            except Exception as e:  # keep serving the old weights
+                _prof.record_retry("serving.reload", "poll_failure")
+                sig = "%s: %s" % (type(e).__name__, e)
+                if sig != last_sig:
+                    logging.warning("%s: %s (repeats of this error are "
+                                    "counted, not logged)", target_desc, e)
+                    last_sig = sig
+            else:
+                if last_sig is not None:
+                    logging.info("%s: recovered", target_desc)
+                    last_sig = None
+            hb.idle()
+    finally:
+        hb.close()
 
 
 def _torch_dtype(np_dtype):
@@ -161,6 +208,11 @@ class InferenceEngine:
         self._compiles_seen = 0
         self._templates = {}        # input name -> (shape tuple, np dtype)
         self._lock = threading.Lock()
+        self._reload_step = None
+        self._reload_dir = None
+        self._reload_stop = threading.Event()
+        self._reload_thread = None
+        self._reload_retry = _reload_retry_policy()
 
     # ------------------------------------------------------------------
     @classmethod
@@ -168,7 +220,59 @@ class InferenceEngine:
         _not_ported("InferenceEngine.from_block (gluon)", "A9")
 
     def reload_from(self, directory, poll_interval=None):
-        _not_ported("InferenceEngine.reload_from (checkpoints)", "A8")
+        """Swap in the newest committed checkpoint of ``directory`` when it
+        is newer than the step served (``update_params``: no capture, in
+        flight requests keep their weights). ``poll_interval`` (seconds)
+        starts a poller repeating the check until :meth:`stop`. Returns
+        the step loaded, or None."""
+        if directory != self._reload_dir:
+            # another run: retire the old poller before forgetting the
+            # step it served, or it could finish a load after the switch
+            if self._reload_thread is not None:
+                self._reload_stop.set()
+                self._reload_thread.join(timeout=30.0)
+                self._reload_thread = None
+            self._reload_dir = directory
+            self._reload_step = None
+        loaded = self._reload_once(directory)
+        if poll_interval and self._reload_thread is None:
+            # each poller owns its stop event: one whose join timed out
+            # exits at its next check instead of being revived
+            stop_evt = threading.Event()
+            self._reload_stop = stop_evt
+            self._reload_thread = threading.Thread(
+                target=self._poll_loop, name="mx-serving-reload",
+                args=(directory, poll_interval, stop_evt), daemon=True)
+            self._reload_thread.start()
+        return loaded
+
+    def _poll_loop(self, directory, poll_interval, stop_evt):
+        _run_reload_poller("mx-serving-reload:%s" % self._lat_key,
+                           "reload_from(%s)" % directory, poll_interval,
+                           stop_evt, lambda: self._reload_once(directory))
+
+    def _reload_once(self, directory):
+        return self._reload_retry.call(self._reload_attempt, directory)
+
+    def _reload_attempt(self, directory):
+        """One discovery, load and swap; a retry resolves "latest" again
+        (retention can remove a directory between discovery and read)."""
+        from .. import checkpoint as ckpt
+        _faults.fault_point("serving.reload", directory=directory,
+                            engine=self.name or "")
+        path = ckpt.latest_checkpoint(directory)
+        if path is None:
+            return None
+        step = ckpt.read_meta(path).get("step")
+        if step is not None and self._reload_step is not None \
+                and step <= self._reload_step:
+            # newer only: a re-commit of the current step briefly makes an
+            # older one the latest
+            return None
+        arg_params, aux_params = ckpt.load_params(path)
+        self.update_params(arg_params, aux_params)
+        self._reload_step = step
+        return step
 
     # ------------------------------------------------------------------
     # parameters
@@ -425,6 +529,10 @@ class InferenceEngine:
         self._batcher.flush()
 
     def stop(self):
+        self._reload_stop.set()
+        if self._reload_thread is not None:
+            self._reload_thread.join(timeout=5.0)
+            self._reload_thread = None
         self._batcher.stop()
 
     # ------------------------------------------------------------------

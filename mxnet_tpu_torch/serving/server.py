@@ -38,7 +38,10 @@ Counterpart of ``mxnet_tpu/serving/server.py``:
     server.rollover("resnet", new_args, version=2)   # zero captures
     server.stats()
 
-Not yet ported, and raising: ``reload_from`` (checkpoints, ROADMAP A8).
+``reload_from(name, directory)`` follows a training run's checkpoints:
+the newest committed step is loaded once and rolled over to every
+replica of the model's default version, relabeled with the step (with
+``poll_interval``, on a poller that ``stop`` or ``unregister`` ends).
 The network tier over it (front door, client, fleet pool, worker,
 autoscaler) lives beside this module in ``serving/``.
 
@@ -58,8 +61,10 @@ import torch
 
 from ..base import MXNetError, get_env
 from ..context import resolve_device
+from ..resilience import faults as _faults
 from .batcher import DeadlineExceeded
-from .engine import InferenceEngine
+from .engine import (InferenceEngine, _reload_retry_policy,
+                     _run_reload_poller)
 
 __all__ = ["ModelServer"]
 
@@ -155,11 +160,13 @@ class _Replica:
 
 
 class _ModelEntry:
-    __slots__ = ("versions", "default_version", "counters", "replica_seq")
+    __slots__ = ("versions", "default_version", "reload_step", "counters",
+                 "replica_seq")
 
     def __init__(self):
         self.versions = {}        # label -> list of _Replica
         self.default_version = None
+        self.reload_step = None   # checkpoint step reload_from served
         self.replica_seq = 0      # monotonic id source for add_replicas
         # request accounting (the chaos contract: submitted must equal
         # served + shed + failed, with failed == 0 while any healthy
@@ -596,6 +603,8 @@ class ModelServer:
         self._lock = threading.Lock()
         self._models = {}
         self._decode = {}     # decode model name -> [DecodeEngine]
+        self._pollers = {}    # model name -> (thread, stop event)
+        self._reload_retry = _reload_retry_policy()
         self._stopped = False
         self._health_prev_counts = {}   # key -> snapshot at last health()
         # tail-latency hedging: OFF unless configured. The env is read
@@ -801,6 +810,10 @@ class ModelServer:
                     # (ints, strings, checkpoint steps), so no value
                     # ordering is assumed
                     entry.default_version = next(reversed(entry.versions))
+            poller = self._pollers.pop(name, None) \
+                if name not in self._models else None
+        if poller is not None:
+            poller[1].set()
         for rep in removed:
             rep.engine.stop()
 
@@ -1111,17 +1124,77 @@ class ModelServer:
         return version
 
     def reload_from(self, name, directory, poll_interval=None):
-        raise MXNetError("ModelServer.reload_from (checkpoints) is not yet "
-                         "ported (ROADMAP A8)")
+        """Load the newest committed checkpoint of ``directory`` once and
+        roll it over to every replica of ``name``'s default version,
+        relabeled with its step; ``poll_interval`` (seconds) starts a
+        poller repeating the check until :meth:`stop`. Returns the step
+        loaded, or None when nothing newer was committed."""
+        loaded = self._reload_once(name, directory)
+        with self._lock:
+            start = (poll_interval and name not in self._pollers
+                     and not self._stopped)
+        if start:
+            stop_evt = threading.Event()
+            thread = threading.Thread(
+                target=self._poll_loop, name="mx-serving-server-reload",
+                args=(name, directory, poll_interval, stop_evt),
+                daemon=True)
+            with self._lock:
+                if name not in self._pollers and not self._stopped:
+                    self._pollers[name] = (thread, stop_evt)
+                    thread.start()
+        return loaded
+
+    def _poll_loop(self, name, directory, poll_interval, stop_evt):
+        _run_reload_poller(
+            "mx-serving-server-reload:%s" % name,
+            "ModelServer.reload_from(%s, %s)" % (name, directory),
+            poll_interval, stop_evt,
+            lambda: self._reload_once(name, directory))
+
+    def _reload_once(self, name, directory):
+        return self._reload_retry.call(self._reload_attempt, name,
+                                       directory)
+
+    def _reload_attempt(self, name, directory):
+        """One discovery, load and rollover (a retry resolves "latest"
+        again)."""
+        from .. import checkpoint as ckpt
+        _faults.fault_point("serving.reload", model=name,
+                            directory=directory)
+        path = ckpt.latest_checkpoint(directory)
+        if path is None:
+            return None
+        step = ckpt.read_meta(path).get("step")
+        with self._lock:
+            entry = self._models.get(name)
+            if entry is None:
+                raise MXNetError("unknown model %r" % name)
+            if step is not None and entry.reload_step is not None \
+                    and step <= entry.reload_step:
+                return None   # newer only
+        arg_params, aux_params = ckpt.load_params(path)
+        try:
+            self.rollover(name, arg_params, aux_params, version=step)
+        except MXNetError:
+            # a label that exists already: the weights are what matter
+            self.rollover(name, arg_params, aux_params)
+        with self._lock:
+            entry = self._models.get(name)
+            if entry is not None:
+                entry.reload_step = step
+        return step
 
     # ------------------------------------------------------------------
     # lifecycle / observability
     # ------------------------------------------------------------------
     def stop(self):
-        """Stop every registered engine (queued async requests drain
-        first — the batcher's stop contract)."""
+        """Stop every poller and every registered engine (queued async
+        requests drain first — the batcher's stop contract)."""
         with self._lock:
             self._stopped = True
+            pollers = list(self._pollers.values())
+            self._pollers.clear()
             engines = [rep.engine for entry in self._models.values()
                        for reps in entry.versions.values()
                        for rep in reps]
@@ -1130,6 +1203,10 @@ class ModelServer:
             self._decode.clear()
         if self._hedger is not None:
             self._hedger.stop()
+        for _thread, stop_evt in pollers:
+            stop_evt.set()
+        for thread, _evt in pollers:
+            thread.join(timeout=5.0)
         for eng in engines:
             eng.stop()
 

@@ -156,7 +156,7 @@ def test_tpu_sync_state_split_is_pinned(reference):
     assert gap > 1e-2
 
 
-def test_bucketing_module_surface():
+def test_bucketing_module_surface(tmp_path):
     it = tmx.rnn.BucketSentenceIter(_sentences(), BATCH,
                                     buckets=list(BUCKETS), invalid_label=0,
                                     shuffle_seed=1)
@@ -186,8 +186,22 @@ def test_bucketing_module_surface():
     mon = tmx.monitor.Monitor(1)
     mod.install_monitor(mon)
     assert all(m._monitor is mon for m in mod._buckets.values())
-    with pytest.raises(tmx.MXNetError, match="ROADMAP A8"):
-        mod.save_optimizer_states("x.states")
+    # the optimizer state file goes through the current bucket's module
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+        learning_rate=0.1, momentum=0.9))
+    mod.forward(short, is_train=True)
+    mod.backward()
+    mod.update()
+    fname = str(tmp_path / "x.states")
+    mod.save_optimizer_states(fname)
+    slots = {k: v.asnumpy() for k, v in
+             mod._curr_module._updater.states.items()}
+    mod._curr_module._updater.states = {}
+    mod.load_optimizer_states(fname)
+    restored = mod._curr_module._updater.states
+    assert set(restored) == set(slots) and slots
+    for k in slots:
+        np.testing.assert_array_equal(restored[k].asnumpy(), slots[k])
 
 
 def test_device_prefetch_carries_buckets_and_keys_its_ring_by_shape(

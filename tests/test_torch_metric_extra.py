@@ -12,7 +12,6 @@ import torch
 import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch import MXNetError
 from torch_one_thread import one_torch_thread  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -93,6 +92,7 @@ def test_create_names_and_the_unported_plugins():
     for name in ("f1", "perplexity", "mae", "mse", "rmse", "nll_loss",
                  "pearsoncorrelation", "loss"):
         assert tmx.metric.create(name).name == jmx.metric.create(name).name
+    # the plugin names, ported since: Loss under their own names
     for name in ("torch", "caffe"):
-        with pytest.raises(MXNetError, match="ROADMAP A2"):
-            tmx.metric.create(name)
+        assert tmx.metric.create(name).name == jmx.metric.create(name).name
+        assert isinstance(tmx.metric.create(name), tmx.metric.Loss)

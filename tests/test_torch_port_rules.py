@@ -26,11 +26,11 @@
   raise with guidance; importing the port loads neither libcuda, NVRTC
   nor triton.
 - The Module slice: ``Module`` defaults to the card; what is not yet
-  ported (a checkpoint manager, also under a supervisor, optimizer-state
-  files, background checkpoints, distributed stores, more than one
-  context, other optimizers, ``BucketingModule``, ``FeedForward``, the
-  serving engine's ``reload_from``, ``from_block`` and quantized graphs,
-  ``ModelServer.reload_from``) raises naming its ROADMAP item; ``fit(kvstore=
+  ported (distributed stores, more than one context, the ``kvstore``
+  optimizer payload and multi-host params files of a checkpoint: A7; the
+  serving engine's ``from_block`` and quantized graphs, the image record
+  iterators, ``LibSVMIter``, ``pack_img`` and ``unpack_img``: A9) raises
+  naming its ROADMAP item; ``fit(kvstore=
   'tpu_sync')`` under ``MXNET_TPU_FUSED_OPTUPDATE=1`` updates through
   kernel #7's wrapper once a batch; the launcher ``run_script`` refuses a
   process that has imported jax, and in a fresh one resolves
@@ -92,6 +92,10 @@ def _forbidden(name):
 def test_port_imports_no_jax_and_no_jax_package():
     files = _port_files()
     assert len(files) > 10
+    # the checkpoint package is scanned like the rest
+    assert {os.path.basename(f) for f in files
+            if os.sep + "checkpoint" + os.sep in f} >= {
+        "__init__.py", "layout.py", "state.py", "manager.py"}
     bad = []
     for path in files:
         with open(path) as f:
@@ -564,40 +568,35 @@ def _bound_module(**fit_kw):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("supervisor", "A8"), ("supervise_env", "A8"),
-    ("checkpoint_manager", "A8"), ("save_optimizer_states", "A8"),
-    ("background_checkpoint", "A8"), ("dist_kvstore", "A7"),
-    ("async_kvstore", "A7"), ("two_contexts", "A7"),
-    ("optimizer", "A2"), ("bucketing", "A8"), ("feedforward", "A3"),
-    ("engine_reload_from", "A8"), ("engine_from_block", "A9"),
-    ("engine_quantized_graph", "A9"), ("server_reload_from", "A8")])
-def test_module_slice_raises_on_what_is_not_ported(what, item, monkeypatch):
+    ("dist_kvstore", "A7"), ("async_kvstore", "A7"), ("two_contexts", "A7"),
+    ("kvstore_payload", "A7"), ("multi_host_params", "A7"),
+    ("engine_from_block", "A9"), ("engine_quantized_graph", "A9"),
+    ("image_record_iter", "A9"), ("image_det_record_iter", "A9"),
+    ("libsvm_iter", "A9"), ("pack_img", "A9"), ("unpack_img", "A9")])
+def test_module_slice_raises_on_what_is_not_ported(what, item, monkeypatch,
+                                                   tmp_path):
+    from mxnet_tpu_torch.checkpoint import layout, state as ckpt_state
     mod, it = _bound_module()
     fit = dict(num_epoch=1, optimizer_params={"learning_rate": 0.1})
+
+    def kvstore_payload():
+        mod.fit(it, **fit)
+        ckpt_state.apply_optimizer_payload(mod, {
+            "mx_ckpt_opt": 1, "kind": "kvstore", "optimizer": None})
+
+    def multi_host_params():
+        tmx.model.save_params(
+            str(tmp_path / layout.host_params_file(0, 2)),
+            {"w@0": tmx.nd.ones((2,), ctx=tmx.cpu())})
+        ckpt_state.load_params_files(str(tmp_path))
+
     calls = {
-        # the supervisor is ported; its checkpoint manager is not
-        "supervisor": lambda: mod.fit(
-            it, supervisor=tmx.resilience.TrainingSupervisor(),
-            checkpoint_manager=object(), **fit),
-        "supervise_env": lambda: mod.fit(it, checkpoint_manager=object(),
-                                         **fit),
-        "checkpoint_manager": lambda: mod.fit(it, checkpoint_manager=object(),
-                                              **fit),
-        "save_optimizer_states": lambda: (
-            mod.fit(it, **fit), mod.save_optimizer_states("x.states")),
-        "background_checkpoint": lambda: tmx.callback.do_checkpoint(
-            "x", background=True),
         "dist_kvstore": lambda: tmx.kvstore.create("dist_sync"),
         "async_kvstore": lambda: tmx.kvstore.create("dist_async"),
         "two_contexts": lambda: tmx.mod.Module(
             _tiny_sym(), context=[tmx.cpu(), tmx.cpu()]),
-        "optimizer": lambda: mod.fit(it, optimizer="nag", **fit),
-        # BucketingModule is ported; its optimizer state files wait for
-        # Module's
-        "bucketing": lambda: _bound_bucketing(it).save_optimizer_states(
-            "x.states"),
-        "feedforward": lambda: tmx.model.FeedForward,
-        "engine_reload_from": lambda: _tiny_engine().reload_from("x"),
+        "kvstore_payload": kvstore_payload,
+        "multi_host_params": multi_host_params,
         "engine_from_block": lambda: tmx.serving.InferenceEngine.from_block(
             object(), ctx=tmx.cpu()),
         "engine_quantized_graph": lambda: tmx.serving.InferenceEngine(
@@ -606,22 +605,15 @@ def test_module_slice_raises_on_what_is_not_ported(what, item, monkeypatch):
                 weight=tmx.sym.Variable("fc_weight_quantize"), name="fc"),
             {"fc_weight_quantize": np.zeros((3, 4), np.int8)},
             ctx=tmx.cpu()),
-        "server_reload_from": lambda: tmx.serving.ModelServer().reload_from(
-            "m", "x"),
+        "image_record_iter": lambda: tmx.io.ImageRecordIter,
+        "image_det_record_iter": lambda: tmx.io.ImageDetRecordIter,
+        "libsvm_iter": lambda: tmx.io.LibSVMIter,
+        "pack_img": lambda: tmx.recordio.pack_img((0, 0.0, 0, 0), None),
+        "unpack_img": lambda: tmx.recordio.unpack_img(b""),
     }
-    if what == "supervise_env":
-        monkeypatch.setenv("MXNET_TPU_TRAIN_SUPERVISE", "1")
     with pytest.raises(MXNetError, match="not yet ported \\(ROADMAP %s"
                        % item):
         calls[what]()
-
-
-def _bound_bucketing(it):
-    mod = tmx.mod.BucketingModule(
-        lambda key: (_tiny_sym(), ("data",), ("softmax_label",)),
-        default_bucket_key=4, context=tmx.cpu())
-    mod.bind(it.provide_data, it.provide_label)
-    return mod
 
 
 def _tiny_engine():

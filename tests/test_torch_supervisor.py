@@ -54,7 +54,6 @@ from mxnet_tpu.resilience import faults as jfaults
 
 import mxnet_tpu_torch as tmx
 import mxnet_tpu_torch.models.resnet as tres
-from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch import profiler as tprof
 from mxnet_tpu_torch.kernels import _emulate
 from mxnet_tpu_torch.kernels import opt_update as tou
@@ -596,8 +595,10 @@ def test_supervising_a_prebound_module_rebuilds_the_fused_step(caplog):
     assert mod._fused_step.supervise
     assert tprof.supervisor_counters()["steps"] == 8
     assert "rebuilding the fused step" in caplog.text
-    with pytest.raises(MXNetError, match="ROADMAP A8"):
-        TrainingSupervisor(manager=object())
+    # a checkpoint manager is ported since: the fit's is adopted
+    # (tests/test_torch_checkpoint.py resumes through it)
+    manager = object()
+    assert TrainingSupervisor(manager=manager).manager is manager
 
 
 def test_warmup_changes_no_state_and_first_step_is_known(reference_steps,
