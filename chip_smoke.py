@@ -247,11 +247,16 @@ line):
              --num-epochs 3 (MNIST_SYNTH_N 6000) with --kv-store local and
              with tpu_sync under MXNET_TPU_FUSED_OPTUPDATE=1, and
              train_imagenet.py --benchmark 1 --gpus 0 --kv-store tpu_sync
-             --num-examples 768 --num-epochs 1 under it. Checks: exit 0, the
+             --num-examples 768 --num-epochs 1 under it, and
+             train_imagenet.py --benchmark 1 --gpus 0,0 --kv-store device
+             --num-examples 256 --disp-batches 4 under it (two contexts on
+             the card: the fused step over both, whole batch). Checks:
+             exit 0, the
              child's "jax not in sys.modules" line, TF32 off in the child
              (Module pins float32), each epoch's
              Train-accuracy and a Speedometer rate printed, the fused step
-             active exactly with tpu_sync and then #7 launched with every
+             active exactly with tpu_sync (and device over 0,0, there over
+             2 contexts) and then #7 launched with every
              leaf (8 for LeNet, 157 for ResNet-50) and otherwise not at all;
              LeNet's last epoch above the first Speedometer window's
              accuracy and at or above the JAX package's value on the CPU
@@ -692,6 +697,41 @@ line):
              served 3-row request bit for bit the eager forward of its
              padded bucket on the checkpoint's params.
 
+44. multi_context — full-width ResNet-50 (ImageNet shapes, 1000
+             classes) over two contexts on the one card, cuDNN
+             deterministic: from one .params file (Xavier after
+             mx.random.seed), Module(context=[cuda:0, cuda:0]).fit(
+             kvstore='device') and the one-context fit(kvstore='tpu_sync'),
+             SGD (lr 0.05, momentum 0.9, wd 1e-4) under
+             MXNET_TPU_FUSED_OPTUPDATE=1, one epoch of 3 seeded batches of
+             32. Gates: both take the fused step, #7 launches once a step
+             over every leaf (157) in each, and the final params and aux
+             states are the same bits. Then the two-context fit with
+             compression_params 2-bit (threshold 0.5): it must take the
+             store's push path (no fused step, #7 never launches) with
+             finite losses. Reports each fit's losses, step walls and
+             update ms.
+45. dist_sync — two ranks share the card: tools/launch.py -n 2 on a free
+             port runs this script with the hidden --dist-child (a session
+             of its own, killed whole past DIST_WAIT_S; each rank's process
+             group waits DIST_GROUP_TIMEOUT_S at most); importing the port
+             joins the gloo group. Each rank fits multi_context's ResNet-50
+             from the same .params file with kvstore='dist_sync' on cuda:0
+             at batch 16, rank r on rows [16r, 16r + 16) of each seeded
+             batch of 32 (rescale_grad 1/32, the per-parameter updater, no
+             fused step), plain and with 2-bit compression, and writes the
+             digests of its params and BatchNorm statistics. This process
+             fits Module(context=[cuda:0, cuda:0]) with kvstore='local' at
+             batch 32 on the same batches (the same slices). Gates, for
+             both: each rank's params the local fit's bits, and rank r's
+             BatchNorm statistics executor r's at the last batch (before
+             the epoch's end averages them). Then one rank without a
+             launcher (num_workers 1): its dist_sync fit at batch 32 (the
+             store's updater, keyed by name) the one-context local fit's
+             bits (the Module's updater, keyed by index). Reports each
+             rank's step walls (the two ranks at once), its push-and-pull
+             host ms a step and the bytes all-reduced a step.
+
 ``--phases`` runs a subset (comma-separated phase names; device and build
 always run); the default runs all of them. ``--parent DIR`` adds a last
 phase, ``parent``: the attention kernels and #7 of the checkout in DIR
@@ -720,7 +760,7 @@ serving or training, the rtc kernels' full-size run or the ResNet-50
 forwards, the bf16 and float16 serving and training runs, long ones
 included; #7's adds its launches in module_fit, example_scripts,
 symbolic_bf16, supervised_fit, imperative, stochastic_fit, rnn_seq,
-bucketing_fit, ssd_fit and checkpoint_fit, by path in
+bucketing_fit, ssd_fit, checkpoint_fit and multi_context, by path in
 ``launches_by_path``; #1's and #8's ``launches_by_path`` add
 model_server's and serve_engine_rtc's counts, taken on the host at
 capture, #8's imperative's; #1's and #3's (and
@@ -3813,6 +3853,12 @@ def phase_example_scripts(torch, dev, tmp):
             ("imagenet_resnet50_tpu_sync", ic + "train_imagenet.py",
              ["--benchmark", "1", "--kv-store", "tpu_sync",
               "--num-examples", "768"], fused, 1, 157),
+            # two contexts on the one card: the fused step over the whole
+            # batch under kvstore 'device'
+            ("imagenet_resnet50_device_gpus_0_0", ic + "train_imagenet.py",
+             ["--benchmark", "1", "--gpus", "0,0", "--kv-store", "device",
+              "--num-examples", "256", "--disp-batches", "4"], fused, 1,
+             157),
             # the imperative slice's: a Python CustomOp loss layer, and
             # Embedding, Reshape, Concat and Dropout (both run kvstore
             # 'local', so #7 never launches)
@@ -3825,7 +3871,7 @@ def phase_example_scripts(torch, dev, tmp):
             args = ["--network", "lenet", "--num-epochs", "3"] + args
         elif script.endswith("train_imagenet.py"):
             args = args + ["--num-epochs", "1"]
-        if script.startswith(ic):
+        if script.startswith(ic) and "--gpus" not in args:
             args = ["--gpus", "0"] + args
         out, counts, seconds = _run_script(torch, script, args, env, tmp)
         acc = [float(v) for v in re.findall(
@@ -3837,14 +3883,19 @@ def phase_example_scripts(torch, dev, tmp):
         if len(acc) != epochs or not speeds:
             fail("example_scripts %s: Train-accuracy %s, Speedometer %s"
                  % (name, acc, speeds))
-        tpu_sync = "tpu_sync" in name
-        if tpu_sync != ("fused train step active" in out):
+        # the runs under MXNET_TPU_FUSED_OPTUPDATE take the fused step
+        fused_run = bool(env)
+        if fused_run != ("fused train step active" in out):
             fail("example_scripts %s: fused step active is %s"
-                 % (name, not tpu_sync))
+                 % (name, not fused_run))
+        if "--gpus" in args and args[args.index("--gpus") + 1] == "0,0" \
+                and "over 2 context(s)" not in out:
+            fail("example_scripts %s: the fused step is not over the two "
+                 "contexts" % name)
         steps = counts["sgd_mom"][0]
-        if (tpu_sync and (steps < 1 or counts["sgd_mom"][1]
-                          != leaves * steps)) or \
-                (not tpu_sync and steps) or \
+        if (fused_run and (steps < 1 or counts["sgd_mom"][1]
+                           != leaves * steps)) or \
+                (not fused_run and steps) or \
                 counts["sgd"][0] or counts["adam"][0]:
             fail("example_scripts %s: kernel #7 counts %s" % (name, counts))
         final = [float(v) for v in re.findall(
@@ -8722,6 +8773,383 @@ def phase_checkpoint_fit(torch, dev, seed, tmp, spec=None):
     return result, {k: tuple(v) for k, v in totals.items()}
 
 
+# --- several contexts and process groups (phases 44 and 45) ----------------
+
+MC_STEPS = 3            # each fit: one epoch of 3 seeded batches
+MC_BATCH = 32           # the global batch; a context's or a rank's is 16
+#: the model of both phases: full-width ResNet-50 on ImageNet's shapes (a
+#: CPU rehearsal sets a small one; the ranks get it in their spec)
+MC_MODEL = {"layers": 50, "classes": 1000, "image": [3, 224, 224]}
+MC_TWO_BIT = {"type": "2bit", "threshold": 0.5}
+DIST_WAIT_S = 240       # the two ranks together, startup included
+DIST_GROUP_TIMEOUT_S = "120"   # each rank's process-group waits
+
+
+def _mc_symbol(mx):
+    from mxnet_tpu_torch.models import resnet as tres
+    with mx.name.NameManager():
+        return tres.get_symbol(
+            num_classes=MC_MODEL["classes"], num_layers=MC_MODEL["layers"],
+            image_shape=",".join(str(d) for d in MC_MODEL["image"]))
+
+
+def _mc_data(np, seed):
+    """The phases' MC_STEPS seeded batches of MC_BATCH images and labels
+    (rank r of two takes rows [16r, 16r + 16) of each)."""
+    rng = np.random.RandomState(seed + 44)
+    data = rng.uniform(-1, 1, (MC_STEPS * MC_BATCH,)
+                       + tuple(MC_MODEL["image"])).astype(np.float32)
+    label = rng.randint(0, MC_MODEL["classes"], (MC_STEPS * MC_BATCH,)) \
+        .astype(np.float32)
+    return data, label
+
+
+def _rank_rows(np, rank):
+    half = MC_BATCH // 2
+    return np.concatenate([np.arange(b * MC_BATCH + rank * half,
+                                     b * MC_BATCH + rank * half + half)
+                           for b in range(MC_STEPS)])
+
+
+def _mc_params_file(torch, mx, dev, seed, tmp):
+    """One .params file of ResNet-50's Xavier draw (mx.random.seed), the
+    start of every fit of the two phases."""
+    path = os.path.join(tmp, "resnet50-mc.params")
+    if os.path.exists(path):
+        return path
+    sym = _mc_symbol(mx)
+    mod = mx.mod.Module(sym, context=dev)
+    mod.bind([("data", (MC_BATCH,) + tuple(MC_MODEL["image"]))],
+             [("softmax_label", (MC_BATCH,))], for_training=False)
+    mx.random.seed(seed)
+    mod.init_params(initializer=mx.init.Xavier(rnd_type="gaussian",
+                                               magnitude=2))
+    arg, aux = mod.get_params()
+    mx.model.save_params(path, arg, aux)
+    del mod
+    return path
+
+
+def _mc_fit(torch, mx, dev, context, kvstore, params_file, data, label,
+            batch, compression=None, exec_aux=False):
+    """One epoch of SGD (FIT_OPT) over ``data`` at ``batch`` from
+    ``params_file``. Returns the module and a record: the final params and
+    aux states (device tensors), the cross-entropy and host wall of each
+    step, the host ms of each ``update`` (push and pull), and with
+    ``exec_aux`` each context's aux states at the last batch, before the
+    epoch's end averages them over the contexts."""
+    arg, aux = mx.model.load_params(params_file)
+    kw = {"compression_params": compression} if compression else {}
+    mod = mx.mod.Module(_mc_symbol(mx), context=context, **kw)
+    it = mx.io.NDArrayIter(data, label, batch)
+    rec = {"loss": [], "wall_ms": [], "update_ms": []}
+    stamp = [None]
+
+    def on_batch(p):
+        _sync(torch, dev)
+        now = time.perf_counter()
+        if stamp[0] is not None:
+            rec["wall_ms"].append((now - stamp[0]) * 1e3)
+        stamp[0] = now
+        rec["loss"].append(float(p.eval_metric.get()[1]))
+        p.eval_metric.reset()
+        if exec_aux and p.nbatch == MC_STEPS - 1:
+            rec["exec_aux"] = [{n: a._data.detach().clone()
+                                for n, a in e.aux_dict.items()}
+                               for e in mod._exec_group.execs]
+
+    plain_update = mod.update
+
+    def timed_update():
+        t = time.perf_counter()
+        plain_update()
+        rec["update_ms"].append((time.perf_counter() - t) * 1e3)
+
+    mod.update = timed_update
+    mod.fit(it, eval_metric="crossentropy", kvstore=kvstore,
+            optimizer="sgd", optimizer_params=FIT_OPT, arg_params=arg,
+            aux_params=aux, batch_end_callback=on_batch, num_epoch=1)
+    _sync(torch, dev)
+    a, x = mod.get_params()
+    rec["arg"] = {n: v._data.detach().clone() for n, v in a.items()}
+    rec["aux"] = {n: v._data.detach().clone() for n, v in x.items()}
+    return mod, rec
+
+
+def _digest(t):
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def _digests(tree):
+    return {n: _digest(t) for n, t in tree.items()}
+
+
+def _tree_diff(torch, got, want):
+    """Names of the leaves whose bits differ, and the worst max abs."""
+    bad, worst = [], 0.0
+    for n, w in want.items():
+        same, d = _bit_diff(torch, got[n], w)
+        if not same:
+            bad.append(n)
+        worst = max(worst, d)
+    return bad, worst
+
+
+def phase_multi_context(torch, dev, seed, tmp):
+    """Full-width ResNet-50 over two contexts on the one card (module
+    docstring, phase 44). Returns (result, per-kernel (launches, leaves)
+    on the path)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    t0 = time.perf_counter()
+    params_file = _mc_params_file(torch, mx, dev, seed, tmp)
+    data, label = _mc_data(np, seed)
+    n_leaves = len(_mc_symbol(mx).list_arguments()) - 2
+    prior = _deterministic_cudnn(torch)
+    result = {"phase": "multi_context", "model": dict(MC_MODEL),
+              "batch": MC_BATCH, "steps": MC_STEPS}
+    try:
+        counts = {}
+        fits = {}
+        with mock.patch.dict(os.environ, MXNET_TPU_FUSED_OPTUPDATE="1"):
+            for name, context, kvstore in (
+                    ("device_two_contexts", [dev, dev], "device"),
+                    ("tpu_sync_one_context", dev, "tpu_sync")):
+                _reset_opt_counts(tou)
+                mod, rec = _mc_fit(torch, mx, dev, context, kvstore,
+                                   params_file, data, label, MC_BATCH)
+                counts[name] = (_opt_counts(tou)["sgd_mom"],
+                                _opt_leaves(tou)["sgd_mom"],
+                                sum(_opt_counts(tou).values()))
+                if mod._fused_step is None:
+                    fail("multi_context: %s took no fused step" % name)
+                if len(mod._context) != (2 if name.startswith("device")
+                                         else 1):
+                    fail("multi_context: %s has %d contexts"
+                         % (name, len(mod._context)))
+                fits[name] = rec
+                del mod
+            for name, (launches, leaves, total) in counts.items():
+                if (launches, leaves, total) != (MC_STEPS,
+                                                 MC_STEPS * n_leaves,
+                                                 MC_STEPS):
+                    fail("multi_context: %s launched #7 %s, want one launch "
+                         "of %d leaves a step" % (name, counts[name],
+                                                  n_leaves))
+            two, one = fits["device_two_contexts"], fits[
+                "tpu_sync_one_context"]
+            bad_arg, err_arg = _tree_diff(torch, two["arg"], one["arg"])
+            bad_aux, err_aux = _tree_diff(torch, two["aux"], one["aux"])
+            if bad_arg or bad_aux:
+                fail("multi_context: the two-context device fit differs from "
+                     "the one-context tpu_sync fit at %s (max abs %g)"
+                     % ((bad_arg + bad_aux)[:6], max(err_arg, err_aux)))
+            # 2-bit compression routes off the fused step, onto the store
+            _reset_opt_counts(tou)
+            mod, comp = _mc_fit(torch, mx, dev, [dev, dev], "device",
+                                params_file, data, label, MC_BATCH,
+                                compression=MC_TWO_BIT)
+            comp_launches = sum(_opt_counts(tou).values())
+            if mod._fused_step is not None or comp_launches or \
+                    not mod._kvstore._gc.active:
+                fail("multi_context: the compressed fit took the fused step "
+                     "(%d #7 launches)" % comp_launches)
+            if not all(math.isfinite(v) for v in comp["loss"]):
+                fail("multi_context: compressed losses %s" % comp["loss"])
+            del mod
+    finally:
+        _restore_cudnn(torch, prior)
+    for name, rec in list(fits.items()) + [("device_two_contexts_2bit",
+                                            comp)]:
+        result[name] = {"cross_entropy": rec["loss"],
+                        "step_wall_ms": rec["wall_ms"],
+                        "update_ms": rec["update_ms"]}
+    result.update({"bitwise_vs_one_context": True,
+                   "launches_per_step": counts["device_two_contexts"][0]
+                   / MC_STEPS,
+                   "leaves_per_step": counts["device_two_contexts"][1]
+                   / MC_STEPS, "compressed_opt_launches": comp_launches,
+                   "seconds": time.perf_counter() - t0})
+    path = {k: (0, 0) for k in OPT_KERNELS}
+    path["sgd_mom"] = tuple(sum(c[i] for c in counts.values())
+                            for i in range(2))
+    return result, path
+
+
+def dist_child(spec_path):
+    """One rank of the dist_sync phase (the hidden ``--dist-child``),
+    started by tools/launch.py: importing the port joins the process
+    group; a dist_sync fit at batch 16 on rank r's rows, plain and 2-bit,
+    its digests and walls written to ``out/rank<r>.json``."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import collectives
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _deterministic_cudnn(torch)
+    MC_MODEL.update(spec["model"])
+    rank = collectives.process_index()
+    if collectives.process_count() != 2:
+        raise SystemExit("dist child: %d processes, want 2"
+                         % collectives.process_count())
+    dev = torch.device(spec["device"])
+    data, label = _mc_data(np, spec["seed"])
+    rows = _rank_rows(np, rank)
+    out = {"rank": rank}
+    for name, comp in (("plain", None), ("2bit", MC_TWO_BIT)):
+        mod, rec = _mc_fit(torch, mx, dev, dev, "dist_sync",
+                           spec["params"], data[rows], label[rows],
+                           MC_BATCH // 2, compression=comp)
+        if mod._fused_step is not None or \
+                mod._kvstore.num_workers != 2 or \
+                mod._optimizer.rescale_grad != 1.0 / MC_BATCH:
+            raise SystemExit("dist child: fused %s, %d workers, rescale %g"
+                             % (mod._fused_step is not None,
+                                mod._kvstore.num_workers,
+                                mod._optimizer.rescale_grad))
+        out[name] = {"arg": _digests(rec["arg"]), "aux": _digests(rec["aux"]),
+                     "loss": rec["loss"], "step_wall_ms": rec["wall_ms"],
+                     "push_pull_ms": rec["update_ms"],
+                     "bytes_allreduced_per_step": sum(
+                         4 * t.numel() for t in rec["arg"].values())}
+        del mod
+    mx.kv.create("dist_sync").barrier()
+    with open(os.path.join(spec["out"], "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(spec, tmp):
+    """The two ranks through tools/launch.py in a session of their own,
+    killed whole past DIST_WAIT_S; returns (exit code, output, seconds)."""
+    path = os.path.join(tmp, "dist.spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               MXNET_DIST_TIMEOUT_S=DIST_GROUP_TIMEOUT_S)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tools", "launch.py"), "-n",
+         "2", "--coordinator-port", str(_free_port()), "--",
+         sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--dist-child", path], cwd=tmp, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DIST_WAIT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail("dist_sync: the ranks ran past %gs: %s" % (DIST_WAIT_S,
+                                                       out[-3000:]))
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def phase_dist_sync(torch, dev, seed, tmp):
+    """Two ranks sharing the card through dist_sync against the
+    two-context local fit (module docstring, phase 45). Returns the
+    result."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.kernels import opt_update as tou
+    params_file = _mc_params_file(torch, mx, dev, seed, tmp)
+    out_dir = os.path.join(tmp, "dist_out")
+    os.makedirs(out_dir, exist_ok=True)
+    rc, out, seconds = _run_ranks({"seed": seed, "params": params_file,
+                                   "device": str(dev), "out": out_dir,
+                                   "model": MC_MODEL}, tmp)
+    if rc != 0:
+        fail("dist_sync: the ranks exited %d: %s" % (rc, out[-3000:]))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, "rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    data, label = _mc_data(np, seed)
+    result = {"phase": "dist_sync", "model": dict(MC_MODEL),
+              "rank_batch": MC_BATCH // 2,
+              "steps": MC_STEPS, "ranks_seconds": seconds, "ranks": {}}
+    prior = _deterministic_cudnn(torch)
+    try:
+        _reset_opt_counts(tou)
+        for name, comp in (("plain", None), ("2bit", MC_TWO_BIT)):
+            mod, local = _mc_fit(torch, mx, dev, [dev, dev], "local",
+                                 params_file, data, label, MC_BATCH,
+                                 compression=comp, exec_aux=True)
+            if mod._fused_step is not None or len(mod._exec_group.execs) \
+                    != 2 or mod._optimizer.rescale_grad != 1.0 / MC_BATCH:
+                fail("dist_sync: the local fit is not two executors on the "
+                     "store's updater at rescale 1/%d" % MC_BATCH)
+            want_arg = _digests(local["arg"])
+            for r, res in enumerate(ranks):
+                got = res[name]
+                bad = [n for n, d in want_arg.items() if got["arg"][n] != d]
+                want_aux = _digests(local["exec_aux"][r])
+                bad_aux = [n for n, d in want_aux.items()
+                           if got["aux"][n] != d]
+                if bad or bad_aux:
+                    fail("dist_sync %s: rank %d differs from the two-context "
+                         "local fit at params %s, executor %d's BatchNorm "
+                         "statistics %s" % (name, r, bad[:4], r,
+                                            bad_aux[:4]))
+                if not all(math.isfinite(v) for v in got["loss"]):
+                    fail("dist_sync %s: rank %d losses %s"
+                         % (name, r, got["loss"]))
+                result["ranks"].setdefault(name, {})[r] = {
+                    k: got[k] for k in ("loss", "step_wall_ms",
+                                        "push_pull_ms",
+                                        "bytes_allreduced_per_step")}
+            result["local_" + name] = {
+                "step_wall_ms": local["wall_ms"],
+                "update_ms": local["update_ms"], "loss": local["loss"]}
+            del mod
+        # one rank without a launcher: dist_sync (the store's updater,
+        # keyed by name) against the one-context local fit (the Module's,
+        # keyed by index)
+        mod, alone = _mc_fit(torch, mx, dev, dev, "dist_sync", params_file,
+                             data, label, MC_BATCH)
+        if mod._kvstore.num_workers != 1 or not mod._update_on_kvstore:
+            fail("dist_sync: the rank without a launcher has %d workers"
+                 % mod._kvstore.num_workers)
+        del mod
+        mod, one = _mc_fit(torch, mx, dev, dev, "local", params_file, data,
+                           label, MC_BATCH)
+        if mod._kvstore is not None:
+            fail("dist_sync: the one-context local fit made a store")
+        del mod
+        bad_arg, err_arg = _tree_diff(torch, alone["arg"], one["arg"])
+        bad_aux, err_aux = _tree_diff(torch, alone["aux"], one["aux"])
+        if bad_arg or bad_aux:
+            fail("dist_sync: one rank's dist_sync fit differs from the "
+                 "one-context local fit at %s (max abs %g)"
+                 % ((bad_arg + bad_aux)[:6], max(err_arg, err_aux)))
+        if sum(_opt_counts(tou).values()):
+            fail("dist_sync: #7 launched on the per-parameter paths")
+    finally:
+        _restore_cudnn(torch, prior)
+    result.update({"bitwise_ranks_vs_local": True,
+                   "bitwise_one_rank_vs_local": True,
+                   "one_rank_step_wall_ms": alone["wall_ms"],
+                   "one_context_local_step_wall_ms": one["wall_ms"]})
+    return result
+
+
 PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "train_profile", "opt_kernel", "symbolic_train", "symbolic_profile",
           "grid_kernel", "serve_long", "train_long", "rtc_kernel",
@@ -8732,7 +9160,7 @@ PHASES = ("kernel", "serve", "profile", "train_kernel", "train",
           "serve_engine", "serve_engine_rtc", "model_server", "frontdoor",
           "fleet", "imperative", "stochastic_fit", "rnn_seq",
           "bucketing_fit", "detection_ops", "ssd_fit", "optimizers",
-          "checkpoint_fit")
+          "checkpoint_fit", "multi_context", "dist_sync")
 #: phase -> the phases whose results it needs
 NEEDS = {"profile": ("serve",), "train_profile": ("train",),
          "symbolic_profile": ("symbolic_train",),
@@ -8760,6 +9188,8 @@ def main():
                         help=argparse.SUPPRESS)
     parser.add_argument("--checkpoint-child", default=None,
                         help=argparse.SUPPRESS)
+    parser.add_argument("--dist-child", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.frontdoor_client:
         # the frontdoor phase's client process (it needs no card)
@@ -8767,6 +9197,9 @@ def main():
     if args.checkpoint_child:
         # a checkpoint_fit run in its own process
         return checkpoint_child(args.checkpoint_child)
+    if args.dist_child:
+        # a dist_sync rank, started by tools/launch.py
+        return dist_child(args.dist_child)
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
         parser.error("unknown phases %s" % sorted(phases - set(PHASES)))
@@ -9047,6 +9480,17 @@ def main():
                 torch, dev, args.seed, tmp)
         emit({**res, "card": card})
         torch.cuda.empty_cache()
+    if phases & {"multi_context", "dist_sync"}:
+        with tempfile.TemporaryDirectory() as tmp:
+            if "multi_context" in phases:
+                res, opt_paths["multi_context"] = phase_multi_context(
+                    torch, dev, args.seed, tmp)
+                emit({**res, "card": card})
+                torch.cuda.empty_cache()
+            if "dist_sync" in phases:
+                emit({**phase_dist_sync(torch, dev, args.seed, tmp),
+                      "card": card})
+                torch.cuda.empty_cache()
     if "serve_engine" in phases:
         emit({**phase_serve_engine(torch, dev, args.seed, args.profile_dir),
               "card": card})

@@ -55,6 +55,14 @@ bit, also under a supervisor; a preemption signal flushes a final
 checkpoint; ``InferenceEngine.reload_from`` follows a run), the record
 files (``mx.recordio``), ``FeedForward`` and the remaining iterators,
 initializers and schedulers.
+Its twenty-first slice trains over process groups and several contexts:
+``parallel.collectives`` joins the launcher's process group
+(``tools/launch.py -n 2 -- python ...``; gloo) at import,
+``mx.kv.create('dist_sync')`` sums each pushed gradient over the workers,
+``mx.mod.Module(context=[mx.gpu(0), mx.gpu(0)])`` splits each batch over
+its contexts (the fused step over the whole batch under ``device`` or
+``tpu_sync``), and ``compression_params={'type': '2bit'}`` compresses the
+pushes (``gradient_compression``).
 
 Entry points run on the card (``cuda:0``) unless the caller passes
 ``device="cpu"``, and raise ``MXNetError`` when CUDA is missing.
@@ -68,11 +76,17 @@ from . import (attribute, autograd, callback, checkpoint, engine,
                imperative, initializer, io, kvstore, lr_scheduler, metric,
                model, module, monitor, operator, optimizer, random, recordio,
                resilience, rnn, serving)
+from . import gradient_compression
+from . import kvstore as kv
 from .attribute import AttrScope
 from .base import MXNetError
 from .context import cpu, gpu, tpu, default_device
 from .executor import Executor
 from .parallel import DataParallelTrainStep, ShardedTrainStep
+
+# join the launcher's process group at import, as the reference does (a
+# no-op without the launcher's environment)
+parallel.collectives.ensure_distributed()
 
 sym = symbol
 nd = ndarray
@@ -86,5 +100,5 @@ __all__ = ["MXNetError", "cpu", "gpu", "tpu", "default_device", "profiler",
            "symbol", "mod", "module", "io", "metric", "init", "initializer",
            "optimizer", "lr_scheduler", "kvstore", "model", "callback",
            "random", "resilience", "engine", "monitor", "serving", "rnn",
-           "attribute", "AttrScope", "checkpoint", "recordio",
-           "__version__"]
+           "attribute", "AttrScope", "checkpoint", "recordio", "kv",
+           "gradient_compression", "__version__"]

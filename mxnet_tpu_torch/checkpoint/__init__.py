@@ -16,7 +16,7 @@
 The directories and ``params.nd`` are the JAX package's format, so either
 package restores the other's params, and the port resumes a fit the JAX
 package checkpointed. ``kvshard`` (the ``dist_async`` server shards) is
-not yet ported (ROADMAP A7).
+not yet ported (ROADMAP A7 part 2).
 """
 from . import layout
 from . import state

@@ -21,7 +21,7 @@ Transient write errors retry under ``resilience.retry`` (site
 ``checkpoint.write``); the fault sites are ``checkpoint.write``,
 ``checkpoint.commit`` and ``checkpoint.preempt``. One process writes a
 checkpoint: the multi-host shared staging of the reference and server
-snapshots of ``dist_async`` stores are not yet ported (ROADMAP A7).
+snapshots of ``dist_async`` stores are not yet ported (ROADMAP A7 part 2).
 """
 from __future__ import annotations
 

@@ -19,7 +19,7 @@ Optimizer state is a tagged payload, the reference's format:
   the port adds ``module_optimizer``, the Module's optimizer object, so
   num_update and the scheduler position resume with it.
 * ``kind="kvstore"`` (slots on ``dist_async`` servers) is not yet ported
-  (ROADMAP A7), nor are the multi-host ``params.hostNNN-of-MMM`` files.
+  (ROADMAP A7 part 2), nor are the multi-host ``params.hostNNN-of-MMM`` files.
 
 Payloads are pickles. The port reads them through :class:`_Unpickler`,
 which maps ``mxnet_tpu.<mod>.<Name>`` to the port's class of the same name
@@ -284,7 +284,8 @@ def _parse_opt_payload(blob):
 
 def _kind_not_ported(kind):
     raise MXNetError("optimizer payload kind %r (slots on dist_async "
-                     "servers) is not yet ported (ROADMAP A7)" % (kind,))
+                     "servers) is not yet ported (ROADMAP A7 part 2)"
+                     % (kind,))
 
 
 @torch.no_grad()
@@ -320,7 +321,7 @@ def apply_optimizer_payload(mod, blob):
                              "but this module has no fused step")
         if payload.get("zero"):
             raise MXNetError("checkpoint holds ZeRO-sharded slots: not yet "
-                             "ported (ROADMAP A7)")
+                             "ported (ROADMAP A7 part 3)")
         _copy_tree_into(step.opt_state, tree_to_numpy(payload["state"]),
                         "opt_state")
         src = payload.get("module_optimizer") or payload.get("optimizer")
@@ -411,7 +412,7 @@ def restore_rng(state):
 def save_params_files(path, arg_params, aux_params):
     """Write ``params.nd`` (``model.save_params``' container, which either
     package's ``load_params`` reads). Returns the manifest's shard index:
-    always {} here, the multi-host layout being not yet ported (A7)."""
+    always {} here, the multi-host layout being not yet ported (A7 part 2)."""
     from ..model import save_params
     save_params(os.path.join(path, layout.PARAMS_FILE), arg_params or {},
                 aux_params or {})
@@ -426,7 +427,7 @@ def load_params_files(path, meta=None):
         return load_params(single)
     if layout.list_host_params_files(path):
         raise MXNetError("checkpoint %s holds multi-host params files: not "
-                         "yet ported (ROADMAP A7)" % path)
+                         "yet ported (ROADMAP A7 part 2)" % path)
     raise MXNetError("checkpoint %s has no params file" % path)
 
 

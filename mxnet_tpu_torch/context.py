@@ -26,7 +26,8 @@ __all__ = ["cpu", "gpu", "tpu", "default_device", "resolve_device",
 _local = threading.local()
 
 
-def cpu():
+def cpu(device_id=0):
+    """The host; every ``cpu(i)`` is torch's one CPU device."""
     return torch.device("cpu")
 
 

@@ -46,6 +46,16 @@ def _create_kvstore(kvstore, num_device, arg_params):
             kv = None
         else:
             kv = kvs.create(kvstore)
+            if kvstore == "local":
+                # MXNET_KVSTORE_BIGARRAY_BOUND: with a param above the
+                # bound the workers update, not the store
+                from .base import get_env
+                bound = get_env("MXNET_KVSTORE_BIGARRAY_BOUND",
+                                1024 * 1024 * 16, int)
+                max_size = max(_np.prod(param.shape)
+                               for param in arg_params.values())
+                if max_size > bound:
+                    update_on_kvstore = False
     else:
         raise TypeError("kvstore must be KVStore, str or None")
     if kv is None:

@@ -3,7 +3,7 @@
 Counterpart of ``mxnet_tpu/models/transformer.py``: ``TransformerConfig``,
 ``init_transformer``, ``params_from_jax``, the training forward and loss
 ``transformer_forward`` / ``transformer_loss`` (single device; a mesh
-raises until distribution is ported, ROADMAP A7), and the paged-KV
+raises until distribution is ported, ROADMAP A7 part 3), and the paged-KV
 decode bodies ``transformer_decode_prefill`` / ``transformer_decode_step``
 behind ``TransformerDecodeModel``.
 
@@ -67,7 +67,7 @@ class TransformerConfig:
         # torch.utils.checkpoint around each block (jax.checkpoint there)
         self.remat = remat
         # 'ring' | 'ulysses' | 'full': how a mesh's 'sp' axis splits the
-        # sequence; read only with a mesh (not yet ported, ROADMAP A7)
+        # sequence; read only with a mesh (not yet ported, ROADMAP A7 part 3)
         self.attn_impl = attn_impl
         self.block_k = block_k
         self.dropout = dropout
@@ -171,7 +171,7 @@ def _attention(q, k, v, cfg, mesh):
     ``blockwise_attention`` with ``cfg.block_k``."""
     if mesh is not None:
         raise MXNetError("transformer attention over a mesh: distribution "
-                         "is not yet ported (ROADMAP A7)")
+                         "is not yet ported (ROADMAP A7 part 3)")
     use_kernel = mesh_kernels.resolve_kernel_tier(device=q.device)
     return flash_attention(q, k, v, causal=True, block_k=cfg.block_k,
                            use_pallas=use_kernel, variant=cfg.attn_variant)
@@ -224,7 +224,7 @@ def transformer_forward(params, tokens, cfg, mesh=None, rng=None,
     ``torch.Generator``) is given: each layer draws one seed from ``rng``,
     the analog of the per-layer key split. The JAX package's random bits
     are not reproduced. ``mesh`` must be None (distribution is not yet
-    ported, ROADMAP A7).
+    ported, ROADMAP A7 part 3).
 
     Computes in ``cfg.dtype``: every param is cast to it first, a no-op
     for params in it (the JAX forward's case). float32 params of a bf16
@@ -233,7 +233,7 @@ def transformer_forward(params, tokens, cfg, mesh=None, rng=None,
     raises on them (its layer scan's carry changes dtype, ROADMAP C)."""
     if mesh is not None:
         raise MXNetError("transformer_forward(mesh=...): distribution is "
-                         "not yet ported (ROADMAP A7)")
+                         "not yet ported (ROADMAP A7 part 3)")
     params = _in_dtype(params, cfg.dtype)
     B, S = tokens.shape
     tokens = tokens.long()

@@ -8,7 +8,8 @@ torch's TF32 matmuls and convolutions (``context.pin_float32``;
 ``MXNET_ALLOW_TF32=1`` opts in to TF32).
 
 ``init_optimizer`` picks the update path as the reference does:
-- a ``tpu_sync`` kvstore (or its type name) builds the fused step,
+- a ``tpu_sync`` kvstore (or its type name), or ``device`` over several
+  contexts, builds the fused step,
   ``parallel.DataParallelTrainStep`` on the module's device: each
   training ``forward`` is one step (forward, backward and the SGD or Adam
   update, through kernel #7 under ``MXNET_TPU_FUSED_OPTUPDATE=1``), fed the
@@ -61,9 +62,21 @@ counters) from device clones; ``load_optimizer_states`` and
 ``Module.load(..., load_optimizer_states=True)`` (applied by
 ``init_optimizer``) read it back, also from the JAX package's files.
 
-Not yet ported, and raising: more than one context, ``group2ctxs`` and
-gradient compression (ROADMAP A7), and row-sparse parameters (ROADMAP
-A9).
+``context`` may be a list: contexts may repeat (``[mx.gpu(0),
+mx.gpu(0)]``, as in MXNet), and the executor group splits each batch
+over them (``work_load_list``), one executor per slice. The update path
+follows the reference (L302-303, L361-411): a ``tpu_sync`` store, or
+``device`` over several contexts, builds the fused step over the
+contexts' mesh (the whole batch on their one device); it is not built
+when ``compression_params`` asks for compression (the store's push
+compresses), when the process group has several processes
+(``dist_sync`` pushes each gradient through the store's ``Updater``, with
+``rescale_grad`` 1 / (batch x num_workers)), or when the batch does not
+divide over the contexts (a warning). ``group2ctxs`` that keeps every
+group on its context's device is accepted and places nothing.
+
+Not yet ported, and raising: contexts on several physical devices in one
+process (ROADMAP A7 part 3) and row-sparse parameters (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -76,7 +89,7 @@ import torch
 
 from .. import profiler as _prof
 from ..base import MXNetError, atomic_write, env_flag, get_env
-from ..context import pin_float32, resolve_device
+from ..context import pin_float32
 from ..initializer import Uniform, InitDesc
 from .. import optimizer as opt_mod
 from ..model import (_create_kvstore, _initialize_kvstore,
@@ -85,6 +98,9 @@ from ..model import (_create_kvstore, _initialize_kvstore,
 from ..io import DataDesc
 from ..ndarray.ndarray import NDArray
 from ..ops.elemwise import torch_dtype
+from ..parallel import collectives
+from ..parallel.mesh import (data_parallel_mesh, mesh_devices,
+                             one_physical_device)
 from ..resilience import faults as _faults
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
@@ -104,13 +120,13 @@ class Module(BaseModule):
         super().__init__(logger=logger)
         if context is None or isinstance(context, (str, torch.device)):
             context = [context]
-        if len(context) != 1:
-            _not_ported("Module over %d contexts" % len(context), "A7")
-        if group2ctxs is not None or compression_params is not None:
-            _not_ported("Module(group2ctxs=, compression_params=)", "A7")
-        self._context = [resolve_device(c) for c in context]
+        self._context = mesh_devices(list(context))
+        if len(self._context) > 1:
+            # contexts may repeat ([gpu(0), gpu(0)]); contexts on several
+            # physical devices raise (ROADMAP A7 part 3)
+            one_physical_device(self._context, "Module(context=...)")
         pin_float32()
-        self._work_load_list = work_load_list or [1]
+        self._work_load_list = work_load_list or [1] * len(self._context)
 
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
@@ -138,6 +154,8 @@ class Module(BaseModule):
         self._arg_params = None
         self._aux_params = None
         self._params_dirty = False
+        self._compression_params = compression_params
+        self._group2ctxs = group2ctxs
         self._optimizer = None
         self._kvstore = None
         self._update_on_kvstore = None
@@ -324,9 +342,10 @@ class Module(BaseModule):
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
-            for_training, inputs_need_grad, logger=self.logger,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            state_names=self._state_names)
+            for_training, inputs_need_grad, shared_group=None,
+            logger=self.logger, fixed_param_names=self._fixed_param_names,
+            grad_req=grad_req, state_names=self._state_names,
+            group2ctxs=self._group2ctxs)
         self.binded = True
         if self.params_initialized:
             # params set before bind (Module.load): into the executors
@@ -365,7 +384,10 @@ class Module(BaseModule):
                         else getattr(kvstore, "type", "") or "")
         (kvstore, update_on_kvstore) = _create_kvstore(
             kvstore, len(self._context), self._arg_params)
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        batch_size = self._exec_group.batch_size
+        if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
 
         if update_on_kvstore:
             idx2name = dict(enumerate(self._exec_group.param_names))
@@ -399,6 +421,8 @@ class Module(BaseModule):
         self._try_build_fused_step(kvstore_type)
 
         if kvstore:
+            if self._compression_params:
+                kvstore.set_gradient_compression(self._compression_params)
             if update_on_kvstore:
                 kvstore.set_optimizer(self._optimizer)
             _initialize_kvstore(kvstore=kvstore,
@@ -418,11 +442,23 @@ class Module(BaseModule):
     # ------------------------------------------------------------------
     def _try_build_fused_step(self, kvstore_type):
         self._fused_step = None
-        if "tpu" not in kvstore_type:
+        if not ("tpu" in kvstore_type
+                or (kvstore_type == "device" and len(self._context) > 1)):
             return
         if not self.for_training or self._grad_req != "write":
             return
         if self.inputs_need_grad or self._state_names or self._monitor:
+            return
+        if self._compression_params:
+            # compression asked for must compress: the store's push path
+            # quantizes, the fused step never would
+            self.logger.info(
+                "kvstore=%s: gradient compression requested; using the "
+                "kvstore aggregation path (drop compression_params to get "
+                "the fused in-graph step)", kvstore_type)
+            return
+        if collectives.process_count() > 1:
+            # several processes sum through the store's push
             return
         if self._label_shapes is None:
             return
@@ -437,7 +473,15 @@ class Module(BaseModule):
                              "using the per-param update path",
                              kvstore_type, type(opt).__name__)
             return
+        batch_size = self._data_shapes[0].shape[0]
+        if batch_size % len(self._context) != 0:
+            self.logger.warning(
+                "kvstore=%s: batch %d not divisible by %d devices; "
+                "fused step disabled", kvstore_type, batch_size,
+                len(self._context))
+            return
         from ..parallel.tpu_step import DataParallelTrainStep
+        mesh = data_parallel_mesh(self._context)
         batch_shapes = {d.name: d.shape for d in self._data_shapes}
         batch_shapes.update({l.name: l.shape for l in self._label_shapes})
         # mixed precision: optimizer multi_precision=True or
@@ -455,12 +499,12 @@ class Module(BaseModule):
                 compute_dtype = None
         supervisor = self._supervisor
         step = DataParallelTrainStep(
-            self._symbol, lr=opt.lr, wd=opt.wd,
+            self._symbol, mesh, lr=opt.lr, wd=opt.wd,
             data_names=self._data_names, label_names=self._label_names,
             rescale_grad=opt.rescale_grad, optimizer=fused_name, opt_hp=hp,
             fixed_param_names=self._fixed_param_names,
             clip_gradient=opt.clip_gradient, compute_dtype=compute_dtype,
-            supervise=supervisor is not None, device=self._context[0])
+            supervise=supervisor is not None)
         step.init_from(self._arg_params, self._aux_params, batch_shapes)
         if supervisor is not None:
             # the default loss scale follows the step's compute dtype
@@ -471,8 +515,9 @@ class Module(BaseModule):
                                               2, int))
         self._inflight.clear()
         self.logger.info("kvstore=%s: fused train step active (fwd+bwd+%s "
-                         "in one step on %s)", kvstore_type, fused_name,
-                         step.device)
+                         "in one step on %s over %d context(s))",
+                         kvstore_type, fused_name, step.device,
+                         len(self._context))
         if get_env("MXNET_TPU_TRAIN_AOT", 1, int):
             # a host batch's float64 becomes float32 on the way to the
             # device (the NDArray convention), as the step will see it

@@ -22,7 +22,7 @@ the JAX step returns it. ``_jnp_cast`` gives the port's other
 float32-scalar products (the step's clip scale) the same promotion.
 
 The ZeRO form ``apply_update_sharded`` arrives with distribution (ROADMAP
-A7).
+A7 part 3).
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ def init_opt_state(optimizer, params, momentum=0.0, layout=None):
     step ``t`` is an int32 0-d tensor on the params' device."""
     if layout is not None:
         raise MXNetError("init_opt_state: the ZeRO layout is not yet ported "
-                         "(distribution, ROADMAP A7)")
+                         "(distribution, ROADMAP A7 part 3)")
     if optimizer == "adam":
         dev = tree_leaves(params)[0].device
         return {"m": tree_map(torch.zeros_like, params),

@@ -50,7 +50,7 @@ class ShardedTrainStep:
     loss_fn : callable(params, batch) -> scalar loss tensor
         ``batch`` is a dict of tensors on the step's device.
     mesh : None
-        A mesh raises: distribution is not yet ported (ROADMAP A7).
+        A mesh raises: distribution is not yet ported (ROADMAP A7 part 3).
     optimizer : 'adam' | 'sgd' (``momentum`` 0 for plain SGD)
     grad_clip : float or None
         Global-norm clip: grads scale by ``min(1, clip / (norm + 1e-6))``.
@@ -76,7 +76,8 @@ class ShardedTrainStep:
                  fused_optupdate=None, device=None):
         if mesh is not None:
             raise MXNetError("ShardedTrainStep(mesh=...): distribution is not "
-                             "yet ported (ROADMAP A7); pass mesh=None")
+                             "yet ported (ROADMAP A7 part 3); pass "
+                             "mesh=None")
         if shard_update or zero:
             # as the JAX constructor does without a 'dp' axis of size > 1
             raise MXNetError("%s=True needs a 'dp' mesh axis of size > 1; "

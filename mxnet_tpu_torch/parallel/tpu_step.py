@@ -1,12 +1,19 @@
 """Fused train step of the symbolic stack, on one device.
 
 Counterpart of ``mxnet_tpu/parallel/tpu_step.py`` ``DataParallelTrainStep``
-(L24-661) on a one-device mesh: a Symbol's forward, backward and optimizer
-update in one call, what ``Module.fit(kvstore='tpu_sync')`` hands its
-work to. The JAX step compiles this into one XLA program; the port runs
-it eagerly: the graph interpreter ``executor.run_graph`` (shared with
-``Executor``) under ``torch.autograd``, seeds of ones at the outputs, then
-the update.
+(L24-661): a Symbol's forward, backward and optimizer update in one call,
+what ``Module.fit(kvstore='tpu_sync')`` hands its work to. The JAX step
+compiles this into one XLA program; the port runs it eagerly: the graph
+interpreter ``executor.run_graph`` (shared with ``Executor``) under
+``torch.autograd``, seeds of ones at the outputs, then the update.
+
+- ``mesh`` (a ``parallel.mesh.Mesh`` or a list of devices) whose entries
+  all name one physical device, e.g. ``[gpu(0), gpu(0)]``: the step runs
+  the whole batch there, which is the whole-batch math of the reference's
+  partitioned program (BatchNorm over the whole batch); the update is the
+  one #7 launch over every float32 leaf, the single-device counterpart of
+  ``fused_update_mesh``. Each batch input's axis 0 must divide by the
+  mesh's size, as the reference's batch sharding requires (ValueError).
 
 - The update is the reference's prologue (rescale -> elementwise clip ->
   + wd * weight) and ``apply_update``, or with ``fused_optupdate`` (or
@@ -62,8 +69,8 @@ the update.
   masks bit for bit. ``rng`` (an int) seeds the step's generator instead.
   A graph without them draws nothing from numpy.
 
-Not yet ported, and raising: a mesh of more than one device, ``zero``
-and ``comm_plan`` (distribution, ROADMAP A7) and the lint hooks of
+Not yet ported, and raising: a mesh over several physical devices,
+``zero`` and ``comm_plan`` (ROADMAP A7 part 3) and the lint hooks of
 ``MXNET_TPU_LINT`` (ROADMAP A9, analysis/). ``shard_update`` on one
 device is the no-op it is in the JAX package, and ``sharding_config``
 has nothing to shard: both are accepted and ignored.
@@ -84,6 +91,7 @@ from ..kernels.opt_update import fused_update_step
 from ..ops.elemwise import torch_dtype
 from ..ops.nn import loss_grad_scale_scope
 from ..random import step_seed
+from .mesh import mesh_devices, one_physical_device
 from .optim_update import (apply_update, grad_prologue, init_opt_state,
                            tree_map)
 
@@ -110,9 +118,9 @@ def _tensor(x, device):
 class DataParallelTrainStep:
     """A Symbol's forward + backward + optimizer update on one device.
 
-    ``mesh`` is None or a one-device list (whose device is used when
-    ``device`` is not given); ``device`` defaults to ``cuda:0`` and raises
-    without CUDA. Each call takes a batch (dict name -> numpy array or
+    ``mesh`` is None or a mesh of one physical device (which is used
+    when ``device`` is not given); ``device`` defaults to ``cuda:0`` and
+    raises without CUDA. Each call takes a batch (dict name -> numpy array or
     tensor) and returns the outputs; params, slots and aux states update
     in place."""
 
@@ -123,17 +131,21 @@ class DataParallelTrainStep:
                  compute_dtype=None, shard_update=None,
                  fused_optupdate=None, zero=None, supervise=False,
                  device=None):
+        self.mesh_size = 1
         if mesh is not None:
-            devices = list(mesh) if isinstance(mesh, (list, tuple)) else None
-            if devices is None or len(devices) != 1:
-                raise MXNetError("DataParallelTrainStep(mesh=...): "
-                                 "distribution is not yet ported (ROADMAP "
-                                 "A7); pass mesh=None or one device")
+            devices = mesh_devices(mesh)
+            one = one_physical_device(devices,
+                                      "DataParallelTrainStep(mesh=)")
             if device is None:
-                device = devices[0]
+                device = one
+            elif one_physical_device([resolve_device(device)],
+                                     "device") != one:
+                raise MXNetError("DataParallelTrainStep: device %s is not "
+                                 "the mesh's %s" % (device, one))
+            self.mesh_size = len(devices)
         if zero:
             raise MXNetError("DataParallelTrainStep(zero=True): ZeRO is not "
-                             "yet ported (distribution, ROADMAP A7)")
+                             "yet ported (distribution, ROADMAP A7 part 3)")
         if env_flag("MXNET_TPU_LINT"):
             raise MXNetError("MXNET_TPU_LINT: the train step's lint hooks are "
                              "not yet ported (ROADMAP A9, analysis/)")
@@ -229,7 +241,18 @@ class DataParallelTrainStep:
         return ({n: v.detach().cpu().numpy() for n, v in self.params.items()},
                 {n: v.detach().cpu().numpy() for n, v in self.aux.items()})
 
+    def _check_batch(self, shapes):
+        """Each batch input's axis 0 splits evenly over the mesh, as the
+        reference's batch sharding requires."""
+        for name, shape in shapes:
+            if shape and shape[0] % self.mesh_size:
+                raise ValueError(
+                    "batch input %r of shape %s: axis 0 must be divisible "
+                    "by the mesh's %d devices" % (name, tuple(shape),
+                                                  self.mesh_size))
+
     def _build_step(self, batch_shapes):
+        self._check_batch(batch_shapes.items())
         self._plan = GraphPlan(self.symbol)
         batch_size = list(batch_shapes.values())[0][0]
         self._rescale_value = (self._rescale if self._rescale is not None
@@ -356,6 +379,8 @@ class DataParallelTrainStep:
             self._gen.manual_seed(step_seed() if rng is None else int(rng))
         batch = {n: torch.as_tensor(x).to(self.device, non_blocking=True)
                  for n, x in batch.items() if n in self.arg_names}
+        if self.mesh_size > 1:
+            self._check_batch((n, t.shape) for n, t in batch.items())
         self._lr_t.fill_(self.lr if lr is None else lr)
         if not self.supervise:
             return self._step(self.params, self.opt_state, self.aux, batch,
@@ -409,4 +434,4 @@ class DataParallelTrainStep:
         self._step.aot_info(*args, mode="aot")
         return self
 
-    comm_plan = _not_ported("comm_plan", "A7")
+    comm_plan = _not_ported("comm_plan", "A7 part 3")

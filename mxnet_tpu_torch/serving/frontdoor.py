@@ -160,6 +160,12 @@ class _Conn:
         self.sent_ring = collections.deque(maxlen=_SENT_RING)
 
 
+def _replies_done(conn):
+    """No reply of ``conn`` queued or being sent."""
+    with conn.send_q.mutex:
+        return conn.send_q.unfinished_tasks == 0
+
+
 class _Pending:
     __slots__ = ("conn", "model", "rid")
 
@@ -379,10 +385,14 @@ class ServingFrontDoor:
         return True
 
     def _wait_replies_flushed(self, deadline):
+        """Every live connection's replies written: none queued and none
+        in the writer's hands (a reply taken off the queue counts until
+        its send returns, ``task_done``), so closing the socket after this
+        never cuts a reply the writer is sending."""
         while True:
             with self._lock:
                 conns = list(self._conns)
-            if all(c.send_q.empty() or not c.alive for c in conns):
+            if all(_replies_done(c) or not c.alive for c in conns):
                 return True
             if deadline is not None and time.monotonic() > deadline:
                 return False
@@ -605,6 +615,7 @@ class ServingFrontDoor:
                 self._requeue_orphan(conn.send_q.get(block=False))
             except _queue.Empty:
                 break  # empty queue IS the drain's exit condition
+            conn.send_q.task_done()
         # ... and, for NON-clean deaths, the recently-SENT window too: a
         # send into a half-dead connection succeeds into the TCP buffer,
         # so outcomes the writer believed delivered may be gone — retain
@@ -1091,6 +1102,11 @@ class ServingFrontDoor:
                             # empty queue IS the loop's exit: every
                             # queued reply has been orphaned
                             return
+                        conn.send_q.task_done()
+                finally:
+                    # this reply is written (or orphaned): drain may now
+                    # close the socket
+                    conn.send_q.task_done()
         finally:
             hb.close()
 

@@ -208,7 +208,7 @@ class BucketedProgramCache:
 
     def comm_plan(self):
         raise MXNetError("BucketedProgramCache.comm_plan is not yet ported "
-                         "(ROADMAP A7)")
+                         "(ROADMAP A7 part 3)")
 
     def stats(self):
         with self._lock:

@@ -19,7 +19,8 @@ package's, on the CPU, over real sockets on 127.0.0.1 (port 0).
 - Per-peer eviction after repeated mid-frame failures, refused at accept
   until the cooldown ends; a tampered frame is rejected before decode and
   counted; a pickle peer is served while compat is on and refused when
-  it is off; drain resolves what it admitted, then refuses.
+  it is off; drain resolves what it admitted, then refuses, and waits
+  for a reply the writer is sending before it closes the connection.
 - Deadline propagation: a budget the wire already spent sheds at the
   door; control verbs (health, list_models, ping, an unknown verb).
 
@@ -540,6 +541,33 @@ def test_deadline_spent_on_the_wire_sheds_at_the_door(servers):
         assert wire_hist["serving.fd.wire"]["count"] >= 1
     finally:
         fd.drain(timeout=WAIT)
+
+
+def test_drain_waits_for_a_reply_the_writer_is_sending():
+    """A reply the writer has taken off its queue but not yet written still
+    reaches the client: drain waits for the send to return before it
+    closes the socket. (The reference's drain reads only the queue's
+    emptiness and cuts such a reply: ROADMAP C.) The writer is held in
+    its send by a 400 ms delay at the ``frontdoor.reply`` fault site."""
+    from mxnet_tpu_torch.resilience import faults
+    srv = _port_server()
+    fd = ServingFrontDoor(srv, port=0).start()
+    cli = ServingClient("127.0.0.1", fd.port, connect_deadline_s=WAIT)
+    faults.configure("frontdoor.reply:verb=served:times=1:delay=400")
+    try:
+        fut = cli.predict_async({"data": np.zeros((1, 6), np.float32)},
+                                model="fd")
+        _wait(lambda: fd.stats()["served"] == 1, "the request served")
+        assert fd.drain(timeout=WAIT)
+        assert faults.stats()["frontdoor.reply"] == 1
+        out = fut.result_wait(WAIT)
+        assert np.asarray(out[0]).shape == (1, 3)
+        st = fd.stats()
+        assert st["pending"] == 0 and _accounted(st)
+    finally:
+        faults.configure(None)
+        cli.close()
+        srv.stop()
 
 
 def test_drain_resolves_what_it_admitted_then_refuses():

@@ -26,8 +26,10 @@
   raise with guidance; importing the port loads neither libcuda, NVRTC
   nor triton.
 - The Module slice: ``Module`` defaults to the card; what is not yet
-  ported (distributed stores, more than one context, the ``kvstore``
-  optimizer payload and multi-host params files of a checkpoint: A7; the
+  ported (the asynchronous stores, the ``kvstore`` optimizer payload and
+  multi-host params files of a checkpoint: A7 part 2; contexts and mesh
+  entries on several physical devices in one process and ZeRO: A7 part
+  3; the
   serving engine's ``from_block`` and quantized graphs, the image record
   iterators, ``LibSVMIter``, ``pack_img`` and ``unpack_img``: A9) raises
   naming its ROADMAP item; ``fit(kvstore=
@@ -92,6 +94,9 @@ def _forbidden(name):
 def test_port_imports_no_jax_and_no_jax_package():
     files = _port_files()
     assert len(files) > 10
+    # the distributed slice's modules are scanned like the rest
+    assert {"collectives.py", "mesh.py", "gradient_compression.py",
+            "kvstore.py"} <= {os.path.basename(f) for f in files}
     # the checkpoint package is scanned like the rest
     assert {os.path.basename(f) for f in files
             if os.sep + "checkpoint" + os.sep in f} >= {
@@ -477,11 +482,17 @@ def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
     with pytest.raises(MXNetError, match="ROADMAP A9"):
         DataParallelTrainStep(sym, device="cpu")
     monkeypatch.delenv("MXNET_TPU_LINT")
-    for kw, match in ((dict(mesh=["cpu", "cpu"]), "ROADMAP A7"),
-                      (dict(mesh=object()), "ROADMAP A7"),
-                      (dict(zero=True), "ROADMAP A7")):
+    # a mesh on two physical devices, a mesh over the CPU and another
+    # device, and ZeRO: ROADMAP A7 part 3
+    for kw, match in ((dict(mesh=["cpu", "meta"]), "ROADMAP A7 part 3"),
+                      (dict(mesh=tmx.parallel.mesh.data_parallel_mesh(
+                          ["meta", "cpu"])), "ROADMAP A7 part 3"),
+                      (dict(zero=True), "ROADMAP A7 part 3")):
         with pytest.raises(MXNetError, match=match):
             DataParallelTrainStep(sym, device="cpu", **kw)
+    # a mesh whose entries all name the CPU runs the whole batch there
+    two = DataParallelTrainStep(sym, mesh=["cpu", "cpu"])
+    assert (two.device.type, two.mesh_size) == ("cpu", 2)
     # supervise is ported (tests/test_torch_supervisor.py)
     assert DataParallelTrainStep(sym, device="cpu", supervise=True).supervise
     # compute_dtype is ported, and the attention kernels of both variants
@@ -509,7 +520,8 @@ def test_symbolic_slice_raises_on_what_is_not_ported(monkeypatch):
     # warmup is ported; it needs the built step
     with pytest.raises(MXNetError, match="call init"):
         one.warmup()
-    with pytest.raises(MXNetError, match="not yet ported \\(ROADMAP A7"):
+    with pytest.raises(MXNetError, match="not yet ported \\(ROADMAP A7 "
+                       "part 3"):
         one.comm_plan()
     # infer_type is ported: float32 throughout, as the reference infers
     assert sym.infer_type() == jmx_tiny_sym().infer_type()
@@ -590,11 +602,23 @@ def test_module_slice_raises_on_what_is_not_ported(what, item, monkeypatch,
             {"w@0": tmx.nd.ones((2,), ctx=tmx.cpu())})
         ckpt_state.load_params_files(str(tmp_path))
 
+    # dist_sync, device, nccl and contexts that repeat one device are
+    # ported (tests/test_torch_kvstore.py, test_torch_distributed.py):
+    # the asynchronous stores (A7 part 2) and contexts on two physical
+    # devices (A7 part 3) are not
+    assert tmx.kvstore.create("dist_sync").type == "dist_sync"
+    assert len(tmx.mod.Module(_tiny_sym(), context=[tmx.cpu(), tmx.cpu()])
+               ._context) == 2
+
+    def two_contexts():
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_available", lambda: True)
+            tmx.mod.Module(_tiny_sym(), context=[tmx.gpu(0), tmx.gpu(1)])
+
     calls = {
-        "dist_kvstore": lambda: tmx.kvstore.create("dist_sync"),
+        "dist_kvstore": lambda: tmx.kvstore.create("dist_device_async"),
         "async_kvstore": lambda: tmx.kvstore.create("dist_async"),
-        "two_contexts": lambda: tmx.mod.Module(
-            _tiny_sym(), context=[tmx.cpu(), tmx.cpu()]),
+        "two_contexts": two_contexts,
         "kvstore_payload": kvstore_payload,
         "multi_host_params": multi_host_params,
         "engine_from_block": lambda: tmx.serving.InferenceEngine.from_block(
